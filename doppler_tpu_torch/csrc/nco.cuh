@@ -1,0 +1,97 @@
+// Shared device helpers of the mixer and chain kernels: decode, the exact
+// Q0.64 NCO phase, the quarter-wave tone, the rotation and the encode.
+//
+// Replaces the helpers the TPU kernels inline:
+//   doppler_tpu/ops/pallas/mixer.py:42  phase_q24
+//   doppler_tpu/ops/sincos.py:33-99     mix_tone, sincos_q24_neg
+//
+// Contraction policy: every float product and sum below is written with
+// __fmul_rn / __fadd_rn / __fsub_rn, which nvcc never contracts into an
+// FMA (the library is also built with -fmad=false).  Each step then rounds
+// exactly as the plain torch version's separate operations do, so the
+// kernels' mixed float32 equals doppler_tpu_torch.ops.nco.mix_blocks
+// bitwise on the card.  The FIR dot in chain.cu uses explicit __fmaf_rn,
+// which this policy leaves alone.
+#pragma once
+
+#include <cstdint>
+
+namespace doppler {
+
+// Per-block plan words: (D, C1, C2, t) of ops/phase_plan.py, as the
+// (7, B) uint32 rows d_hi, d_lo, c1_hi, c1_lo, c2_hi, c2_lo, t.
+struct Plan {
+    uint64_t d, c1, c2;
+    uint32_t t;
+};
+
+__device__ __forceinline__ Plan load_plan(const uint32_t* __restrict__ plans,
+                                          int B, int b) {
+    Plan p;
+    p.d = ((uint64_t)__ldg(plans + 0 * B + b) << 32) | __ldg(plans + 1 * B + b);
+    p.c1 = ((uint64_t)__ldg(plans + 2 * B + b) << 32) | __ldg(plans + 3 * B + b);
+    p.c2 = ((uint64_t)__ldg(plans + 4 * B + b) << 32) | __ldg(plans + 5 * B + b);
+    p.t = __ldg(plans + 6 * B + b);
+    return p;
+}
+
+// Top 24 bits of (j·D + C) mod 2^64, C = C1 for j < t and C2 after.
+// Native 64-bit unsigned arithmetic wraps mod 2^64 by definition, so no
+// block length needs a special case.
+__device__ __forceinline__ int phase_q24(uint32_t j, const Plan& p) {
+    uint64_t c = j < p.t ? p.c1 : p.c2;
+    return (int)(((uint64_t)j * p.d + c) >> 40);
+}
+
+// (cos θ, sin θ) for θ = −2π·q24·2⁻²⁴: a polynomial pair in x² on
+// [0, π/2) and a quadrant fold by swap-select plus sign-bit XOR.
+__device__ __forceinline__ void sincos_q24_neg(int q24, float& c, float& s) {
+    const int quad = q24 >> 22;
+    const float x = __fmul_rn((float)(q24 & 0x3FFFFF), 0x1.921fb6p-22f);
+    const float x2 = __fmul_rn(x, x);
+    float sp = __fadd_rn(-0x1.9f6446p-13f, __fmul_rn(x2, 0x1.5d38b6p-19f));
+    sp = __fadd_rn(0x1.110eb4p-7f, __fmul_rn(x2, sp));
+    sp = __fadd_rn(-0x1.555542p-3f, __fmul_rn(x2, sp));
+    sp = __fadd_rn(0x1.fffffep-1f, __fmul_rn(x2, sp));
+    sp = __fmul_rn(x, sp);
+    float cp = __fadd_rn(0x1.9f6b42p-16f, __fmul_rn(x2, -0x1.17b5b2p-22f));
+    cp = __fadd_rn(-0x1.6c1374p-10f, __fmul_rn(x2, cp));
+    cp = __fadd_rn(0x1.555548p-5f, __fmul_rn(x2, cp));
+    cp = __fadd_rn(-0x1.0p-1f, __fmul_rn(x2, cp));
+    cp = __fadd_rn(1.0f, __fmul_rn(x2, cp));
+    const bool swap = quad & 1;
+    const unsigned signc = (unsigned)((quad + 1) & 2) << 30;
+    const unsigned signs = (unsigned)((quad & 2) ^ 2) << 30;
+    c = __uint_as_float(__float_as_uint(swap ? sp : cp) ^ signc);
+    s = __uint_as_float(__float_as_uint(swap ? cp : sp) ^ signs);
+}
+
+// One LE i16 IQ pair word → planar floats scaled by 1/32768 (dsp.rs:85-99).
+__device__ __forceinline__ void decode_i16(int w, float& fi, float& fq) {
+    fi = __fmul_rn((float)(short)(w & 0xFFFF), 0x1.0p-15f);
+    fq = __fmul_rn((float)(w >> 16), 0x1.0p-15f);
+}
+
+// Mix one sample of block-local index j: (fi·c − fq·s, fi·s + fq·c).
+__device__ __forceinline__ void mix_sample(float fi, float fq, uint32_t j,
+                                           const Plan& p, float& oi, float& oq) {
+    float c, s;
+    sincos_q24_neg(phase_q24(j, p), c, s);
+    oi = __fsub_rn(__fmul_rn(fi, c), __fmul_rn(fq, s));
+    oq = __fadd_rn(__fmul_rn(fi, s), __fmul_rn(fq, c));
+}
+
+// ×32767, truncate toward zero, NaN → 0, saturate (main.rs:76-84).
+__device__ __forceinline__ int encode_i16(float v) {
+    v = truncf(__fmul_rn(v, 32767.0f));
+    if (isnan(v)) v = 0.0f;
+    v = fminf(fmaxf(v, -32768.0f), 32767.0f);
+    return (int)v;
+}
+
+__device__ __forceinline__ int pack_i16(float i, float q) {
+    return (int)(((unsigned)encode_i16(i) & 0xFFFFu) |
+                 ((unsigned)encode_i16(q) << 16));
+}
+
+}  // namespace doppler

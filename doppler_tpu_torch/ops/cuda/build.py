@@ -1,0 +1,115 @@
+"""Build and load the hand-written CUDA kernels of ``doppler_tpu_torch/csrc``.
+
+At first use the ``.cu`` sources are compiled by ``nvcc`` for ``sm_90a``
+into one shared library with a plain C interface, loaded with ``ctypes``.
+The library lands in ``doppler_tpu_torch/_build/<hash>/`` (git-ignored),
+keyed by a hash of the sources and the flags, so a fresh checkout builds
+once and later processes load the cached file.  Delete ``_build/`` to force
+a rebuild.
+
+Nothing here runs at import time: the package imports, and its plain
+versions run, on machines without a CUDA toolkit.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+from pathlib import Path
+
+__all__ = ["NVCC_FLAGS", "load", "check", "build_info"]
+
+_PKG = Path(__file__).resolve().parents[2]
+CSRC = _PKG / "csrc"
+BUILD_ROOT = _PKG / "_build"
+# -fmad=false: no float contraction outside the explicit __fmaf_rn of the
+# FIR dot (see csrc/nco.cuh for the policy); -Xptxas -v reports registers,
+# shared memory and spills of every kernel into the build log.
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-fmad=false", "-Xptxas", "-v")
+
+_vp = ctypes.c_void_p
+_i = ctypes.c_int
+
+
+def _nvcc() -> str:
+    for home in (os.environ.get("CUDA_HOME"), os.environ.get("CUDA_PATH")):
+        if home and (Path(home) / "bin" / "nvcc").exists():
+            return str(Path(home) / "bin" / "nvcc")
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = Path("/usr/local/cuda/bin/nvcc")
+    if default.exists():
+        return str(default)
+    raise RuntimeError("nvcc not found: set CUDA_HOME to the CUDA toolkit")
+
+
+def _sources() -> list[Path]:
+    return sorted(CSRC.glob("*.cu"))
+
+
+def _digest() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for f in sorted(CSRC.glob("*.cu*")):
+        h.update(f.name.encode())
+        h.update(f.read_bytes())
+    return h.hexdigest()[:16]
+
+
+@functools.lru_cache(maxsize=1)
+def build_info() -> dict:
+    """Compile the library if it is not cached; returns its path, whether
+    this call compiled it, the seconds that took and nvcc's output."""
+    out_dir = BUILD_ROOT / _digest()
+    lib = out_dir / "libdoppler_kernels.so"
+    log_path = out_dir / "build.log"
+    if lib.exists():
+        log = log_path.read_text() if log_path.exists() else ""
+        return {"path": str(lib), "built": False, "seconds": 0.0, "log": log}
+    out_dir.mkdir(parents=True, exist_ok=True)
+    # compile to a private name, then rename: concurrent first users never
+    # load a half-written library
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
+    os.close(fd)
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, _sources())]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    seconds = time.perf_counter() - t0
+    log = proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{log}")
+    log_path.write_text(log)
+    os.replace(tmp, lib)
+    return {"path": str(lib), "built": True, "seconds": seconds, "log": log}
+
+
+@functools.lru_cache(maxsize=1)
+def load() -> ctypes.CDLL:
+    """The kernel library, built on first call; C signatures declared."""
+    lib = ctypes.CDLL(build_info()["path"])
+    lib.doppler_mix_blocks.restype = _i
+    lib.doppler_mix_blocks.argtypes = [_vp, _vp, _vp, _i, _i, _i, _i, _vp]
+    lib.doppler_chain.restype = _i
+    lib.doppler_chain.argtypes = [_vp, _vp, _vp, _vp, _vp, _vp, _i, _i, _i,
+                                  _i, _i, _i, _i, _i, _vp]
+    lib.doppler_chain_smem_bytes.restype = ctypes.c_longlong
+    lib.doppler_chain_smem_bytes.argtypes = [_i, _i, _i, _i]
+    lib.doppler_error_string.restype = ctypes.c_char_p
+    lib.doppler_error_string.argtypes = [_i]
+    return lib
+
+
+def check(rc: int, what: str) -> None:
+    """Raise if a C entry point reported a CUDA error (its
+    ``cudaGetLastError()`` after the launch)."""
+    if rc != 0:
+        name = load().doppler_error_string(rc).decode()
+        raise RuntimeError(f"{what} kernel launch failed: cudaError {rc} ({name})")

@@ -1,0 +1,111 @@
+"""Fused chain: decode → NCO mix → P/Q polyphase FIR → encode, streaming.
+
+:func:`mix_resample_chain_stream` launches ``csrc/chain.cu`` on a CUDA
+tensor (the port of ``doppler_tpu/ops/pallas/chain.py:404``
+``mix_resample_chain_pallas_stream``) and runs
+:func:`mix_resample_chain_plain` on a CPU tensor.
+
+The carry is the flat ``(2, T−1)`` float32 history — the last T−1 mixed
+samples, exactly ``RationalResampler._hist_i/_hist_q`` — not the TPU's
+128-lane row layout.  Output m of block b has chunk-local index
+``b·L·P/Q + m``; with a chunk starting at an absolute input index that is a
+multiple of Q, that is the resampler's absolute output grid.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from doppler_tpu_torch.ops import codec
+from doppler_tpu_torch.ops.cuda import build
+from doppler_tpu_torch.ops.cuda.mixer import check_fmt, mix_blocks_fmt_plain
+from doppler_tpu_torch.ops.resample import window_dot
+
+__all__ = ["mix_resample_chain_stream", "mix_resample_chain_plain"]
+
+_TILE_M = 128     # outputs per CTA (threads per CTA)
+
+
+def _check(data, plans, bank, carry, intype, outtype, P, Q, T):
+    B, L = check_fmt(data, plans, intype, outtype)
+    if L % Q:
+        raise ValueError(f"block length {L} must be a multiple of Q={Q}")
+    if bank.dtype != torch.float32 or tuple(bank.shape) != (P, T):
+        raise ValueError(f"bank must be float32 ({P}, {T}), got "
+                         f"{bank.dtype} {tuple(bank.shape)}")
+    if carry.dtype != torch.float32 or tuple(carry.shape) != (2, T - 1):
+        raise ValueError(f"carry must be float32 (2, {T - 1}), got "
+                         f"{carry.dtype} {tuple(carry.shape)}")
+    if bank.device != data.device or carry.device != data.device:
+        raise ValueError("bank, carry and data must be on one device")
+    return B, L
+
+
+def mix_resample_chain_plain(data, plans, bank, carry, *, P: int, Q: int,
+                             T: int, intype: str = "i16", outtype: str = "i16"):
+    """Plain torch version: the mixer's plain version, then the
+    gather + fixed-tree dot of ``ops.resample.window_dot`` over the
+    ``[carry | mixed]`` buffer, then encode.  Returns ``(out, carry_out)``.
+    """
+    B, L = _check(data, plans, bank, carry, intype, outtype, P, Q, T)
+    mixed = mix_blocks_fmt_plain(data, plans, intype=intype, outtype="f32")
+    buf = torch.cat([carry, mixed.reshape(2, B * L)], dim=1)
+    M = B * L // Q * P
+    yi, yq = window_dot(buf[0], buf[1], bank.flip(-1), 0, 0,
+                        P=P, Q=Q, T=T, M=M)
+    carry_out = buf[:, buf.shape[1] - (T - 1):].clone()
+    if outtype == "i16":
+        return codec.iq_to_i16_words(yi, yq).reshape(B, M // B), carry_out
+    return torch.stack([yi, yq]).reshape(2, B, M // B), carry_out
+
+
+def _check_smem(dev: torch.device, P: int, Q: int, T: int) -> None:
+    """Every geometry the pipeline sends here fits (Q ≤ 128 needs at most
+    ~160 KB); a caller's larger Q may not."""
+    limit = torch.cuda.get_device_properties(dev).shared_memory_per_block_optin
+    need = build.load().doppler_chain_smem_bytes(_TILE_M, P, Q, T)
+    if need > limit:
+        raise ValueError(
+            f"chain geometry P={P} Q={Q} T={T} needs {need} bytes of shared "
+            f"memory per CTA; the card allows {limit}")
+
+
+def mix_resample_chain_stream(data, plans, bank, carry, *, P: int, Q: int,
+                              T: int, intype: str = "i16", outtype: str = "i16"):
+    """Streaming fused chain, all four wire formats.
+
+    ``data``: int32 words ``(B, L)`` or float32 planes ``(2, B, L)``;
+    ``plans``: ``(7, B)`` plan words; ``bank``: the ``(P, T)`` polyphase
+    bank; ``carry``: ``(2, T−1)`` float32.  Returns ``(out, carry_out)``
+    with ``out`` int32 ``(B, L·P/Q)`` or float32 ``(2, B, L·P/Q)``.
+
+    A CPU tensor runs the plain version; a CUDA tensor launches the kernel
+    or raises.
+    """
+    if data.device.type == "cpu":
+        return mix_resample_chain_plain(data, plans, bank, carry, P=P, Q=Q,
+                                        T=T, intype=intype, outtype=outtype)
+    if data.device.type != "cuda":
+        raise ValueError(f"no chain kernel for device {data.device}")
+    B, L = _check(data, plans, bank, carry, intype, outtype, P, Q, T)
+    dev = data.device
+    data, plans = data.contiguous(), plans.contiguous()
+    bank, carry = bank.contiguous(), carry.contiguous()
+    M = L // Q * P
+    if outtype == "i16":
+        out = torch.empty((B, M), dtype=torch.int32, device=dev)
+    else:
+        out = torch.empty((2, B, M), dtype=torch.float32, device=dev)
+    carry_out = torch.empty((2, T - 1), dtype=torch.float32, device=dev)
+    _check_smem(dev, P, Q, T)
+    rc = build.load().doppler_chain(
+        data.data_ptr(), out.data_ptr(), plans.data_ptr(), bank.data_ptr(),
+        carry.data_ptr(), carry_out.data_ptr(), B, L, P, Q, T,
+        _TILE_M, int(intype == "f32"), int(outtype == "f32"),
+        torch.cuda.current_stream(dev).cuda_stream)
+    build.check(rc, "chain")
+    mix_resample_chain_stream.launches += 1
+    return out, carry_out
+
+
+mix_resample_chain_stream.launches = 0   # kernel launches (CUDA path only)

@@ -1,0 +1,186 @@
+"""Polyphase rational resampler — streaming, the gather + fixed-tree form.
+
+The torch statement of ``doppler_tpu/ops/resample.py``'s ``'window'``
+formulation.  Every output is a pure function of its absolute output index m,
+
+    y[m] = Σ_{l<T} bank[(m·Q) mod P, l] · x[⌊m·Q/P⌋ − l]
+
+and the only sequential state is the T−1-sample input history and the next
+output index.  The pipeline runs this on chunks the fused chain kernel does
+not take (the partial EOF chunk) and for the EOF drain; the chain's plain
+version (``ops.cuda.chain``) reuses :func:`window_dot`, so on the CPU both
+routes give the same bytes.
+
+The banded-matmul ``'conv'`` formulation of the JAX package exists for the
+TPU's matrix unit and is not carried over.
+"""
+
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+
+from doppler_tpu_torch.ops.filters import design_polyphase_bank
+
+__all__ = ["RationalResampler", "window_dot", "tree_sum_last", "attach_resampler"]
+
+# outputs gathered per pass of window_dot: bounds the (M, 2^⌈log2 T⌉) gather
+# to a few hundred MB whatever the chunk; results do not depend on it
+_SLAB = 1 << 16
+
+
+def tree_sum_last(x: torch.Tensor) -> torch.Tensor:
+    """Fixed-order pairwise sum over the last axis.
+
+    An explicit power-of-two pairwise tree is a chain of ordinary float32
+    adds, so every caller rounds identically whatever the batch shape —
+    the same tree as ``doppler_tpu/ops/resample.py::_tree_sum_last``.
+    """
+    n = x.shape[-1]
+    p = 1 << (n - 1).bit_length()
+    if p != n:
+        x = torch.nn.functional.pad(x, (0, p - n))
+    while x.shape[-1] > 1:
+        x = x[..., ::2] + x[..., 1::2]
+    return x[..., 0]
+
+
+def window_dot(xi, xq, bank_rev, rem0: int, off0: int, *, P: int, Q: int,
+               T: int, M: int):
+    """Resample M outputs from a padded input window.
+
+    ``xi, xq``   : ``(H + N,)`` planar input, where index 0 sits T−1 samples
+                   before the first output's newest-needed sample.
+    ``bank_rev`` : ``(P, T)`` bank with taps reversed (so the window dot is a
+                   forward gather: y = Σ_l rev[p, l] · x[base + l]).
+    ``rem0``     : (m0·Q) mod P for the first output index m0.
+    ``off0``     : position of ⌊m0·Q/P⌋ − (T−1) within the input window.
+
+    Gather indices past the window clip to its last sample, as
+    ``jnp.take(mode='clip')`` does; such outputs lie beyond the valid count.
+    """
+    dev = xi.device
+    last = xi.shape[-1] - 1
+    taps_k = torch.arange(T, dtype=torch.int64, device=dev)
+    yi = torch.empty(M, dtype=torch.float32, device=dev)
+    yq = torch.empty(M, dtype=torch.float32, device=dev)
+    for m_lo in range(0, M, _SLAB):
+        j = torch.arange(m_lo, min(M, m_lo + _SLAB), dtype=torch.int64,
+                         device=dev)
+        u = j * Q + rem0                        # upsampled offsets
+        base = off0 + u // P                    # window start per output
+        idx = (base[:, None] + taps_k[None, :]).clamp_(0, last)
+        taps = bank_rev[u % P]                  # (m, T)
+        yi[m_lo:m_lo + j.numel()] = tree_sum_last(xi[idx] * taps)
+        yq[m_lo:m_lo + j.numel()] = tree_sum_last(xq[idx] * taps)
+    return yi, yq
+
+
+class RationalResampler:
+    """Streaming P/Q resampler over planar IQ chunks on one device.
+
+    ``in_rate``/``out_rate`` are reduced to lowest terms (a non-integer
+    ``out_rate`` is rationalized to within 2^-16 relative error, as in the
+    JAX package); the polyphase bank (``ops.filters.design_polyphase_bank``,
+    70 dB) has P phases.  ``device`` holds the FIR history and the taps.
+    """
+
+    def __init__(self, in_rate: int, out_rate: float, *, device="cpu"):
+        if in_rate <= 0 or out_rate <= 0:
+            raise ValueError("rates must be positive")
+        if float(out_rate).is_integer():
+            g = math.gcd(int(in_rate), int(out_rate))
+            self.P = int(out_rate) // g
+            self.Q = int(in_rate) // g
+        else:
+            from fractions import Fraction
+
+            frac = Fraction(float(out_rate) / float(in_rate)).limit_denominator(
+                1 << 16
+            )
+            self.P = frac.numerator
+            self.Q = frac.denominator
+        self.in_rate = int(in_rate)
+        self.out_rate = float(out_rate)
+        self.device = torch.device(device)
+        self.bank = design_polyphase_bank(self.P, self.Q)
+        self.T = self.bank.shape[1]
+        self._bank_rev = torch.from_numpy(self.bank[:, ::-1].copy()).to(self.device)
+
+        # streaming state: next output index + T−1 input history samples
+        self.m_next = 0
+        self.in_consumed = 0          # absolute input samples seen
+        self._hist_i = torch.zeros(self.T - 1, dtype=torch.float32,
+                                   device=self.device)
+        self._hist_q = torch.zeros_like(self._hist_i)
+
+    # -- plumbing -----------------------------------------------------------
+
+    def out_count_for(self, n_new_inputs: int) -> int:
+        """Outputs produced once ``n_new_inputs`` more samples arrive."""
+        s1 = self.in_consumed + n_new_inputs
+        m_hi = -(-s1 * self.P // self.Q) - 1   # last m with ⌊mQ/P⌋ ≤ s1−1
+        return max(0, m_hi + 1 - self.m_next)
+
+    def max_out_for(self, chunk_capacity: int) -> int:
+        """Static bound on outputs per chunk (for fixed output shapes)."""
+        return chunk_capacity * self.P // self.Q + 2
+
+    def process(self, i: torch.Tensor, q: torch.Tensor, valid: int, M: int):
+        """Resample one chunk.
+
+        ``i, q`` : ``(N,)`` planar float32 tensors on ``device``; entries
+                   beyond ``valid`` are padding and never influence valid
+                   outputs.
+        ``M``    : output capacity (≥ out_count_for(valid)).
+        Returns (yi, yq, n_valid_outputs).
+        """
+        T, P, Q = self.T, self.P, self.Q
+        n_out = self.out_count_for(valid)
+        xi = torch.cat([self._hist_i, i.to(torch.float32)])
+        xq = torch.cat([self._hist_q, q.to(torch.float32)])
+        m0 = self.m_next
+        rem0 = (m0 * Q) % P
+        n_m0 = (m0 * Q) // P
+        # xi[0] holds absolute input index in_consumed − (T−1)
+        off0 = n_m0 - self.in_consumed
+        yi, yq = window_dot(xi, xq, self._bank_rev, rem0, off0,
+                            P=P, Q=Q, T=T, M=int(M))
+        # advance streaming state; the new history is a slice of the
+        # [hist | chunk] buffer (no host sync)
+        self.m_next = m0 + n_out
+        self.in_consumed += int(valid)
+        if valid and T > 1:
+            self._hist_i = xi[valid:valid + T - 1]
+            self._hist_q = xq[valid:valid + T - 1]
+        return yi, yq, n_out
+
+    # -- checkpointing ------------------------------------------------------
+
+    def state_dict(self) -> dict:
+        return {
+            "m_next": self.m_next,
+            "in_consumed": self.in_consumed,
+            "hist_i": self._hist_i.detach().cpu().numpy().copy(),
+            "hist_q": self._hist_q.detach().cpu().numpy().copy(),
+        }
+
+    def load_state(self, state: dict) -> None:
+        self.m_next = int(state["m_next"])
+        self.in_consumed = int(state["in_consumed"])
+        for key in ("hist_i", "hist_q"):
+            h = np.asarray(state[key], dtype=np.float32).reshape(-1)
+            if h.size != self.T - 1:
+                raise ValueError(
+                    f"{key} holds {h.size} samples; this resampler keeps "
+                    f"T−1 = {self.T - 1}")
+            setattr(self, f"_{key}", torch.from_numpy(h.copy()).to(self.device))
+
+
+def attach_resampler(pipe, out_rate: float) -> None:
+    """CLI glue: give a Pipeline a single-stage resampler on its device
+    (the JAX package's multi-stage cascade is not ported)."""
+    pipe.set_resampler(RationalResampler(pipe.samplerate, out_rate,
+                                         device=pipe.device))

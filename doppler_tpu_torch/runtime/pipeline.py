@@ -1,0 +1,385 @@
+"""The streaming pipeline: bytes in → device chunk kernel → bytes out.
+
+Host/device split as in ``doppler_tpu/runtime/pipeline.py``: the host does
+O(blocks) work — framing, schedule evaluation, plan words, staging — and
+the device runs one kernel per *chunk* of ``chunk_blocks`` reference blocks:
+
+- a full chunk with a single-stage resampler → the fused chain kernel
+  (``ops.cuda.chain``), carrying the FIR history from chunk to chunk;
+- any other chunk with a resampler (the partial EOF chunk) → the mixer
+  kernel to float32 planes, then ``RationalResampler.process``;
+- no resampler → the mixer kernel alone.
+
+Dispatch never synchronises: the chunk is staged into pinned host memory,
+copied to the card with ``non_blocking=True``, the kernel launches, the
+device→host copy starts and an event is recorded.  :meth:`Pipeline._finalize`
+waits on that event, so host planning of chunk k+1 overlaps the device work
+of chunk k.
+
+``device`` is explicit and nothing falls back: ``'cuda'`` raises when no card
+is present; ``'cpu'`` runs the kernels' plain versions.
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Protocol, Sequence
+
+import numpy as np
+import torch
+
+from doppler_tpu_torch.ops import codec
+from doppler_tpu_torch.ops.cuda import chain, mixer
+from doppler_tpu_torch.ops.nco import plan_tensor
+from doppler_tpu_torch.ops.phase_plan import NCOState, plan_blocks
+from doppler_tpu_torch.runtime import stream as streaming
+from doppler_tpu_torch.runtime.telemetry import Counters
+
+__all__ = ["Scheduler", "ConstScheduler", "Pipeline"]
+
+
+class Scheduler(Protocol):
+    """Produces the per-block frequency shift (Hz) for successive blocks.
+
+    ``shifts(block_counts)`` is called once per chunk with the sample count of
+    each block about to be processed, in order, and must return one shift per
+    block.  The pipeline presents blocks exactly once, in stream order.
+    """
+
+    def shifts(self, block_counts: Sequence[int]) -> Sequence[float]: ...
+
+
+class ConstScheduler:
+    """const mode: one fixed shift for the whole stream (main.rs:101-119)."""
+
+    def __init__(self, shift_hz: float):
+        self.shift_hz = float(shift_hz)
+
+    def shifts(self, block_counts: Sequence[int]) -> Sequence[float]:
+        return [self.shift_hz] * len(block_counts)
+
+
+def _resolve_device(device) -> torch.device:
+    """``'cuda'``/``'cuda:N'``/``'cpu'`` → a torch device; raises when CUDA
+    is asked for and absent (there is no silent CPU fallback)."""
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "device 'cuda' requested but torch.cuda.is_available() is "
+                "False; pass device='cpu' to run the plain torch versions")
+        if dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+    elif dev.type != "cpu":
+        raise ValueError(f"device must be 'cuda' or 'cpu', got {device!r}")
+    return dev
+
+
+def _carry_rows(T: int) -> int:
+    """Whole 128-sample rows of the TPU chain's FIR history."""
+    return -(-max(T - 1, 1) // 128)
+
+
+class Pipeline:
+    """Streaming Doppler corrector on one device.
+
+    Parameters mirror the reference CLI surface: sample rate, input/output
+    IQ dtypes, and a :class:`Scheduler` supplying per-block shifts.
+    ``block_bytes`` defaults to the reference's 8192 so track-mode schedules
+    match the reference; ``chunk_blocks`` blocks form one device dispatch.
+
+    ``host_s`` accumulates the host's planning and staging seconds and
+    ``device_s`` the device seconds (CUDA events around each chunk's copies
+    and kernel) of finalized chunks.
+    """
+
+    def __init__(
+        self,
+        samplerate: int,
+        intype: str,
+        outtype: str,
+        scheduler: Scheduler,
+        *,
+        block_bytes: int = streaming.REFERENCE_BLOCK_BYTES,
+        chunk_blocks: int = 256,
+        quantize_ratio_f32: bool = True,
+        drain_on_eof: bool = False,
+        device="cuda",
+    ):
+        if samplerate <= 0:
+            raise ValueError("samplerate must be positive")
+        self.device = _resolve_device(device)
+        self.samplerate = int(samplerate)
+        self.intype = intype
+        self.outtype = outtype
+        self.scheduler = scheduler
+        self.block_bytes = int(block_bytes)
+        self.chunk_blocks = int(chunk_blocks)
+        self.quantize_ratio_f32 = quantize_ratio_f32
+        self.drain_on_eof = drain_on_eof  # flush the FIR tail with zeros at EOF
+        self.nco_state = NCOState()   # the stream's entire resumable DSP state
+
+        self._bps_in = streaming.bytes_per_sample(intype)
+        self._bps_out = streaming.bytes_per_sample(outtype)
+        if self.block_bytes % self._bps_in != 0:
+            raise ValueError(
+                f"block_bytes={block_bytes} not a multiple of the "
+                f"{intype} sample size {self._bps_in}"
+            )
+        self.block_samples = self.block_bytes // self._bps_in
+        self._sample_offset = 0  # absolute index of next input sample
+        self.resampler = None
+        self._chain_carry = None
+        self._chain_bank = None
+        self.host_s = 0.0
+        self.device_s = 0.0
+
+    def set_resampler(self, resampler) -> None:
+        """Insert a post-mix resampler stage (``ops.resample``)."""
+        if resampler.device != self.device:
+            raise ValueError(
+                f"resampler lives on {resampler.device}, pipeline on "
+                f"{self.device}")
+        self.resampler = resampler
+        self._chain_carry = None
+        self._chain_bank = None
+
+    # -- fused-chain plumbing ------------------------------------------------
+
+    def _chain_eligible(self, total: int) -> bool:
+        """May this chunk run the fused chain kernel?
+
+        The rule of ``doppler_tpu``'s pipeline, term for term, so both
+        packages send the same chunks down the same route.  The 128-sample
+        terms are the TPU's lane geometry; the kernel here needs only
+        ``L % Q == 0``, which they imply.
+        """
+        rs = self.resampler
+        if rs is None:
+            return False
+        L = self.block_samples
+        return (
+            L % 128 == 0
+            and 128 % rs.Q == 0
+            and _carry_rows(rs.T) <= L // 128
+            # padded tail chunks would poison the carry with zeros;
+            # only the EOF chunk is partial, so this costs nothing
+            and total == self.chunk_blocks * L
+        )
+
+    def _ensure_chain_state(self) -> None:
+        """Seed the chain carry/bank (idempotent; reseeds after a chunk that
+        took the mixer + resampler route).  The carry is the resampler's FIR
+        history, so a restored pipeline resumes bitwise."""
+        rs = self.resampler
+        if self._chain_carry is None:
+            self._chain_carry = torch.stack([rs._hist_i, rs._hist_q]).to(
+                self.device, torch.float32)
+        if self._chain_bank is None:
+            self._chain_bank = torch.from_numpy(rs.bank).to(self.device)
+
+    def _advance_chain_state(self, total: int, carry) -> int:
+        """Advance the resampler's stream counters and mirror its FIR
+        history out of the device carry (no sync).  Returns n_out."""
+        rs = self.resampler
+        n_out = rs.out_count_for(total)
+        rs.m_next += n_out
+        rs.in_consumed += total
+        rs._hist_i = carry[0]
+        rs._hist_q = carry[1]
+        self._sample_offset += total
+        return n_out
+
+    # -- staging ------------------------------------------------------------
+
+    def _host_buffer(self, shape, dtype) -> torch.Tensor:
+        return torch.empty(shape, dtype=dtype,
+                           pin_memory=self.device.type == "cuda")
+
+    def _stage_in(self, data: bytes) -> torch.Tensor:
+        """Raw chunk bytes → host tensor of the kernels' wire layout, zero
+        padded to the chunk shape: int32 words ``(B, L)`` for i16, float32
+        planes ``(2, B, L)`` for f32.  Pinned when the device is a card."""
+        B, L = self.chunk_blocks, self.block_samples
+        if self.intype == "i16":
+            words = codec.bytes_to_i16_words(data)
+            host = self._host_buffer((B, L), torch.int32)
+            flat = host.numpy().reshape(-1)
+            flat[:words.size] = words
+            flat[words.size:] = 0
+            return host
+        pairs = codec.bytes_to_f32_pairs(data)
+        host = self._host_buffer((2, B, L), torch.float32)
+        planes = host.numpy().reshape(2, -1)
+        n = pairs.shape[0]
+        planes[0, :n] = pairs[:, 0]
+        planes[1, :n] = pairs[:, 1]
+        planes[:, n:] = 0.0
+        return host
+
+    def _stage_out(self, host: torch.Tensor) -> bytes:
+        """Valid output (int32 words, or float32 planes ``(2, n)``) → bytes."""
+        arr = host.numpy()
+        if self.outtype == "i16":
+            return codec.i16_words_to_bytes(arr)
+        return codec.f32_pairs_to_bytes(np.stack([arr[0], arr[1]], axis=-1))
+
+    def _start_out(self, out: torch.Tensor, n_valid: int, start):
+        """Start the device→host copy of the valid outputs; returns the
+        pending handle :meth:`_finalize` completes."""
+        if self.outtype == "i16":
+            valid = out.reshape(-1)[:n_valid]
+        else:
+            valid = out.reshape(2, -1)[:, :n_valid].contiguous()
+        if self.device.type == "cpu":
+            return valid, None, None
+        host = self._host_buffer(tuple(valid.shape), valid.dtype)
+        host.copy_(valid, non_blocking=True)
+        end = torch.cuda.Event(enable_timing=True)
+        end.record()
+        return host, start, end
+
+    # -- main loop ----------------------------------------------------------
+
+    def _finalize(self, pending) -> bytes:
+        """Wait for a dispatched chunk and return its bytes."""
+        if pending is None:
+            return b""
+        host, start, end = pending
+        if end is not None:
+            end.synchronize()
+        if start is not None:
+            self.device_s += start.elapsed_time(end) / 1e3
+        return self._stage_out(host)
+
+    def _dispatch(self, chunk: streaming.Chunk):
+        """Plan + launch one chunk on the device WITHOUT waiting for it.
+
+        All host state (scheduler, NCO counter, resampler bookkeeping)
+        advances here, so the next chunk can be dispatched while this one
+        computes.
+        """
+        counts = [size // self._bps_in for size in chunk.block_sizes]
+        total = sum(counts)
+        if total == 0:
+            # still advance the scheduler for empty tail blocks
+            if counts:
+                self.scheduler.shifts(counts)
+            return None
+        t0 = time.perf_counter()
+        shifts = list(self.scheduler.shifts(counts))
+        assert len(shifts) == len(counts)
+        plan = plan_blocks(
+            shifts, counts, self.samplerate, self.nco_state, self.block_samples,
+            quantize_f32=self.quantize_ratio_f32,
+        )
+        plans = plan_tensor(plan, self.chunk_blocks)
+        data = self._stage_in(chunk.data)
+        self.host_s += time.perf_counter() - t0
+        start = None
+        if self.device.type == "cuda":
+            start = torch.cuda.Event(enable_timing=True)
+            start.record()
+            plans = plans.pin_memory().to(self.device, non_blocking=True)
+            data = data.to(self.device, non_blocking=True)
+        out, n_valid = self._dispatch_local(data, plans, total)
+        return self._start_out(out, n_valid, start)
+
+    def _dispatch_local(self, data, plans, total: int):
+        """Launch one staged chunk: the fused chain on a full chunk, else
+        the mixer (+ the resampler).  Returns (device output, n_valid)."""
+        rs = self.resampler
+        if self._chain_eligible(total):
+            self._ensure_chain_state()
+            out, self._chain_carry = chain.mix_resample_chain_stream(
+                data, plans, self._chain_bank, self._chain_carry,
+                P=rs.P, Q=rs.Q, T=rs.T, intype=self.intype,
+                outtype=self.outtype,
+            )
+            return out, self._advance_chain_state(total, self._chain_carry)
+
+        mix_outtype = self.outtype if rs is None else "f32"
+        out = mixer.mix_blocks_fmt(data, plans, intype=self.intype,
+                                   outtype=mix_outtype)
+        self._sample_offset += total
+        if rs is None:
+            return out, total
+        planes = out.reshape(2, -1)
+        yi, yq, n_out = rs.process(
+            planes[0], planes[1], total,
+            M=rs.max_out_for(self.chunk_blocks * self.block_samples),
+        )
+        # a later chain chunk must reseed from the resampler's history
+        self._chain_carry = None
+        return self._encode(yi, yq), n_out
+
+    def _encode(self, yi, yq) -> torch.Tensor:
+        if self.outtype == "i16":
+            return codec.iq_to_i16_words(yi, yq)
+        return torch.stack([yi, yq])
+
+    def run(self, fin, fout, should_stop=None) -> Counters:
+        """Pump ``fin`` → ``fout`` until EOF (short read), reference framing.
+
+        ``should_stop``: optional callable polled between chunks — a stop
+        leaves the pipeline state consistent with the bytes written, so a
+        later ``run`` on the rest of the stream continues it exactly.
+        """
+        reader = streaming.BlockReader(fin, self.block_bytes)
+        counters = Counters()
+
+        def emit(pending, bytes_in, blocks):
+            out_bytes = self._finalize(pending)
+            if out_bytes:
+                fout.write(out_bytes)
+                fout.flush()
+            counters.add(
+                samples=len(out_bytes) // self._bps_out,
+                bytes_in=bytes_in,
+                bytes_out=len(out_bytes),
+                blocks=blocks,
+            )
+
+        # one-chunk-deep pipelining: dispatch chunk k+1 while k materializes
+        pending = None
+        pending_meta = (0, 0)
+        hit_eof = False
+        while True:
+            if should_stop is not None and should_stop():
+                break
+            chunk = reader.read_chunk(self.chunk_blocks)
+            new_pending = self._dispatch(chunk)
+            if pending is not None or pending_meta[1]:
+                emit(pending, *pending_meta)
+            pending = new_pending
+            pending_meta = (len(chunk.data), chunk.n_blocks)
+            if chunk.eof:
+                hit_eof = True
+                break
+        emit(pending, *pending_meta)
+        # drain ONLY on a true EOF exit: a should_stop break is a mid-stream
+        # pause, and flushing the FIR tail there would corrupt the output
+        if hit_eof and self.resampler is not None and self.drain_on_eof:
+            out_bytes = self._drain()
+            if out_bytes:
+                fout.write(out_bytes)
+                counters.add(
+                    samples=len(out_bytes) // self._bps_out,
+                    bytes_in=0, bytes_out=len(out_bytes), blocks=0,
+                )
+        fout.flush()
+        return counters
+
+    def _drain(self) -> bytes:
+        """Flush the resampler's FIR tail by feeding T−1 zero samples —
+        emits the outputs whose windows straddle the end of the stream."""
+        rs = self.resampler
+        pad = rs.T - 1
+        if pad <= 0:
+            return b""
+        zeros = torch.zeros(pad, dtype=torch.float32, device=self.device)
+        yi, yq, n_out = rs.process(zeros, zeros, pad, M=rs.max_out_for(pad))
+        self._chain_carry = None
+        if n_out == 0:
+            return b""
+        return self._finalize(self._start_out(self._encode(yi, yq), n_out, None))
