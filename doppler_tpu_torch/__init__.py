@@ -4,7 +4,8 @@ Corrects Doppler shift in IQ sample streams on one NVIDIA GPU (written for
 the H100, ``sm_90a``).  The host compiles the reference's samplenum counter
 into per-block plan words ``(D, C1, C2, t)``; the device decodes, computes
 an exact Q0.64 phase, builds the tone, rotates, optionally runs a
-polyphase FIR resampler, and encodes — in two hand-written CUDA kernels.
+polyphase FIR resampler (single-stage or a multi-stage cascade), and
+encodes — in three hand-written CUDA kernels (mixer, chain, cascade).
 
 Subpackages
 -----------

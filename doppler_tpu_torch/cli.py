@@ -8,14 +8,15 @@ Flag-compatible with ``doppler_tpu/cli.py`` for what this package runs:
   ``--location lat=..,lon=..,alt=..``, ``--time UTC``
   (``%Y-%m-%dT%H:%M:%S``), ``--frequency Hz``, ``--offset Hz``.
 - framework flags: ``--block-bytes``, ``--chunk-blocks``,
-  ``--resample-to``, ``--resample-stages single``, ``--exact-ratio``,
-  ``--drain``, ``--log-format``, ``--log-level``, ``--input``,
-  ``--output``, and ``--device {cuda,cpu}`` (default ``cuda``; no silent
-  CPU fallback).
+  ``--resample-to``, ``--resample-stages {single,auto,multi}`` (default
+  ``auto``: the halfband cascade when decimating by 4× or more, as in the
+  JAX package), ``--exact-ratio``, ``--drain``, ``--log-format``,
+  ``--log-level``, ``--input``, ``--output``, and ``--device {cuda,cpu}``
+  (default ``cuda``; no silent CPU fallback).
 
 The JAX package's ``channels`` mode, ``--mesh``, ``--distributed``,
-``--save-state``/``--load-state``, ``--precision`` and the multi-stage
-resampler are not ported; their flags do not exist here.
+``--save-state``/``--load-state``, ``--precision`` and ``--resample-impl``
+are not ported; their flags do not exist here.
 
 IQ bytes flow stdin → stdout; telemetry goes to stderr only (main.rs:212-233).
 """
@@ -93,11 +94,13 @@ def _add_io_args(p: argparse.ArgumentParser) -> None:
                         "'auto' in realtime track mode, 256 elsewhere)")
     p.add_argument("--resample-to", type=float, default=None, metavar="RATE",
                    help="polyphase-resample output to RATE sps after mixing")
-    p.add_argument("--resample-stages", choices=["single"], default="single",
-                   help="resampler structure: only the single-stage polyphase "
-                        "design is available in this package (the JAX "
-                        "package's 'auto'/'multi' halfband cascade is not "
-                        "ported yet)")
+    p.add_argument("--resample-stages", choices=["single", "auto", "multi"],
+                   default="auto",
+                   help="resampler structure: 'auto' (default) uses the "
+                        "multi-stage halfband cascade (fused into one CUDA "
+                        "kernel) when decimating ≥4x and the single-stage "
+                        "polyphase design otherwise; 'single'/'multi' force "
+                        "one structure")
     p.add_argument("--exact-ratio", action="store_true",
                    help="use exact rational NCO rate instead of mirroring the "
                         "reference's f32-rounded shift/samplerate ratio")
@@ -260,7 +263,8 @@ def main(argv=None, stdin=None, stdout=None) -> int:
             device=args.device,
         )
         if args.resample_to is not None:
-            attach_resampler(pipe, args.resample_to)
+            attach_resampler(pipe, args.resample_to,
+                             stages=args.resample_stages)
     except (ValueError, RuntimeError) as e:
         log.error("%s", e)
         return 1

@@ -2,13 +2,15 @@
 
 The filter bank is designed, not stored (``ops.filters``), so the state that
 makes a run resumable is all there is to convert: the NCO counter and stream
-offset, the scheduler's staircase counters, and the resampler's next output
-index and T−1-sample FIR history.  :func:`load_jax_checkpoint` reads the
-single-stage checkpoint ``doppler_tpu.runtime.checkpoint.save`` writes
+offset, the scheduler's staircase counters, and each resampler stage's next
+output index and T−1-sample FIR history.  :func:`load_jax_checkpoint` reads
+the single-stream checkpoint ``doppler_tpu.runtime.checkpoint.save`` writes
 (``doppler_tpu/runtime/checkpoint.py:94-120``: a ``meta`` JSON array plus
-``rs_m_next``, ``rs_in_consumed``, ``rs_hist_i``, ``rs_hist_q``) into this
-package's :class:`~doppler_tpu_torch.runtime.pipeline.Pipeline`, with the
-signature checks ``checkpoint.restore`` applies.
+``rs_m_next``, ``rs_in_consumed``, ``rs_hist_i``, ``rs_hist_q`` for a
+single-stage resampler, or ``rs_s{k}_m_next`` … ``rs_s{k}_hist_q`` per stage
+of a cascade) into this package's
+:class:`~doppler_tpu_torch.runtime.pipeline.Pipeline`, with the signature
+checks ``checkpoint.restore`` applies.
 """
 
 from __future__ import annotations
@@ -40,8 +42,11 @@ def _scheduler_sig(s) -> dict:
 
 
 def _resampler_sig(rs):
-    """``[[P, Q, T]]`` for a single-stage resampler, None without one."""
-    return None if rs is None else [[rs.P, rs.Q, rs.T]]
+    """``[P, Q, T]`` per stage (one for a single-stage resampler), None
+    without one — pins the --resample-to/--resample-stages configuration."""
+    if rs is None:
+        return None
+    return [[st.P, st.Q, st.T] for st in getattr(rs, "stages", [rs])]
 
 
 def _check_sig(meta: dict, key: str, current, what: str) -> None:
@@ -71,8 +76,8 @@ def load_jax_checkpoint(arrays_or_path, pipe) -> dict:
     or the mapping of its arrays.  Returns the metadata dict; its
     ``sample_offset`` is the absolute input sample at which to resume
     feeding the stream.  Raises ``ValueError`` when the checkpoint belongs
-    to another configuration or holds state this package does not run
-    (a multi-stage cascade).
+    to another configuration (scheduler, resampler stages) or is not a
+    single-stream checkpoint.
     """
     z = _arrays(arrays_or_path)
     meta = json.loads(bytes(z["meta"].tobytes()).decode())
@@ -103,5 +108,7 @@ def load_jax_checkpoint(arrays_or_path, pipe) -> dict:
             raise ValueError("checkpoint has resampler state but pipeline has none")
         pipe.resampler.load_state(
             {name[len("rs_"):]: z[name] for name in z if name.startswith("rs_")})
-        pipe._chain_carry = None          # reseed from the loaded history
+        # the fused kernels reseed their carries from the loaded histories
+        pipe._chain_carry = None
+        pipe._cascade_carries = None
     return meta

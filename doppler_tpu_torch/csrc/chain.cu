@@ -59,8 +59,7 @@ long long smem_bytes(int tile_m, int P, int Q, int T) {
 
 __device__ __forceinline__ int padded(int k) { return k + (k >> 5); }
 
-// Mixed sample at chunk index g (g < 0: the carry).  `cur`/`p` cache the
-// plan of the block last loaded by this thread.
+// Mixed sample at chunk index g (g < 0: the carry).
 template <bool kInF32>
 __device__ __forceinline__ void mixed_at(long long g, const void* __restrict__ in,
                                          const uint32_t* __restrict__ plans,
@@ -72,20 +71,7 @@ __device__ __forceinline__ void mixed_at(long long g, const void* __restrict__ i
         oq = carry_in[2 * H + g];
         return;
     }
-    const int b = (int)(g / L);
-    const int j = (int)(g - (long long)b * L);
-    if (b != cur) {
-        p = doppler::load_plan(plans, B, b);
-        cur = b;
-    }
-    float fi, fq;
-    if (kInF32) {
-        fi = static_cast<const float*>(in)[g];
-        fq = static_cast<const float*>(in)[(long long)B * L + g];
-    } else {
-        doppler::decode_i16(static_cast<const int*>(in)[g], fi, fq);
-    }
-    doppler::mix_sample(fi, fq, (uint32_t)j, p, oi, oq);
+    doppler::mix_at<kInF32>(g, in, plans, B, L, cur, p, oi, oq);
 }
 
 template <bool kInF32, bool kOutF32>

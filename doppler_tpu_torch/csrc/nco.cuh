@@ -1,4 +1,4 @@
-// Shared device helpers of the mixer and chain kernels: decode, the exact
+// Shared device helpers of the mixer, chain and cascade kernels: decode, the exact
 // Q0.64 NCO phase, the quarter-wave tone, the rotation and the encode.
 //
 // Replaces the helpers the TPU kernels inline:
@@ -10,8 +10,8 @@
 // FMA (the library is also built with -fmad=false).  Each step then rounds
 // exactly as the plain torch version's separate operations do, so the
 // kernels' mixed float32 equals doppler_tpu_torch.ops.nco.mix_blocks
-// bitwise on the card.  The FIR dot in chain.cu uses explicit __fmaf_rn,
-// which this policy leaves alone.
+// bitwise on the card.  The FIR dots in chain.cu and cascade.cu use
+// explicit __fmaf_rn, which this policy leaves alone.
 #pragma once
 
 #include <cstdint>
@@ -79,6 +79,30 @@ __device__ __forceinline__ void mix_sample(float fi, float fq, uint32_t j,
     sincos_q24_neg(phase_q24(j, p), c, s);
     oi = __fsub_rn(__fmul_rn(fi, c), __fmul_rn(fq, s));
     oq = __fadd_rn(__fmul_rn(fi, s), __fmul_rn(fq, c));
+}
+
+// Mixed sample at chunk index g ≥ 0 of a (B, L) chunk: int32 words, or
+// float32 planes (2, B, L) when kInF32.  `cur`/`p` cache the plan of the
+// block this thread loaded last.
+template <bool kInF32>
+__device__ __forceinline__ void mix_at(long long g, const void* __restrict__ in,
+                                       const uint32_t* __restrict__ plans,
+                                       int B, int L, int& cur, Plan& p,
+                                       float& oi, float& oq) {
+    const int b = (int)(g / L);
+    const int j = (int)(g - (long long)b * L);
+    if (b != cur) {
+        p = load_plan(plans, B, b);
+        cur = b;
+    }
+    float fi, fq;
+    if (kInF32) {
+        fi = static_cast<const float*>(in)[g];
+        fq = static_cast<const float*>(in)[(long long)B * L + g];
+    } else {
+        decode_i16(static_cast<const int*>(in)[g], fi, fq);
+    }
+    mix_sample(fi, fq, (uint32_t)j, p, oi, oq);
 }
 
 // ×32767, truncate toward zero, NaN → 0, saturate (main.rs:76-84).

@@ -1,7 +1,8 @@
 """Build and load the hand-written CUDA kernels of ``doppler_tpu_torch/csrc``.
 
-At first use the ``.cu`` sources are compiled by ``nvcc`` for ``sm_90a``
-into one shared library with a plain C interface, loaded with ``ctypes``.
+At first use the ``.cu`` sources are compiled by ``nvcc`` for ``sm_90a``,
+one ``nvcc`` per source, all started together, and linked into one shared
+library with a plain C interface, loaded with ``ctypes``.
 The library lands in ``doppler_tpu_torch/_build/<hash>/`` (git-ignored),
 keyed by a hash of the sources and the flags, so a fresh checkout builds
 once and later processes load the cached file.  Delete ``_build/`` to force
@@ -32,10 +33,12 @@ BUILD_ROOT = _PKG / "_build"
 # FIR dot (see csrc/nco.cuh for the policy); -Xptxas -v reports registers,
 # shared memory and spills of every kernel into the build log.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-fmad=false", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-fmad=false", "-Xptxas", "-v")
 
 _vp = ctypes.c_void_p
 _i = ctypes.c_int
+_vpp = ctypes.POINTER(ctypes.c_void_p)   # an array of pointers
+_ip = ctypes.POINTER(ctypes.c_int)      # an array of ints
 
 
 def _nvcc() -> str:
@@ -74,20 +77,38 @@ def build_info() -> dict:
         log = log_path.read_text() if log_path.exists() else ""
         return {"path": str(lib), "built": False, "seconds": 0.0, "log": log}
     out_dir.mkdir(parents=True, exist_ok=True)
-    # compile to a private name, then rename: concurrent first users never
-    # load a half-written library
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, _sources())]
+    # compile into a private directory, then rename the library: concurrent
+    # first users never load a half-written file
+    tmp = Path(tempfile.mkdtemp(dir=out_dir))
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    procs = [
+        (src, subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-c", "-o", str(tmp / f"{src.stem}.o"), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        for src in _sources()
+    ]
+    logs, failed = [], []
+    for src, proc in procs:
+        out, _ = proc.communicate()
+        logs.append(f"== {src.name}\n{out}")
+        if proc.returncode != 0:
+            failed.append(src.name)
+    link = [nvcc, "-shared", "-o", str(tmp / "lib.so"),
+            *(str(tmp / f"{src.stem}.o") for src, _ in procs)]
+    if not failed:
+        proc = subprocess.run(link, capture_output=True, text=True)
+        logs.append(f"== link\n{proc.stdout}{proc.stderr}")
+        if proc.returncode != 0:
+            failed.append("link")
     seconds = time.perf_counter() - t0
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{log}")
+    log = "".join(logs)
+    if failed:
+        shutil.rmtree(tmp, ignore_errors=True)
+        raise RuntimeError(f"nvcc failed ({', '.join(failed)}):\n{log}")
     log_path.write_text(log)
-    os.replace(tmp, lib)
+    os.replace(tmp / "lib.so", lib)
+    shutil.rmtree(tmp, ignore_errors=True)
     return {"path": str(lib), "built": True, "seconds": seconds, "log": log}
 
 
@@ -102,6 +123,11 @@ def load() -> ctypes.CDLL:
                                   _i, _i, _i, _i, _i, _vp]
     lib.doppler_chain_smem_bytes.restype = ctypes.c_longlong
     lib.doppler_chain_smem_bytes.argtypes = [_i, _i, _i, _i]
+    lib.doppler_cascade.restype = _i
+    lib.doppler_cascade.argtypes = [_vp, _vp, _vp, _vpp, _vpp, _vpp, _ip, _i,
+                                    _i, _i, _i, _i, _i, _vp]
+    lib.doppler_cascade_smem_bytes.restype = ctypes.c_longlong
+    lib.doppler_cascade_smem_bytes.argtypes = [_ip, _i, ctypes.c_longlong, _i]
     lib.doppler_error_string.restype = ctypes.c_char_p
     lib.doppler_error_string.argtypes = [_i]
     return lib

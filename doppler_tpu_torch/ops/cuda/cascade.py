@@ -1,0 +1,190 @@
+"""Fused cascade: decode → NCO mix → S FIR stages → encode, streaming.
+
+:func:`mix_cascade_stream` launches ``csrc/cascade.cu`` on a CUDA tensor
+(the port of ``doppler_tpu/ops/pallas/chain.py:960``
+``mix_cascade_pallas_stream``) and runs :func:`mix_cascade_plain` on a CPU
+tensor.
+
+``stages`` is the tuple of per-stage ``(P, Q, T)`` of the fused stages of a
+``MultiStageResampler``; ``banks`` their ``(P, T)`` polyphase banks and
+``carries`` their flat ``(2, T−1)`` float32 histories — exactly each
+stage's ``_hist_i/_hist_q``, not the TPU's 128-lane carry rows.  Every
+stage's chunk input count must be a multiple of its Q, so each stage's
+chunk-local output grid is its absolute grid when the stream starts on it.
+
+:func:`split_point` is the JAX package's rule for how many leading stages
+fuse; a split cascade runs the ÷2^k front here with ``final_dense=True``
+(float32 planes out) and the remaining stages through their own
+``RationalResampler.process``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from doppler_tpu_torch.ops import codec
+from doppler_tpu_torch.ops.cuda import build
+from doppler_tpu_torch.ops.cuda.mixer import check_fmt, mix_blocks_fmt_plain
+from doppler_tpu_torch.ops.resample import window_dot
+
+__all__ = ["mix_cascade_stream", "mix_cascade_plain", "split_point",
+           "chunk_out_count"]
+
+_MAX_STAGES = 4         # the kernel's per-stage argument slots
+_TILES = (128, 64, 32)  # final outputs per CTA, largest that fits first
+
+
+def split_point(stages) -> int:
+    """How many leading stages fuse (``doppler_tpu/ops/pallas/chain.py:876``).
+
+    ``len(stages)`` when every stage has ``128 % Q == 0``; else the count of
+    leading stages with ``128 % Q == 0`` and integer decimation
+    ``Q % P == 0``.  On the TPU 128 is the lane width; here it marks the
+    stages whose chunk-local output grid stays aligned from chunk to chunk.
+    """
+    n = len(stages)
+    if all(128 % st.Q == 0 for st in stages):
+        return n
+    k = 0
+    while (k < n and 128 % stages[k].Q == 0
+           and stages[k].Q % stages[k].P == 0):
+        k += 1
+    return k
+
+
+def chunk_out_count(stages, B: int, L: int) -> int | None:
+    """Output count of the fused ``stages`` (``(P, Q, T)`` each) for a
+    ``(B, L)`` chunk, or None when the kernel does not take them: it takes 1
+    to 4 stages, each stage's chunk input count a multiple of its Q, and an
+    output that is a whole count per block."""
+    if not 1 <= len(stages) <= _MAX_STAGES:
+        return None
+    n = B * L
+    for P, Q, _ in stages:
+        if n % Q:
+            return None
+        n = n // Q * P
+    return n if n % B == 0 else None
+
+
+def _check(data, plans, banks, carries, stages, intype, outtype, final_dense):
+    B, L = check_fmt(data, plans, intype, outtype)
+    stages = tuple(tuple(int(v) for v in st) for st in stages)
+    n_out = chunk_out_count(stages, B, L)
+    if n_out is None:
+        raise ValueError(
+            f"cascade {stages} does not fit a chunk of {B}×{L} samples: the "
+            f"kernel takes 1 to {_MAX_STAGES} stages, each stage's chunk "
+            "input count a multiple of its Q, and a whole output count per "
+            "block")
+    if len(banks) != len(stages) or len(carries) != len(stages):
+        raise ValueError("one bank and one carry per stage")
+    if final_dense and (outtype != "f32"
+                        or any(Q % P for P, Q, _ in stages)):
+        raise ValueError("final_dense is the split front: integer-decimation "
+                         "stages with float32 planes out")
+    for (P, Q, T), bank, carry in zip(stages, banks, carries):
+        if bank.dtype != torch.float32 or tuple(bank.shape) != (P, T):
+            raise ValueError(f"bank must be float32 ({P}, {T}), got "
+                             f"{bank.dtype} {tuple(bank.shape)}")
+        if carry.dtype != torch.float32 or tuple(carry.shape) != (2, T - 1):
+            raise ValueError(f"carry must be float32 (2, {T - 1}), got "
+                             f"{carry.dtype} {tuple(carry.shape)}")
+        if bank.device != data.device or carry.device != data.device:
+            raise ValueError("banks, carries and data must be on one device")
+    return B, L, stages, n_out
+
+
+def _encode(yi, yq, outtype, B):
+    if outtype == "i16":
+        return codec.iq_to_i16_words(yi, yq).reshape(B, -1)
+    return torch.stack([yi, yq]).reshape(2, B, -1)
+
+
+def mix_cascade_plain(data, plans, banks, carries, *, stages,
+                      intype: str = "i16", outtype: str = "i16",
+                      final_dense: bool = False):
+    """Plain torch version: the mixer's plain version, then
+    ``ops.resample.window_dot`` per stage over ``[carry_s | x_s]``, then
+    encode.  Returns ``(out, carries_out)``."""
+    B, L, stages, _ = _check(data, plans, banks, carries, stages, intype,
+                             outtype, final_dense)
+    x = mix_blocks_fmt_plain(data, plans, intype=intype,
+                             outtype="f32").reshape(2, B * L)
+    carries_out = []
+    for (P, Q, T), bank, carry in zip(stages, banks, carries):
+        buf = torch.cat([carry, x], dim=1)
+        carries_out.append(buf[:, buf.shape[1] - (T - 1):].clone())
+        yi, yq = window_dot(buf[0], buf[1], bank.flip(-1), 0, 0, P=P, Q=Q,
+                            T=T, M=x.shape[1] // Q * P)
+        x = torch.stack([yi, yq])
+    return _encode(x[0], x[1], outtype, B), tuple(carries_out)
+
+
+@functools.lru_cache(maxsize=None)
+def _pick_tile(dev_index: int, stages, n0: int) -> int:
+    """Largest tile of ``_TILES`` whose CTA fits the card's shared memory."""
+    limit = torch.cuda.get_device_properties(dev_index).shared_memory_per_block_optin
+    pqt = (ctypes.c_int * (3 * len(stages)))(*(v for st in stages for v in st))
+    need = {}
+    for tile in _TILES:
+        need[tile] = build.load().doppler_cascade_smem_bytes(
+            pqt, len(stages), n0, tile)
+        if 0 < need[tile] <= limit:
+            return tile
+    raise ValueError(
+        f"cascade stages (P, Q, T) = {stages} need {need} bytes of shared "
+        f"memory per CTA for tiles {_TILES}; the card allows {limit}")
+
+
+def mix_cascade_stream(data, plans, banks, carries, *, stages,
+                       intype: str = "i16", outtype: str = "i16",
+                       final_dense: bool = False):
+    """Streaming fused mix + cascade, all four wire formats.
+
+    ``data``: int32 words ``(B, L)`` or float32 planes ``(2, B, L)``;
+    ``plans``: ``(7, B)`` plan words; ``banks``/``carries``: one ``(P, T)``
+    bank and one ``(2, T−1)`` float32 carry per stage of ``stages``.
+    Returns ``(out, carries_out)`` with ``out`` int32 ``(B, M)`` or float32
+    ``(2, B, M)``, ``M = L·∏P/∏Q``.  ``final_dense=True`` marks the split
+    cascade's ÷2^k front (float32 planes out).
+
+    A CPU tensor runs the plain version; a CUDA tensor launches the kernel
+    or raises.
+    """
+    if data.device.type == "cpu":
+        return mix_cascade_plain(data, plans, banks, carries, stages=stages,
+                                 intype=intype, outtype=outtype,
+                                 final_dense=final_dense)
+    if data.device.type != "cuda":
+        raise ValueError(f"no cascade kernel for device {data.device}")
+    B, L, stages, n_out = _check(data, plans, banks, carries, stages, intype,
+                                 outtype, final_dense)
+    dev = data.device
+    S = len(stages)
+    tile = _pick_tile(dev.index, stages, B * L)
+    data, plans = data.contiguous(), plans.contiguous()
+    banks = [b.contiguous() for b in banks]
+    carries = [c.contiguous() for c in carries]
+    if outtype == "i16":
+        out = torch.empty((B, n_out // B), dtype=torch.int32, device=dev)
+    else:
+        out = torch.empty((2, B, n_out // B), dtype=torch.float32, device=dev)
+    carries_out = tuple(torch.empty((2, T - 1), dtype=torch.float32, device=dev)
+                        for _, _, T in stages)
+    ptrs = lambda ts: (ctypes.c_void_p * S)(*(t.data_ptr() for t in ts))  # noqa: E731
+    rc = build.load().doppler_cascade(
+        data.data_ptr(), out.data_ptr(), plans.data_ptr(), ptrs(banks),
+        ptrs(carries), ptrs(carries_out),
+        (ctypes.c_int * (3 * S))(*(v for st in stages for v in st)), S, B, L,
+        tile, int(intype == "f32"), int(outtype == "f32"),
+        torch.cuda.current_stream(dev).cuda_stream)
+    build.check(rc, "cascade")
+    mix_cascade_stream.launches += 1
+    return out, carries_out
+
+
+mix_cascade_stream.launches = 0   # kernel launches (CUDA path only)

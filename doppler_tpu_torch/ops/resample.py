@@ -6,10 +6,11 @@ formulation.  Every output is a pure function of its absolute output index m,
     y[m] = Σ_{l<T} bank[(m·Q) mod P, l] · x[⌊m·Q/P⌋ − l]
 
 and the only sequential state is the T−1-sample input history and the next
-output index.  The pipeline runs this on chunks the fused chain kernel does
-not take (the partial EOF chunk) and for the EOF drain; the chain's plain
-version (``ops.cuda.chain``) reuses :func:`window_dot`, so on the CPU both
-routes give the same bytes.
+output index.  The pipeline runs this on chunks the fused kernels do not
+take (the partial EOF chunk), for the EOF drain, as each stage of a
+``MultiStageResampler`` and as the tail of a split cascade; the chain's and
+the cascade's plain versions (``ops.cuda``) reuse :func:`window_dot`, so on
+the CPU every route gives the same bytes.
 
 The banded-matmul ``'conv'`` formulation of the JAX package exists for the
 TPU's matrix unit and is not carried over.
@@ -82,12 +83,16 @@ class RationalResampler:
     """Streaming P/Q resampler over planar IQ chunks on one device.
 
     ``in_rate``/``out_rate`` are reduced to lowest terms (a non-integer
-    ``out_rate`` is rationalized to within 2^-16 relative error, as in the
-    JAX package); the polyphase bank (``ops.filters.design_polyphase_bank``,
-    70 dB) has P phases.  ``device`` holds the FIR history and the taps.
+    ``out_rate`` is rationalized to within ``1/max_denominator`` relative
+    error, as in the JAX package); the polyphase bank
+    (``ops.filters.design_polyphase_bank``, ``taps_per_phase`` taps a phase
+    or auto-sized for ``atten_db``) has P phases.  ``device`` holds the FIR
+    history and the taps.
     """
 
-    def __init__(self, in_rate: int, out_rate: float, *, device="cpu"):
+    def __init__(self, in_rate: int, out_rate: float, *,
+                 taps_per_phase: int | None = None, atten_db: float = 70.0,
+                 max_denominator: int = 1 << 16, device="cpu"):
         if in_rate <= 0 or out_rate <= 0:
             raise ValueError("rates must be positive")
         if float(out_rate).is_integer():
@@ -98,14 +103,15 @@ class RationalResampler:
             from fractions import Fraction
 
             frac = Fraction(float(out_rate) / float(in_rate)).limit_denominator(
-                1 << 16
+                max_denominator
             )
             self.P = frac.numerator
             self.Q = frac.denominator
         self.in_rate = int(in_rate)
         self.out_rate = float(out_rate)
         self.device = torch.device(device)
-        self.bank = design_polyphase_bank(self.P, self.Q)
+        self.bank = design_polyphase_bank(self.P, self.Q, taps_per_phase,
+                                          atten_db)
         self.T = self.bank.shape[1]
         self._bank_rev = torch.from_numpy(self.bank[:, ::-1].copy()).to(self.device)
 
@@ -179,8 +185,16 @@ class RationalResampler:
             setattr(self, f"_{key}", torch.from_numpy(h.copy()).to(self.device))
 
 
-def attach_resampler(pipe, out_rate: float) -> None:
-    """CLI glue: give a Pipeline a single-stage resampler on its device
-    (the JAX package's multi-stage cascade is not ported)."""
-    pipe.set_resampler(RationalResampler(pipe.samplerate, out_rate,
-                                         device=pipe.device))
+def attach_resampler(pipe, out_rate: float, *, stages: str = "single",
+                     **kwargs) -> None:
+    """CLI glue: give a Pipeline a post-mix resampler on its device.
+
+    ``stages``: 'single' (the default here, as in the JAX package), 'auto'
+    (the halfband cascade for ≥4× decimation) or 'multi' (force the
+    cascade) — see ``ops.multistage.make_resampler``.
+    """
+    from doppler_tpu_torch.ops.multistage import make_resampler
+
+    pipe.set_resampler(make_resampler(pipe.samplerate, out_rate,
+                                      stages=stages, device=pipe.device,
+                                      **kwargs))

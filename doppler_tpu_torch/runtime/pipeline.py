@@ -6,8 +6,13 @@ the device runs one kernel per *chunk* of ``chunk_blocks`` reference blocks:
 
 - a full chunk with a single-stage resampler → the fused chain kernel
   (``ops.cuda.chain``), carrying the FIR history from chunk to chunk;
+- a full chunk with a ``MultiStageResampler`` → the fused cascade kernel
+  (``ops.cuda.cascade``) over its leading ``split_point`` stages: all of
+  them (mix + every stage + encode), or the ÷2^k front when the final
+  stage's Q does not divide 128, whose float32 planes then run the
+  remaining stages' ``RationalResampler.process``;
 - any other chunk with a resampler (the partial EOF chunk) → the mixer
-  kernel to float32 planes, then ``RationalResampler.process``;
+  kernel to float32 planes, then the resampler's ``process``;
 - no resampler → the mixer kernel alone.
 
 Dispatch never synchronises: the chunk is staged into pinned host memory,
@@ -29,7 +34,7 @@ import numpy as np
 import torch
 
 from doppler_tpu_torch.ops import codec
-from doppler_tpu_torch.ops.cuda import chain, mixer
+from doppler_tpu_torch.ops.cuda import cascade, chain, mixer
 from doppler_tpu_torch.ops.nco import plan_tensor
 from doppler_tpu_torch.ops.phase_plan import NCOState, plan_blocks
 from doppler_tpu_torch.runtime import stream as streaming
@@ -129,8 +134,7 @@ class Pipeline:
         self.block_samples = self.block_bytes // self._bps_in
         self._sample_offset = 0  # absolute index of next input sample
         self.resampler = None
-        self._chain_carry = None
-        self._chain_bank = None
+        self._reset_fused_state()
         self.host_s = 0.0
         self.device_s = 0.0
 
@@ -141,8 +145,15 @@ class Pipeline:
                 f"resampler lives on {resampler.device}, pipeline on "
                 f"{self.device}")
         self.resampler = resampler
+        self._reset_fused_state()
+
+    def _reset_fused_state(self) -> None:
         self._chain_carry = None
         self._chain_bank = None
+        self._cascade_k = None          # fused stages; 0 = never fused
+        self._cascade_stages = None     # their (P, Q, T)
+        self._cascade_banks = None
+        self._cascade_carries = None
 
     # -- fused-chain plumbing ------------------------------------------------
 
@@ -159,7 +170,8 @@ class Pipeline:
             return False
         L = self.block_samples
         return (
-            L % 128 == 0
+            getattr(rs, "bank", None) is not None   # single-stage only
+            and L % 128 == 0
             and 128 % rs.Q == 0
             and _carry_rows(rs.T) <= L // 128
             # padded tail chunks would poison the carry with zeros;
@@ -189,6 +201,61 @@ class Pipeline:
         rs._hist_q = carry[1]
         self._sample_offset += total
         return n_out
+
+    # -- fused-cascade plumbing ----------------------------------------------
+
+    def _cascade_eligible(self, total: int) -> bool:
+        """May this chunk run the fused cascade kernel?
+
+        The JAX rule: a ``MultiStageResampler``, ``L % 128 == 0``, a
+        non-empty fused prefix ``k = split_point(stages)`` and a full chunk.
+        In place of the TPU's step geometry the port asks the kernel's
+        ``chunk_out_count`` (each fused stage's chunk input count a multiple
+        of its Q, a whole output count per block).  Decided once per
+        resampler: ``_cascade_k`` is the fused stage count, 0 when the
+        cascade never fuses.
+        """
+        rs = self.resampler
+        if rs is None or getattr(rs, "stages", None) is None:
+            return False
+        L = self.block_samples
+        if self._cascade_k is None:
+            k = cascade.split_point(rs.stages) if L % 128 == 0 else 0
+            fused = tuple((st.P, st.Q, st.T) for st in rs.stages[:k])
+            ok = cascade.chunk_out_count(fused, self.chunk_blocks, L) is not None
+            self._cascade_k = k if ok else 0
+            self._cascade_stages = fused
+        return self._cascade_k > 0 and total == self.chunk_blocks * L
+
+    def _ensure_cascade_state(self) -> None:
+        """Seed the fused stages' banks and carries (idempotent; reseeds
+        after a chunk that took the mixer + resampler route, from each
+        stage's history, so a restored pipeline resumes bitwise)."""
+        fused = self.resampler.stages[:self._cascade_k]
+        if self._cascade_banks is None:
+            self._cascade_banks = tuple(
+                torch.from_numpy(st.bank).to(self.device) for st in fused)
+        if self._cascade_carries is None:
+            self._cascade_carries = tuple(
+                torch.stack([st._hist_i, st._hist_q]).to(self.device,
+                                                         torch.float32)
+                for st in fused)
+
+    def _advance_cascade_state(self, total: int, carries) -> int:
+        """Advance the fused stages' stream counters and mirror each one's
+        history out of its device carry (no sync).  Returns the count
+        entering stage ``_cascade_k``: the final output count when fully
+        fused, the front's output count when split."""
+        n_in = total
+        for st, carry in zip(self.resampler.stages[:self._cascade_k], carries):
+            n_out = st.out_count_for(n_in)
+            st.m_next += n_out
+            st.in_consumed += n_in
+            st._hist_i = carry[0]
+            st._hist_q = carry[1]
+            n_in = n_out
+        self._sample_offset += total
+        return n_in
 
     # -- staging ------------------------------------------------------------
 
@@ -286,8 +353,9 @@ class Pipeline:
         return self._start_out(out, n_valid, start)
 
     def _dispatch_local(self, data, plans, total: int):
-        """Launch one staged chunk: the fused chain on a full chunk, else
-        the mixer (+ the resampler).  Returns (device output, n_valid)."""
+        """Launch one staged chunk: the fused chain or cascade on a full
+        chunk, else the mixer (+ the resampler).  Returns (device output,
+        n_valid)."""
         rs = self.resampler
         if self._chain_eligible(total):
             self._ensure_chain_state()
@@ -297,6 +365,27 @@ class Pipeline:
                 outtype=self.outtype,
             )
             return out, self._advance_chain_state(total, self._chain_carry)
+
+        if self._cascade_eligible(total):
+            self._ensure_cascade_state()
+            k = self._cascade_k
+            split = k < len(rs.stages)
+            out, self._cascade_carries = cascade.mix_cascade_stream(
+                data, plans, self._cascade_banks, self._cascade_carries,
+                stages=self._cascade_stages, intype=self.intype,
+                outtype="f32" if split else self.outtype, final_dense=split,
+            )
+            n_mid = self._advance_cascade_state(total, self._cascade_carries)
+            if not split:
+                return out, n_mid
+            # split: the front's planes run the remaining stages (plain
+            # torch on the device, as the JAX package runs them in XLA)
+            planes = out.reshape(2, -1)
+            yi, yq, n_out = planes[0], planes[1], n_mid
+            for st in rs.stages[k:]:
+                yi, yq, n_out = st.process(yi, yq, n_out,
+                                           M=st.max_out_for(int(yi.shape[-1])))
+            return self._encode(yi, yq), n_out
 
         mix_outtype = self.outtype if rs is None else "f32"
         out = mixer.mix_blocks_fmt(data, plans, intype=self.intype,
@@ -309,8 +398,9 @@ class Pipeline:
             planes[0], planes[1], total,
             M=rs.max_out_for(self.chunk_blocks * self.block_samples),
         )
-        # a later chain chunk must reseed from the resampler's history
+        # a later chain or cascade chunk must reseed from the history
         self._chain_carry = None
+        self._cascade_carries = None
         return self._encode(yi, yq), n_out
 
     def _encode(self, yi, yq) -> torch.Tensor:
@@ -380,6 +470,7 @@ class Pipeline:
         zeros = torch.zeros(pad, dtype=torch.float32, device=self.device)
         yi, yq, n_out = rs.process(zeros, zeros, pad, M=rs.max_out_for(pad))
         self._chain_carry = None
+        self._cascade_carries = None
         if n_out == 0:
             return b""
         return self._finalize(self._start_out(self._encode(yi, yq), n_out, None))

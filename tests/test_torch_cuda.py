@@ -11,7 +11,10 @@ separate torch operations do, so mixer outputs are bitwise equal; the chain
 kernel sums its FIR as a sequential FMA chain where the plain version sums a
 fixed tree, so its encoded outputs agree within 1 LSB in under 1% of
 samples and its float32 outputs within 2^-20, while its carry (mixed
-samples) is bitwise the mixer's.
+samples) is bitwise the mixer's.  The cascade kernel likewise: ≤ 1 LSB in
+under 1%, float32 outputs within 2^-20, its stage-0 carry bitwise and the
+later carries (FIR outputs) within 2^-20; kernel against kernel, its bytes
+do not depend on the chunk split.
 """
 
 import io
@@ -21,12 +24,18 @@ import pytest
 import torch
 
 from doppler_tpu_torch.ops import nco
+from doppler_tpu_torch.ops.cuda.cascade import (
+    mix_cascade_plain,
+    mix_cascade_stream,
+    split_point,
+)
 from doppler_tpu_torch.ops.cuda.chain import (
     mix_resample_chain_plain,
     mix_resample_chain_stream,
 )
 from doppler_tpu_torch.ops.cuda.mixer import mix_blocks_fmt, mix_blocks_fmt_plain
 from doppler_tpu_torch.ops.filters import design_polyphase_bank
+from doppler_tpu_torch.ops.multistage import MultiStageResampler
 from doppler_tpu_torch.ops.phase_plan import NCOState, plan_blocks
 from doppler_tpu_torch.ops.resample import attach_resampler
 from doppler_tpu_torch.runtime.pipeline import ConstScheduler, Pipeline
@@ -128,6 +137,105 @@ def test_pipeline_on_card_matches_cpu(card):
     assert gpu == run("cpu", False)[0] and pipe.device_s > 0
     gpu, _ = run("cuda", True)
     cpu, _ = run("cpu", True)
+    assert len(gpu) == len(cpu)
+    d = _lsb(torch.frombuffer(bytearray(gpu), dtype=torch.int32),
+             torch.frombuffer(bytearray(cpu), dtype=torch.int32))
+    assert int(d.max()) <= 1 and float((d > 0).float().mean()) < 0.01
+
+
+def _cascade_args(ms, card, k=None):
+    fused = ms.stages[:k]
+    return (tuple((st.P, st.Q, st.T) for st in fused),
+            tuple(torch.from_numpy(st.bank).to(card) for st in fused))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("intype,outtype", FORMATS)
+def test_cascade_kernel_vs_plain(card, intype, outtype):
+    """Config-3 stages (÷8 T = 65, 3/8 T = 51); the second chunk starts
+    from the carries of the first."""
+    stages, banks = _cascade_args(MultiStageResampler(FS, 48000), card)
+    rng, state = np.random.default_rng(4), NCOState()
+    c_k = c_p = tuple(torch.zeros(2, T - 1, device=card) for _, _, T in stages)
+    for _ in range(2):
+        data, plan = _chunk(32, 2048, intype, rng, state)
+        x = torch.from_numpy(data).to(card)
+        p = nco.plan_tensor(plan, device=card)
+        launches = mix_cascade_stream.launches
+        got, c_k = mix_cascade_stream(x, p, banks, c_k, stages=stages,
+                                      intype=intype, outtype=outtype)
+        want, c_p = mix_cascade_plain(x, p, banks, c_p, stages=stages,
+                                      intype=intype, outtype=outtype)
+        mixed = mix_blocks_fmt(x, p, intype=intype, outtype="f32").reshape(2, -1)
+        torch.cuda.synchronize()
+        assert mix_cascade_stream.launches == launches + 1
+        if outtype == "i16":
+            d = _lsb(got, want)
+            assert int(d.max()) <= 1 and float((d > 0).float().mean()) < 0.01
+        else:
+            assert float((got - want).abs().max()) <= 2.0 ** -20
+        assert torch.equal(c_k[0], mixed[:, -(stages[0][2] - 1):])
+        assert torch.equal(c_k[0], c_p[0])
+        assert float((c_k[1] - c_p[1]).abs().max()) <= 2.0 ** -20
+        c_p = c_k                      # both continue from the kernel's state
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fs", [FS, 100_000_000])
+def test_cascade_kernel_invariant_to_chunk_split(card, fs):
+    """Kernel against kernel: 64 blocks in one chunk against 4 × 16, with
+    the split front (float32 planes) at 100 Msps."""
+    ms = MultiStageResampler(fs, 48000)
+    k = split_point(ms.stages)
+    stages, banks = _cascade_args(ms, card, k)
+    dense = k < len(ms.stages)
+    outtype = "f32" if dense else "i16"
+    data, plan = _chunk(64, 2048, "i16", np.random.default_rng(5), NCOState())
+    x = torch.from_numpy(data).to(card)
+    p = nco.plan_tensor(plan, device=card)
+    zero = tuple(torch.zeros(2, T - 1, device=card) for _, _, T in stages)
+    whole, c_whole = mix_cascade_stream(x, p, banks, zero, stages=stages,
+                                        outtype=outtype, final_dense=dense)
+    c, parts = zero, []
+    for b in range(0, 64, 16):
+        o, c = mix_cascade_stream(x[b:b + 16].contiguous(),
+                                  p[:, b:b + 16].contiguous(), banks, c,
+                                  stages=stages, outtype=outtype,
+                                  final_dense=dense)
+        parts.append(o)
+    torch.cuda.synchronize()
+    assert torch.equal(torch.cat(parts, dim=-2), whole)
+    assert all(torch.equal(a, b) for a, b in zip(c, c_whole))
+    want, _ = mix_cascade_plain(x, p, banks, zero, stages=stages,
+                                outtype=outtype, final_dense=dense)
+    if dense:
+        assert float((whole - want).abs().max()) <= 2.0 ** -20
+    else:
+        d = _lsb(whole, want)
+        assert int(d.max()) <= 1 and float((d > 0).float().mean()) < 0.01
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fs", [FS, 250000])
+def test_default_route_pipeline_on_card_matches_cpu(card, fs):
+    """The cascade route ('auto') on the card against the same pipeline on
+    the CPU: ≤ 1 LSB in under 1%, every full chunk through the kernel."""
+    rng = np.random.default_rng(6)
+    n = 2048 * 40 + 700
+    data = rng.integers(-9000, 9000, size=2 * n, dtype=np.int16).tobytes()
+
+    def run(device):
+        pipe = Pipeline(fs, "i16", "i16", ConstScheduler(-15000.0),
+                        chunk_blocks=16, device=device)
+        attach_resampler(pipe, 48000, stages="auto")
+        out = io.BytesIO()
+        pipe.run(io.BytesIO(data), out)
+        return out.getvalue()
+
+    launches = mix_cascade_stream.launches
+    gpu = run("cuda")
+    assert mix_cascade_stream.launches == launches + n // (16 * 2048)
+    cpu = run("cpu")
     assert len(gpu) == len(cpu)
     d = _lsb(torch.frombuffer(bytearray(gpu), dtype=torch.int32),
              torch.frombuffer(bytearray(cpu), dtype=torch.int32))

@@ -84,11 +84,12 @@ def _run(pipe, data):
     return out.getvalue()
 
 
-def _port(fs, intype, outtype, sched, *, resample=None, chunk_blocks=16):
+def _port(fs, intype, outtype, sched, *, resample=None, chunk_blocks=16,
+          stages="single"):
     pipe = Pipeline(fs, intype, outtype, sched, chunk_blocks=chunk_blocks,
                     device="cpu")
     if resample:
-        attach_resampler(pipe, resample)
+        attach_resampler(pipe, resample, stages=stages)
     return pipe
 
 
@@ -261,8 +262,8 @@ def test_cuda_device_raises_without_card(monkeypatch):
 
 
 def test_cli_rejects_unported_flags():
-    for extra in (["--resample-stages", "auto"], ["--mesh", "time=2"],
-                  ["--precision", "fast"], ["--save-state", "x.npz"]):
+    for extra in (["--mesh", "time=2"], ["--precision", "fast"],
+                  ["--save-state", "x.npz"], ["--resample-impl", "conv"]):
         assert cli.main(["const", "-s", "256000", "-i", "i16", "--shift", "1",
                          "--device", "cpu"] + extra,
                         stdin=io.BytesIO(b""), stdout=io.BytesIO()) == 2
@@ -270,7 +271,8 @@ def test_cli_rejects_unported_flags():
 
 def test_port_imports_no_jax():
     code = ("import sys, doppler_tpu_torch.cli, doppler_tpu_torch.runtime.pipeline, "
-            "doppler_tpu_torch.convert, doppler_tpu_torch.ops.cuda.chain; "
+            "doppler_tpu_torch.convert, doppler_tpu_torch.ops.cuda.chain, "
+            "doppler_tpu_torch.ops.cuda.cascade, doppler_tpu_torch.ops.multistage; "
             "assert 'jax' not in sys.modules and 'doppler_tpu' not in sys.modules")
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True,
                    timeout=120)
@@ -292,7 +294,8 @@ def test_cli_subprocess_const_cpu(tmp_path):
 
 def test_cli_track_resample_files(tmp_path):
     """``track … --resample-to 48000 --device cpu`` through the CLI equals
-    the Pipeline driven directly (the TLE read from a file, --time given)."""
+    the Pipeline driven directly (the TLE read from a file, --time given);
+    with no --resample-stages the CLI runs the cascade ('auto')."""
     fs = 1024000
     data = _i16_stream(2048 * 20 + 333, 7)
     (tmp_path / "sat.txt").write_text(f"TEST SAT\n{TLE_L1}\n{TLE_L2}\n")
@@ -308,5 +311,5 @@ def test_cli_track_resample_files(tmp_path):
                    "--output", str(tmp_path / "out.iq")])
     assert rc == 0
     want = _run(_port(fs, "i16", "i16", _track(fs), resample=48000,
-                      chunk_blocks=8), data)
+                      chunk_blocks=8, stages="auto"), data)
     assert (tmp_path / "out.iq").read_bytes() == want
