@@ -18,25 +18,46 @@ Phases (each prints one line or a few; any failure exits non-zero):
              carries in all four formats; stage-0 carry bitwise, later
              carries within 2^-20; its bytes across chunk splits; the split
              front (float32 planes) at the 100 Msps → 48 ksps stages.
+4c. channels — the three channel-batched kernels against their plain
+             versions at C = 16, B = 256 (the channel mixer bitwise; the
+             chain and the cascade at the config-3 geometries in all four
+             formats from nonzero carries, and the 100 Msps split front):
+             channel c bitwise against the one-channel launch, and the chunk
+             split; then config 5's width, C = 256: the split front over a
+             full chunk and the channel mixer over an EOF chunk, against
+             their plain versions.
 5. slices  — synthetic captures through the CLI entry point
              ``doppler_tpu_torch.cli.main`` on the card, each with the launch
              counts set to 0 just before it and read just after:
-             (i) the default config-3 route: 60 s at 1.024 Msps i16, track
+             (i) the default config-3 route: 20 s at 1.024 Msps i16, track
              mode with a TLE, ``--resample-to 48000`` and no
              ``--resample-stages`` (the cascade); (ii) the split route:
              0.5 s at 100 Msps i16, const, → 48 ksps; (iii) the single-stage
-             chain: the first 20 s of (i) with ``--resample-stages single``.
-             Exact output lengths, launch counts, and SNR against the golden
-             model.
+             chain: (i) with ``--resample-stages single``; then channels
+             mode, ``channels --config …``: (iv) BASELINE config 4, 16 track
+             channels out of one 1.024 Msps capture → 48 ksps, 20 s (the
+             channel-batched cascade); (v) its first 10 s with
+             ``--resample-stages single`` (the channel-batched chain);
+             (vi) config 4 as the conformance harness runs it, 16 const
+             channels and no resampler (the channel mixer); (vii) config
+             5's rate and width on one card: 100 Msps, 256 const channels →
+             48 ksps, 0.1 s (the ÷256 front batched, the tail batched in
+             plain torch).  Exact output lengths on every channel, launch
+             counts, and SNR against the golden model (on the first, the
+             middle and the last channel from the plan words, and on the
+             middle channel from the reference's sequential mix as well).
 6. timing  — each kernel and its plain version at B = 256 and B = 16384
              (median of 20 runs, CUDA events; the split front at B = 256),
-             and each slice's host/device split.
+             the channel-batched ones at C = 16 with ``torch.profiler``'s
+             device time, each kernel's bound, and each slice's host/device
+             split.
 
 The kernels' JSON record takes the mixer's and the cascade's launch counts
-from slice (i) and the chain's from slice (iii).  The line before the last
-is that record; the last line is
-``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
-package beside it, the script fails before printing either.
+from slice (i), the chain's from slice (iii), the channel cascade's from
+(iv) and the channel chain's from (v).  The line before the last is that
+record; the last line is ``{"ok": true, "device": {...}}``.  Without a CUDA
+device, or without the package beside it, the script fails before printing
+either.
 """
 
 from __future__ import annotations
@@ -59,11 +80,18 @@ FS_SPLIT = 100_000_000             # BASELINE config 5's input rate
 OUT_RATE = 48000
 B_MAIN = 256                       # the pipeline's default chunk_blocks
 B_BIG = 16384                      # 33.5 M samples a dispatch
-N_SLICE = 61_440_000 + 1000        # 60 s at 1.024 Msps, plus a partial block
-N_CHAIN = 20_480_000 + 1000        # its first 20 s
+N_SLICE = 20_480_000 + 1000        # 20 s at 1.024 Msps, plus a partial block
 N_SPLIT = 50_000_000 + 1000        # 0.5 s at 100 Msps
+N_CH_CHAIN = 10_240_000 + 1000     # the first 10 s of the channels capture
+N_CH_MIX = 5_120_000 + 1000        # its first 5 s
+N_WIDE = 10_000_000 + 1000         # 0.1 s at 100 Msps
+C_MAIN = 16                        # BASELINE config 4's channel count
+C_WIDE = 256                       # BASELINE config 5's
 GOLDEN_BLOCKS = 512
 TOL_F32 = 2.0 ** -20
+HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
+F32_FLOP_PER_S = 67e12             # float32 outside the tensor cores
+MIX_FLOP = 29                      # csrc/nco.cuh: decode 2, tone 21, rotate 6
 TLE_LINES = (
     "1 88888U          80275.98708465  .00073094  13844-3  66816-4 0    8",
     "2 88888  72.8435 115.9689 0086731  52.6988 110.5714 16.05824518  105",
@@ -331,14 +359,190 @@ def phase_cascade(torch, gen):
     return max(worst, err)
 
 
-def _capture(torch, n, seed, fs=FS):
-    """Tones in band plus noise, made on the card, as LE i16 IQ bytes."""
+def _channel_plans(torch, C, B, L, samplenum=40000, fs=FS):
+    """``(7, C, B)`` plan words: every channel its own shifts and its own
+    samplenum state (rounding-reset-heavy ratios among them)."""
+    from doppler_tpu_torch.ops import nco
+    from doppler_tpu_torch.ops.phase_plan import NCOState, plan_blocks
+
+    return torch.stack([
+        nco.plan_tensor(plan_blocks(
+            [327843.76 - 9000.0 * c] * (B // 2) + [-15000.0 + 777.0 * c] * (B - B // 2),
+            [L] * B, fs, NCOState(samplenum=samplenum + 13 * c), L))
+        for c in range(C)], dim=1).cuda()
+
+
+def _channel_of(out, c, outtype):
+    return out[c] if outtype == "i16" else out[:, c]
+
+
+def _err_vs_plain(torch, got, want, outtype, what):
+    """max LSB (≤ 1 in under 1%) or max |d| (≤ 2^-20) against plain."""
+    if outtype == "i16":
+        d = _lsb_diff(torch, got, want)
+        err, frac = float(d.max()), float((d > 0).float().mean())
+        check(err <= 1 and frac < 0.01, f"{what} off by >1 LSB ({err}, {frac})")
+        return err, f"max LSB={err:g} frac={frac!r}"
+    err = float((got - want).abs().max())
+    check(err <= TOL_F32, f"{what} f32 off by {err}")
+    return err, f"max|d|={err!r}"
+
+
+def phase_channels(torch, gen):
+    """The channel-batched kernels at C = 16, B = 256: against plain, channel
+    c against the one-channel launch, the chunk split; then the front and the
+    mixer at C = 256."""
+    from doppler_tpu_torch.ops.cuda import cascade, chain, mixer
+    from doppler_tpu_torch.ops.resample import RationalResampler
+
+    C, B, L = C_MAIN, B_MAIN, 2048
+    worst = {"mixer": 0.0, "chain": 0.0, "cascade": 0.0}
+
+    for intype, outtype in FORMATS:
+        Lm = L if intype == "i16" else 1024
+        x = _data(torch, intype, B, Lm, gen)
+        p = _channel_plans(torch, C, B, Lm)
+        got = mixer.mix_blocks_fmt_channels(x, p, intype=intype, outtype=outtype)
+        torch.cuda.synchronize()
+        want = mixer.mix_blocks_fmt_channels_plain(x, p, intype=intype, outtype=outtype)
+        same = torch.equal(got, want)
+        rows = all(torch.equal(
+            _channel_of(got, c, outtype),
+            mixer.mix_blocks_fmt(x, p[:, c].contiguous(), intype=intype,
+                                 outtype=outtype)) for c in range(C))
+        print(f"channels: mixer {intype}->{outtype} C={C} B={B} L={Lm}: bitwise vs "
+              f"plain={same}, rows vs C=1 launch bitwise={rows}")
+        check(same and rows, f"channel mixer {intype}->{outtype} differs")
+
+    rs = RationalResampler(FS, OUT_RATE)
+    P, Q, T = rs.P, rs.Q, rs.T
+    bank = torch.from_numpy(rs.bank).cuda()
+    for intype, outtype in FORMATS:
+        kw = dict(P=P, Q=Q, T=T, intype=intype, outtype=outtype)
+        x0, x1 = (_data(torch, intype, B, L, gen) for _ in range(2))
+        p0 = _channel_plans(torch, C, B, L)
+        p1 = _channel_plans(torch, C, B, L, samplenum=7)
+        zero = torch.zeros(C, 2, T - 1, device="cuda")
+        # nonzero carries: what a previous chunk left in every channel
+        _, carry = chain.mix_resample_chain_channels(x0, p0, bank, zero, **kw)
+        got, c_got = chain.mix_resample_chain_channels(x1, p1, bank, carry, **kw)
+        torch.cuda.synchronize()
+        want, c_want = chain.mix_resample_chain_channels_plain(x1, p1, bank, carry, **kw)
+        err, text = _err_vs_plain(torch, got, want, outtype,
+                                  f"chain_channels {intype}->{outtype}")
+        check(torch.equal(c_got, c_want), "chain_channels carries differ from plain")
+        rows = True
+        for c in range(C):
+            one, c_one = chain.mix_resample_chain_stream(
+                x1, p1[:, c].contiguous(), bank, carry[c].contiguous(), **kw)
+            rows = rows and torch.equal(_channel_of(got, c, outtype), one) \
+                and torch.equal(c_got[c], c_one)
+        print(f"channels: chain {intype}->{outtype} C={C} B={B}: {text}; carries "
+              f"bitwise; rows vs C=1 launch bitwise={rows}")
+        check(rows, f"chain_channels {intype}->{outtype}: a channel differs "
+                              "from its one-channel launch")
+        worst["chain"] = max(worst["chain"], err)
+        if (intype, outtype) == ("i16", "i16"):
+            cc, parts = carry, []
+            for k in range(0, B, 64):
+                o, cc = chain.mix_resample_chain_channels(
+                    x1[k:k + 64].contiguous(), p1[:, :, k:k + 64].contiguous(),
+                    bank, cc, **kw)
+                parts.append(o)
+            torch.cuda.synchronize()
+            split_ok = torch.equal(torch.cat(parts, dim=1), got) and torch.equal(cc, c_got)
+            print(f"channels: chain 256 blocks vs 4x64 blocks bitwise={split_ok}")
+            check(split_ok, "chain_channels bytes depend on the chunk split")
+
+    for fs, formats in ((FS, FORMATS), (FS_SPLIT, (("i16", "f32"),))):
+        ms, stages, banks = _cascade(torch, fs)
+        dense = len(stages) < len(ms.stages)
+        for intype, outtype in formats:
+            kw = dict(stages=stages, intype=intype, outtype=outtype, final_dense=dense)
+            x0, x1 = (_data(torch, intype, B, L, gen) for _ in range(2))
+            p0 = _channel_plans(torch, C, B, L, fs=fs)
+            p1 = _channel_plans(torch, C, B, L, samplenum=7, fs=fs)
+            zero = tuple(torch.zeros(C, 2, Ts - 1, device="cuda") for _, _, Ts in stages)
+            _, carry = cascade.mix_cascade_channels(x0, p0, banks, zero, **kw)
+            got, c_got = cascade.mix_cascade_channels(x1, p1, banks, carry, **kw)
+            torch.cuda.synchronize()
+            want, c_want = cascade.mix_cascade_channels_plain(x1, p1, banks, carry, **kw)
+            err, text = _err_vs_plain(torch, got, want, outtype,
+                                      f"cascade_channels {intype}->{outtype} at {fs}")
+            c0_ok, c_err = _carry_errs(torch, c_got, c_want)
+            check(c0_ok and c_err <= TOL_F32, "cascade_channels carries differ from plain")
+            rows = True
+            for c in range(C):
+                one, c_one = cascade.mix_cascade_stream(
+                    x1, p1[:, c].contiguous(), banks,
+                    [cr[c].contiguous() for cr in carry], **kw)
+                rows = rows and torch.equal(_channel_of(got, c, outtype), one) \
+                    and all(torch.equal(a[c], b) for a, b in zip(c_got, c_one))
+            print(f"channels: cascade {stages} {intype}->{outtype} C={C} B={B}: {text}; "
+                  f"stage-0 carries bitwise, later max|d|={c_err!r}; rows vs C=1 "
+                  f"launch bitwise={rows}")
+            check(rows, f"cascade_channels {intype}->{outtype} at {fs}: a "
+                                  "channel differs from its one-channel launch")
+            worst["cascade"] = max(worst["cascade"], err)
+            if intype == "i16":
+                cc, parts = carry, []
+                for k in range(0, B, 64):
+                    o, cc = cascade.mix_cascade_channels(
+                        x1[k:k + 64].contiguous(), p1[:, :, k:k + 64].contiguous(),
+                        banks, cc, **kw)
+                    parts.append(o)
+                torch.cuda.synchronize()
+                split_ok = torch.equal(torch.cat(parts, dim=-2), got) and all(
+                    torch.equal(a, b) for a, b in zip(cc, c_got))
+                print(f"channels: cascade at {fs} 256 blocks vs 4x64 blocks "
+                      f"bitwise={split_ok}")
+                check(split_ok, "cascade_channels bytes depend on the chunk split")
+
+    # config 5's width, at the shapes slice (vii) gives the kernels: the
+    # 100 Msps front for 256 channels over a full chunk from nonzero
+    # carries, and the channel mixer on the EOF chunk's 20 blocks
+    _, stages, banks = _cascade(torch, FS_SPLIT)
+    kw = dict(stages=stages, intype="i16", outtype="f32", final_dense=True)
+    x0, x1 = (_data(torch, "i16", B, L, gen) for _ in range(2))
+    p0 = _channel_plans(torch, C_WIDE, B, L, fs=FS_SPLIT)
+    p1 = _channel_plans(torch, C_WIDE, B, L, samplenum=7, fs=FS_SPLIT)
+    zero = tuple(torch.zeros(C_WIDE, 2, Ts - 1, device="cuda") for _, _, Ts in stages)
+    _, carry = cascade.mix_cascade_channels(x0, p0, banks, zero, **kw)
+    got, c_got = cascade.mix_cascade_channels(x1, p1, banks, carry, **kw)
+    torch.cuda.synchronize()
+    want, c_want = cascade.mix_cascade_channels_plain(x1, p1, banks, carry, **kw)
+    err, text = _err_vs_plain(torch, got, want, "f32",
+                              f"cascade_channels front at C={C_WIDE}")
+    c0_ok, c_err = _carry_errs(torch, c_got, c_want)
+    print(f"channels: cascade {stages} i16->f32 C={C_WIDE} B={B}: out "
+          f"{tuple(got.shape)} {text}; stage-0 carries bitwise={c0_ok}, later "
+          f"max|d|={c_err!r}")
+    check(c0_ok and c_err <= TOL_F32,
+          f"cascade_channels carries at C={C_WIDE} differ from plain")
+    worst["cascade"] = max(worst["cascade"], err)
+    B_eof = (N_WIDE % (B * L) + L - 1) // L
+    xe = _data(torch, "i16", B_eof, L, gen)
+    pe = _channel_plans(torch, C_WIDE, B_eof, L, fs=FS_SPLIT)
+    got = mixer.mix_blocks_fmt_channels(xe, pe, outtype="f32")
+    torch.cuda.synchronize()
+    same = torch.equal(got, mixer.mix_blocks_fmt_channels_plain(xe, pe, outtype="f32"))
+    print(f"channels: mixer i16->f32 C={C_WIDE} B={B_eof} L={L}: bitwise vs "
+          f"plain={same}")
+    check(same, f"channel mixer at C={C_WIDE} differs from plain")
+    return worst
+
+
+def _capture(torch, n, seed, fs=FS, tones=((3000.0, 0.3, 0.0), (-7000.0, 0.2, 1.0))):
+    """Tones ``(Hz, amplitude, phase)`` plus noise, made on the card, as LE
+    i16 IQ bytes."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
     k = torch.arange(n, dtype=torch.float64, device="cuda")
-    ph1 = 2 * torch.pi * 3000.0 / fs * k
-    ph2 = -2 * torch.pi * 7000.0 / fs * k + 1.0
-    re_ = 0.3 * torch.cos(ph1) + 0.2 * torch.cos(ph2)
-    im_ = 0.3 * torch.sin(ph1) + 0.2 * torch.sin(ph2)
+    re_ = torch.zeros(n, dtype=torch.float64, device="cuda")
+    im_ = torch.zeros(n, dtype=torch.float64, device="cuda")
+    for hz, amp, ph0 in tones:
+        ph = torch.remainder(hz / fs * k, 1.0) * (2 * torch.pi) + ph0
+        re_ += amp * torch.cos(ph)
+        im_ += amp * torch.sin(ph)
     re_ += 0.01 * torch.randn(n, dtype=torch.float64, device="cuda", generator=gen)
     im_ += 0.01 * torch.randn(n, dtype=torch.float64, device="cuda", generator=gen)
     iq = torch.stack([torch.trunc(re_ * 32767), torch.trunc(im_ * 32767)], dim=1)
@@ -372,13 +576,44 @@ def _golden_mixed(raw, n_blocks, fs, shifts):
     return mixed
 
 
-def _track_shifts(n_blocks):
+def _golden_mixed_plan(raw, n_blocks, fs, shifts):
+    """The mix of the first ``n_blocks`` blocks from the plan words, in
+    float64: phase = the exact Q0.64 plan phase's top 24 bits (the host
+    planner and ``ops.nco.phase_q24`` on the CPU), tone = numpy's float64
+    exp.
+
+    The reference's own sequential mix (``shift_frequency_oracle``) rounds
+    ``ratio · samplenum`` to float32, so its phase noise grows with
+    shift / rate, and a channel near half the sample rate resets its counter
+    several times a block: :func:`phase_channel_slices` prints how far the
+    sequential oracle is from this golden on the widest channels (under the
+    70 dB bar on some).  Those channels are therefore held to the plan words
+    (which the CPU tests pin bitwise to the JAX planner).  The planner does
+    not vouch for itself: in every channels slice one channel with a small
+    composed shift is held to the sequential oracle over the same blocks,
+    and this golden is held to that oracle there too."""
+    import numpy as np
+
+    from doppler_tpu_torch import oracle
+    from doppler_tpu_torch.ops import nco
+    from doppler_tpu_torch.ops.phase_plan import NCOState, plan_blocks
+
+    plan = plan_blocks(list(shifts), [2048] * n_blocks, fs, NCOState(), 2048)
+    q24 = nco.phase_q24(nco.plan_tensor(plan), 2048).numpy().reshape(-1)
+    x = oracle.decode_i16_bytes(raw[:n_blocks * 2048 * 4]).astype(np.complex128)
+    return (x * np.exp(-2j * np.pi * (q24 / float(1 << 24)))).astype(np.complex64)
+
+
+def _track_scheduler(freq=FREQ):
     from doppler_tpu_torch.orbit import Observer, Predictor, Tle, TrackScheduler
 
     tle = Tle.from_lines("TEST SAT", *_tle_lines())
-    sched = TrackScheduler(Predictor(tle, Observer(58.26541, 26.46667, 76.0)),
-                           FREQ, OFFSET, FS, START_UNIX, telemetry=False)
-    return sched.shifts([2048] * n_blocks)
+    return TrackScheduler(Predictor(tle, Observer(58.26541, 26.46667, 76.0)),
+                          freq, OFFSET, FS, START_UNIX, telemetry=False)
+
+
+def _track_shifts(n_blocks):
+    return _track_scheduler().shifts([2048] * n_blocks)
 
 
 def _golden(mixed, stages):
@@ -395,17 +630,20 @@ def _golden(mixed, stages):
 
 
 def _counters():
-    from doppler_tpu_torch.ops.cuda.cascade import mix_cascade_stream
-    from doppler_tpu_torch.ops.cuda.chain import mix_resample_chain_stream
-    from doppler_tpu_torch.ops.cuda.mixer import mix_blocks_fmt
+    from doppler_tpu_torch.ops.cuda import cascade, chain, mixer
 
-    return {"mixer": mix_blocks_fmt, "chain": mix_resample_chain_stream,
-            "cascade": mix_cascade_stream}
+    return {"mixer": mixer.mix_blocks_fmt,
+            "chain": chain.mix_resample_chain_stream,
+            "cascade": cascade.mix_cascade_stream,
+            "mixer_channels": mixer.mix_blocks_fmt_channels,
+            "chain_channels": chain.mix_resample_chain_channels,
+            "cascade_channels": cascade.mix_cascade_channels}
 
 
-def _run_slice(name, argv, raw, card):
+def _run_slice(name, argv, raw, card, channels=1):
     """One capture through ``cli.main`` on the card, with every launch count
-    set to 0 just before and read just after."""
+    set to 0 just before and read just after.  ``channels`` scales the rate
+    line of a channels run (its outputs go to ``--output-dir``)."""
     from doppler_tpu_torch import cli
 
     sink, log = _Sink(), io.StringIO()
@@ -431,7 +669,9 @@ def _run_slice(name, argv, raw, card):
     n_in = len(raw) // 4
     msps = n_in / wall / 1e6
     print(f"slice {name}: launches {launches}")
-    print(f"slice {name}: wall {wall!r} s, {msps!r} Msps in [{card}]")
+    print(f"slice {name}: wall {wall!r} s, {msps!r} Msps in"
+          + (f" x {channels} channels = {msps * channels!r} M channel-samples/s"
+             if channels > 1 else "") + f" [{card}]")
     print(f"slice {name}: split host plan+stage {host_s!r} s, device "
           f"{device_s!r} s (copies + kernels), other host {wall - host_s!r} s "
           f"[{card}]")
@@ -449,9 +689,9 @@ def _check_slice(name, out, n_in, want_n, launches, kernel, golden):
     check(n_out == want_n, f"{name}: output length {n_out} != {want_n}")
     check(launches[kernel] == full,
           f"{name}: {kernel} launched {launches[kernel]} times, {full} full chunks")
-    for other in ("chain", "cascade"):
-        if other != kernel:
-            check(launches[other] == 0, f"{name}: {other} launched {launches[other]} times")
+    for other, count in launches.items():
+        if other not in (kernel, "mixer"):
+            check(count == 0, f"{name}: {other} launched {count} times")
     check(launches["mixer"] >= 1, f"{name}: the EOF chunk did not run the mixer kernel")
     got = oracle.decode_i16_bytes(out[:len(golden) * 4])
     snr = oracle.snr_db(golden, got)
@@ -503,14 +743,222 @@ def phase_slices(torch, card):
                            launches, "cascade", _golden(mixed5, ms5.stages))
         res["split"] = dict(split, launches=launches, snr_db=snr)
 
-        # (iii) the single-stage chain, on the first 20 s of (i)
-        raw20 = raw[:N_CHAIN * 4]
+        # (iii) the single-stage chain, on the capture of (i)
         out, launches, _, split = _run_slice(
-            "chain", track + ["--resample-stages", "single"], raw20, card)
+            "chain", track + ["--resample-stages", "single"], raw, card)
         rs = RationalResampler(FS, OUT_RATE)
-        snr = _check_slice("chain", out, N_CHAIN, -(-N_CHAIN * 3 // 64),
+        snr = _check_slice("chain", out, N_SLICE, -(-N_SLICE * 3 // 64),
                            launches, "chain", _golden(mixed, [rs]))
         res["chain"] = dict(split, launches=launches, snr_db=snr)
+    return res
+
+
+# -- channels mode ---------------------------------------------------------------
+
+def _f32_sum(a, b):
+    """f32(a) + f32(b) in float32: how a channel's shift and center compose."""
+    import numpy as np
+
+    return float(np.float32(a) + np.float32(b))
+
+
+def _config4_channels():
+    """BASELINE config 4: 16 TLE-tracked channels across a 1.024 Msps
+    capture, 64 kHz apart, each at its own downlink frequency."""
+    return [{"name": f"sat{k:02d}", "tlename": "TEST SAT",
+             "frequency": FREQ + 25000.0 * k, "offset": OFFSET,
+             "center_offset": -480000.0 + 64000.0 * k} for k in range(C_MAIN)]
+
+
+def _config4_const_channels():
+    """Config 4 as the conformance harness runs it (16 const channels)."""
+    return [{"name": f"ch{k}", "shift": -40000.0 + 10000.0 * k,
+             "center_offset": 1000.0 * k} for k in range(C_MAIN)]
+
+
+def _config5_channels():
+    """BASELINE config 5's width: 256 const channels across 100 Msps."""
+    return [{"name": f"w{k:03d}", "shift": -39_876_543.0 + 311_111.0 * k}
+            for k in range(C_WIDE)]
+
+
+def _channel_shifts(ch, n_blocks):
+    """Per-block composed shifts of one config entry, as the pipeline plans
+    them: f32(scheduler) + f32(center)."""
+    center = ch.get("center_offset", 0.0)
+    if "shift" in ch:
+        return [_f32_sum(ch["shift"], center)] * n_blocks
+    sched = _track_scheduler(ch["frequency"])
+    return [_f32_sum(s, center) for s in sched.shifts([2048] * n_blocks)]
+
+
+def _run_channels_slice(name, tmp, channels, argv, raw, card, top=None):
+    """One capture through ``cli.main(['channels', …])`` on the card; returns
+    the per-channel output bytes, the launch counts and the timing split."""
+    cfg = dict(top or {}, channels=channels)
+    cfg_path = os.path.join(tmp, f"{name}.json")
+    with open(cfg_path, "w") as f:
+        json.dump(cfg, f)
+    out_dir = os.path.join(tmp, name)
+    _, launches, msgs, split = _run_slice(
+        name, ["channels", "--config", cfg_path, "--output-dir", out_dir] + argv,
+        raw, card, channels=len(channels))
+    check(any(f"multi-channel mode: {len(channels)} channels" in m for m in msgs),
+          f"{name}: the CLI did not report {len(channels)} channels")
+    outs = []
+    for ch in channels:
+        with open(os.path.join(out_dir, ch["name"] + ".iq"), "rb") as f:
+            outs.append(f.read())
+    return outs, launches, split
+
+
+def _check_channels_slice(name, outs, n_in, want_n, launches, want_launches,
+                          goldens):
+    """Exact length on every channel, the launch counts of the route, and
+    SNR against every golden of ``goldens``: pairs ``(channel, which golden,
+    its outputs)``."""
+    import numpy as np
+
+    from doppler_tpu_torch import oracle
+
+    lengths = {len(o) // 4 for o in outs}
+    print(f"slice {name}: {n_in} samples in -> {sorted(lengths)} out on "
+          f"{len(outs)} channels (want {want_n})")
+    check(lengths == {want_n}, f"{name}: output lengths {sorted(lengths)} != {want_n}")
+    check(launches == want_launches,
+          f"{name}: launches {launches}, want {want_launches}")
+    worst = float("inf")
+    for c, which, golden in goldens:
+        got = oracle.decode_i16_bytes(outs[c][:len(golden) * 4])
+        snr = oracle.snr_db(golden, got)
+        rms = float(np.sqrt(np.mean(np.abs(golden) ** 2)))
+        print(f"slice {name}: channel {c}: first {len(golden)} outputs vs the "
+              f"{which} golden (rms {rms!r}): SNR {snr!r} dB")
+        # an equal pair of silent signals would read as infinite SNR
+        check(rms > 0.05, f"{name}: channel {c} golden holds no signal (rms {rms})")
+        check(snr > 70.0, f"{name}: channel {c} SNR {snr} dB <= 70 dB")
+        worst = min(worst, snr)
+    return worst
+
+
+def _launches(**counts):
+    return dict({k: 0 for k in _counters()}, **counts)
+
+
+def phase_channel_slices(torch, card):
+    import numpy as np
+
+    from doppler_tpu_torch import oracle
+    from doppler_tpu_torch.ops.multistage import MultiStageResampler
+    from doppler_tpu_torch.ops.resample import RationalResampler
+
+    checked = (0, C_MAIN // 2, C_MAIN - 1)
+    checked5 = (0, C_WIDE // 2, C_WIDE - 1)
+    # the middle channels' composed shifts are small (under 0.05 of the
+    # rate): they are held to the reference's sequential mix as well
+    mid, mid5 = C_MAIN // 2, C_WIDE // 2
+    cfg4, cfg4c, cfg5 = _config4_channels(), _config4_const_channels(), _config5_channels()
+    # a tone 3 kHz above where each checked channel's shift brings DC from
+    t0 = time.perf_counter()
+    raw4 = _capture(torch, N_SLICE, seed=4, tones=[
+        (_channel_shifts(cfg4[c], 1)[0] + 3000.0, 0.22, float(c)) for c in checked])
+    raw5 = _capture(torch, N_WIDE, seed=6, fs=FS_SPLIT, tones=[
+        (_channel_shifts(cfg5[c], 1)[0] + 5000.0, 0.22, float(c)) for c in checked5])
+    print(f"slice: channel captures of {N_SLICE} and {N_WIDE} samples made in "
+          f"{time.perf_counter() - t0:.3f} s")
+    t0 = time.perf_counter()
+    mixed4 = {c: _golden_mixed_plan(raw4, GOLDEN_BLOCKS, FS,
+                                     _channel_shifts(cfg4[c], GOLDEN_BLOCKS))
+              for c in checked}
+    mixed4c = {c: _golden_mixed_plan(raw4, GOLDEN_BLOCKS, FS,
+                                      _channel_shifts(cfg4c[c], GOLDEN_BLOCKS))
+               for c in checked}
+    mixed5 = {c: _golden_mixed_plan(raw5, GOLDEN_BLOCKS, FS_SPLIT,
+                                     _channel_shifts(cfg5[c], GOLDEN_BLOCKS))
+              for c in checked5}
+    print(f"slice: plan-word golden mixes of {GOLDEN_BLOCKS} blocks x9 in "
+          f"{time.perf_counter() - t0:.1f} s")
+    # the reference's sequential float32 mix over the same blocks: the middle
+    # channel of each configuration, and the last (widest) of configs 4 and 5
+    t0 = time.perf_counter()
+    seq = {}
+    for key, raw, fs, cfg, mixed, cs in (
+            ("config 4", raw4, FS, cfg4, mixed4, (mid, C_MAIN - 1)),
+            ("config 4 const", raw4, FS, cfg4c, mixed4c, (mid,)),
+            ("config 5", raw5, FS_SPLIT, cfg5, mixed5, (mid5, C_WIDE - 1))):
+        for c in cs:
+            shifts = _channel_shifts(cfg[c], GOLDEN_BLOCKS)
+            seq[key, c] = _golden_mixed(raw, GOLDEN_BLOCKS, fs, shifts)
+            tie = oracle.snr_db(seq[key, c], mixed[c])
+            print(f"slice: {key} channel {c} (shift / rate {shifts[0] / fs!r}): "
+                  f"plan-word golden vs the sequential float32 oracle over "
+                  f"{GOLDEN_BLOCKS} blocks of mixed samples: {tie!r} dB")
+            if c in (mid, mid5):
+                check(tie > 70.0, f"{key} channel {c}: the plan-word golden is "
+                                  f"{tie} dB from the sequential oracle")
+    print(f"slice: sequential golden mixes of {GOLDEN_BLOCKS} blocks x5 in "
+          f"{time.perf_counter() - t0:.1f} s")
+
+    def i16(y):
+        return oracle.decode_i16_bytes(oracle.encode_i16_bytes(y.astype(np.complex64)))
+
+    full = lambda n: n // (B_MAIN * 2048)                       # noqa: E731
+    res = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        tle_path = os.path.join(tmp, "sat.txt")
+        with open(tle_path, "w") as f:
+            f.write("TEST SAT\n" + "\n".join(_tle_lines()) + "\n")
+        top = {"tlefile": tle_path, "location": LOCATION,
+               "time": time.strftime("%Y-%m-%dT%H:%M:%S", time.gmtime(START_UNIX))}
+        io_args = ["-s", str(FS), "-i", "i16"]
+
+        # (iv) config 4: 16 track channels -> 48 ksps, the default route
+        ms = MultiStageResampler(FS, OUT_RATE)
+        outs, launches, split = _run_channels_slice(
+            "config4", tmp, cfg4, io_args + ["--resample-to", str(OUT_RATE)],
+            raw4, card, top)
+        snr = _check_channels_slice(
+            "config4", outs, N_SLICE, ms.out_count_for(N_SLICE), launches,
+            _launches(cascade_channels=full(N_SLICE), mixer_channels=1),
+            [(c, "plan-word", _golden(mixed4[c], ms.stages)) for c in checked]
+            + [(mid, "sequential", _golden(seq["config 4", mid], ms.stages))])
+        res["config4"] = dict(split, launches=launches, snr_db=snr)
+
+        # (v) its first 10 s through the single-stage chain
+        rs = RationalResampler(FS, OUT_RATE)
+        outs, launches, split = _run_channels_slice(
+            "config4-chain", tmp, cfg4,
+            io_args + ["--resample-to", str(OUT_RATE), "--resample-stages", "single"],
+            raw4[:N_CH_CHAIN * 4], card, top)
+        snr = _check_channels_slice(
+            "config4-chain", outs, N_CH_CHAIN, -(-N_CH_CHAIN * 3 // 64), launches,
+            _launches(chain_channels=full(N_CH_CHAIN), mixer_channels=1),
+            [(c, "plan-word", _golden(mixed4[c], [rs])) for c in checked]
+            + [(mid, "sequential", _golden(seq["config 4", mid], [rs]))])
+        res["config4-chain"] = dict(split, launches=launches, snr_db=snr)
+
+        # (vi) 16 const channels, no resampler: the channel mixer alone
+        outs, launches, split = _run_channels_slice(
+            "config4-mix", tmp, cfg4c, io_args, raw4[:N_CH_MIX * 4], card)
+        snr = _check_channels_slice(
+            "config4-mix", outs, N_CH_MIX, N_CH_MIX, launches,
+            _launches(mixer_channels=full(N_CH_MIX) + 1),
+            [(c, "plan-word", i16(mixed4c[c])) for c in checked]
+            + [(mid, "sequential", i16(seq["config 4 const", mid]))])
+        res["config4-mix"] = dict(split, launches=launches, snr_db=snr)
+
+        # (vii) config 5's rate and width on one card
+        ms5 = MultiStageResampler(FS_SPLIT, OUT_RATE)
+        outs, launches, split = _run_channels_slice(
+            "config5", tmp, cfg5,
+            ["-s", str(FS_SPLIT), "-i", "i16", "--resample-to", str(OUT_RATE)],
+            raw5, card)
+        snr = _check_channels_slice(
+            "config5", outs, N_WIDE, ms5.out_count_for(N_WIDE), launches,
+            _launches(cascade_channels=full(N_WIDE), mixer_channels=1),
+            [(c, "plan-word", _golden(mixed5[c], ms5.stages)) for c in checked5]
+            + [(mid5, "sequential", _golden(seq["config 5", mid5], ms5.stages))])
+        res["config5"] = dict(split, launches=launches, snr_db=snr)
     return res
 
 
@@ -528,6 +976,122 @@ def _median_ms(torch, fn, runs=20, warmup=3):
         b.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def _device_us(torch, fn, kernel_name, runs=10):
+    """Mean device time of the kernel whose name holds ``kernel_name`` over
+    ``runs`` calls of ``fn``, from ``torch.profiler``; None when the trace
+    holds no such kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(runs):
+            fn()
+        torch.cuda.synchronize()
+    total, count = 0.0, 0
+    for ev in prof.key_averages():
+        if kernel_name in ev.key:
+            total += getattr(ev, "device_time_total", None) or getattr(
+                ev, "cuda_time_total", 0.0)
+            count += ev.count
+    return total / count if count and total > 0 else None
+
+
+def _bound(C, B, L, stages, *, out_bytes=4):
+    """The least time the card could take: (ms, 'bytes' or 'operations').
+
+    Bytes: the shared chunk (int32 words) and the plan words read once, each
+    channel's output written once, banks and carries once.  Operations, in
+    float32 outside the tensor cores: the mix (MIX_FLOP a sample) for every
+    channel, 4·T·P/Q per stage input sample (I and Q, multiply and add), and
+    2 a sample to encode i16.  ``stages`` = () is the mixer."""
+    n = B * L
+    byts = 4 * n + 28 * C * B
+    flop = C * n * MIX_FLOP
+    for P, Q, T in stages:
+        flop += C * 4 * T * P * (n // Q)
+        byts += 4 * P * T + 2 * C * 2 * 4 * (T - 1)
+        n = n // Q * P
+    byts += C * n * out_bytes
+    if out_bytes == 4:
+        flop += C * n * 2
+    t_b, t_f = byts / HBM_BYTES_PER_S, flop / F32_FLOP_PER_S
+    return max(t_b, t_f) * 1e3, "bytes" if t_b >= t_f else "operations"
+
+
+def phase_timing_channels(torch, gen, card):
+    """The channel-batched kernels at C = 16: events (plain, kernel, kernel,
+    plain) and the profiler's device time.  (To time the other grid schedule,
+    run the script once more on the same card with
+    ``DOPPLER_NVCC_FLAGS=-DDOPPLER_CHANNEL_MAJOR`` and compare these lines.)"""
+    from doppler_tpu_torch.ops.cuda import cascade, chain, mixer
+    from doppler_tpu_torch.ops.resample import RationalResampler
+
+    C, L = C_MAIN, 2048
+    rs = RationalResampler(FS, OUT_RATE)
+    chain_stage = ((rs.P, rs.Q, rs.T),)
+    bank = torch.from_numpy(rs.bank).cuda()
+    carry = torch.zeros(C, 2, rs.T - 1, device="cuda")
+    _, c3, b3 = _cascade(torch, FS)
+    z3 = tuple(torch.zeros(C, 2, T - 1, device="cuda") for _, _, T in c3)
+    _, c5, b5 = _cascade(torch, FS_SPLIT)
+    front = dict(stages=c5, outtype="f32", final_dense=True)
+    ckw = dict(P=rs.P, Q=rs.Q, T=rs.T)
+    res = {}
+    for B in (B_MAIN, B_BIG):
+        x = _data(torch, "i16", B, L, gen)
+        p = _channel_plans(torch, C, B, L)
+        # name -> (kernel, plain, kernel's name in a trace, stages)
+        cases = {
+            "mixer_channels": (
+                lambda: mixer.mix_blocks_fmt_channels(x, p),
+                lambda: mixer.mix_blocks_fmt_channels_plain(x, p),
+                "mixer_kernel", ()),
+            "chain_channels": (
+                lambda: chain.mix_resample_chain_channels(x, p, bank, carry, **ckw),
+                lambda: chain.mix_resample_chain_channels_plain(x, p, bank, carry, **ckw),
+                "chain_kernel", chain_stage),
+            "cascade_channels": (
+                lambda: cascade.mix_cascade_channels(x, p, b3, z3, stages=c3),
+                lambda: cascade.mix_cascade_channels_plain(x, p, b3, z3, stages=c3),
+                "cascade_kernel", c3),
+        }
+        runs = 20 if B == B_MAIN else 3       # the big plain versions take seconds
+        for name, (kern, plain, trace_name, stages) in cases.items():
+            pl_a = _median_ms(torch, plain, runs=runs, warmup=1)
+            k_a = _median_ms(torch, kern)
+            k_b = _median_ms(torch, kern)
+            pl_b = _median_ms(torch, plain, runs=runs, warmup=1)
+            dev_us = _device_us(torch, kern, trace_name)
+            bound_ms, by = _bound(C, B, L, stages)
+            k_ms, pl_ms = min(k_a, k_b), min(pl_a, pl_b)
+            n = C * B * L
+            dev = "not measured" if dev_us is None else f"{dev_us!r} us"
+            share = "" if dev_us is None else (
+                f" = {bound_ms * 1e3 / dev_us!r} of the device time")
+            print(f"timing: {name} i16->i16 C={C} B={B} ({n} channel-samples): "
+                  f"kernel {k_a!r}/{k_b!r} ms, plain {pl_a!r}/{pl_b!r} ms; "
+                  f"device {dev}; "
+                  f"{n / k_ms / 1e6!r} G channel-samples/s; bound {bound_ms!r} ms "
+                  f"({by}){share} [{card}]")
+            res[(name, B)] = (k_ms, pl_ms, bound_ms, by)
+    # the config-5 front at its own width: C = 256, B = 256, float32 planes
+    x = _data(torch, "i16", B_MAIN, L, gen)
+    p5 = _channel_plans(torch, C_WIDE, B_MAIN, L, fs=FS_SPLIT)
+    z5 = tuple(torch.zeros(C_WIDE, 2, T - 1, device="cuda") for _, _, T in c5)
+    wide = lambda: cascade.mix_cascade_channels(x, p5, b5, z5, **front)  # noqa: E731
+    k_ms = min(_median_ms(torch, wide), _median_ms(torch, wide))
+    dev_us = _device_us(torch, wide, "cascade_kernel")
+    bound_ms, by = _bound(C_WIDE, B_MAIN, L, c5, out_bytes=8)
+    n = C_WIDE * B_MAIN * L
+    dev = "not measured" if dev_us is None else f"{dev_us!r} us"
+    print(f"timing: split front i16->f32 C={C_WIDE} B={B_MAIN} ({n} "
+          f"channel-samples, {B_MAIN * L / FS_SPLIT * 1e3!r} ms of capture): kernel "
+          f"{k_ms!r} ms; device {dev}; {n / k_ms / 1e6!r} G channel-samples/s; "
+          f"bound {bound_ms!r} ms ({by}) [{card}]")
+    return res
 
 
 def phase_timing(torch, gen, card):
@@ -578,11 +1142,15 @@ def phase_timing(torch, gen, card):
             bpi = {"mixer": 8.0, "split front": 4.0 + 8.0 / 256}.get(
                 name, 4.0 + 4.0 * 3 / 64)
             fmt = "i16->f32" if name == "split front" else "i16->i16"
+            stages = {"mixer": (), "chain": ((3, 64, rs.T),), "cascade": c3,
+                      "split front": c5}[name]
+            bound_ms, by = _bound(1, B, L, stages,
+                                  out_bytes=8 if name == "split front" else 4)
             print(f"timing: {name} {fmt} B={B} ({n} samples): kernel "
                   f"{k_a!r}/{k_b!r} ms, plain {pl_a!r}/{pl_b!r} ms; kernel "
-                  f"{n / k_ms / 1e6!r} GS/s, {n * bpi / k_ms / 1e6!r} GB/s "
-                  f"[{card}]")
-            res[(name, B)] = (k_ms, pl_ms)
+                  f"{n / k_ms / 1e6!r} GS/s, {n * bpi / k_ms / 1e6!r} GB/s; "
+                  f"bound {bound_ms!r} ms ({by}) [{card}]")
+            res[(name, B)] = (k_ms, pl_ms, bound_ms, by)
     return res
 
 
@@ -610,32 +1178,49 @@ def main() -> int:
         mix_err = phase_mixer(torch, gen)
         chain_err = phase_chain(torch, gen)
         cascade_err = phase_cascade(torch, gen)
+        channel_err = phase_channels(torch, gen)
         slices = phase_slices(torch, card)
+        slices.update(phase_channel_slices(torch, card))
         times = phase_timing(torch, gen, card)
+        times.update(phase_timing_channels(torch, gen, card))
         if "jax" in sys.modules:
             raise Failed("jax was imported")
     except Exception as e:      # every failure ends the run non-zero
         traceback.print_exc()
         print(f"FAIL: {e}")
         return 1
+    def entry(name, source, replaces, launches, err, **more):
+        # ms, plain_ms and bound_ms at B = 256 (C = 16 for the channel
+        # kernels), i16 -> i16; no single PyTorch call computes any of these
+        # functions, so there is no library time
+        ms, plain_ms, bound_ms, by = times[(name, B_MAIN)]
+        return dict({"name": name, "route": "cuda",
+                     "source": f"doppler_tpu_torch/csrc/{source}",
+                     "replaces": replaces, "launches": launches,
+                     "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                     "bound_ms": bound_ms, "bound_by": by, "library_ms": None},
+                    **more)
+
+    default, config4 = slices["default"]["launches"], slices["config4"]["launches"]
     kernels = [
-        {"name": "mixer", "route": "cuda",
-         "source": "doppler_tpu_torch/csrc/mixer.cu",
-         "replaces": "doppler_tpu/ops/pallas/mixer.py:227",
-         "launches": slices["default"]["launches"]["mixer"], "max_abs_err": mix_err,
-         "ms": times[("mixer", B_MAIN)][0], "plain_ms": times[("mixer", B_MAIN)][1]},
-        {"name": "chain", "route": "cuda",
-         "source": "doppler_tpu_torch/csrc/chain.cu",
-         "replaces": "doppler_tpu/ops/pallas/chain.py:404",
-         "launches": slices["chain"]["launches"]["chain"], "max_abs_err": chain_err,
-         "ms": times[("chain", B_MAIN)][0], "plain_ms": times[("chain", B_MAIN)][1]},
-        {"name": "cascade", "route": "cuda",
-         "source": "doppler_tpu_torch/csrc/cascade.cu",
-         "replaces": "doppler_tpu/ops/pallas/chain.py:960",
-         "launches": slices["default"]["launches"]["cascade"],
-         "max_abs_err": cascade_err,
-         "ms": times[("cascade", B_MAIN)][0], "plain_ms": times[("cascade", B_MAIN)][1]},
+        entry("mixer", "mixer.cu", "doppler_tpu/ops/pallas/mixer.py:227",
+              default["mixer"], mix_err,
+              launches_channels=slices["config4-mix"]["launches"]["mixer_channels"]),
+        entry("chain", "chain.cu", "doppler_tpu/ops/pallas/chain.py:404",
+              slices["chain"]["launches"]["chain"], chain_err),
+        entry("cascade", "cascade.cu", "doppler_tpu/ops/pallas/chain.py:960",
+              default["cascade"], cascade_err),
+        entry("chain_channels", "chain.cu", "doppler_tpu/ops/pallas/chain.py:556",
+              slices["config4-chain"]["launches"]["chain_channels"],
+              channel_err["chain"]),
+        entry("cascade_channels", "cascade.cu",
+              "doppler_tpu/ops/pallas/chain.py:1078",
+              config4["cascade_channels"], channel_err["cascade"]),
     ]
+    for k in kernels:
+        if k["launches"] < 1:
+            print(f"FAIL: kernel {k['name']} was not launched on its slice")
+            return 1
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,4 +1,4 @@
-"""``doppler``-compatible command line on one GPU: const and track.
+"""``doppler``-compatible command line on one GPU: const, track, channels.
 
 Flag-compatible with ``doppler_tpu/cli.py`` for what this package runs:
 
@@ -7,15 +7,20 @@ Flag-compatible with ``doppler_tpu/cli.py`` for what this package runs:
 - ``track``: the same I/O flags plus ``--tlefile``, ``--tlename``,
   ``--location lat=..,lon=..,alt=..``, ``--time UTC``
   (``%Y-%m-%dT%H:%M:%S``), ``--frequency Hz``, ``--offset Hz``.
+- ``channels``: the I/O flags plus ``--config JSON`` (see
+  ``docs/channels.md``) and ``--output-dir DIR``: N channels out of one
+  wideband capture, one ``<name>.iq`` file per channel.
 - framework flags: ``--block-bytes``, ``--chunk-blocks``,
   ``--resample-to``, ``--resample-stages {single,auto,multi}`` (default
   ``auto``: the halfband cascade when decimating by 4× or more, as in the
   JAX package), ``--exact-ratio``, ``--drain``, ``--log-format``,
-  ``--log-level``, ``--input``, ``--output``, and ``--device {cuda,cpu}``
-  (default ``cuda``; no silent CPU fallback).
+  ``--log-level``, ``--input``, ``--output``, ``--save-state`` /
+  ``--load-state`` (a resumable checkpoint in the JAX package's format;
+  a resumed run seeks ``--input`` and appends to its output), and
+  ``--device {cuda,cpu}`` (default ``cuda``; no silent CPU fallback).
 
-The JAX package's ``channels`` mode, ``--mesh``, ``--distributed``,
-``--save-state``/``--load-state``, ``--precision`` and ``--resample-impl``
+The JAX package's ``--mesh``, ``--distributed``, ``--host-channels``,
+``--impl``, ``--precision``, ``--prefetch-chunks`` and ``--resample-impl``
 are not ported; their flags do not exist here.
 
 IQ bytes flow stdin → stdout; telemetry goes to stderr only (main.rs:212-233).
@@ -26,6 +31,8 @@ from __future__ import annotations
 import argparse
 import calendar
 import contextlib
+import os
+import signal
 import sys
 import time as _time
 
@@ -114,6 +121,13 @@ def _add_io_args(p: argparse.ArgumentParser) -> None:
                    help="read IQ from a file instead of stdin")
     p.add_argument("--output", metavar="FILE", default=None,
                    help="write IQ to a file instead of stdout")
+    p.add_argument("--save-state", metavar="PATH", default=None,
+                   help="write a resumable checkpoint (.npz) at EOF or on "
+                        "SIGTERM/SIGINT")
+    p.add_argument("--load-state", metavar="PATH", default=None,
+                   help="resume from a checkpoint written by --save-state: "
+                        "seeks --input to the saved offset (a pipe must be "
+                        "fed from there) and appends to the output")
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
                    help="'cuda' (default) runs the hand-written kernels on "
                         "the GPU and fails without one; 'cpu' runs their "
@@ -153,6 +167,16 @@ def build_parser() -> argparse.ArgumentParser:
                        help="Satellite transmitter frequency in Hz")
     track.add_argument("--offset", type=float, default=0.0,
                        help="Constant frequency shift in Hz added on top")
+
+    chans = sub.add_parser(
+        "channels",
+        help="Multi-satellite batch: N channels from one wideband capture",
+    )
+    _add_io_args(chans)
+    chans.add_argument("--config", required=True,
+                       help="JSON channel config (see docs/channels.md)")
+    chans.add_argument("--output-dir", default=".",
+                       help="directory for per-channel <name>.iq outputs")
     return ap
 
 
@@ -216,6 +240,160 @@ def _make_scheduler(args, log, outtype):
         return None
 
 
+def _log_device(log, device) -> None:
+    if device.type == "cuda":
+        import torch
+
+        log.info("device          : %s (%s)", device,
+                 torch.cuda.get_device_name(device))
+    else:
+        log.info("device          : cpu (plain torch versions of the kernels)")
+
+
+def _resume_byte(args, log, meta, key: str, bps: int):
+    """Where a restored run resumes in the input: the byte offset, or the
+    exit code when there is nothing to run.  A checkpoint written after an
+    EOF drain is complete: running again would drain again and append the
+    FIR tails a second time (the outputs open in append mode)."""
+    resume_byte = meta[key] * bps
+    if meta.get("drained"):
+        size = os.stat(args.input).st_size if args.input else None
+        if size is None or resume_byte >= size:
+            log.info("checkpoint is complete (drained); nothing to do")
+            return None, 0
+        log.error(
+            "checkpoint was written after an EOF drain but the capture has "
+            "grown since; the flushed FIR tail already ended the output, so "
+            "resuming would corrupt it — reprocess the full capture instead")
+        return None, 1
+    log.info("resumed at input sample %d (byte %d)", meta[key], resume_byte)
+    return resume_byte, None
+
+
+@contextlib.contextmanager
+def _stop_on_signal(enabled: bool):
+    """With ``--save-state``, SIGTERM/SIGINT finish the chunk in flight and
+    then stop, so the checkpoint is consistent with the bytes already
+    written.  Yields the flag; restores the previous handlers on exit."""
+    flag = {"stop": False}
+    if not enabled:
+        yield flag
+        return
+
+    def on_signal(signum, frame):
+        flag["stop"] = True
+
+    previous = {sig: signal.signal(sig, on_signal)
+                for sig in (signal.SIGTERM, signal.SIGINT)}
+    try:
+        yield flag
+    finally:
+        for sig, handler in previous.items():
+            signal.signal(sig, handler)
+
+
+def _main_channels(args, log, outtype: str, chunk_blocks: int, stdin) -> int:
+    """The ``channels`` arm: N channels of one wideband capture into
+    ``--output-dir/<name>.iq``."""
+    from doppler_tpu_torch.orbit import RealtimeTrackScheduler
+    from doppler_tpu_torch.orbit.sgp4 import SGP4Error
+    from doppler_tpu_torch.runtime import checkpoint
+    from doppler_tpu_torch.runtime.channels import (
+        MultiChannelPipeline,
+        load_channel_config,
+    )
+
+    bps = stream_bps(args.intype)
+    try:
+        specs, _ = load_channel_config(args.config, args.samplerate)
+    except (OSError, KeyError, ValueError) as e:
+        log.error("bad channel config: %s", e)
+        return 1
+    log.info("multi-channel mode: %d channels", len(specs))
+    for s in specs:
+        log.info("\tchannel %-16s center offset %+.0f Hz",
+                 s.name, s.center_offset_hz)
+    # realtime channel schedulers re-evaluate their Doppler curve once per
+    # dispatch, exactly like realtime track mode: an unset --chunk-blocks
+    # shrinks to the ~64 ms 'auto' target here too
+    if args.chunk_blocks is None and any(
+            isinstance(s.scheduler, RealtimeTrackScheduler) for s in specs):
+        chunk_blocks = _resolve_chunk_blocks("auto", args.samplerate,
+                                             args.block_bytes // bps)
+        log.info("realtime channel(s): chunk-blocks auto = %d", chunk_blocks)
+    try:
+        mpipe = MultiChannelPipeline(
+            args.samplerate, args.intype, outtype, specs,
+            out_rate=args.resample_to,
+            block_bytes=args.block_bytes,
+            chunk_blocks=chunk_blocks,
+            quantize_ratio_f32=not args.exact_ratio,
+            drain_on_eof=args.drain,
+            resample_stages=args.resample_stages,
+            device=args.device,
+        )
+    except (ValueError, RuntimeError) as e:
+        log.error("%s", e)
+        return 1
+    _log_device(log, mpipe.device)
+
+    with contextlib.ExitStack() as files:
+        try:
+            fin = (files.enter_context(open(args.input, "rb")) if args.input
+                   else stdin or sys.stdin.buffer)
+        except OSError as e:
+            log.error("%s", e)
+            return 1
+        if args.load_state:
+            try:
+                meta = checkpoint.restore_channels(args.load_state, mpipe)
+            except (ValueError, OSError) as e:
+                log.error("%s", e)
+                return 1
+            resume_byte, rc = _resume_byte(args, log, meta, "samples_in", bps)
+            if rc is not None:
+                return rc
+            if args.input:
+                # seekable capture: fast-forward to the checkpoint
+                fin.seek(resume_byte)
+        try:
+            os.makedirs(args.output_dir, exist_ok=True)
+            # resuming appends to the per-channel files written before the cut
+            writers = [
+                files.enter_context(open(
+                    os.path.join(args.output_dir, f"{s.name}.iq"),
+                    "ab" if args.load_state else "wb"))
+                for s in specs
+            ]
+        except OSError as e:
+            log.error("%s", e)
+            return 1
+        with _stop_on_signal(bool(args.save_state)) as stop:
+            try:
+                counters = mpipe.run(fin, writers,
+                                     should_stop=lambda: stop["stop"])
+            except SGP4Error as e:
+                log.error("orbit propagation failed: %s (supply a current "
+                          "TLE, or a start time near the TLE epoch)", e)
+                return 1
+
+    if args.save_state:
+        checkpoint.save_channels(args.save_state, mpipe)
+        log.info("checkpoint written to %s", args.save_state)
+    if stop["stop"]:
+        log.warning("stopped by signal after a consistent chunk boundary")
+        return 130
+    dt = counters.elapsed()
+    log.info(
+        "done: %d wideband samples x %d channels in %.6f s (%.6f Msps in); "
+        "host plan+stage %.6f s, device %.6f s",
+        counters.samples, len(specs), dt,
+        (counters.samples / dt if dt > 0 else 0.0) / 1e6,
+        mpipe.host_s, mpipe.device_s,
+    )
+    return 0
+
+
 def main(argv=None, stdin=None, stdout=None) -> int:
     import logging
 
@@ -239,11 +417,15 @@ def main(argv=None, stdin=None, stdout=None) -> int:
     try:
         chunk_blocks = _resolve_chunk_blocks(
             args.chunk_blocks, args.samplerate, args.block_bytes // bps,
-            realtime=(args.mode == "track" and args.time is None),
+            realtime=(args.mode == "track"
+                      and getattr(args, "time", None) is None),
         )
     except ValueError as e:
         log.error("%s", e)
         return 1
+
+    if args.mode == "channels":
+        return _main_channels(args, log, outtype, chunk_blocks, stdin)
 
     scheduler = _make_scheduler(args, log, outtype)
     if scheduler is None:
@@ -251,6 +433,7 @@ def main(argv=None, stdin=None, stdout=None) -> int:
 
     from doppler_tpu_torch.ops.resample import attach_resampler
     from doppler_tpu_torch.orbit.sgp4 import SGP4Error
+    from doppler_tpu_torch.runtime import checkpoint
     from doppler_tpu_torch.runtime.pipeline import Pipeline
 
     try:
@@ -268,29 +451,46 @@ def main(argv=None, stdin=None, stdout=None) -> int:
     except (ValueError, RuntimeError) as e:
         log.error("%s", e)
         return 1
-    if pipe.device.type == "cuda":
-        import torch
-
-        log.info("device          : %s (%s)", pipe.device,
-                 torch.cuda.get_device_name(pipe.device))
-    else:
-        log.info("device          : cpu (plain torch versions of the kernels)")
+    _log_device(log, pipe.device)
 
     with contextlib.ExitStack() as files:
         try:
             fin = (files.enter_context(open(args.input, "rb")) if args.input
                    else stdin or sys.stdin.buffer)
-            fout = (files.enter_context(open(args.output, "wb")) if args.output
-                    else stdout or sys.stdout.buffer)
+            # resume appends: the bytes written before the cut are exactly
+            # consistent with the checkpoint, so the resumed run completes
+            # the file the uninterrupted run would have written
+            fout = (files.enter_context(
+                        open(args.output, "ab" if args.load_state else "wb"))
+                    if args.output else stdout or sys.stdout.buffer)
         except OSError as e:
             log.error("%s", e)
             return 1
-        try:
-            counters = pipe.run(fin, fout)
-        except SGP4Error as e:
-            log.error("orbit propagation failed: %s "
-                      "(supply a current TLE, or --time near the TLE epoch)", e)
-            return 1
+        if args.load_state:
+            try:
+                meta = checkpoint.restore(args.load_state, pipe)
+            except (ValueError, OSError) as e:
+                log.error("%s", e)
+                return 1
+            resume_byte, rc = _resume_byte(args, log, meta, "sample_offset", bps)
+            if rc is not None:
+                return rc
+            if args.input:
+                fin.seek(resume_byte)
+        with _stop_on_signal(bool(args.save_state)) as stop:
+            try:
+                counters = pipe.run(fin, fout, should_stop=lambda: stop["stop"])
+            except SGP4Error as e:
+                log.error("orbit propagation failed: %s (supply a current "
+                          "TLE, or --time near the TLE epoch)", e)
+                return 1
+
+    if args.save_state:
+        checkpoint.save(args.save_state, pipe)
+        log.info("checkpoint written to %s", args.save_state)
+    if stop["stop"]:
+        log.warning("stopped by signal after a consistent chunk boundary")
+        return 130
 
     # report the INPUT rate (the reference's realtime contract is on the
     # capture rate; with a resampler the output count is P/Q of it)

@@ -2,7 +2,8 @@
 //
 // Replaces doppler_tpu/ops/pallas/chain.py:768 _make_cascade_kernel (with
 // its mix front _make_mix_front, chain.py:145, and reduction _acc_slices,
-// chain.py:191), reached through mix_cascade_pallas_stream (chain.py:960).
+// chain.py:191), reached through mix_cascade_pallas_stream (chain.py:960)
+// and, with a channel axis, mix_cascade_pallas_channels (chain.py:1078).
 //
 // Computes, for each fused stage s = 0..S−1 and chunk-local index m,
 //     x_{s+1}[m] = Σ_{l<T_s} bank_s[(m·Q_s) mod P_s, l] · x_s[⌊m·Q_s/P_s⌋ − l]
@@ -24,6 +25,18 @@
 // sequential __fmaf_rn over l = 0..T−1 in fixed order from the same
 // inputs, so the bytes depend neither on the tile size nor on how the
 // stream is split into chunks.  No state passes between CTAs.
+//
+// Channels: C channels run the same (B, L) chunk, each with its own plan
+// words (7, C, B) and its own carries (C, 2, T_s−1) per stage, into
+// (C, n_out) words or (2, C, n_out) planes (the split front writes planes,
+// so the tail stages see (C, n_out) rows); a single stream is C = 1.  Every
+// channel has its own tile and carry CTAs; the per-stage pointers in the
+// Geometry are channel 0's and a CTA adds its channel's stride 2·(T_s−1).
+// The channel is the fast index of the grid (nco.cuh split_block), so the C
+// CTAs that mix one input span run together and find it in L2.  Channel
+// c's bytes are those of a C = 1 launch with its plan words and carries.
+// With C channels the work is C times the stream kernel's on one read of
+// the input: beyond a few channels the bound is the float32 rate.
 //
 // Bound: at config 3 (÷8 with T = 65, then 3/8 with T = 51) the traffic is
 // 4 + 4·3/64 ≈ 4.19 B per input sample and the FIRs take
@@ -58,14 +71,16 @@ struct Stage {
     int buf_words;         // padded floats per span plane
     long long n_in;        // chunk input count of this stage
     const float* bank;     // (P, T)
-    const float* carry_in; // (2, T−1)
-    float* carry_out;      // (2, T−1)
+    const float* carry_in; // (C, 2, T−1)
+    float* carry_out;      // (C, 2, T−1)
 };
 
 struct Geometry {
     int S;
+    int C;                        // channels
     int tile;
     int n_tiles;
+    int units;                    // CTAs per channel: tiles + carry CTAs
     int carry_ctas[kMaxStages];   // ⌈(T_s−1)/tile⌉
     int bank_words;
     long long n_out;
@@ -103,6 +118,8 @@ long long plan_geometry(const int* pqt, int S, long long n0, int tile,
     }
     g.n_out = n;
     g.n_tiles = (int)((n + tile - 1) / tile);
+    g.units = g.n_tiles;
+    for (int s = 0; s < S; ++s) g.units += g.carry_ctas[s];
     g.bank_words = bank_words;
     // span caps: the largest span of x_s any CTA holds — the output tile's
     // or a carry CTA's, whichever reaches further back
@@ -154,10 +171,15 @@ cascade_kernel(const void* __restrict__ in, void* __restrict__ out,
     int cur = -1;
     doppler::Plan p;
 
-    // this CTA's target: stage t, indices a .. a+c−1 of x_t (x_S = output)
+    // this CTA's channel, and its unit of that channel's work
+    int ch, bid;
+    doppler::split_block(blockIdx.x, g.C, g.units, ch, bid);
+    plans += (size_t)ch * B;
+    const size_t stride = (size_t)g.C * B;
+
+    // the unit's target: stage t, indices a .. a+c−1 of x_t (x_S = output)
     int t = g.S;
     long long a, c;
-    int bid = (int)blockIdx.x;
     if (bid < g.n_tiles) {
         a = (long long)bid * g.tile;
         c = min((long long)g.tile, g.n_out - a);
@@ -205,10 +227,11 @@ cascade_kernel(const void* __restrict__ in, void* __restrict__ out,
             const long long j = lo[s] + k;
             float vi, vq;
             if (j < 0) {
-                vi = st.carry_in[H + j];
-                vq = st.carry_in[2 * H + j];
+                const float* carry = st.carry_in + (size_t)ch * 2 * H;
+                vi = carry[H + j];
+                vq = carry[2 * H + j];
             } else if (s == 0) {
-                doppler::mix_at<kInF32>(j, in, plans, B, L, cur, p, vi, vq);
+                doppler::mix_at<kInF32>(j, in, plans, stride, B, L, cur, p, vi, vq);
             } else {
                 fir_at(j, g.st[s - 1], smem, lo[s - 1], vi, vq);
             }
@@ -224,10 +247,12 @@ cascade_kernel(const void* __restrict__ in, void* __restrict__ out,
         float vi, vq;
         if (t < g.S && j < 0) {
             const Stage& st = g.st[t];
-            vi = st.carry_in[st.T - 1 + j];
-            vq = st.carry_in[2 * (st.T - 1) + j];
+            const int H = st.T - 1;
+            const float* carry = st.carry_in + (size_t)ch * 2 * H;
+            vi = carry[H + j];
+            vq = carry[2 * H + j];
         } else if (t == 0) {
-            doppler::mix_at<kInF32>(j, in, plans, B, L, cur, p, vi, vq);
+            doppler::mix_at<kInF32>(j, in, plans, stride, B, L, cur, p, vi, vq);
         } else {
             fir_at(j, g.st[t - 1], smem, lo[t - 1], vi, vq);
         }
@@ -235,13 +260,15 @@ cascade_kernel(const void* __restrict__ in, void* __restrict__ out,
             const Stage& st = g.st[t];
             const int H = st.T - 1;
             const int r = (int)(j - (st.n_in - H));
-            st.carry_out[r] = vi;
-            st.carry_out[H + r] = vq;
+            float* carry = st.carry_out + (size_t)ch * 2 * H;
+            carry[r] = vi;
+            carry[H + r] = vq;
         } else if (kOutF32) {
-            static_cast<float*>(out)[j] = vi;
-            static_cast<float*>(out)[g.n_out + j] = vq;
+            // output planes (2, C, n_out): Q sits C·n_out after I
+            static_cast<float*>(out)[ch * g.n_out + j] = vi;
+            static_cast<float*>(out)[((long long)g.C + ch) * g.n_out + j] = vq;
         } else {
-            static_cast<int*>(out)[j] = doppler::pack_i16(vi, vq);
+            static_cast<int*>(out)[ch * g.n_out + j] = doppler::pack_i16(vi, vq);
         }
     }
 }
@@ -249,15 +276,16 @@ cascade_kernel(const void* __restrict__ in, void* __restrict__ out,
 template <bool kInF32, bool kOutF32>
 int launch(const void* in, void* out, const uint32_t* plans, const Geometry& g,
            long long smem, int B, int L, cudaStream_t stream) {
-    int grid = g.n_tiles;
-    for (int s = 0; s < g.S; ++s) grid += g.carry_ctas[s];
+    const long long grid = (long long)g.C * g.units;
+    if (grid > 0x7FFFFFFFLL) return (int)cudaErrorInvalidValue;
     auto kernel = cascade_kernel<kInF32, kOutF32>;
     if (smem > 48 * 1024) {
         cudaError_t e = cudaFuncSetAttribute(
             kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
         if (e != cudaSuccess) return (int)e;
     }
-    kernel<<<grid, kThreads, (size_t)smem, stream>>>(in, out, plans, g, B, L);
+    kernel<<<(unsigned)grid, kThreads, (size_t)smem, stream>>>(in, out, plans,
+                                                               g, B, L);
     return (int)cudaGetLastError();
 }
 
@@ -274,20 +302,21 @@ extern "C" long long doppler_cascade_smem_bytes(const int* pqt, int S,
 }
 
 // in: int32 words (B, L) or float32 planes (2, B, L); out: int32 words
-// (n_out) or float32 planes (2, n_out), n_out = B·L·∏P_s/∏Q_s; plans:
-// (7, B) uint32; banks[s]: (P_s, T_s) float32; carry_in[s], carry_out[s]:
-// (2, T_s−1) float32.  Needs every stage's chunk input count to be a
+// (C, n_out) or float32 planes (2, C, n_out), n_out = B·L·∏P_s/∏Q_s; plans:
+// (7, C, B) uint32; banks[s]: (P_s, T_s) float32; carry_in[s], carry_out[s]:
+// (C, 2, T_s−1) float32.  Needs every stage's chunk input count to be a
 // multiple of its Q.  Returns cudaGetLastError() after the launch.
 extern "C" int doppler_cascade(const void* in, void* out, const uint32_t* plans,
                                const void* const* banks,
                                const void* const* carry_in,
                                void* const* carry_out, const int* pqt, int S,
-                               int B, int L, int tile, int in_f32, int out_f32,
-                               void* stream) {
-    if (B <= 0 || L <= 0) return (int)cudaErrorInvalidValue;
+                               int C, int B, int L, int tile, int in_f32,
+                               int out_f32, void* stream) {
+    if (C <= 0 || B <= 0 || L <= 0) return (int)cudaErrorInvalidValue;
     Geometry g;
     const long long smem = plan_geometry(pqt, S, (long long)B * L, tile, g);
     if (smem < 0) return (int)cudaErrorInvalidValue;
+    g.C = C;
     for (int s = 0; s < S; ++s) {
         g.st[s].bank = static_cast<const float*>(banks[s]);
         g.st[s].carry_in = static_cast<const float*>(carry_in[s]);

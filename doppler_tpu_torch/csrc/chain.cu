@@ -3,7 +3,8 @@
 // Replaces doppler_tpu/ops/pallas/chain.py:240 _make_kernel (with its mix
 // front _make_mix_front, chain.py:145, and banded-matmul reduction
 // _acc_slices, chain.py:191), reached through
-// mix_resample_chain_pallas_stream (chain.py:404).
+// mix_resample_chain_pallas_stream (chain.py:404) and, with a channel axis,
+// mix_resample_chain_pallas_channels (chain.py:556).
 //
 // Computes, for chunk-local output m,
 //     y[m] = Σ_{l<T} bank[(m·Q) mod P, l] · x[⌊m·Q/P⌋ − l]
@@ -19,9 +20,20 @@
 // phase is a pure function of the plan words and the sample index, so the
 // halo holds bitwise the values the neighbouring CTA mixes.  Only CTAs
 // whose span reaches before the chunk (the first) read carry_in; one extra
-// CTA writes carry_out.  Each thread computes one output as a sequential
+// CTA (per channel) writes carry_out.  Each thread computes one output as a sequential
 // __fmaf_rn over l = 0..T−1 in fixed order, so the bytes do not depend on
 // the tile size or on how the stream is split into chunks.
+//
+// Channels: C channels run the same (B, L) chunk, each with its own plan
+// words (7, C, B) and its own carry (C, 2, T−1), into (C, n_out) words or
+// (2, C, n_out) planes; a single stream is C = 1.  Every channel has its
+// own tile CTAs and its own carry CTA; the channel is the fast index of the
+// grid (nco.cuh split_block), so the C CTAs that mix one input span run
+// together and the span comes from L2 after its first read.  Channel c's
+// bytes are those of a C = 1 launch with its plan words and carry: the same
+// code in the same order.  With C channels the work is C times the stream
+// kernel's on one read of the input, so beyond a few channels the bound is
+// the float32 rate (the mix and the FIR), not HBM.
 //
 // Bound: at config 3 (P/Q = 3/64, T = 370) the traffic is 4 + 4·3/64 ≈ 4.19
 // B per input sample and the FIR is 2·370·3/64 ≈ 35 FMA per input sample,
@@ -63,6 +75,7 @@ __device__ __forceinline__ int padded(int k) { return k + (k >> 5); }
 template <bool kInF32>
 __device__ __forceinline__ void mixed_at(long long g, const void* __restrict__ in,
                                          const uint32_t* __restrict__ plans,
+                                         size_t stride,
                                          const float* __restrict__ carry_in,
                                          int B, int L, int H, int& cur,
                                          doppler::Plan& p, float& oi, float& oq) {
@@ -71,7 +84,7 @@ __device__ __forceinline__ void mixed_at(long long g, const void* __restrict__ i
         oq = carry_in[2 * H + g];
         return;
     }
-    doppler::mix_at<kInF32>(g, in, plans, B, L, cur, p, oi, oq);
+    doppler::mix_at<kInF32>(g, in, plans, stride, B, L, cur, p, oi, oq);
 }
 
 template <bool kInF32, bool kOutF32>
@@ -80,7 +93,7 @@ __global__ void chain_kernel(const void* __restrict__ in, void* __restrict__ out
                              const float* __restrict__ bank,
                              const float* __restrict__ carry_in,
                              float* __restrict__ carry_out,
-                             int B, int L, int P, int Q, int T,
+                             int C, int B, int L, int P, int Q, int T,
                              long long m_total, int n_tiles, int words) {
     extern __shared__ float smem[];
     const int H = T - 1;
@@ -88,11 +101,19 @@ __global__ void chain_kernel(const void* __restrict__ in, void* __restrict__ out
     int cur = -1;
     doppler::Plan p;
 
-    if ((int)blockIdx.x == n_tiles) {          // the carry CTA
+    // this CTA's channel and unit: a tile of outputs, or the channel's carry
+    int c, unit;
+    doppler::split_block(blockIdx.x, C, n_tiles + (H > 0), c, unit);
+    plans += (size_t)c * B;
+    const size_t stride = (size_t)C * B;
+    carry_in += (size_t)c * 2 * H;
+    carry_out += (size_t)c * 2 * H;
+
+    if (unit == n_tiles) {                     // the carry CTA
         for (int k = threadIdx.x; k < H; k += blockDim.x) {
             float oi, oq;
-            mixed_at<kInF32>(n_in - H + k, in, plans, carry_in, B, L, H, cur,
-                             p, oi, oq);
+            mixed_at<kInF32>(n_in - H + k, in, plans, stride, carry_in, B, L,
+                             H, cur, p, oi, oq);
             carry_out[k] = oi;
             carry_out[H + k] = oq;
         }
@@ -104,12 +125,12 @@ __global__ void chain_kernel(const void* __restrict__ in, void* __restrict__ out
     float* xs_q = xs_i + words;
     for (int k = threadIdx.x; k < P * T; k += blockDim.x) bank_s[k] = bank[k];
 
-    const long long m0 = (long long)blockIdx.x * blockDim.x;
+    const long long m0 = (long long)unit * blockDim.x;
     const long long m_end = min(m0 + (long long)blockDim.x, m_total);
     const long long s0 = m0 * Q / P - H;       // first input of the span
     const int count = (int)((m_end - 1) * Q / P - s0 + 1);
     for (int k = threadIdx.x; k < count; k += blockDim.x) {
-        mixed_at<kInF32>(s0 + k, in, plans, carry_in, B, L, H, cur, p,
+        mixed_at<kInF32>(s0 + k, in, plans, stride, carry_in, B, L, H, cur, p,
                          xs_i[padded(k)], xs_q[padded(k)]);
     }
     __syncthreads();
@@ -127,20 +148,22 @@ __global__ void chain_kernel(const void* __restrict__ in, void* __restrict__ out
         aq = __fmaf_rn(w[l], xs_q[k], aq);
     }
     if (kOutF32) {
-        static_cast<float*>(out)[m] = ai;
-        static_cast<float*>(out)[m_total + m] = aq;
+        // output planes (2, C, m_total): Q sits C·m_total after I
+        static_cast<float*>(out)[c * m_total + m] = ai;
+        static_cast<float*>(out)[((long long)C + c) * m_total + m] = aq;
     } else {
-        static_cast<int*>(out)[m] = doppler::pack_i16(ai, aq);
+        static_cast<int*>(out)[c * m_total + m] = doppler::pack_i16(ai, aq);
     }
 }
 
 template <bool kInF32, bool kOutF32>
 int launch(const void* in, void* out, const uint32_t* plans, const float* bank,
-           const float* carry_in, float* carry_out, int B, int L, int P, int Q,
-           int T, int tile_m, cudaStream_t stream) {
+           const float* carry_in, float* carry_out, int C, int B, int L, int P,
+           int Q, int T, int tile_m, cudaStream_t stream) {
     const long long m_total = (long long)B * L / Q * P;
     const int n_tiles = (int)((m_total + tile_m - 1) / tile_m);
-    const int grid = n_tiles + (T > 1 ? 1 : 0);
+    const long long grid = (long long)C * (n_tiles + (T > 1 ? 1 : 0));
+    if (grid > 0x7FFFFFFFLL) return (int)cudaErrorInvalidValue;
     const long long smem = smem_bytes(tile_m, P, Q, T);
     auto kernel = chain_kernel<kInF32, kOutF32>;
     if (smem > 48 * 1024) {
@@ -148,8 +171,8 @@ int launch(const void* in, void* out, const uint32_t* plans, const float* bank,
             kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
         if (e != cudaSuccess) return (int)e;
     }
-    kernel<<<grid, tile_m, (size_t)smem, stream>>>(
-        in, out, plans, bank, carry_in, carry_out, B, L, P, Q, T, m_total,
+    kernel<<<(unsigned)grid, tile_m, (size_t)smem, stream>>>(
+        in, out, plans, bank, carry_in, carry_out, C, B, L, P, Q, T, m_total,
         n_tiles, (int)span_words(tile_m, P, Q, T));
     return (int)cudaGetLastError();
 }
@@ -163,26 +186,26 @@ extern "C" long long doppler_chain_smem_bytes(int tile_m, int P, int Q, int T) {
 }
 
 // in: int32 words (B, L) or float32 planes (2, B, L); out: int32 words
-// (B·L·P/Q) or float32 planes (2, B·L·P/Q); plans: (7, B) uint32;
-// bank: (P, T) float32; carry_in/carry_out: (2, T−1) float32.
+// (C, B·L·P/Q) or float32 planes (2, C, B·L·P/Q); plans: (7, C, B) uint32;
+// bank: (P, T) float32; carry_in/carry_out: (C, 2, T−1) float32.
 // Needs L % Q == 0.  Returns cudaGetLastError() after the launch.
 extern "C" int doppler_chain(const void* in, void* out, const uint32_t* plans,
                              const float* bank, const float* carry_in,
-                             float* carry_out, int B, int L, int P, int Q,
-                             int T, int tile_m, int in_f32, int out_f32,
+                             float* carry_out, int C, int B, int L, int P,
+                             int Q, int T, int tile_m, int in_f32, int out_f32,
                              void* stream) {
-    if (B <= 0 || L <= 0 || P <= 0 || Q <= 0 || T <= 0 || L % Q != 0 ||
+    if (C <= 0 || B <= 0 || L <= 0 || P <= 0 || Q <= 0 || T <= 0 || L % Q != 0 ||
         tile_m <= 0 || tile_m > 1024)
         return (int)cudaErrorInvalidValue;
     cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define DOPPLER_CHAIN_LAUNCH(IN, OUT)                                          \
+    launch<IN, OUT>(in, out, plans, bank, carry_in, carry_out, C, B, L, P, Q,  \
+                    T, tile_m, s)
     if (in_f32) {
-        return out_f32 ? launch<true, true>(in, out, plans, bank, carry_in,
-                                            carry_out, B, L, P, Q, T, tile_m, s)
-                       : launch<true, false>(in, out, plans, bank, carry_in,
-                                             carry_out, B, L, P, Q, T, tile_m, s);
+        return out_f32 ? DOPPLER_CHAIN_LAUNCH(true, true)
+                       : DOPPLER_CHAIN_LAUNCH(true, false);
     }
-    return out_f32 ? launch<false, true>(in, out, plans, bank, carry_in,
-                                         carry_out, B, L, P, Q, T, tile_m, s)
-                   : launch<false, false>(in, out, plans, bank, carry_in,
-                                          carry_out, B, L, P, Q, T, tile_m, s);
+    return out_f32 ? DOPPLER_CHAIN_LAUNCH(false, true)
+                   : DOPPLER_CHAIN_LAUNCH(false, false);
+#undef DOPPLER_CHAIN_LAUNCH
 }

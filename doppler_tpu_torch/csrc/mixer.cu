@@ -13,6 +13,12 @@
 //
 // Wire formats: i16 = int32 words (B, L); f32 = planar float32 (2, B, L)
 // with the I plane first.  The NaN → 0 encode rule applies to f32 input.
+//
+// Channels: C channels mix the same (B, L) chunk, each with its own plan
+// words (7, C, B), into (C, B, L) words or (2, C, B, L) planes — what
+// doppler_tpu/runtime/channels.py:64 _channels_mix_kernel computes.  A
+// single stream is C = 1.  The channel is the fast index of the grid (see
+// nco.cuh split_block), so the C CTAs that read one input tile run together.
 #include <cuda_runtime.h>
 
 #include "nco.cuh"
@@ -26,11 +32,14 @@ constexpr int kTile = kThreads * kPerThread;
 template <bool kInF32, bool kOutF32>
 __global__ void __launch_bounds__(kThreads)
 mixer_kernel(const void* __restrict__ in, void* __restrict__ out,
-             const uint32_t* __restrict__ plans, int B, int L,
+             const uint32_t* __restrict__ plans, int C, int B, int L,
              int tiles_per_block) {
-    const int b = blockIdx.x / tiles_per_block;
-    const int j0 = (blockIdx.x - b * tiles_per_block) * kTile;
-    const doppler::Plan p = doppler::load_plan(plans, B, b);
+    int c, unit;
+    doppler::split_block(blockIdx.x, C, B * tiles_per_block, c, unit);
+    const int b = unit / tiles_per_block;
+    const int j0 = (unit - b * tiles_per_block) * kTile;
+    const doppler::Plan p =
+        doppler::load_plan(plans + (size_t)c * B, (size_t)C * B, b);
     const long long n = (long long)B * L;
     const long long row = (long long)b * L;
 #pragma unroll
@@ -48,40 +57,42 @@ mixer_kernel(const void* __restrict__ in, void* __restrict__ out,
         float oi, oq;
         doppler::mix_sample(fi, fq, (uint32_t)j, p, oi, oq);
         if (kOutF32) {
-            static_cast<float*>(out)[g] = oi;
-            static_cast<float*>(out)[n + g] = oq;
+            // output planes (2, C, n): Q sits C·n after I
+            static_cast<float*>(out)[c * n + g] = oi;
+            static_cast<float*>(out)[((long long)C + c) * n + g] = oq;
         } else {
-            static_cast<int*>(out)[g] = doppler::pack_i16(oi, oq);
+            static_cast<int*>(out)[c * n + g] = doppler::pack_i16(oi, oq);
         }
     }
 }
 
 template <bool kInF32, bool kOutF32>
-void launch(const void* in, void* out, const uint32_t* plans, int B, int L,
-            cudaStream_t stream) {
+int launch(const void* in, void* out, const uint32_t* plans, int C, int B,
+           int L, cudaStream_t stream) {
     const int tpb = (L + kTile - 1) / kTile;
-    const long long grid = (long long)B * tpb;
+    const long long grid = (long long)C * B * tpb;
+    if (grid > 0x7FFFFFFFLL) return (int)cudaErrorInvalidValue;
     mixer_kernel<kInF32, kOutF32><<<(unsigned)grid, kThreads, 0, stream>>>(
-        in, out, plans, B, L, tpb);
+        in, out, plans, C, B, L, tpb);
+    return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// in/out: device pointers in the wire layouts above; plans: (7, B) uint32.
-// Returns cudaGetLastError() after the launch.
+// in: device pointer in the wire layouts above; out: (C, B, L) words or
+// (2, C, B, L) planes; plans: (7, C, B) uint32.  Returns cudaGetLastError()
+// after the launch.
 extern "C" int doppler_mix_blocks(const void* in, void* out,
-                                  const uint32_t* plans, int B, int L,
+                                  const uint32_t* plans, int C, int B, int L,
                                   int in_f32, int out_f32, void* stream) {
-    if (B <= 0 || L <= 0) return (int)cudaErrorInvalidValue;
+    if (C <= 0 || B <= 0 || L <= 0) return (int)cudaErrorInvalidValue;
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     if (in_f32) {
-        if (out_f32) launch<true, true>(in, out, plans, B, L, s);
-        else launch<true, false>(in, out, plans, B, L, s);
-    } else {
-        if (out_f32) launch<false, true>(in, out, plans, B, L, s);
-        else launch<false, false>(in, out, plans, B, L, s);
+        return out_f32 ? launch<true, true>(in, out, plans, C, B, L, s)
+                       : launch<true, false>(in, out, plans, C, B, L, s);
     }
-    return (int)cudaGetLastError();
+    return out_f32 ? launch<false, true>(in, out, plans, C, B, L, s)
+                   : launch<false, false>(in, out, plans, C, B, L, s);
 }
 
 // Message for a cudaError_t code returned by the entry points.

@@ -14,24 +14,46 @@
 // explicit __fmaf_rn, which this policy leaves alone.
 #pragma once
 
+#include <cstddef>
 #include <cstdint>
 
 namespace doppler {
 
 // Per-block plan words: (D, C1, C2, t) of ops/phase_plan.py, as the
-// (7, B) uint32 rows d_hi, d_lo, c1_hi, c1_lo, c2_hi, c2_lo, t.
+// (7, C, B) uint32 stack d_hi, d_lo, c1_hi, c1_lo, c2_hi, c2_lo, t (C = 1
+// for a single stream).
 struct Plan {
     uint64_t d, c1, c2;
     uint32_t t;
 };
 
+// Which channel a CTA works for, and which unit of that channel's work
+// (a tile, or a carry).  The channel is the fast index of the schedule, so
+// the CTAs in flight together read the same span of the shared input and
+// all but the first find it in L2.  Compiling with -DDOPPLER_CHANNEL_MAJOR
+// walks one channel's units before the next channel's instead: the same
+// results, kept only so that the two schedules can be timed against each
+// other.
+__device__ __forceinline__ void split_block(unsigned bid, int C, int units,
+                                            int& c, int& unit) {
+#ifdef DOPPLER_CHANNEL_MAJOR
+    c = (int)(bid / (unsigned)units);
+    unit = (int)(bid - (unsigned)c * (unsigned)units);
+#else
+    unit = (int)(bid / (unsigned)C);
+    c = (int)(bid - (unsigned)unit * (unsigned)C);
+#endif
+}
+
+// `plans` points at the channel's first word (base + c·B); `stride` is the
+// distance between two fields of the stack, C·B.
 __device__ __forceinline__ Plan load_plan(const uint32_t* __restrict__ plans,
-                                          int B, int b) {
+                                          size_t stride, int b) {
     Plan p;
-    p.d = ((uint64_t)__ldg(plans + 0 * B + b) << 32) | __ldg(plans + 1 * B + b);
-    p.c1 = ((uint64_t)__ldg(plans + 2 * B + b) << 32) | __ldg(plans + 3 * B + b);
-    p.c2 = ((uint64_t)__ldg(plans + 4 * B + b) << 32) | __ldg(plans + 5 * B + b);
-    p.t = __ldg(plans + 6 * B + b);
+    p.d = ((uint64_t)__ldg(plans + 0 * stride + b) << 32) | __ldg(plans + 1 * stride + b);
+    p.c1 = ((uint64_t)__ldg(plans + 2 * stride + b) << 32) | __ldg(plans + 3 * stride + b);
+    p.c2 = ((uint64_t)__ldg(plans + 4 * stride + b) << 32) | __ldg(plans + 5 * stride + b);
+    p.t = __ldg(plans + 6 * stride + b);
     return p;
 }
 
@@ -82,17 +104,19 @@ __device__ __forceinline__ void mix_sample(float fi, float fq, uint32_t j,
 }
 
 // Mixed sample at chunk index g ≥ 0 of a (B, L) chunk: int32 words, or
-// float32 planes (2, B, L) when kInF32.  `cur`/`p` cache the plan of the
-// block this thread loaded last.
+// float32 planes (2, B, L) when kInF32 — the input is shared by every
+// channel, so its Q plane sits B·L after the I plane whatever C is.
+// `plans`/`stride` as in load_plan; `cur`/`p` cache the plan of the block
+// this thread loaded last.
 template <bool kInF32>
 __device__ __forceinline__ void mix_at(long long g, const void* __restrict__ in,
                                        const uint32_t* __restrict__ plans,
-                                       int B, int L, int& cur, Plan& p,
-                                       float& oi, float& oq) {
+                                       size_t stride, int B, int L, int& cur,
+                                       Plan& p, float& oi, float& oq) {
     const int b = (int)(g / L);
     const int j = (int)(g - (long long)b * L);
     if (b != cur) {
-        p = load_plan(plans, B, b);
+        p = load_plan(plans, stride, b);
         cur = b;
     }
     float fi, fq;

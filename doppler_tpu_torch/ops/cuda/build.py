@@ -32,8 +32,11 @@ BUILD_ROOT = _PKG / "_build"
 # -fmad=false: no float contraction outside the explicit __fmaf_rn of the
 # FIR dot (see csrc/nco.cuh for the policy); -Xptxas -v reports registers,
 # shared memory and spills of every kernel into the build log.
+# DOPPLER_NVCC_FLAGS in the environment adds flags (and so keys another
+# library), e.g. -DDOPPLER_CHANNEL_MAJOR to time the other grid schedule.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-Xcompiler", "-fPIC", "-fmad=false", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-fmad=false", "-Xptxas", "-v",
+              *os.environ.get("DOPPLER_NVCC_FLAGS", "").split())
 
 _vp = ctypes.c_void_p
 _i = ctypes.c_int
@@ -117,15 +120,20 @@ def load() -> ctypes.CDLL:
     """The kernel library, built on first call; C signatures declared."""
     lib = ctypes.CDLL(build_info()["path"])
     lib.doppler_mix_blocks.restype = _i
-    lib.doppler_mix_blocks.argtypes = [_vp, _vp, _vp, _i, _i, _i, _i, _vp]
+    # in, out, plans, C, B, L, in_f32, out_f32, stream
+    lib.doppler_mix_blocks.argtypes = [_vp, _vp, _vp, _i, _i, _i, _i, _i, _vp]
     lib.doppler_chain.restype = _i
-    lib.doppler_chain.argtypes = [_vp, _vp, _vp, _vp, _vp, _vp, _i, _i, _i,
+    # in, out, plans, bank, carry_in, carry_out, C, B, L, P, Q, T, tile_m,
+    # in_f32, out_f32, stream
+    lib.doppler_chain.argtypes = [_vp, _vp, _vp, _vp, _vp, _vp, _i, _i, _i, _i,
                                   _i, _i, _i, _i, _i, _vp]
     lib.doppler_chain_smem_bytes.restype = ctypes.c_longlong
     lib.doppler_chain_smem_bytes.argtypes = [_i, _i, _i, _i]
     lib.doppler_cascade.restype = _i
+    # in, out, plans, banks, carry_in, carry_out, pqt, S, C, B, L, tile,
+    # in_f32, out_f32, stream
     lib.doppler_cascade.argtypes = [_vp, _vp, _vp, _vpp, _vpp, _vpp, _ip, _i,
-                                    _i, _i, _i, _i, _i, _vp]
+                                    _i, _i, _i, _i, _i, _i, _vp]
     lib.doppler_cascade_smem_bytes.restype = ctypes.c_longlong
     lib.doppler_cascade_smem_bytes.argtypes = [_ip, _i, ctypes.c_longlong, _i]
     lib.doppler_error_string.restype = ctypes.c_char_p

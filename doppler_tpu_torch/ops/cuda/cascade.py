@@ -3,7 +3,11 @@
 :func:`mix_cascade_stream` launches ``csrc/cascade.cu`` on a CUDA tensor
 (the port of ``doppler_tpu/ops/pallas/chain.py:960``
 ``mix_cascade_pallas_stream``) and runs :func:`mix_cascade_plain` on a CPU
-tensor.
+tensor.  :func:`mix_cascade_channels` is the same kernel with a channel axis
+(the port of ``chain.py:1078`` ``mix_cascade_pallas_channels``): C channels
+over one shared chunk, each with its own plan words ``plans[:, c]`` and
+per-stage carries ``carries[s][c]``, in one launch; channel c's result is
+bitwise the stream call's.
 
 ``stages`` is the tuple of per-stage ``(P, Q, T)`` of the fused stages of a
 ``MultiStageResampler``; ``banks`` their ``(P, T)`` polyphase banks and
@@ -11,6 +15,8 @@ tensor.
 stage's ``_hist_i/_hist_q``, not the TPU's 128-lane carry rows.  Every
 stage's chunk input count must be a multiple of its Q, so each stage's
 chunk-local output grid is its absolute grid when the stream starts on it.
+Channel layouts: plan words int32 ``(7, C, B)``, per-stage carries
+``(C, 2, T−1)``, output int32 ``(C, B, M)`` or float32 ``(2, C, B, M)``.
 
 :func:`split_point` is the JAX package's rule for how many leading stages
 fuse; a split cascade runs the ÷2^k front here with ``final_dense=True``
@@ -27,11 +33,16 @@ import torch
 
 from doppler_tpu_torch.ops import codec
 from doppler_tpu_torch.ops.cuda import build
-from doppler_tpu_torch.ops.cuda.mixer import check_fmt, mix_blocks_fmt_plain
+from doppler_tpu_torch.ops.cuda.mixer import (
+    check_fmt,
+    check_fmt_channels,
+    mix_blocks_fmt_plain,
+    stack_channels,
+)
 from doppler_tpu_torch.ops.resample import window_dot
 
-__all__ = ["mix_cascade_stream", "mix_cascade_plain", "split_point",
-           "chunk_out_count"]
+__all__ = ["mix_cascade_stream", "mix_cascade_plain", "mix_cascade_channels",
+           "mix_cascade_channels_plain", "split_point", "chunk_out_count"]
 
 _MAX_STAGES = 4         # the kernel's per-stage argument slots
 _TILES = (128, 64, 32)  # final outputs per CTA, largest that fits first
@@ -70,8 +81,16 @@ def chunk_out_count(stages, B: int, L: int) -> int | None:
     return n if n % B == 0 else None
 
 
-def _check(data, plans, banks, carries, stages, intype, outtype, final_dense):
-    B, L = check_fmt(data, plans, intype, outtype)
+def _check(data, plans, banks, carries, stages, intype, outtype, final_dense,
+           channels: bool = False):
+    """Validate one call; returns (C, B, L, stages, n_out) with C = None for
+    a single stream (``(7, B)`` plans, ``(2, T−1)`` carries)."""
+    if channels:
+        C, B, L = check_fmt_channels(data, plans, intype, outtype)
+        lead = (C,)
+    else:
+        B, L = check_fmt(data, plans, intype, outtype)
+        C, lead = None, ()
     stages = tuple(tuple(int(v) for v in st) for st in stages)
     n_out = chunk_out_count(stages, B, L)
     if n_out is None:
@@ -90,12 +109,12 @@ def _check(data, plans, banks, carries, stages, intype, outtype, final_dense):
         if bank.dtype != torch.float32 or tuple(bank.shape) != (P, T):
             raise ValueError(f"bank must be float32 ({P}, {T}), got "
                              f"{bank.dtype} {tuple(bank.shape)}")
-        if carry.dtype != torch.float32 or tuple(carry.shape) != (2, T - 1):
-            raise ValueError(f"carry must be float32 (2, {T - 1}), got "
+        if carry.dtype != torch.float32 or tuple(carry.shape) != lead + (2, T - 1):
+            raise ValueError(f"carry must be float32 {lead + (2, T - 1)}, got "
                              f"{carry.dtype} {tuple(carry.shape)}")
         if bank.device != data.device or carry.device != data.device:
             raise ValueError("banks, carries and data must be on one device")
-    return B, L, stages, n_out
+    return C, B, L, stages, n_out
 
 
 def _encode(yi, yq, outtype, B):
@@ -110,8 +129,8 @@ def mix_cascade_plain(data, plans, banks, carries, *, stages,
     """Plain torch version: the mixer's plain version, then
     ``ops.resample.window_dot`` per stage over ``[carry_s | x_s]``, then
     encode.  Returns ``(out, carries_out)``."""
-    B, L, stages, _ = _check(data, plans, banks, carries, stages, intype,
-                             outtype, final_dense)
+    _, B, L, stages, _ = _check(data, plans, banks, carries, stages, intype,
+                                outtype, final_dense)
     x = mix_blocks_fmt_plain(data, plans, intype=intype,
                              outtype="f32").reshape(2, B * L)
     carries_out = []
@@ -122,6 +141,23 @@ def mix_cascade_plain(data, plans, banks, carries, *, stages,
                             T=T, M=x.shape[1] // Q * P)
         x = torch.stack([yi, yq])
     return _encode(x[0], x[1], outtype, B), tuple(carries_out)
+
+
+def mix_cascade_channels_plain(data, plans, banks, carries, *, stages,
+                               intype: str = "i16", outtype: str = "i16",
+                               final_dense: bool = False):
+    """Plain torch version of the channel-batched cascade: the stream plain
+    version once per channel with ``plans[:, c]`` and each stage's
+    ``carries[s][c]``, stacked.  Returns ``(out, carries_out)``."""
+    C, _, _, stages, _ = _check(data, plans, banks, carries, stages, intype,
+                                outtype, final_dense, channels=True)
+    outs, tails = zip(*(
+        mix_cascade_plain(data, plans[:, c], banks, [cr[c] for cr in carries],
+                          stages=stages, intype=intype, outtype=outtype,
+                          final_dense=final_dense)
+        for c in range(C)))
+    return (stack_channels(outs, outtype),
+            tuple(torch.stack(per_stage) for per_stage in zip(*tails)))
 
 
 @functools.lru_cache(maxsize=None)
@@ -140,6 +176,35 @@ def _pick_tile(dev_index: int, stages, n0: int) -> int:
         f"memory per CTA for tiles {_TILES}; the card allows {limit}")
 
 
+def _launch(data, plans, banks, carries, C, B, L, stages, n_out, intype,
+            outtype):
+    """Launch the kernel over ``(7, C, B)`` plan words and per-stage
+    ``(C, 2, T−1)`` carries; returns ``(C, B, M)`` words or ``(2, C, B, M)``
+    planes and the per-stage ``(C, 2, T−1)`` carries."""
+    dev = data.device
+    S = len(stages)
+    tile = _pick_tile(dev.index, stages, B * L)
+    data, plans = data.contiguous(), plans.contiguous()
+    banks = [b.contiguous() for b in banks]
+    carries = [c.contiguous() for c in carries]
+    if outtype == "i16":
+        out = torch.empty((C, B, n_out // B), dtype=torch.int32, device=dev)
+    else:
+        out = torch.empty((2, C, B, n_out // B), dtype=torch.float32, device=dev)
+    carries_out = tuple(
+        torch.empty((C, 2, T - 1), dtype=torch.float32, device=dev)
+        for _, _, T in stages)
+    ptrs = lambda ts: (ctypes.c_void_p * S)(*(t.data_ptr() for t in ts))  # noqa: E731
+    rc = build.load().doppler_cascade(
+        data.data_ptr(), out.data_ptr(), plans.data_ptr(), ptrs(banks),
+        ptrs(carries), ptrs(carries_out),
+        (ctypes.c_int * (3 * S))(*(v for st in stages for v in st)), S, C, B, L,
+        tile, int(intype == "f32"), int(outtype == "f32"),
+        torch.cuda.current_stream(dev).cuda_stream)
+    build.check(rc, "cascade")
+    return out, carries_out
+
+
 def mix_cascade_stream(data, plans, banks, carries, *, stages,
                        intype: str = "i16", outtype: str = "i16",
                        final_dense: bool = False):
@@ -153,7 +218,7 @@ def mix_cascade_stream(data, plans, banks, carries, *, stages,
     cascade's ÷2^k front (float32 planes out).
 
     A CPU tensor runs the plain version; a CUDA tensor launches the kernel
-    or raises.
+    (one channel) or raises.
     """
     if data.device.type == "cpu":
         return mix_cascade_plain(data, plans, banks, carries, stages=stages,
@@ -161,30 +226,45 @@ def mix_cascade_stream(data, plans, banks, carries, *, stages,
                                  final_dense=final_dense)
     if data.device.type != "cuda":
         raise ValueError(f"no cascade kernel for device {data.device}")
-    B, L, stages, n_out = _check(data, plans, banks, carries, stages, intype,
-                                 outtype, final_dense)
-    dev = data.device
-    S = len(stages)
-    tile = _pick_tile(dev.index, stages, B * L)
-    data, plans = data.contiguous(), plans.contiguous()
-    banks = [b.contiguous() for b in banks]
-    carries = [c.contiguous() for c in carries]
-    if outtype == "i16":
-        out = torch.empty((B, n_out // B), dtype=torch.int32, device=dev)
-    else:
-        out = torch.empty((2, B, n_out // B), dtype=torch.float32, device=dev)
-    carries_out = tuple(torch.empty((2, T - 1), dtype=torch.float32, device=dev)
-                        for _, _, T in stages)
-    ptrs = lambda ts: (ctypes.c_void_p * S)(*(t.data_ptr() for t in ts))  # noqa: E731
-    rc = build.load().doppler_cascade(
-        data.data_ptr(), out.data_ptr(), plans.data_ptr(), ptrs(banks),
-        ptrs(carries), ptrs(carries_out),
-        (ctypes.c_int * (3 * S))(*(v for st in stages for v in st)), S, B, L,
-        tile, int(intype == "f32"), int(outtype == "f32"),
-        torch.cuda.current_stream(dev).cuda_stream)
-    build.check(rc, "cascade")
+    _, B, L, stages, n_out = _check(data, plans, banks, carries, stages,
+                                    intype, outtype, final_dense)
+    out, carries_out = _launch(data, plans, banks, carries, 1, B, L, stages,
+                               n_out, intype, outtype)
     mix_cascade_stream.launches += 1
+    M = n_out // B
+    return (out.reshape((B, M) if outtype == "i16" else (2, B, M)),
+            tuple(c[0] for c in carries_out))
+
+
+def mix_cascade_channels(data, plans, banks, carries, *, stages,
+                         intype: str = "i16", outtype: str = "i16",
+                         final_dense: bool = False):
+    """Channel-batched fused mix + cascade: one launch for all channels.
+
+    ``data``: the shared chunk, int32 words ``(B, L)`` or float32 planes
+    ``(2, B, L)``; ``plans``: ``(7, C, B)`` plan words; ``banks``: one
+    ``(P, T)`` bank per stage; ``carries``: one ``(C, 2, T−1)`` float32 per
+    stage.  Returns ``(out, carries_out)`` with ``out`` int32 ``(C, B, M)``
+    or float32 ``(2, C, B, M)``.  Channel c is bitwise
+    :func:`mix_cascade_stream` with ``plans[:, c]`` and ``carries[s][c]``;
+    ``final_dense`` as there.
+
+    A CPU tensor runs the plain version; a CUDA tensor launches the kernel
+    or raises.
+    """
+    if data.device.type == "cpu":
+        return mix_cascade_channels_plain(
+            data, plans, banks, carries, stages=stages, intype=intype,
+            outtype=outtype, final_dense=final_dense)
+    if data.device.type != "cuda":
+        raise ValueError(f"no cascade kernel for device {data.device}")
+    C, B, L, stages, n_out = _check(data, plans, banks, carries, stages,
+                                    intype, outtype, final_dense, channels=True)
+    out, carries_out = _launch(data, plans, banks, carries, C, B, L, stages,
+                               n_out, intype, outtype)
+    mix_cascade_channels.launches += 1
     return out, carries_out
 
 
 mix_cascade_stream.launches = 0   # kernel launches (CUDA path only)
+mix_cascade_channels.launches = 0

@@ -4,12 +4,20 @@
 tensor (the port of ``doppler_tpu/ops/pallas/chain.py:404``
 ``mix_resample_chain_pallas_stream``) and runs
 :func:`mix_resample_chain_plain` on a CPU tensor.
+:func:`mix_resample_chain_channels` is the same kernel with a channel axis
+(the port of ``chain.py:556`` ``mix_resample_chain_pallas_channels``): C
+channels over one shared chunk, each with its own plan words
+``plans[:, c]`` and carry ``carries[c]``, in one launch; channel c's result
+is bitwise the stream call's.
 
 The carry is the flat ``(2, T−1)`` float32 history — the last T−1 mixed
 samples, exactly ``RationalResampler._hist_i/_hist_q`` — not the TPU's
 128-lane row layout.  Output m of block b has chunk-local index
 ``b·L·P/Q + m``; with a chunk starting at an absolute input index that is a
-multiple of Q, that is the resampler's absolute output grid.
+multiple of Q, that is the resampler's absolute output grid.  Channel
+layouts: plan words int32 ``(7, C, B)``, carries ``(C, 2, T−1)`` (the
+batched resampler's ``_hist_i/_hist_q`` stacked), output int32 ``(C, B, M)``
+or float32 ``(2, C, B, M)``.
 """
 
 from __future__ import annotations
@@ -18,27 +26,43 @@ import torch
 
 from doppler_tpu_torch.ops import codec
 from doppler_tpu_torch.ops.cuda import build
-from doppler_tpu_torch.ops.cuda.mixer import check_fmt, mix_blocks_fmt_plain
+from doppler_tpu_torch.ops.cuda.mixer import (
+    check_fmt,
+    check_fmt_channels,
+    mix_blocks_fmt_plain,
+    stack_channels,
+)
 from doppler_tpu_torch.ops.resample import window_dot
 
-__all__ = ["mix_resample_chain_stream", "mix_resample_chain_plain"]
+__all__ = ["mix_resample_chain_stream", "mix_resample_chain_plain",
+           "mix_resample_chain_channels", "mix_resample_chain_channels_plain"]
 
 _TILE_M = 128     # outputs per CTA (threads per CTA)
 
 
-def _check(data, plans, bank, carry, intype, outtype, P, Q, T):
-    B, L = check_fmt(data, plans, intype, outtype)
+def _check_rest(data, bank, carry, carry_shape, L, P, Q, T):
     if L % Q:
         raise ValueError(f"block length {L} must be a multiple of Q={Q}")
     if bank.dtype != torch.float32 or tuple(bank.shape) != (P, T):
         raise ValueError(f"bank must be float32 ({P}, {T}), got "
                          f"{bank.dtype} {tuple(bank.shape)}")
-    if carry.dtype != torch.float32 or tuple(carry.shape) != (2, T - 1):
-        raise ValueError(f"carry must be float32 (2, {T - 1}), got "
+    if carry.dtype != torch.float32 or tuple(carry.shape) != carry_shape:
+        raise ValueError(f"carry must be float32 {carry_shape}, got "
                          f"{carry.dtype} {tuple(carry.shape)}")
     if bank.device != data.device or carry.device != data.device:
         raise ValueError("bank, carry and data must be on one device")
+
+
+def _check(data, plans, bank, carry, intype, outtype, P, Q, T):
+    B, L = check_fmt(data, plans, intype, outtype)
+    _check_rest(data, bank, carry, (2, T - 1), L, P, Q, T)
     return B, L
+
+
+def _check_channels(data, plans, bank, carries, intype, outtype, P, Q, T):
+    C, B, L = check_fmt_channels(data, plans, intype, outtype)
+    _check_rest(data, bank, carries, (C, 2, T - 1), L, P, Q, T)
+    return C, B, L
 
 
 def mix_resample_chain_plain(data, plans, bank, carry, *, P: int, Q: int,
@@ -59,6 +83,21 @@ def mix_resample_chain_plain(data, plans, bank, carry, *, P: int, Q: int,
     return torch.stack([yi, yq]).reshape(2, B, M // B), carry_out
 
 
+def mix_resample_chain_channels_plain(data, plans, bank, carries, *, P: int,
+                                      Q: int, T: int, intype: str = "i16",
+                                      outtype: str = "i16"):
+    """Plain torch version of the channel-batched chain: the stream plain
+    version once per channel with ``plans[:, c]`` and ``carries[c]``,
+    stacked.  Returns ``(out, carries_out)``."""
+    C, _, _ = _check_channels(data, plans, bank, carries, intype, outtype,
+                              P, Q, T)
+    outs, tails = zip(*(
+        mix_resample_chain_plain(data, plans[:, c], bank, carries[c], P=P,
+                                 Q=Q, T=T, intype=intype, outtype=outtype)
+        for c in range(C)))
+    return stack_channels(outs, outtype), torch.stack(tails)
+
+
 def _check_smem(dev: torch.device, P: int, Q: int, T: int) -> None:
     """Every geometry the pipeline sends here fits (Q ≤ 128 needs at most
     ~160 KB); a caller's larger Q may not."""
@@ -68,6 +107,29 @@ def _check_smem(dev: torch.device, P: int, Q: int, T: int) -> None:
         raise ValueError(
             f"chain geometry P={P} Q={Q} T={T} needs {need} bytes of shared "
             f"memory per CTA; the card allows {limit}")
+
+
+def _launch(data, plans, bank, carries, C, B, L, P, Q, T, intype, outtype):
+    """Launch the kernel over ``(7, C, B)`` plan words and ``(C, 2, T−1)``
+    carries; returns ``(C, B, M)`` words or ``(2, C, B, M)`` planes and the
+    ``(C, 2, T−1)`` carries."""
+    dev = data.device
+    data, plans = data.contiguous(), plans.contiguous()
+    bank, carries = bank.contiguous(), carries.contiguous()
+    M = L // Q * P
+    if outtype == "i16":
+        out = torch.empty((C, B, M), dtype=torch.int32, device=dev)
+    else:
+        out = torch.empty((2, C, B, M), dtype=torch.float32, device=dev)
+    carries_out = torch.empty((C, 2, T - 1), dtype=torch.float32, device=dev)
+    _check_smem(dev, P, Q, T)
+    rc = build.load().doppler_chain(
+        data.data_ptr(), out.data_ptr(), plans.data_ptr(), bank.data_ptr(),
+        carries.data_ptr(), carries_out.data_ptr(), C, B, L, P, Q, T,
+        _TILE_M, int(intype == "f32"), int(outtype == "f32"),
+        torch.cuda.current_stream(dev).cuda_stream)
+    build.check(rc, "chain")
+    return out, carries_out
 
 
 def mix_resample_chain_stream(data, plans, bank, carry, *, P: int, Q: int,
@@ -80,7 +142,7 @@ def mix_resample_chain_stream(data, plans, bank, carry, *, P: int, Q: int,
     with ``out`` int32 ``(B, L·P/Q)`` or float32 ``(2, B, L·P/Q)``.
 
     A CPU tensor runs the plain version; a CUDA tensor launches the kernel
-    or raises.
+    (one channel) or raises.
     """
     if data.device.type == "cpu":
         return mix_resample_chain_plain(data, plans, bank, carry, P=P, Q=Q,
@@ -88,24 +150,42 @@ def mix_resample_chain_stream(data, plans, bank, carry, *, P: int, Q: int,
     if data.device.type != "cuda":
         raise ValueError(f"no chain kernel for device {data.device}")
     B, L = _check(data, plans, bank, carry, intype, outtype, P, Q, T)
-    dev = data.device
-    data, plans = data.contiguous(), plans.contiguous()
-    bank, carry = bank.contiguous(), carry.contiguous()
-    M = L // Q * P
-    if outtype == "i16":
-        out = torch.empty((B, M), dtype=torch.int32, device=dev)
-    else:
-        out = torch.empty((2, B, M), dtype=torch.float32, device=dev)
-    carry_out = torch.empty((2, T - 1), dtype=torch.float32, device=dev)
-    _check_smem(dev, P, Q, T)
-    rc = build.load().doppler_chain(
-        data.data_ptr(), out.data_ptr(), plans.data_ptr(), bank.data_ptr(),
-        carry.data_ptr(), carry_out.data_ptr(), B, L, P, Q, T,
-        _TILE_M, int(intype == "f32"), int(outtype == "f32"),
-        torch.cuda.current_stream(dev).cuda_stream)
-    build.check(rc, "chain")
+    out, carry_out = _launch(data, plans, bank, carry, 1, B, L, P, Q, T,
+                             intype, outtype)
     mix_resample_chain_stream.launches += 1
-    return out, carry_out
+    M = L // Q * P
+    return out.reshape((B, M) if outtype == "i16" else (2, B, M)), carry_out[0]
+
+
+def mix_resample_chain_channels(data, plans, bank, carries, *, P: int, Q: int,
+                                T: int, intype: str = "i16",
+                                outtype: str = "i16"):
+    """Channel-batched streaming chain: one launch for all channels.
+
+    ``data``: the shared chunk, int32 words ``(B, L)`` or float32 planes
+    ``(2, B, L)``; ``plans``: ``(7, C, B)`` plan words; ``bank``: the
+    ``(P, T)`` bank; ``carries``: ``(C, 2, T−1)`` float32.  Returns
+    ``(out, carries_out)`` with ``out`` int32 ``(C, B, L·P/Q)`` or float32
+    ``(2, C, B, L·P/Q)``.  Channel c is bitwise
+    :func:`mix_resample_chain_stream` with ``plans[:, c]`` and
+    ``carries[c]``.
+
+    A CPU tensor runs the plain version; a CUDA tensor launches the kernel
+    or raises.
+    """
+    if data.device.type == "cpu":
+        return mix_resample_chain_channels_plain(
+            data, plans, bank, carries, P=P, Q=Q, T=T, intype=intype,
+            outtype=outtype)
+    if data.device.type != "cuda":
+        raise ValueError(f"no chain kernel for device {data.device}")
+    C, B, L = _check_channels(data, plans, bank, carries, intype, outtype,
+                              P, Q, T)
+    out, carries_out = _launch(data, plans, bank, carries, C, B, L, P, Q, T,
+                               intype, outtype)
+    mix_resample_chain_channels.launches += 1
+    return out, carries_out
 
 
 mix_resample_chain_stream.launches = 0   # kernel launches (CUDA path only)
+mix_resample_chain_channels.launches = 0

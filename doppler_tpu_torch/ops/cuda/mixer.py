@@ -2,11 +2,17 @@
 
 :func:`mix_blocks_fmt` launches ``csrc/mixer.cu`` on a CUDA tensor (the
 port of ``doppler_tpu/ops/pallas/mixer.py:227`` ``mix_blocks_pallas_fmt``)
-and runs :func:`mix_blocks_fmt_plain` on a CPU tensor.  The kernel is bound
-by HBM bytes (8 B/sample i16→i16); see the source for its design.
+and runs :func:`mix_blocks_fmt_plain` on a CPU tensor.
+:func:`mix_blocks_fmt_channels` is the same kernel with a channel axis: C
+channels mix one shared chunk, each with its own plan words (what
+``doppler_tpu/runtime/channels.py:64`` ``_channels_mix_kernel`` computes).
+The kernel is bound by HBM bytes (8 B/sample i16→i16); see the source for
+its design.
 
 Wire formats: ``'i16'`` is int32 words ``(B, L)`` (one LE i16 IQ pair
-each); ``'f32'`` is planar float32 ``(2, B, L)``, I plane first.
+each); ``'f32'`` is planar float32 ``(2, B, L)``, I plane first.  Channel
+outputs are int32 ``(C, B, L)`` or float32 ``(2, C, B, L)``; channel plan
+words are int32 ``(7, C, B)``.
 """
 
 from __future__ import annotations
@@ -16,14 +22,14 @@ import torch
 from doppler_tpu_torch.ops import codec, nco
 from doppler_tpu_torch.ops.cuda import build
 
-__all__ = ["mix_blocks_fmt", "mix_blocks_fmt_plain", "check_fmt"]
+__all__ = ["mix_blocks_fmt", "mix_blocks_fmt_plain", "mix_blocks_fmt_channels",
+           "mix_blocks_fmt_channels_plain", "check_fmt", "check_fmt_channels",
+           "stack_channels"]
 
 _FORMATS = ("i16", "f32")
 
 
-def check_fmt(data: torch.Tensor, plans: torch.Tensor, intype: str,
-              outtype: str) -> tuple[int, int]:
-    """Validate a chunk and its ``(7, B)`` plan words; returns (B, L)."""
+def _chunk_shape(data: torch.Tensor, intype: str, outtype: str) -> tuple[int, int]:
     if intype not in _FORMATS or outtype not in _FORMATS:
         raise ValueError(f"bad format combo {intype!r} → {outtype!r}")
     if intype == "i16":
@@ -36,12 +42,38 @@ def check_fmt(data: torch.Tensor, plans: torch.Tensor, intype: str,
             raise ValueError(f"f32 input must be float32 (2, B, L), got "
                              f"{data.dtype} {tuple(data.shape)}")
         _, B, L = data.shape
+    return int(B), int(L)
+
+
+def check_fmt(data: torch.Tensor, plans: torch.Tensor, intype: str,
+              outtype: str) -> tuple[int, int]:
+    """Validate a chunk and its ``(7, B)`` plan words; returns (B, L)."""
+    B, L = _chunk_shape(data, intype, outtype)
     if plans.dtype != torch.int32 or tuple(plans.shape) != (7, B):
         raise ValueError(f"plans must be int32 (7, {B}), got "
                          f"{plans.dtype} {tuple(plans.shape)}")
     if plans.device != data.device:
         raise ValueError("plans and data must be on one device")
-    return int(B), int(L)
+    return B, L
+
+
+def check_fmt_channels(data: torch.Tensor, plans: torch.Tensor, intype: str,
+                       outtype: str) -> tuple[int, int, int]:
+    """Validate a shared chunk and its ``(7, C, B)`` plan words; returns
+    (C, B, L)."""
+    B, L = _chunk_shape(data, intype, outtype)
+    if (plans.dtype != torch.int32 or plans.dim() != 3
+            or plans.shape[0] != 7 or plans.shape[1] < 1 or plans.shape[2] != B):
+        raise ValueError(f"plans must be int32 (7, C, {B}), got "
+                         f"{plans.dtype} {tuple(plans.shape)}")
+    if plans.device != data.device:
+        raise ValueError("plans and data must be on one device")
+    return int(plans.shape[1]), B, L
+
+
+def stack_channels(outs, outtype: str) -> torch.Tensor:
+    """Per-channel stream outputs → ``(C, …)`` words or ``(2, C, …)`` planes."""
+    return torch.stack(list(outs), dim=0 if outtype == "i16" else 1)
 
 
 def mix_blocks_fmt_plain(data: torch.Tensor, plans: torch.Tensor, *,
@@ -58,6 +90,35 @@ def mix_blocks_fmt_plain(data: torch.Tensor, plans: torch.Tensor, *,
     return torch.stack([i, q])
 
 
+def mix_blocks_fmt_channels_plain(data: torch.Tensor, plans: torch.Tensor, *,
+                                  intype: str = "i16",
+                                  outtype: str = "i16") -> torch.Tensor:
+    """Plain torch version of the channel-batched mixer: the stream plain
+    version once per channel with ``plans[:, c]``, stacked."""
+    C, _, _ = check_fmt_channels(data, plans, intype, outtype)
+    return stack_channels(
+        (mix_blocks_fmt_plain(data, plans[:, c], intype=intype, outtype=outtype)
+         for c in range(C)), outtype)
+
+
+def _launch(data, plans, C: int, B: int, L: int, intype: str,
+            outtype: str) -> torch.Tensor:
+    """Launch the kernel over ``(7, C, B)`` plan words; returns ``(C, B, L)``
+    words or ``(2, C, B, L)`` planes."""
+    data = data.contiguous()
+    plans = plans.contiguous()
+    if outtype == "i16":
+        out = torch.empty((C, B, L), dtype=torch.int32, device=data.device)
+    else:
+        out = torch.empty((2, C, B, L), dtype=torch.float32, device=data.device)
+    rc = build.load().doppler_mix_blocks(
+        data.data_ptr(), out.data_ptr(), plans.data_ptr(), C, B, L,
+        int(intype == "f32"), int(outtype == "f32"),
+        torch.cuda.current_stream(data.device).cuda_stream)
+    build.check(rc, "mixer")
+    return out
+
+
 def mix_blocks_fmt(data: torch.Tensor, plans: torch.Tensor, *,
                    intype: str = "i16", outtype: str = "i16") -> torch.Tensor:
     """Fused decode → mix → encode for any i16/f32 wire-format pair.
@@ -70,19 +131,34 @@ def mix_blocks_fmt(data: torch.Tensor, plans: torch.Tensor, *,
     if data.device.type != "cuda":
         raise ValueError(f"no mixer for device {data.device}")
     B, L = check_fmt(data, plans, intype, outtype)
-    data = data.contiguous()
-    plans = plans.contiguous()
-    if outtype == "i16":
-        out = torch.empty((B, L), dtype=torch.int32, device=data.device)
-    else:
-        out = torch.empty((2, B, L), dtype=torch.float32, device=data.device)
-    rc = build.load().doppler_mix_blocks(
-        data.data_ptr(), out.data_ptr(), plans.data_ptr(), B, L,
-        int(intype == "f32"), int(outtype == "f32"),
-        torch.cuda.current_stream(data.device).cuda_stream)
-    build.check(rc, "mixer")
+    out = _launch(data, plans, 1, B, L, intype, outtype)
     mix_blocks_fmt.launches += 1
+    return out.reshape((B, L) if outtype == "i16" else (2, B, L))
+
+
+def mix_blocks_fmt_channels(data: torch.Tensor, plans: torch.Tensor, *,
+                            intype: str = "i16",
+                            outtype: str = "i16") -> torch.Tensor:
+    """C channels over one shared chunk in one launch.
+
+    ``data``: int32 words ``(B, L)`` or float32 planes ``(2, B, L)``;
+    ``plans``: ``(7, C, B)`` plan words.  Returns int32 ``(C, B, L)`` or
+    float32 ``(2, C, B, L)``; channel c is bitwise :func:`mix_blocks_fmt`
+    with ``plans[:, c]``.
+
+    A CPU tensor runs the plain version; a CUDA tensor launches the kernel
+    or raises.
+    """
+    if data.device.type == "cpu":
+        return mix_blocks_fmt_channels_plain(data, plans, intype=intype,
+                                             outtype=outtype)
+    if data.device.type != "cuda":
+        raise ValueError(f"no mixer for device {data.device}")
+    C, B, L = check_fmt_channels(data, plans, intype, outtype)
+    out = _launch(data, plans, C, B, L, intype, outtype)
+    mix_blocks_fmt_channels.launches += 1
     return out
 
 
-mix_blocks_fmt.launches = 0   # kernel launches (CUDA path only)
+mix_blocks_fmt.launches = 0            # kernel launches (CUDA path only)
+mix_blocks_fmt_channels.launches = 0

@@ -60,14 +60,15 @@ class MultiStageResampler:
 
     Drop-in for :class:`RationalResampler` at the pipeline boundary (same
     ``process`` / ``out_count_for`` / ``max_out_for`` / ``state_dict`` /
-    ``load_state`` surface).  Decimation only (``out_rate < in_rate``).
+    ``load_state`` surface, and the same ``channels=C`` batch form).
+    Decimation only (``out_rate < in_rate``).
     ``P``/``Q`` are the overall reduced ratio and ``T`` the input-referred
     FIR span, ``1 + Σ (T_s − 1)·(in_rate / rate_s)``.
     """
 
     def __init__(self, in_rate: int, out_rate: float, *,
-                 atten_db: float = 70.0, max_denominator: int = 1 << 16,
-                 device="cpu"):
+                 atten_db: float = 70.0, channels: int | None = None,
+                 max_denominator: int = 1 << 16, device="cpu"):
         if out_rate >= in_rate:
             raise ValueError(
                 "MultiStageResampler is decimation-only; use "
@@ -75,6 +76,7 @@ class MultiStageResampler:
         self.in_rate = int(in_rate)
         self.out_rate = float(out_rate)
         self.device = torch.device(device)
+        self.channels = channels      # every stage batches the same C
 
         pass_hz = 0.5 * float(out_rate)       # protect the full output band
         self.stages: list[RationalResampler] = []
@@ -100,12 +102,13 @@ class MultiStageResampler:
                 break
             self.stages.append(RationalResampler(
                 int(rate), rate / q, taps_per_phase=taps, atten_db=atten_s,
-                device=self.device))
+                channels=channels, device=self.device))
             rate = rate / q
         fin_ratio = max(1.0, rate / float(out_rate))
         self.stages.append(RationalResampler(
             int(rate), out_rate, atten_db=atten_db + 10.0 * math.log10(fin_ratio),
-            max_denominator=max_denominator, device=self.device))
+            channels=channels, max_denominator=max_denominator,
+            device=self.device))
         g = 1
         for st in self.stages[:-1]:
             g *= st.Q                     # P = 1 decimation front
@@ -155,7 +158,8 @@ class MultiStageResampler:
 
 
 def make_resampler(in_rate: int, out_rate: float, *, stages: str = "single",
-                   atten_db: float = 70.0, device="cpu", **kwargs):
+                   atten_db: float = 70.0, channels: int | None = None,
+                   device="cpu", **kwargs):
     """``stages='single'`` → :class:`RationalResampler`; ``'auto'`` → the
     cascade when decimating by 4× or more; ``'multi'`` → the cascade."""
     if stages not in ("single", "auto", "multi"):
@@ -171,6 +175,6 @@ def make_resampler(in_rate: int, out_rate: float, *, stages: str = "single",
                 "single for the legacy single-stage filter response)",
                 float(in_rate), float(out_rate))
         return MultiStageResampler(in_rate, out_rate, atten_db=atten_db,
-                                   device=device, **kwargs)
+                                   channels=channels, device=device, **kwargs)
     return RationalResampler(in_rate, out_rate, atten_db=atten_db,
-                             device=device, **kwargs)
+                             channels=channels, device=device, **kwargs)

@@ -27,8 +27,10 @@ from doppler_tpu_torch.ops.filters import design_polyphase_bank
 
 __all__ = ["RationalResampler", "window_dot", "tree_sum_last", "attach_resampler"]
 
-# outputs gathered per pass of window_dot: bounds the (M, 2^⌈log2 T⌉) gather
-# to a few hundred MB whatever the chunk; results do not depend on it
+# output rows gathered per pass of window_dot, over all channels: bounds
+# the (C, m, 2^⌈log2 T⌉) gather to a few hundred MB whatever the chunk and
+# the channel count (a pass takes _SLAB // C outputs of every channel);
+# results do not depend on it
 _SLAB = 1 << 16
 
 
@@ -52,8 +54,10 @@ def window_dot(xi, xq, bank_rev, rem0: int, off0: int, *, P: int, Q: int,
                T: int, M: int):
     """Resample M outputs from a padded input window.
 
-    ``xi, xq``   : ``(H + N,)`` planar input, where index 0 sits T−1 samples
-                   before the first output's newest-needed sample.
+    ``xi, xq``   : ``(H + N,)`` planar input — or ``(C, H + N)``, one row
+                   per channel, all on the same output grid — where index 0
+                   sits T−1 samples before the first output's
+                   newest-needed sample.
     ``bank_rev`` : ``(P, T)`` bank with taps reversed (so the window dot is a
                    forward gather: y = Σ_l rev[p, l] · x[base + l]).
     ``rem0``     : (m0·Q) mod P for the first output index m0.
@@ -61,21 +65,26 @@ def window_dot(xi, xq, bank_rev, rem0: int, off0: int, *, P: int, Q: int,
 
     Gather indices past the window clip to its last sample, as
     ``jnp.take(mode='clip')`` does; such outputs lie beyond the valid count.
+    Returns ``(M,)`` — or ``(C, M)`` — planes; row c of a batched call is
+    bitwise the unbatched call on row c (the same products into the same
+    tree).
     """
     dev = xi.device
     last = xi.shape[-1] - 1
+    lead = tuple(xi.shape[:-1])
+    slab = max(1, _SLAB // max(1, math.prod(lead)))
     taps_k = torch.arange(T, dtype=torch.int64, device=dev)
-    yi = torch.empty(M, dtype=torch.float32, device=dev)
-    yq = torch.empty(M, dtype=torch.float32, device=dev)
-    for m_lo in range(0, M, _SLAB):
-        j = torch.arange(m_lo, min(M, m_lo + _SLAB), dtype=torch.int64,
+    yi = torch.empty(lead + (M,), dtype=torch.float32, device=dev)
+    yq = torch.empty(lead + (M,), dtype=torch.float32, device=dev)
+    for m_lo in range(0, M, slab):
+        j = torch.arange(m_lo, min(M, m_lo + slab), dtype=torch.int64,
                          device=dev)
         u = j * Q + rem0                        # upsampled offsets
         base = off0 + u // P                    # window start per output
         idx = (base[:, None] + taps_k[None, :]).clamp_(0, last)
         taps = bank_rev[u % P]                  # (m, T)
-        yi[m_lo:m_lo + j.numel()] = tree_sum_last(xi[idx] * taps)
-        yq[m_lo:m_lo + j.numel()] = tree_sum_last(xq[idx] * taps)
+        yi[..., m_lo:m_lo + j.numel()] = tree_sum_last(xi[..., idx] * taps)
+        yq[..., m_lo:m_lo + j.numel()] = tree_sum_last(xq[..., idx] * taps)
     return yi, yq
 
 
@@ -87,11 +96,15 @@ class RationalResampler:
     error, as in the JAX package); the polyphase bank
     (``ops.filters.design_polyphase_bank``, ``taps_per_phase`` taps a phase
     or auto-sized for ``atten_db``) has P phases.  ``device`` holds the FIR
-    history and the taps.
+    history and the taps.  ``channels=C`` batches C channels of one capture:
+    ``(C, T−1)`` histories, ``process`` over ``(C, N)`` planes, one output
+    grid for all (the input counts are the same for every channel); row c
+    is bitwise an unbatched resampler fed row c.
     """
 
     def __init__(self, in_rate: int, out_rate: float, *,
                  taps_per_phase: int | None = None, atten_db: float = 70.0,
+                 channels: int | None = None,
                  max_denominator: int = 1 << 16, device="cpu"):
         if in_rate <= 0 or out_rate <= 0:
             raise ValueError("rates must be positive")
@@ -114,11 +127,18 @@ class RationalResampler:
                                           atten_db)
         self.T = self.bank.shape[1]
         self._bank_rev = torch.from_numpy(self.bank[:, ::-1].copy()).to(self.device)
+        if channels is not None and channels < 1:
+            raise ValueError(f"channels must be positive, got {channels}")
+        self.channels = channels      # None = single stream; int C = batch
 
         # streaming state: next output index + T−1 input history samples
+        # (m_next is shared by the channels: the output grid depends only
+        # on input counts)
         self.m_next = 0
         self.in_consumed = 0          # absolute input samples seen
-        self._hist_i = torch.zeros(self.T - 1, dtype=torch.float32,
+        hist_shape = ((self.T - 1,) if channels is None
+                      else (channels, self.T - 1))
+        self._hist_i = torch.zeros(hist_shape, dtype=torch.float32,
                                    device=self.device)
         self._hist_q = torch.zeros_like(self._hist_i)
 
@@ -137,16 +157,16 @@ class RationalResampler:
     def process(self, i: torch.Tensor, q: torch.Tensor, valid: int, M: int):
         """Resample one chunk.
 
-        ``i, q`` : ``(N,)`` planar float32 tensors on ``device``; entries
-                   beyond ``valid`` are padding and never influence valid
-                   outputs.
+        ``i, q`` : ``(N,)`` — or ``(C, N)`` with ``channels=C`` — planar
+                   float32 tensors on ``device``; entries beyond ``valid``
+                   are padding and never influence valid outputs.
         ``M``    : output capacity (≥ out_count_for(valid)).
         Returns (yi, yq, n_valid_outputs).
         """
         T, P, Q = self.T, self.P, self.Q
         n_out = self.out_count_for(valid)
-        xi = torch.cat([self._hist_i, i.to(torch.float32)])
-        xq = torch.cat([self._hist_q, q.to(torch.float32)])
+        xi = torch.cat([self._hist_i, i.to(torch.float32)], dim=-1)
+        xq = torch.cat([self._hist_q, q.to(torch.float32)], dim=-1)
         m0 = self.m_next
         rem0 = (m0 * Q) % P
         n_m0 = (m0 * Q) // P
@@ -159,8 +179,8 @@ class RationalResampler:
         self.m_next = m0 + n_out
         self.in_consumed += int(valid)
         if valid and T > 1:
-            self._hist_i = xi[valid:valid + T - 1]
-            self._hist_q = xq[valid:valid + T - 1]
+            self._hist_i = xi[..., valid:valid + T - 1]
+            self._hist_q = xq[..., valid:valid + T - 1]
         return yi, yq, n_out
 
     # -- checkpointing ------------------------------------------------------
@@ -176,12 +196,15 @@ class RationalResampler:
     def load_state(self, state: dict) -> None:
         self.m_next = int(state["m_next"])
         self.in_consumed = int(state["in_consumed"])
+        shape = tuple(self._hist_i.shape)     # (T−1,) or (C, T−1)
         for key in ("hist_i", "hist_q"):
-            h = np.asarray(state[key], dtype=np.float32).reshape(-1)
-            if h.size != self.T - 1:
+            h = np.asarray(state[key], dtype=np.float32)
+            if self.channels is None:
+                h = h.reshape(-1)
+            if h.shape != shape:
                 raise ValueError(
-                    f"{key} holds {h.size} samples; this resampler keeps "
-                    f"T−1 = {self.T - 1}")
+                    f"{key} has shape {h.shape}; this resampler keeps "
+                    f"{shape} (channels × T−1 samples)")
             setattr(self, f"_{key}", torch.from_numpy(h.copy()).to(self.device))
 
 

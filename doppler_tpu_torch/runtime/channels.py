@@ -1,0 +1,539 @@
+"""Multi-channel pipeline: N satellites from one wideband capture.
+
+BASELINE configs 4-5, the torch statement of
+``doppler_tpu/runtime/channels.py``: a single wideband IQ stream carries
+many satellite downlinks; each channel c gets its own correction chain
+
+    mix by (center_offset_c + doppler_c(t) + offset_c)  →  resample  →  encode
+
+run as ONE batched device computation over the shared chunk.  Host side per
+channel: an independent Doppler scheduler (const or TLE track) and an
+independent samplenum-emulation state; the channel's center offset is folded
+into the per-block shift before planning, which is what C separate reference
+binaries with ``--offset (offset + center)`` would do.
+
+Routes, per chunk, decided as the JAX package decides them so both send the
+same chunks the same way:
+
+- every channel at one output rate, a single-stage resampler, a full chunk →
+  the channel-batched chain kernel (``ops.cuda.chain``);
+- one rate, a ``MultiStageResampler``, a full chunk → the channel-batched
+  cascade kernel (``ops.cuda.cascade``) over its leading ``split_point``
+  stages; when that is not all of them the front's float32 planes run the
+  remaining stages' batched ``process``;
+- anything else (mixed rates, the partial EOF chunk, no resampler) → the
+  channel-batched mixer kernel, then each rate group's batched resampler.
+
+One chunk is in flight: :meth:`MultiChannelPipeline.dispatch_chunk` plans,
+stages into pinned host memory, copies with ``non_blocking=True``, launches
+and starts the copy back; the finalizer it returns waits on the chunk's
+event.  ``run`` finalizes chunk k−1 after dispatching chunk k.
+
+Outputs go to per-channel files (stdout cannot interleave C streams).
+``device`` is explicit and nothing falls back: ``'cuda'`` raises when no
+card is present; ``'cpu'`` runs the kernels' plain versions.
+"""
+
+from __future__ import annotations
+
+import json
+import time
+from dataclasses import dataclass, field
+
+import numpy as np
+import torch
+
+from doppler_tpu_torch.ops import codec
+from doppler_tpu_torch.ops.cuda import cascade, chain, mixer
+from doppler_tpu_torch.ops.multistage import make_resampler
+from doppler_tpu_torch.ops.phase_plan import (
+    NCOState,
+    plan_blocks,
+    plan_fields_uniform,
+)
+from doppler_tpu_torch.runtime import stream as streaming
+from doppler_tpu_torch.runtime.pipeline import (
+    ConstScheduler,
+    Scheduler,
+    carry_rows,
+    host_buffer,
+    resolve_device,
+    stage_chunk,
+)
+from doppler_tpu_torch.runtime.telemetry import Counters
+
+__all__ = ["ChannelSpec", "MultiChannelPipeline", "load_channel_config"]
+
+
+@dataclass
+class ChannelSpec:
+    """One channel of a wideband capture.
+
+    ``out_rate`` overrides the pipeline-wide ``--resample-to`` for this
+    channel (None = use the pipeline default, which may itself be None =
+    no resampling).
+    """
+
+    name: str
+    scheduler: Scheduler
+    center_offset_hz: float = 0.0
+    out_rate: float | None = None
+    state: NCOState = field(default_factory=NCOState)
+
+
+class MultiChannelPipeline:
+    """Batched multi-satellite corrector over one input stream.
+
+    ``host_s`` accumulates the host's planning and staging seconds and
+    ``device_s`` the device seconds (CUDA events around each chunk's copies
+    and kernels) of finalized chunks.
+    """
+
+    def __init__(
+        self,
+        samplerate: int,
+        intype: str,
+        outtype: str,
+        channels: list[ChannelSpec],
+        *,
+        out_rate: int | None = None,
+        block_bytes: int = streaming.REFERENCE_BLOCK_BYTES,
+        chunk_blocks: int = 64,
+        quantize_ratio_f32: bool = True,
+        reset_quirk: bool = True,
+        drain_on_eof: bool = False,
+        resample_stages: str = "single",
+        device="cuda",
+    ):
+        if not channels:
+            raise ValueError("need at least one channel")
+        self.device = resolve_device(device)
+        self.drain_on_eof = drain_on_eof
+        self._drained = False   # did THIS run flush the FIR tails? (checkpoint)
+        self.samples_in = 0     # absolute input samples consumed (checkpoint)
+        self.samplerate = int(samplerate)
+        self.intype = intype
+        self.outtype = outtype
+        self.channels = channels
+        self.block_bytes = int(block_bytes)
+        self.chunk_blocks = int(chunk_blocks)
+        self.quantize_ratio_f32 = quantize_ratio_f32
+        self.reset_quirk = reset_quirk
+        self._bps_in = streaming.bytes_per_sample(intype)
+        self._bps_out = streaming.bytes_per_sample(outtype)
+        self.block_samples = self.block_bytes // self._bps_in
+
+        # group channels by effective output rate (per-channel out_rate
+        # overrides the pipeline default); each group gets its own batched
+        # resampler so different rates coexist in one wideband run
+        rates: dict[float | None, list[int]] = {}
+        for idx, ch in enumerate(channels):
+            rate = ch.out_rate if ch.out_rate is not None else out_rate
+            rates.setdefault(rate, []).append(idx)
+        self._groups = [
+            (idxs,
+             make_resampler(samplerate, rate, stages=resample_stages,
+                            channels=len(idxs), device=self.device)
+             if rate is not None else None)
+            for rate, idxs in rates.items()
+        ]
+        # mixed-rate captures never fuse: the fused kernels batch one
+        # resampler over every channel
+        self._uniform = len(self._groups) == 1
+        self.resampler = self._groups[0][1] if self._uniform else None
+        self._chain_carries = None    # (C, 2, T−1) chain carries
+        self._chain_bank = None
+        self._cascade_k = None        # fused stages; 0 = never fused
+        self._cascade_stages = None   # their (P, Q, T)
+        self._cascade_banks = None
+        self._cascade_carries = None  # per fused stage (C, 2, T_s−1)
+        self.host_s = 0.0
+        self.device_s = 0.0
+
+    # -- planning -------------------------------------------------------------
+
+    def _plan_all(self, counts) -> np.ndarray:
+        """Plan words of every channel for one chunk: ``(7, C, B)`` uint32,
+        zero past ``len(counts)`` blocks."""
+        C = len(self.channels)
+        B = self.chunk_blocks
+        n = len(counts)
+        # per-channel shifts for the chunk: f32(scheduler) + f32(center),
+        # added in float32 exactly as the single-stream path composes them
+        # (main.rs:177)
+        shifts_all = [
+            (np.asarray(ch.scheduler.shifts(counts), dtype=np.float64)
+             .astype(np.float32) + np.float32(ch.center_offset_hz))
+            .astype(np.float64)
+            for ch in self.channels
+        ]
+
+        # uniform fast lane (config-5 scale): when every channel's shift is
+        # constant within the chunk, one (C, B) vectorized planning pass
+        # replaces C Python planners (bit-identical)
+        if n and all(s.size and (s == s[0]).all() for s in shifts_all):
+            f = plan_fields_uniform(
+                [float(s[0]) for s in shifts_all], counts, self.samplerate,
+                [ch.state for ch in self.channels], self.block_samples,
+                quantize_f32=self.quantize_ratio_f32,
+                reset_quirk=self.reset_quirk,
+            )
+            if f is not None:
+                if n == B:
+                    return np.ascontiguousarray(f)
+                fields = np.zeros((7, C, B), dtype=np.uint32)
+                fields[:, :, :n] = f
+                return fields
+
+        fields = np.zeros((7, C, B), dtype=np.uint32)
+        for c, ch in enumerate(self.channels):
+            plan = plan_blocks(
+                shifts_all[c], counts, self.samplerate, ch.state,
+                self.block_samples,
+                quantize_f32=self.quantize_ratio_f32,
+                reset_quirk=self.reset_quirk,
+            )
+            for fi, arr in enumerate(
+                (plan.d_hi, plan.d_lo, plan.c1_hi, plan.c1_lo,
+                 plan.c2_hi, plan.c2_lo, plan.t)
+            ):
+                fields[fi, c, : arr.size] = arr
+        return fields
+
+    # -- the gates ------------------------------------------------------------
+
+    def _chain_eligible(self, total: int) -> bool:
+        """May this chunk run the channel-batched chain kernel?
+
+        The rule of ``doppler_tpu``'s channels pipeline, term for term.  The
+        128-sample terms are the TPU's lane geometry; the carry term is the
+        channels form (rows of the whole chunk, not of one block).
+        """
+        rs = self.resampler
+        B, L = self.chunk_blocks, self.block_samples
+        return (
+            rs is not None
+            and getattr(rs, "bank", None) is not None   # single-stage only
+            and L % 128 == 0
+            and 128 % rs.Q == 0
+            and total == B * L          # padded tails would poison the carry
+            and carry_rows(rs.T) <= (B * L) // 128
+        )
+
+    def _cascade_eligible(self, total: int) -> bool:
+        """May this chunk run the channel-batched cascade kernel?
+
+        The JAX rule with the TPU's step geometry replaced by the kernel's
+        ``chunk_out_count``, as ``Pipeline._cascade_eligible``.  Decided
+        once: ``_cascade_k`` is the fused stage count, 0 when the cascade
+        never fuses.
+        """
+        rs = self.resampler
+        if rs is None or getattr(rs, "stages", None) is None:
+            return False
+        B, L = self.chunk_blocks, self.block_samples
+        if self._cascade_k is None:
+            k = cascade.split_point(rs.stages) if L % 128 == 0 else 0
+            fused = tuple((st.P, st.Q, st.T) for st in rs.stages[:k])
+            ok = cascade.chunk_out_count(fused, B, L) is not None
+            self._cascade_k = k if ok else 0
+            self._cascade_stages = fused
+        return self._cascade_k > 0 and total == B * L
+
+    # -- dispatch -------------------------------------------------------------
+
+    def dispatch_chunk(self, chunk: streaming.Chunk):
+        """Host planning + device dispatch without waiting → zero-argument
+        finalizer returning the per-channel byte strings.
+
+        All pipeline and resampler state advances here (host integers and
+        device tensors in stream order), so a finalizer is a pure
+        conversion and may run after the next chunk's dispatch.
+        """
+        counts = [size // self._bps_in for size in chunk.block_sizes]
+        total = sum(counts)
+        C = len(self.channels)
+        if total == 0:
+            if counts:
+                self._plan_all(counts)   # still advance the schedulers
+            return lambda: [b""] * C
+        B, L = self.chunk_blocks, self.block_samples
+        t0 = time.perf_counter()
+        fields = self._plan_all(counts)
+        self.samples_in += total
+        data = stage_chunk(chunk.data, self.intype, B, L, self.device)
+        plans = host_buffer((7, C, B), torch.int32, self.device)
+        plans.numpy()[...] = fields.view(np.int32)
+        self.host_s += time.perf_counter() - t0
+        start = None
+        if self.device.type == "cuda":
+            start = torch.cuda.Event(enable_timing=True)
+            start.record()
+            # one (7, C, B) transfer a chunk
+            plans = plans.to(self.device, non_blocking=True)
+            data = data.to(self.device, non_blocking=True)
+        return self._start_out(self._dispatch_local(data, plans, total), start)
+
+    def _dispatch_local(self, data, plans, total: int):
+        """Launch one staged chunk down its route.  Returns the parts
+        ``(channel indices, device output, n_valid)``; an output is int32
+        ``(C_g, …)`` or float32 ``(2, C_g, …)``."""
+        C = len(self.channels)
+        everyone = list(range(C))
+        rs = self.resampler
+        if self._chain_eligible(total):
+            if self._chain_bank is None:
+                self._chain_bank = torch.from_numpy(rs.bank).to(self.device)
+            if self._chain_carries is None:
+                # seed from the batched resampler's per-channel history, so
+                # chunks interleaved with the unfused route (or a restored
+                # checkpoint) resume bitwise
+                self._chain_carries = torch.stack(
+                    [rs._hist_i, rs._hist_q], dim=1).to(self.device,
+                                                       torch.float32)
+            out, self._chain_carries = chain.mix_resample_chain_channels(
+                data, plans, self._chain_bank, self._chain_carries,
+                P=rs.P, Q=rs.Q, T=rs.T, intype=self.intype,
+                outtype=self.outtype)
+            n_out = self._advance([rs], [self._chain_carries], total)
+            return [(everyone, out, n_out)]
+
+        if self._cascade_eligible(total):
+            k = self._cascade_k
+            fused = rs.stages[:k]
+            split = k < len(rs.stages)
+            if self._cascade_banks is None:
+                self._cascade_banks = tuple(
+                    torch.from_numpy(st.bank).to(self.device) for st in fused)
+            if self._cascade_carries is None:
+                self._cascade_carries = tuple(
+                    torch.stack([st._hist_i, st._hist_q], dim=1).to(
+                        self.device, torch.float32)
+                    for st in fused)
+            out, self._cascade_carries = cascade.mix_cascade_channels(
+                data, plans, self._cascade_banks, self._cascade_carries,
+                stages=self._cascade_stages, intype=self.intype,
+                outtype="f32" if split else self.outtype, final_dense=split)
+            n_mid = self._advance(fused, self._cascade_carries, total)
+            if not split:
+                return [(everyone, out, n_mid)]
+            # split: the front's planes (2, C, B, M_mid) run the remaining
+            # stages batched (plain torch on the device, as the JAX package
+            # runs them in XLA)
+            planes = out.reshape(2, C, -1)
+            yi, yq, n_out = planes[0], planes[1], n_mid
+            for st in rs.stages[k:]:
+                yi, yq, n_out = st.process(yi, yq, n_out,
+                                           M=st.max_out_for(int(yi.shape[-1])))
+            return [(everyone, self._encode(yi, yq), n_out)]
+
+        # the unfused route: one mixer launch for all channels, then each
+        # rate group's batched resampler
+        no_resampling = all(g_rs is None for _, g_rs in self._groups)
+        out = mixer.mix_blocks_fmt_channels(
+            data, plans, intype=self.intype,
+            outtype=self.outtype if no_resampling else "f32")
+        if no_resampling:
+            return [(everyone, out, total)]
+        # any later fused chunk must reseed its carries from the histories
+        self._chain_carries = None
+        self._cascade_carries = None
+        planes = out.reshape(2, C, -1)
+        parts = []
+        for idxs, g_rs in self._groups:
+            if idxs == everyone:
+                sub_i, sub_q = planes[0], planes[1]
+            else:
+                sel = torch.tensor(idxs, device=self.device)
+                sub_i, sub_q = planes[0][sel], planes[1][sel]
+            if g_rs is None:
+                parts.append((idxs, self._encode(sub_i, sub_q), total))
+            else:
+                yi, yq, n_out = g_rs.process(
+                    sub_i, sub_q, total,
+                    M=g_rs.max_out_for(self.chunk_blocks * self.block_samples))
+                parts.append((idxs, self._encode(yi, yq), n_out))
+        return parts
+
+    def _advance(self, stages, carries, total: int) -> int:
+        """Advance the fused stages' stream counters and mirror each one's
+        per-channel history out of its ``(C, 2, T−1)`` device carry (no
+        sync).  Returns the count leaving the last of them."""
+        n_in = total
+        for st, carry in zip(stages, carries):
+            n_out = st.out_count_for(n_in)
+            st.m_next += n_out
+            st.in_consumed += n_in
+            st._hist_i = carry[:, 0]
+            st._hist_q = carry[:, 1]
+            n_in = n_out
+        return n_in
+
+    def _encode(self, yi, yq) -> torch.Tensor:
+        if self.outtype == "i16":
+            return codec.iq_to_i16_words(yi, yq)
+        return torch.stack([yi, yq])
+
+    # -- output ---------------------------------------------------------------
+
+    def _start_out(self, parts, start):
+        """Start the device→host copies of every part's valid outputs;
+        returns the finalizer that waits for them and cuts the per-channel
+        byte strings."""
+        hosts = []
+        for idxs, out, n_valid in parts:
+            if self.outtype == "i16":
+                valid = out.reshape(len(idxs), -1)[:, :n_valid]
+            else:
+                valid = out.reshape(2, len(idxs), -1)[:, :, :n_valid]
+            valid = valid.contiguous()
+            if self.device.type == "cuda":
+                host = host_buffer(tuple(valid.shape), valid.dtype, self.device)
+                host.copy_(valid, non_blocking=True)
+                valid = host
+            hosts.append((idxs, valid))
+        end = None
+        if start is not None:
+            end = torch.cuda.Event(enable_timing=True)
+            end.record()
+
+        def finalize() -> list[bytes]:
+            if end is not None:
+                end.synchronize()
+                self.device_s += start.elapsed_time(end) / 1e3
+            outs: list[bytes] = [b""] * len(self.channels)
+            for idxs, host in hosts:
+                arr = host.numpy()
+                for row, cidx in enumerate(idxs):
+                    if self.outtype == "i16":
+                        outs[cidx] = codec.i16_words_to_bytes(arr[row])
+                    else:
+                        outs[cidx] = codec.f32_pairs_to_bytes(
+                            np.stack([arr[0, row], arr[1, row]], axis=-1))
+            return outs
+        return finalize
+
+    def drain(self) -> list[bytes]:
+        """Flush every resampler group's FIR tail with T−1 zero samples —
+        the per-channel form of ``Pipeline._drain``."""
+        parts = []
+        for idxs, rs in self._groups:
+            if rs is None:
+                continue
+            pad = rs.T - 1
+            if pad <= 0:
+                continue
+            zeros = torch.zeros((len(idxs), pad), dtype=torch.float32,
+                                device=self.device)
+            yi, yq, n_out = rs.process(zeros, zeros, pad, M=rs.max_out_for(pad))
+            if n_out:
+                parts.append((idxs, self._encode(yi, yq), n_out))
+        self._chain_carries = None    # histories advanced past the stream end
+        self._cascade_carries = None
+        return self._start_out(parts, None)()
+
+    # -- main loop ------------------------------------------------------------
+
+    def run(self, fin, writers, should_stop=None) -> Counters:
+        """Pump the stream; ``writers`` is one binary file object per channel.
+
+        One chunk in flight, as ``Pipeline.run``: chunk k+1 is planned and
+        dispatched before chunk k's output is waited for.  ``should_stop``
+        is polled between chunks; a stop leaves the state consistent with
+        the bytes written and does not drain.
+        """
+        if len(writers) != len(self.channels):
+            raise ValueError(f"{len(writers)} writers for "
+                             f"{len(self.channels)} channels")
+        reader = streaming.BlockReader(fin, self.block_bytes)
+        counters = Counters()
+
+        def emit(fin_cb, bytes_in, blocks):
+            outs = fin_cb()
+            for w, ob in zip(writers, outs):
+                if ob:
+                    w.write(ob)
+            counters.add(
+                samples=bytes_in // self._bps_in,
+                bytes_in=bytes_in,
+                bytes_out=sum(len(ob) for ob in outs),
+                blocks=blocks,
+            )
+
+        pending = None
+        pending_meta = (0, 0)
+        hit_eof = False
+        while True:
+            if should_stop is not None and should_stop():
+                break
+            chunk = reader.read_chunk(self.chunk_blocks)
+            new_pending = self.dispatch_chunk(chunk)
+            if pending is not None:
+                emit(pending, *pending_meta)
+            pending = new_pending
+            pending_meta = (len(chunk.data), chunk.n_blocks)
+            if chunk.eof:
+                hit_eof = True
+                break
+        if pending is not None:
+            emit(pending, *pending_meta)
+        # drain only on a true EOF exit: a stop between chunks is a pause,
+        # and must neither flush the tails nor set the drained flag
+        if hit_eof and self.drain_on_eof:
+            for w, ob in zip(writers, self.drain()):
+                if ob:
+                    w.write(ob)
+                    counters.add(samples=0, bytes_in=0,
+                                 bytes_out=len(ob), blocks=0)
+            self._drained = True   # checkpointed: a resumed run must not
+            #                        append the FIR tails a second time
+        for w in writers:
+            w.flush()
+        return counters
+
+
+def load_channel_config(path: str, samplerate: int):
+    """Build ChannelSpecs from a JSON config (see docs/channels.md).
+
+    Shared keys may live at the top level (tlefile, location, time); each
+    entry in ``channels`` is either const (``shift``) or track (``tlename`` +
+    ``frequency`` [+ ``offset``]), plus optional ``center_offset`` and
+    ``resample_to``.  Returns ``(specs, config dict)``.
+    """
+    with open(path) as f:
+        cfg = json.load(f)
+    specs = []
+    for ch in cfg["channels"]:
+        center = float(ch.get("center_offset", 0.0))
+        out_rate = ch.get("resample_to")
+        if out_rate is not None:
+            out_rate = float(out_rate)
+        if "shift" in ch:
+            sched = ConstScheduler(float(ch["shift"]))
+        else:
+            from doppler_tpu_torch.cli import parse_location, parse_time_utc
+            from doppler_tpu_torch.orbit import make_track_scheduler
+
+            lat, lon, alt = parse_location(ch.get("location", cfg["location"]))
+            time_s = ch.get("time", cfg.get("time"))
+            tlef = ch.get("tlefile", cfg.get("tlefile"))
+            if tlef is None:
+                # open(None) would raise a TypeError that escapes the CLI's
+                # bad-config handling — fail like every other config error
+                raise ValueError(
+                    f"channel {ch.get('name')!r}: track entry needs "
+                    "'tlefile' (at the channel or top level)")
+            sched = make_track_scheduler(
+                tlefile=tlef,
+                tlename=ch["tlename"],
+                lat=lat, lon=lon, alt=alt,
+                frequency_hz=float(ch["frequency"]),
+                offset_hz=float(ch.get("offset", 0.0)),
+                samplerate=samplerate,
+                start_time=parse_time_utc(time_s) if time_s else None,
+            )
+        specs.append(ChannelSpec(
+            name=ch["name"], scheduler=sched, center_offset_hz=center,
+            out_rate=out_rate,
+        ))
+    return specs, cfg

@@ -40,7 +40,8 @@ from doppler_tpu_torch.ops.phase_plan import NCOState, plan_blocks
 from doppler_tpu_torch.runtime import stream as streaming
 from doppler_tpu_torch.runtime.telemetry import Counters
 
-__all__ = ["Scheduler", "ConstScheduler", "Pipeline"]
+__all__ = ["Scheduler", "ConstScheduler", "Pipeline", "resolve_device",
+           "carry_rows", "host_buffer", "stage_chunk"]
 
 
 class Scheduler(Protocol):
@@ -64,7 +65,7 @@ class ConstScheduler:
         return [self.shift_hz] * len(block_counts)
 
 
-def _resolve_device(device) -> torch.device:
+def resolve_device(device) -> torch.device:
     """``'cuda'``/``'cuda:N'``/``'cpu'`` → a torch device; raises when CUDA
     is asked for and absent (there is no silent CPU fallback)."""
     dev = torch.device(device)
@@ -80,9 +81,36 @@ def _resolve_device(device) -> torch.device:
     return dev
 
 
-def _carry_rows(T: int) -> int:
+def carry_rows(T: int) -> int:
     """Whole 128-sample rows of the TPU chain's FIR history."""
     return -(-max(T - 1, 1) // 128)
+
+
+def host_buffer(shape, dtype, device: torch.device) -> torch.Tensor:
+    """A host staging tensor, pinned when ``device`` is a card."""
+    return torch.empty(shape, dtype=dtype, pin_memory=device.type == "cuda")
+
+
+def stage_chunk(data: bytes, intype: str, B: int, L: int,
+                device: torch.device) -> torch.Tensor:
+    """Raw chunk bytes → host tensor of the kernels' wire layout, zero
+    padded to the chunk shape: int32 words ``(B, L)`` for i16, float32
+    planes ``(2, B, L)`` for f32.  Pinned when the device is a card."""
+    if intype == "i16":
+        words = codec.bytes_to_i16_words(data)
+        host = host_buffer((B, L), torch.int32, device)
+        flat = host.numpy().reshape(-1)
+        flat[:words.size] = words
+        flat[words.size:] = 0
+        return host
+    pairs = codec.bytes_to_f32_pairs(data)
+    host = host_buffer((2, B, L), torch.float32, device)
+    planes = host.numpy().reshape(2, -1)
+    n = pairs.shape[0]
+    planes[0, :n] = pairs[:, 0]
+    planes[1, :n] = pairs[:, 1]
+    planes[:, n:] = 0.0
+    return host
 
 
 class Pipeline:
@@ -113,7 +141,7 @@ class Pipeline:
     ):
         if samplerate <= 0:
             raise ValueError("samplerate must be positive")
-        self.device = _resolve_device(device)
+        self.device = resolve_device(device)
         self.samplerate = int(samplerate)
         self.intype = intype
         self.outtype = outtype
@@ -122,6 +150,7 @@ class Pipeline:
         self.chunk_blocks = int(chunk_blocks)
         self.quantize_ratio_f32 = quantize_ratio_f32
         self.drain_on_eof = drain_on_eof  # flush the FIR tail with zeros at EOF
+        self._drained = False  # did THIS run reach EOF and flush the tail?
         self.nco_state = NCOState()   # the stream's entire resumable DSP state
 
         self._bps_in = streaming.bytes_per_sample(intype)
@@ -173,7 +202,7 @@ class Pipeline:
             getattr(rs, "bank", None) is not None   # single-stage only
             and L % 128 == 0
             and 128 % rs.Q == 0
-            and _carry_rows(rs.T) <= L // 128
+            and carry_rows(rs.T) <= L // 128
             # padded tail chunks would poison the carry with zeros;
             # only the EOF chunk is partial, so this costs nothing
             and total == self.chunk_blocks * L
@@ -259,31 +288,6 @@ class Pipeline:
 
     # -- staging ------------------------------------------------------------
 
-    def _host_buffer(self, shape, dtype) -> torch.Tensor:
-        return torch.empty(shape, dtype=dtype,
-                           pin_memory=self.device.type == "cuda")
-
-    def _stage_in(self, data: bytes) -> torch.Tensor:
-        """Raw chunk bytes → host tensor of the kernels' wire layout, zero
-        padded to the chunk shape: int32 words ``(B, L)`` for i16, float32
-        planes ``(2, B, L)`` for f32.  Pinned when the device is a card."""
-        B, L = self.chunk_blocks, self.block_samples
-        if self.intype == "i16":
-            words = codec.bytes_to_i16_words(data)
-            host = self._host_buffer((B, L), torch.int32)
-            flat = host.numpy().reshape(-1)
-            flat[:words.size] = words
-            flat[words.size:] = 0
-            return host
-        pairs = codec.bytes_to_f32_pairs(data)
-        host = self._host_buffer((2, B, L), torch.float32)
-        planes = host.numpy().reshape(2, -1)
-        n = pairs.shape[0]
-        planes[0, :n] = pairs[:, 0]
-        planes[1, :n] = pairs[:, 1]
-        planes[:, n:] = 0.0
-        return host
-
     def _stage_out(self, host: torch.Tensor) -> bytes:
         """Valid output (int32 words, or float32 planes ``(2, n)``) → bytes."""
         arr = host.numpy()
@@ -300,7 +304,7 @@ class Pipeline:
             valid = out.reshape(2, -1)[:, :n_valid].contiguous()
         if self.device.type == "cpu":
             return valid, None, None
-        host = self._host_buffer(tuple(valid.shape), valid.dtype)
+        host = host_buffer(tuple(valid.shape), valid.dtype, self.device)
         host.copy_(valid, non_blocking=True)
         end = torch.cuda.Event(enable_timing=True)
         end.record()
@@ -341,7 +345,8 @@ class Pipeline:
             quantize_f32=self.quantize_ratio_f32,
         )
         plans = plan_tensor(plan, self.chunk_blocks)
-        data = self._stage_in(chunk.data)
+        data = stage_chunk(chunk.data, self.intype, self.chunk_blocks,
+                           self.block_samples, self.device)
         self.host_s += time.perf_counter() - t0
         start = None
         if self.device.type == "cuda":
@@ -451,7 +456,8 @@ class Pipeline:
         # pause, and flushing the FIR tail there would corrupt the output
         if hit_eof and self.resampler is not None and self.drain_on_eof:
             out_bytes = self._drain()
-            if out_bytes:
+            self._drained = True   # checkpointed: a resumed run must not
+            if out_bytes:          # append the FIR tail a second time
                 fout.write(out_bytes)
                 counters.add(
                     samples=len(out_bytes) // self._bps_out,

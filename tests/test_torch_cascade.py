@@ -21,11 +21,14 @@ from doppler_tpu.ops.multistage import MultiStageResampler as JMultiStage
 from doppler_tpu.ops.pallas.chain import (
     carry_rows,
     make_chain_taps,
+    mix_cascade_pallas_channels,
     mix_cascade_pallas_stream,
 )
 from doppler_tpu.ops.pallas.chain import split_point as j_split_point
 from doppler_tpu_torch.ops import nco
 from doppler_tpu_torch.ops.cuda.cascade import (
+    mix_cascade_channels,
+    mix_cascade_channels_plain,
     mix_cascade_plain,
     mix_cascade_stream,
     split_point,
@@ -190,3 +193,121 @@ def test_rejects_bad_geometry():
         mix_cascade_plain(x, p, banks * 3, carries * 3, stages=stages * 3)
     with pytest.raises(ValueError, match="final_dense"):
         mix_cascade_plain(x, p, banks, carries, stages=stages, final_dense=True)
+
+
+# -- the channel axis -------------------------------------------------------
+
+def _channel_chunks(fs, C, B, L, n_chunks, seed, intype="i16"):
+    """Consecutive shared chunks with ``(7, C, B)`` plan words: every channel
+    its own shifts and samplenum state."""
+    rng = np.random.default_rng(seed)
+    states = [NCOState(samplenum=11 * c) for c in range(C)]
+    out = []
+    for k in range(n_chunks):
+        fields = np.stack([
+            np.stack([getattr(plan_blocks(
+                [4242.0 + 1500.0 * c] * (B // 2) + [-3000.5 - k - 7 * c] * (B - B // 2),
+                [L] * B, fs, states[c], L), f) for f in nco.PLAN_FIELDS])
+            for c in range(C)], axis=1)                      # (7, C, B)
+        if intype == "i16":
+            data = rng.integers(-(1 << 31), 1 << 31, size=(B, L),
+                                dtype=np.int64).astype(np.int32)
+        else:
+            data = (rng.standard_normal((2, B, L)) * 0.3).astype(np.float32)
+        out.append((data, fields))
+    return out
+
+
+def _channels_vs_jax(fs, C, B, intype, outtype, seed):
+    """Two chunks through ``mix_cascade_channels`` (the plain version, on
+    the CPU) and ``mix_cascade_pallas_channels`` (interpret mode), both
+    from zero carries; the TPU carries ``(C, 2, HBR, 128)`` hold the flat
+    ``(C, 2, T−1)`` histories in their tails."""
+    ms = MultiStageResampler(fs, 48000)
+    k = split_point(ms.stages)
+    dense = k < len(ms.stages)
+    fused = ms.stages[:k]
+    stages, banks = _stages(ms, k)
+    taps = tuple(
+        jnp.asarray(make_chain_taps(st.bank, st.P, st.Q,
+                                    pp=st.P if (i < k - 1 or dense) else None))
+        for i, st in enumerate(fused))
+    carries = tuple(torch.zeros(C, 2, T - 1) for _, _, T in stages)
+    jc = tuple(jnp.zeros((C, 2, carry_rows(T), 128), jnp.float32)
+               for _, _, T in stages)
+    for data, fields in _channel_chunks(fs, C, B, 2048, 2, seed, intype):
+        want, jc = mix_cascade_pallas_channels(
+            jnp.asarray(data), jnp.asarray(fields), taps, jc, stages=stages,
+            interpret=True, intype=intype, outtype=outtype, final_dense=dense)
+        got, carries = mix_cascade_channels(
+            torch.from_numpy(data), torch.from_numpy(fields.view(np.int32)),
+            banks, carries, stages=stages, intype=intype, outtype=outtype,
+            final_dense=dense)
+        want = np.asarray(want)
+        assert got.shape == want.shape
+        if outtype == "i16":
+            _assert_lsb(got, want)
+        else:
+            assert np.abs(got.numpy() - want).max() <= TOL_F32
+        for c, j, (_, _, T) in zip(carries, jc, stages):
+            tail = np.asarray(j).reshape(C, 2, -1)[:, :, -(T - 1):]
+            assert np.abs(c.numpy() - tail).max() <= TOL_F32
+    return got
+
+
+@pytest.mark.parametrize("intype,outtype", [("i16", "i16"), ("i16", "f32"),
+                                            ("f32", "i16"), ("f32", "f32")])
+def test_channels_plain_matches_jax_pallas_channels(intype, outtype):
+    """Config-3 stages, C = 3, B = 8; the second chunk starts from the
+    carries of the first."""
+    got = _channels_vs_jax(FS, 3, 8, intype, outtype, 31)
+    assert got.shape == ((3, 8, 96) if outtype == "i16" else (2, 3, 8, 96))
+
+
+@pytest.mark.parametrize("fs", [100_000_000, 250000])
+def test_channels_split_front_matches_jax_final_dense(fs):
+    """The ÷2^k front of a split cascade for C = 3 channels: float32 planes
+    ``(2, C, B, M_mid)``, which the tail stages read as ``(C, n_mid)`` rows."""
+    got = _channels_vs_jax(fs, 3, 16, "i16", "f32", 33)
+    assert got.shape[:3] == (2, 3, 16)
+
+
+@pytest.mark.parametrize("fs", [FS, 250000])
+def test_channel_rows_equal_the_stream_call_bitwise(fs):
+    C = 4
+    ms = MultiStageResampler(fs, 48000)
+    k = split_point(ms.stages)
+    dense = k < len(ms.stages)
+    stages, banks = _stages(ms, k)
+    kw = dict(stages=stages, outtype="f32" if dense else "i16", final_dense=dense)
+    (data, fields), = _channel_chunks(fs, C, 4, 2048, 1, 35)
+    x = torch.from_numpy(data)
+    p = torch.from_numpy(fields.view(np.int32))
+    rng = np.random.default_rng(4)
+    carries = tuple(torch.from_numpy(
+        rng.standard_normal((C, 2, T - 1)).astype(np.float32) * 0.2)
+        for _, _, T in stages)
+    got, c_got = mix_cascade_channels(x, p, banks, carries, **kw)
+    plain, c_plain = mix_cascade_channels_plain(x, p, banks, carries, **kw)
+    assert torch.equal(got, plain)
+    assert all(torch.equal(a, b) for a, b in zip(c_got, c_plain))
+    for c in range(C):
+        one, c_one = mix_cascade_stream(x, p[:, c], banks,
+                                        [cr[c] for cr in carries], **kw)
+        assert torch.equal(got[:, c] if dense else got[c], one)
+        assert all(torch.equal(a[c], b) for a, b in zip(c_got, c_one))
+
+
+def test_channels_reject_bad_shapes():
+    (data, fields), = _channel_chunks(FS, 2, 2, 2048, 1, 1)
+    x = torch.from_numpy(data)
+    p = torch.from_numpy(fields.view(np.int32))
+    stages, banks = _stages(CONFIG3)
+    carries = tuple(torch.zeros(2, 2, T - 1) for _, _, T in stages)
+    with pytest.raises(ValueError, match="carry"):
+        mix_cascade_channels(x, p, banks, tuple(c[0] for c in carries),
+                             stages=stages)
+    with pytest.raises(ValueError, match="plans must be int32"):
+        mix_cascade_channels(x, p[:, 0], banks, carries, stages=stages)
+    with pytest.raises(ValueError, match="on one device"):
+        mix_cascade_channels(x, p.to("meta"), banks, carries, stages=stages)

@@ -17,10 +17,13 @@ import torch
 from doppler_tpu.ops.pallas.chain import (
     carry_rows,
     make_chain_taps,
+    mix_resample_chain_pallas_channels,
     mix_resample_chain_pallas_stream,
 )
 from doppler_tpu_torch.ops import nco
 from doppler_tpu_torch.ops.cuda.chain import (
+    mix_resample_chain_channels,
+    mix_resample_chain_channels_plain,
     mix_resample_chain_plain,
     mix_resample_chain_stream,
 )
@@ -154,3 +157,107 @@ def test_rejects_bad_geometry():
     with pytest.raises(ValueError, match="multiple of Q"):
         mix_resample_chain_plain(x[:, :1000], p, bank, torch.zeros(2, T - 1),
                                  P=P, Q=Q, T=T)
+
+
+# -- the channel axis -------------------------------------------------------
+
+def _channel_chunks(C, B, L, n_chunks, seed, intype="i16"):
+    """Consecutive shared chunks with ``(7, C, B)`` plan words: every channel
+    its own shifts and samplenum state."""
+    rng = np.random.default_rng(seed)
+    states = [NCOState(samplenum=11 * c) for c in range(C)]
+    out = []
+    for k in range(n_chunks):
+        fields = np.stack([
+            np.stack([getattr(plan_blocks(
+                [4242.0 + 1500.0 * c] * (B // 2) + [-3000.5 - k - 7 * c] * (B - B // 2),
+                [L] * B, FS, states[c], L), f) for f in nco.PLAN_FIELDS])
+            for c in range(C)], axis=1)                      # (7, C, B)
+        if intype == "i16":
+            data = rng.integers(-(1 << 31), 1 << 31, size=(B, L),
+                                dtype=np.int64).astype(np.int32)
+        else:
+            data = (rng.standard_normal((2, B, L)) * 0.3).astype(np.float32)
+        out.append((data, fields))
+    return out
+
+
+def _tpu_rows(flat, T):
+    """Flat ``(C, 2, T−1)`` carries → the TPU layout ``(C, 2, HBR, 128)``:
+    right-aligned in whole 128-sample rows, zeros in front (the seeding of
+    ``doppler_tpu/runtime/channels.py:699-703``)."""
+    C, hbr = flat.shape[0], carry_rows(T)
+    rows = np.zeros((C, 2, hbr * 128), np.float32)
+    rows[:, :, hbr * 128 - (T - 1):] = flat
+    return rows.reshape(C, 2, hbr, 128)
+
+
+@pytest.mark.parametrize("intype,outtype", [("i16", "i16"), ("i16", "f32"),
+                                            ("f32", "i16"), ("f32", "f32")])
+def test_channels_plain_matches_jax_pallas_channels(intype, outtype):
+    """C = 3 channels over one shared chunk against
+    ``mix_resample_chain_pallas_channels`` (interpret mode); the compared
+    chunk starts from the nonzero per-channel carries of a previous one."""
+    C, B = 3, 8
+    chunks = _channel_chunks(C, B, 2048, 2, 21, intype)
+    taps = make_chain_taps(BANK, P, Q)
+    bank = torch.from_numpy(BANK)
+    carries = torch.zeros(C, 2, T - 1)
+    jc = jnp.asarray(_tpu_rows(carries.numpy(), T))
+    for data, fields in chunks:
+        want, jc = mix_resample_chain_pallas_channels(
+            jnp.asarray(data), jnp.asarray(fields), taps, jc, P=P, Q=Q, T=T,
+            interpret=True, intype=intype, outtype=outtype)
+        got, carries = mix_resample_chain_channels(
+            torch.from_numpy(data),
+            torch.from_numpy(fields.view(np.int32)), bank, carries,
+            P=P, Q=Q, T=T, intype=intype, outtype=outtype)
+        want = np.asarray(want)
+        assert got.shape == want.shape == (
+            (C, B, 96) if outtype == "i16" else (2, C, B, 96))
+        if outtype == "i16":
+            d = np.abs(got.numpy().view(np.int16).astype(np.int32)
+                       - want.view(np.int16).astype(np.int32))
+            assert d.max() <= 1 and np.mean(d > 0) < 0.01
+        else:
+            assert np.abs(got.numpy() - want).max() <= 2.0 ** -20
+        # carries: the flat (C, 2, T−1) history is the tail of the TPU rows
+        j_tail = np.asarray(jc).reshape(C, 2, -1)[:, :, -(T - 1):]
+        assert np.abs(carries.numpy() - j_tail).max() <= 2.0 ** -20
+
+
+def test_channel_rows_equal_the_stream_call_bitwise():
+    """Channel c of the batched call is the stream call with that channel's
+    plan words and carry, and the plain version is what a CPU tensor runs."""
+    C = 4
+    (data, fields), = _channel_chunks(C, 4, 2048, 1, 23)
+    x = torch.from_numpy(data)
+    p = torch.from_numpy(fields.view(np.int32))
+    bank = torch.from_numpy(BANK)
+    rng = np.random.default_rng(3)
+    carries = torch.from_numpy(
+        rng.standard_normal((C, 2, T - 1)).astype(np.float32) * 0.2)
+    got, c_got = mix_resample_chain_channels(x, p, bank, carries, P=P, Q=Q, T=T)
+    plain, c_plain = mix_resample_chain_channels_plain(x, p, bank, carries,
+                                                       P=P, Q=Q, T=T)
+    assert torch.equal(got, plain) and torch.equal(c_got, c_plain)
+    for c in range(C):
+        one, c_one = mix_resample_chain_stream(x, p[:, c], bank, carries[c],
+                                               P=P, Q=Q, T=T)
+        assert torch.equal(got[c], one) and torch.equal(c_got[c], c_one)
+
+
+def test_channels_reject_bad_shapes():
+    (data, fields), = _channel_chunks(2, 2, 2048, 1, 1)
+    x = torch.from_numpy(data)
+    p = torch.from_numpy(fields.view(np.int32))
+    bank = torch.from_numpy(BANK)
+    with pytest.raises(ValueError, match="carry"):
+        mix_resample_chain_channels(x, p, bank, torch.zeros(2, T - 1),
+                                    P=P, Q=Q, T=T)
+    with pytest.raises(ValueError, match=r"plans must be int32 \(7, C, 2\)"):
+        mix_resample_chain_channels(x, p[:, 0], bank, torch.zeros(2, 2, T - 1),
+                                    P=P, Q=Q, T=T)
+    with pytest.raises(ValueError, match="on one device"):
+        mix_resample_chain_channels(x, p.to("meta"), bank,
+                                    torch.zeros(2, 2, T - 1), P=P, Q=Q, T=T)

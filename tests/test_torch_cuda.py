@@ -14,7 +14,10 @@ samples and its float32 outputs within 2^-20, while its carry (mixed
 samples) is bitwise the mixer's.  The cascade kernel likewise: ≤ 1 LSB in
 under 1%, float32 outputs within 2^-20, its stage-0 carry bitwise and the
 later carries (FIR outputs) within 2^-20; kernel against kernel, its bytes
-do not depend on the chunk split.
+do not depend on the chunk split.  The channel-batched launches hold the
+same tolerances against their plain versions, and kernel against kernel
+channel c is bitwise the one-channel launch with that channel's plan words
+and carry, whatever the chunk split.
 """
 
 import io
@@ -25,19 +28,29 @@ import torch
 
 from doppler_tpu_torch.ops import nco
 from doppler_tpu_torch.ops.cuda.cascade import (
+    mix_cascade_channels,
+    mix_cascade_channels_plain,
     mix_cascade_plain,
     mix_cascade_stream,
     split_point,
 )
 from doppler_tpu_torch.ops.cuda.chain import (
+    mix_resample_chain_channels,
+    mix_resample_chain_channels_plain,
     mix_resample_chain_plain,
     mix_resample_chain_stream,
 )
-from doppler_tpu_torch.ops.cuda.mixer import mix_blocks_fmt, mix_blocks_fmt_plain
+from doppler_tpu_torch.ops.cuda.mixer import (
+    mix_blocks_fmt,
+    mix_blocks_fmt_channels,
+    mix_blocks_fmt_channels_plain,
+    mix_blocks_fmt_plain,
+)
 from doppler_tpu_torch.ops.filters import design_polyphase_bank
 from doppler_tpu_torch.ops.multistage import MultiStageResampler
 from doppler_tpu_torch.ops.phase_plan import NCOState, plan_blocks
 from doppler_tpu_torch.ops.resample import attach_resampler
+from doppler_tpu_torch.runtime.channels import ChannelSpec, MultiChannelPipeline
 from doppler_tpu_torch.runtime.pipeline import ConstScheduler, Pipeline
 
 torch.set_num_threads(1)   # leave the other test workers their cores
@@ -240,3 +253,178 @@ def test_default_route_pipeline_on_card_matches_cpu(card, fs):
     d = _lsb(torch.frombuffer(bytearray(gpu), dtype=torch.int32),
              torch.frombuffer(bytearray(cpu), dtype=torch.int32))
     assert int(d.max()) <= 1 and float((d > 0).float().mean()) < 0.01
+
+
+# -- the channel axis -------------------------------------------------------
+
+C = 5
+
+
+def _channel_chunk(B, L, intype, rng, states):
+    """One shared chunk with C plans: each channel its own shifts and its
+    own samplenum state."""
+    data, _ = _chunk(B, L, intype, rng, NCOState())
+    plans = torch.stack([
+        nco.plan_tensor(plan_blocks(
+            [327843.76 - 9000.0 * c] * (B // 2) + [-15000.0 + 777.0 * c] * (B - B // 2),
+            [L] * B, FS, states[c], L))
+        for c in range(C)], dim=1)
+    return data, plans
+
+
+def _assert_close(got, want, outtype):
+    if outtype == "i16":
+        d = _lsb(got, want)
+        assert int(d.max()) <= 1 and float((d > 0).float().mean()) < 0.01
+    else:
+        assert float((got - want).abs().max()) <= 2.0 ** -20
+
+
+def _channel(out, c, outtype):
+    return out[c] if outtype == "i16" else out[:, c]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("intype,outtype", FORMATS)
+def test_channel_mixer_kernel_bitwise(card, intype, outtype):
+    L = 2048 if intype == "i16" else 1024
+    rng = np.random.default_rng(11)
+    states = [NCOState(samplenum=40000 + c) for c in range(C)]
+    data, plans = _channel_chunk(48, L, intype, rng, states)
+    x, p = torch.from_numpy(data).to(card), plans.to(card)
+    launches = mix_blocks_fmt_channels.launches
+    got = mix_blocks_fmt_channels(x, p, intype=intype, outtype=outtype)
+    torch.cuda.synchronize()
+    assert mix_blocks_fmt_channels.launches == launches + 1
+    assert torch.equal(got, mix_blocks_fmt_channels_plain(
+        x, p, intype=intype, outtype=outtype))
+    for c in range(C):
+        one = mix_blocks_fmt(x, p[:, c].contiguous(), intype=intype,
+                             outtype=outtype)
+        assert torch.equal(_channel(got, c, outtype), one)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("intype,outtype", FORMATS)
+def test_channel_chain_kernel(card, intype, outtype):
+    """Against plain (≤ 1 LSB / 2^-20, carries bitwise); channel c bitwise
+    the one-channel launch; the second chunk starts from nonzero carries."""
+    rng = np.random.default_rng(12)
+    states = [NCOState() for _ in range(C)]
+    bank = torch.from_numpy(BANK).to(card)
+    carries = torch.zeros(C, 2, T - 1, device=card)
+    kw = dict(P=P, Q=Q, T=T, intype=intype, outtype=outtype)
+    for _ in range(2):
+        data, plans = _channel_chunk(32, 2048, intype, rng, states)
+        x, p = torch.from_numpy(data).to(card), plans.to(card)
+        launches = mix_resample_chain_channels.launches
+        got, c_got = mix_resample_chain_channels(x, p, bank, carries, **kw)
+        torch.cuda.synchronize()
+        assert mix_resample_chain_channels.launches == launches + 1
+        want, c_want = mix_resample_chain_channels_plain(x, p, bank, carries, **kw)
+        _assert_close(got, want, outtype)
+        assert torch.equal(c_got, c_want)
+        for c in range(C):
+            one, c_one = mix_resample_chain_stream(
+                x, p[:, c].contiguous(), bank, carries[c].contiguous(), **kw)
+            assert torch.equal(_channel(got, c, outtype), one)
+            assert torch.equal(c_got[c], c_one)
+        carries = c_got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fs", [FS, 100_000_000])
+@pytest.mark.parametrize("intype", ["i16", "f32"])
+def test_channel_cascade_kernel(card, fs, intype):
+    """Config-3 stages fully fused (i16 out) and the 100 Msps split front
+    (float32 planes): against plain, channel c bitwise the one-channel
+    launch, and 32 blocks against 2 × 16."""
+    ms = MultiStageResampler(fs, 48000)
+    k = split_point(ms.stages)
+    stages, banks = _cascade_args(ms, card, k)
+    dense = k < len(ms.stages)
+    outtype = "f32" if dense else "i16"
+    kw = dict(stages=stages, intype=intype, outtype=outtype, final_dense=dense)
+    rng = np.random.default_rng(13)
+    states = [NCOState() for _ in range(C)]
+    carries = tuple(torch.zeros(C, 2, Ts - 1, device=card) for _, _, Ts in stages)
+    for _ in range(2):
+        data, plans = _channel_chunk(32, 2048, intype, rng, states)
+        x, p = torch.from_numpy(data).to(card), plans.to(card)
+        launches = mix_cascade_channels.launches
+        got, c_got = mix_cascade_channels(x, p, banks, carries, **kw)
+        torch.cuda.synchronize()
+        assert mix_cascade_channels.launches == launches + 1
+        want, c_want = mix_cascade_channels_plain(x, p, banks, carries, **kw)
+        _assert_close(got, want, outtype)
+        assert torch.equal(c_got[0], c_want[0])
+        for a, b in zip(c_got[1:], c_want[1:]):
+            assert float((a - b).abs().max()) <= 2.0 ** -20
+        for c in range(C):
+            one, c_one = mix_cascade_stream(
+                x, p[:, c].contiguous(), banks,
+                [cr[c].contiguous() for cr in carries], **kw)
+            assert torch.equal(_channel(got, c, outtype), one)
+            assert all(torch.equal(a[c], b) for a, b in zip(c_got, c_one))
+        # the chunk split: 32 blocks against 2 × 16
+        cs, parts = carries, []
+        for b in (0, 16):
+            xb = x[b:b + 16] if intype == "i16" else x[:, b:b + 16]
+            o, cs = mix_cascade_channels(xb.contiguous(),
+                                         p[:, :, b:b + 16].contiguous(),
+                                         banks, cs, **kw)
+            parts.append(o)
+        assert torch.equal(torch.cat(parts, dim=-2), got)
+        assert all(torch.equal(a, b) for a, b in zip(cs, c_got))
+        carries = c_got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fs,stages,rates", [
+    (FS, "single", (48000, 48000, 48000)),
+    (FS, "auto", (48000, 48000, 48000)),
+    (250000, "auto", (48000, 48000, 48000)),
+    (FS, "auto", (48000, None, 128000)),
+    (FS, "auto", (None, None, None)),
+])
+def test_channels_pipeline_on_card_matches_cpu(card, fs, stages, rates):
+    """MultiChannelPipeline on the card against the CPU: mix-only bitwise,
+    ≤ 1 LSB in under 1% with a resampler; every full chunk of a
+    uniform-rate run goes through the channel-batched kernel."""
+    rng = np.random.default_rng(14)
+    n = 2048 * 40 + 700
+    data = rng.integers(-9000, 9000, size=2 * n, dtype=np.int16).tobytes()
+
+    def run(device):
+        specs = [ChannelSpec(f"c{k}", ConstScheduler(s), center_offset_hz=c,
+                             out_rate=r)
+                 for k, (s, c, r) in enumerate(zip(
+                     (-15000.0, 0.0, 90000.5), (500.0, 0.0, -250.0), rates))]
+        mp = MultiChannelPipeline(fs, "i16", "i16", specs, chunk_blocks=16,
+                                  resample_stages=stages, drain_on_eof=True,
+                                  device=device)
+        outs = [io.BytesIO() for _ in specs]
+        mp.run(io.BytesIO(data), outs)
+        return [o.getvalue() for o in outs], mp
+
+    before = {f: f.launches for f in (mix_blocks_fmt_channels,
+                                      mix_resample_chain_channels,
+                                      mix_cascade_channels)}
+    gpu, mp = run("cuda")
+    full = n // (16 * 2048)
+    uniform = len(set(rates)) == 1 and rates[0] is not None
+    fused = {"single": mix_resample_chain_channels,
+             "auto": mix_cascade_channels}[stages]
+    assert fused.launches - before[fused] == (full if uniform else 0)
+    assert (mix_blocks_fmt_channels.launches - before[mix_blocks_fmt_channels]
+            == (1 if uniform else full + 1))
+    assert mp.device_s > 0
+    cpu, _ = run("cpu")
+    for g, w, r in zip(gpu, cpu, rates):
+        assert len(g) == len(w) > 0
+        if r is None:
+            assert g == w
+        else:
+            d = _lsb(torch.frombuffer(bytearray(g), dtype=torch.int32),
+                     torch.frombuffer(bytearray(w), dtype=torch.int32))
+            assert int(d.max()) <= 1 and float((d > 0).float().mean()) < 0.01

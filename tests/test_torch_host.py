@@ -88,6 +88,38 @@ def test_plan_blocks_track_bitwise(L):
     assert (s_t.samplenum, s_t.abs_offset) == (s_j.samplenum, s_j.abs_offset)
 
 
+@pytest.mark.parametrize("fs,base,step", [
+    (1024000, 9000.37, 173.3),            # the closed-form lane carries all
+    (100000000, -2000000.37, 15625.7),    # config 5's rate, 256 channels
+])
+def test_plan_fields_uniform_bitwise_at_256_channels(fs, base, step):
+    """The batched (C, B) planner the channels pipeline plans with: the
+    copy's words and final states equal the original's over three chunks
+    (a None, the per-channel fallback, must be a None in both)."""
+    C, L = 256, 2048
+    shifts = [float(np.float32(base + step * c)) for c in range(C)]
+    st_t = [phase_plan.NCOState() for _ in range(C)]
+    st_j = [j_plan.NCOState() for _ in range(C)]
+    took_lane = 0
+    for counts in ([L] * 4, [L] * 4, [L] * 3 + [L // 2]):
+        a = phase_plan.plan_fields_uniform(shifts, counts, fs, st_t, L)
+        b = j_plan.plan_fields_uniform(shifts, counts, fs, st_j, L)
+        assert (a is None) == (b is None)
+        if a is None:
+            for c in range(C):     # advance both as the pipeline would
+                phase_plan.plan_blocks([shifts[c]] * len(counts), counts, fs,
+                                       st_t[c], L)
+                j_plan.plan_blocks([shifts[c]] * len(counts), counts, fs,
+                                   st_j[c], L)
+            continue
+        took_lane += 1
+        assert a.shape == (7, C, len(counts)) and a.dtype == np.uint32
+        assert np.array_equal(a, b)
+    assert took_lane >= 1
+    assert [(s.samplenum, s.abs_offset) for s in st_t] == \
+        [(s.samplenum, s.abs_offset) for s in st_j]
+
+
 def test_plan_blocks_no_reset_quirk_bitwise():
     shifts = [1234.5, 1234.5, -777.0]
     a = phase_plan.plan_blocks(shifts, [2048] * 3, 256000,
