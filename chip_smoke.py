@@ -26,6 +26,14 @@ Phases (each prints one line or a few; any failure exits non-zero):
              split; then config 5's width, C = 256: the split front over a
              full chunk and the channel mixer over an EOF chunk, against
              their plain versions.
+4d. probes — the Q15 mixer and the roofline probes against their plain
+             versions at B = 256 and B = 16384, plan words with the segment
+             switch inside some blocks, all bitwise: Q15; copy and codec at 4-
+             and 16-byte accesses; chain-copy, chain-mix, mix-select and
+             mix-fold with their XOR side output (which shows that the kernel
+             did the work of every sample it does not store); select == fold;
+             chain-mix's words == the mixer kernel's, sliced alike; Q15 against
+             the exact mixer kernel within 2 LSB, SNR printed.
 5. slices  — synthetic captures through the CLI entry point
              ``doppler_tpu_torch.cli.main`` on the card, each with the launch
              counts set to 0 just before it and read just after:
@@ -46,15 +54,25 @@ Phases (each prints one line or a few; any failure exits non-zero):
              counts, and SNR against the golden model (on the first, the
              middle and the last channel from the plan words, and on the
              middle channel from the reference's sequential mix as well).
+5b. conformance — ``doppler_tpu_torch.tools.conformance --device cuda``:
+             the five BASELINE configs through ``python -m doppler_tpu_torch``
+             subprocesses on the card against the golden model, > 60 dB each.
 6. timing  — each kernel and its plain version at B = 256 and B = 16384
              (median of 20 runs, CUDA events; the split front at B = 256),
              the channel-batched ones at C = 16 with ``torch.profiler``'s
              device time, each kernel's bound, and each slice's host/device
-             split.
+             split; the Q15 mixer and the probes likewise, with the
+             library's ``copy_`` beside the two copies.
+6b. roofline — the launch counts set to 0, then
+             ``doppler_tpu_torch.tools.roofline.main`` (all variants) and
+             ``…probe_chain_precision.main`` in process at 33,554,432 samples;
+             every variant's line; then the counts are read.
 
 The kernels' JSON record takes the mixer's and the cascade's launch counts
 from slice (i), the chain's from slice (iii), the channel cascade's from
-(iv) and the channel chain's from (v).  The line before the last is that
+(iv), the channel chain's from (v), and the Q15 mixer's and the probes' from
+phase 6b; the Q15 mixer's and the probes' times are at B = 16384, the
+tools' shape.  The line before the last is that
 record; the last line is ``{"ok": true, "device": {...}}``.  Without a CUDA
 device, or without the package beside it, the script fails before printing
 either.
@@ -532,6 +550,80 @@ def phase_channels(torch, gen):
     return worst
 
 
+def _snr_db_words(torch, ref, test):
+    """SNR of i16 IQ words ``test`` against ``ref``, in float64 on the card."""
+    r = ref.view(torch.int16).double()
+    d = r - test.view(torch.int16).double()
+    return float(10 * torch.log10((r * r).sum() / (d * d).sum()))
+
+
+def phase_probes(torch, gen):
+    """The Q15 mixer and the roofline probes against their plain versions,
+    bitwise, at the pipeline's chunk and at the tools' shape."""
+    from doppler_tpu_torch.ops import nco
+    from doppler_tpu_torch.ops.cuda import mixer, probes
+
+    P, Q, L = 3, 64, 2048
+    for B in (B_MAIN, B_BIG):
+        plan = _plan(B, L)
+        check((plan.t < L).any(), "plan words have no segment switch")
+        p = nco.plan_tensor(plan, device="cuda")
+        x = _data(torch, "i16", B, L, gen)
+
+        got = mixer.mix_blocks_q15(x, p)
+        torch.cuda.synchronize()
+        same = torch.equal(got, mixer.mix_blocks_q15_plain(x, p))
+        # against the exact mixer at moderate amplitudes (no saturation)
+        pairs = torch.randint(-9000, 9000, (B, L, 2), dtype=torch.int16,
+                              device="cuda", generator=gen)
+        xm = pairs.view(torch.int32).reshape(B, L)
+        q15, exact = mixer.mix_blocks_q15(xm, p), mixer.mix_blocks_fmt(xm, p)
+        lsb = int(_lsb_diff(torch, q15, exact).max())
+        snr = _snr_db_words(torch, exact, q15)
+        print(f"probes: q15 B={B}: bitwise vs plain={same}; vs the exact mixer "
+              f"kernel max LSB={lsb}, SNR {snr!r} dB")
+        check(same, f"q15 mixer at B={B} differs from its plain version")
+        check(lsb <= 2, f"q15 mixer at B={B} is {lsb} LSB from the exact mixer")
+
+        for body in ("copy", "codec"):
+            want = probes.probe_elementwise_plain(x, body=body)
+            ok = {vec: torch.equal(probes.probe_elementwise(x, body=body, vec=vec), want)
+                  for vec in (1, 4)}
+            print(f"probes: {body} B={B}: bitwise vs plain at 4-byte accesses="
+                  f"{ok[1]}, at 16-byte accesses={ok[4]}")
+            check(all(ok.values()), f"{body} probe at B={B} differs from plain")
+
+        tile = probes.chain_tile(B * L, P, Q)
+        keep = tile * P // Q
+        runs = {
+            "chain-copy": (probes.chain_shape_run(x, p, P=P, Q=Q, do_mix=False),
+                           probes.chain_shape_run_plain(x, p, P=P, Q=Q, do_mix=False)),
+            "chain-mix": (probes.chain_shape_run(x, p, P=P, Q=Q, do_mix=True),
+                          probes.chain_shape_run_plain(x, p, P=P, Q=Q, do_mix=True)),
+            "mix-select": (probes.mix_shape_run(x, p, P=P, Q=Q, tone="select"),
+                           probes.mix_shape_run_plain(x, p, P=P, Q=Q, tone="select")),
+            "mix-fold": (probes.mix_shape_run(x, p, P=P, Q=Q, tone="fold"),
+                         probes.mix_shape_run_plain(x, p, P=P, Q=Q, tone="fold")),
+        }
+        torch.cuda.synchronize()
+        for name, (got, want) in runs.items():
+            words, side = torch.equal(got[0], want[0]), torch.equal(got[1], want[1])
+            print(f"probes: {name} B={B} tile={tile} keep={keep}: out "
+                  f"{tuple(got[0].shape)} bitwise vs plain={words}, XOR side "
+                  f"output {tuple(got[1].shape)} bitwise={side}")
+            check(words and side, f"{name} probe at B={B} differs from plain")
+        sel, fold, mix = runs["mix-select"][0], runs["mix-fold"][0], runs["chain-mix"][0]
+        tones = torch.equal(sel[0], fold[0]) and torch.equal(sel[1], fold[1])
+        sliced = torch.equal(
+            mix[0], mixer.mix_blocks_fmt(x, p).reshape(-1, tile)[:, :keep])
+        print(f"probes: B={B}: mix-select == mix-fold bitwise={tones}; chain-mix "
+              f"words == the mixer kernel's, sliced alike={sliced}")
+        check(tones, f"select and fold tones differ at B={B}")
+        check(sliced, f"chain-mix differs from the mixer kernel's words at B={B}")
+        del runs, sel, fold, mix, got, want
+        torch.cuda.empty_cache()
+
+
 def _capture(torch, n, seed, fs=FS, tones=((3000.0, 0.3, 0.0), (-7000.0, 0.2, 1.0))):
     """Tones ``(Hz, amplitude, phase)`` plus noise, made on the card, as LE
     i16 IQ bytes."""
@@ -640,6 +732,16 @@ def _counters():
             "cascade_channels": cascade.mix_cascade_channels}
 
 
+def _tool_counters():
+    """The kernels that only the measuring tools launch."""
+    from doppler_tpu_torch.ops.cuda import mixer, probes
+
+    return {"mixer_q15": mixer.mix_blocks_q15,
+            "probe_elementwise": probes.probe_elementwise,
+            "chain_shape": probes.chain_shape_run,
+            "mix_shape": probes.mix_shape_run}
+
+
 def _run_slice(name, argv, raw, card, channels=1):
     """One capture through ``cli.main`` on the card, with every launch count
     set to 0 just before and read just after.  ``channels`` scales the rate
@@ -664,7 +766,7 @@ def _run_slice(name, argv, raw, card, channels=1):
     msgs = [json.loads(ln)["msg"] for ln in log.getvalue().splitlines()]
     done = [m for m in msgs if m.startswith("done:")]
     check(done, f"{name}: no 'done' line from the CLI")
-    m = re.search(r"host plan\+stage ([0-9.]+) s, device ([0-9.]+) s", done[-1])
+    m = re.search(r"host plan\+stage ([0-9.]+) s, device span ([0-9.]+) s", done[-1])
     host_s, device_s = float(m.group(1)), float(m.group(2))
     n_in = len(raw) // 4
     msps = n_in / wall / 1e6
@@ -672,8 +774,9 @@ def _run_slice(name, argv, raw, card, channels=1):
     print(f"slice {name}: wall {wall!r} s, {msps!r} Msps in"
           + (f" x {channels} channels = {msps * channels!r} M channel-samples/s"
              if channels > 1 else "") + f" [{card}]")
-    print(f"slice {name}: split host plan+stage {host_s!r} s, device "
-          f"{device_s!r} s (copies + kernels), other host {wall - host_s!r} s "
+    print(f"slice {name}: split host plan+stage {host_s!r} s, device span "
+          f"{device_s!r} s (CUDA events around each chunk: copies, kernels and "
+          f"the gaps while the host enqueues), other host {wall - host_s!r} s "
           f"[{card}]")
     return b"".join(sink.parts), launches, msgs, {
         "wall_s": wall, "msps_in": msps, "host_s": host_s, "device_s": device_s}
@@ -999,6 +1102,13 @@ def _device_us(torch, fn, kernel_name, runs=10):
     return total / count if count and total > 0 else None
 
 
+def _device_text(dev_us, bound_ms):
+    """A timing line's device-time clause, with the bound's share of it."""
+    if dev_us is None:
+        return "device not measured"
+    return f"device {dev_us!r} us (the bound is {bound_ms * 1e3 / dev_us!r} of it)"
+
+
 def _bound(C, B, L, stages, *, out_bytes=4):
     """The least time the card could take: (ms, 'bytes' or 'operations').
 
@@ -1126,11 +1236,12 @@ def phase_timing(torch, gen, card):
             "cascade": (lambda: mix_cascade_stream(x, p, b3, z3, stages=c3),
                         lambda: mix_cascade_plain(x, p, b3, z3, stages=c3)),
         }
-        if B == B_MAIN:
-            p5 = nco.plan_tensor(_plan(B, L, fs=FS_SPLIT), device="cuda")
-            pairs["split front"] = (
-                lambda: mix_cascade_stream(x, p5, b5, z5, **front),
-                lambda: mix_cascade_plain(x, p5, b5, z5, **front))
+        p5 = nco.plan_tensor(_plan(B, L, fs=FS_SPLIT), device="cuda")
+        pairs["split front"] = (
+            lambda: mix_cascade_stream(x, p5, b5, z5, **front),
+            lambda: mix_cascade_plain(x, p5, b5, z5, **front))
+        trace_names = {"mixer": "mixer_kernel", "chain": "chain_kernel",
+                       "cascade": "cascade_kernel", "split front": "cascade_kernel"}
         for name, (kern, plain) in pairs.items():
             # plain, kernel, kernel, plain: the first of each pair warms up
             pl_a = _median_ms(torch, plain)
@@ -1146,12 +1257,150 @@ def phase_timing(torch, gen, card):
                       "split front": c5}[name]
             bound_ms, by = _bound(1, B, L, stages,
                                   out_bytes=8 if name == "split front" else 4)
+            dev_us = _device_us(torch, kern, trace_names[name])
             print(f"timing: {name} {fmt} B={B} ({n} samples): kernel "
-                  f"{k_a!r}/{k_b!r} ms, plain {pl_a!r}/{pl_b!r} ms; kernel "
+                  f"{k_a!r}/{k_b!r} ms, plain {pl_a!r}/{pl_b!r} ms; "
+                  f"{_device_text(dev_us, bound_ms)}; kernel "
                   f"{n / k_ms / 1e6!r} GS/s, {n * bpi / k_ms / 1e6!r} GB/s; "
                   f"bound {bound_ms!r} ms ({by}) [{card}]")
             res[(name, B)] = (k_ms, pl_ms, bound_ms, by)
     return res
+
+
+def _bound_probe(n, bytes_moved, flop_per_sample):
+    """:func:`_bound`'s rule for a probe over n samples."""
+    t_b = bytes_moved / HBM_BYTES_PER_S
+    t_f = n * flop_per_sample / F32_FLOP_PER_S
+    return max(t_b, t_f) * 1e3, "bytes" if t_b >= t_f else "operations"
+
+
+def phase_timing_probes(torch, gen, card):
+    """The Q15 mixer and the probes: events (plain, kernel, kernel, plain),
+    the profiler's device time, the bound, and the library's ``copy_`` beside
+    the two copy probes (timed here, used nowhere in the package)."""
+    from doppler_tpu_torch.ops import nco
+    from doppler_tpu_torch.ops.cuda import mixer, probes
+
+    P, Q, L = 3, 64, 2048
+    res = {}
+    for B in (B_MAIN, B_BIG):
+        n = B * L
+        x = _data(torch, "i16", B, L, gen)
+        p = nco.plan_tensor(_plan(B, L), device="cuda")
+        tile = probes.chain_tile(n, P, Q)
+        keep, n_tiles = tile * P // Q, n // tile
+        flat_out = torch.empty_like(x)
+        tiles_out = torch.empty((n_tiles, keep), dtype=torch.int32, device="cuda")
+        x_tiles = x.reshape(n_tiles, tile)
+        shape_bytes = 4 * n + 4 * n_tiles * keep + 4 * n_tiles
+        enc = MIX_FLOP + 2                      # every sample is encoded
+        kw = dict(P=P, Q=Q)
+        # name -> (kernel, plain, library call or None, trace name, bound)
+        cases = {
+            "mixer_q15": (lambda: mixer.mix_blocks_q15(x, p),
+                          lambda: mixer.mix_blocks_q15_plain(x, p), None,
+                          "mixer_q15_kernel", _bound(1, B, L, ())),
+            "copy": (lambda: probes.probe_elementwise(x),
+                     lambda: probes.probe_elementwise_plain(x),
+                     lambda: flat_out.copy_(x), "elementwise_kernel",
+                     _bound_probe(n, 8 * n, 0)),
+            "copy-v4": (lambda: probes.probe_elementwise(x, vec=4),
+                        lambda: probes.probe_elementwise_plain(x),
+                        lambda: flat_out.copy_(x), "elementwise_kernel",
+                        _bound_probe(n, 8 * n, 0)),
+            "codec": (lambda: probes.probe_elementwise(x, body="codec"),
+                      lambda: probes.probe_elementwise_plain(x, body="codec"),
+                      None, "elementwise_kernel", _bound_probe(n, 8 * n, 6)),
+            "codec-v4": (lambda: probes.probe_elementwise(x, body="codec", vec=4),
+                         lambda: probes.probe_elementwise_plain(x, body="codec"),
+                         None, "elementwise_kernel", _bound_probe(n, 8 * n, 6)),
+            "chain-copy": (lambda: probes.chain_shape_run(x, p, do_mix=False, **kw),
+                           lambda: probes.chain_shape_run_plain(x, p, do_mix=False, **kw),
+                           lambda: tiles_out.copy_(x_tiles[:, :keep]),
+                           "chain_shape_kernel", _bound_probe(n, shape_bytes, 0)),
+            "chain-mix": (lambda: probes.chain_shape_run(x, p, do_mix=True, **kw),
+                          lambda: probes.chain_shape_run_plain(x, p, do_mix=True, **kw),
+                          None, "chain_shape_kernel",
+                          _bound_probe(n, shape_bytes + 28 * B, enc)),
+            "mix-fold": (lambda: probes.mix_shape_run(x, p, tone="fold", **kw),
+                         lambda: probes.mix_shape_run_plain(x, p, tone="fold", **kw),
+                         None, "chain_shape_kernel",
+                         _bound_probe(n, shape_bytes + 28 * B, enc)),
+            "mix-select": (lambda: probes.mix_shape_run(x, p, tone="select", **kw),
+                           lambda: probes.mix_shape_run_plain(x, p, tone="select", **kw),
+                           None, "chain_shape_kernel",
+                           _bound_probe(n, shape_bytes + 28 * B, enc)),
+        }
+        for name, (kern, plain, library, trace_name, (bound_ms, by)) in cases.items():
+            pl_a = _median_ms(torch, plain)
+            k_a = _median_ms(torch, kern)
+            k_b = _median_ms(torch, kern)
+            pl_b = _median_ms(torch, plain)
+            lib_ms = None if library is None else min(
+                _median_ms(torch, library), _median_ms(torch, library))
+            dev_us = _device_us(torch, kern, trace_name)
+            k_ms, pl_ms = min(k_a, k_b), min(pl_a, pl_b)
+            lib = "none" if lib_ms is None else f"{lib_ms!r} ms"
+            print(f"timing: {name} B={B} ({n} samples): kernel {k_a!r}/{k_b!r} ms, "
+                  f"plain {pl_a!r}/{pl_b!r} ms, library call {lib}; "
+                  f"{_device_text(dev_us, bound_ms)}; bound {bound_ms!r} ms ({by}) "
+                  f"[{card}]")
+            res[(name, B)] = (k_ms, pl_ms, bound_ms, by, lib_ms)
+    return res
+
+
+def phase_conformance():
+    """The five BASELINE configs through ``python -m doppler_tpu_torch
+    --device cuda`` subprocesses against the golden model."""
+    from doppler_tpu_torch.tools import conformance
+
+    out, err = io.StringIO(), io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = conformance.main(["--device", "cuda"])
+    secs = time.perf_counter() - t0
+    for line in err.getvalue().splitlines():
+        print(f"conformance: {line}")
+    res = json.loads(out.getvalue().strip().splitlines()[-1])
+    for cfg in res["configs"]:
+        print(f"conformance: {cfg['name']}: SNR {cfg['snr_db']} dB ok={cfg['ok']}")
+    print(f"conformance: {res['conformance']} in {secs:.1f} s")
+    check(rc == 0 and res["conformance"] == "pass" and len(res["configs"]) == 5
+          and all(c["ok"] for c in res["configs"]), "conformance failed")
+    return res
+
+
+def phase_roofline(card):
+    """The measuring tools in process at the bench shape, with every launch
+    count set to 0 just before and read just after."""
+    from doppler_tpu_torch.tools import probe_chain_precision, roofline
+
+    counters = dict(_counters(), **_tool_counters())
+    for fn in counters.values():
+        fn.launches = 0
+    size = ["--samples", str(B_BIG * 2048), "--dispatches", "16", "--iters", "4"]
+    names = roofline.MIXER_SHAPED + roofline.CHAIN_SHAPED
+    results = {}
+    for tool, argv in ((roofline, size + ["--variants", ",".join(names)]),
+                       (probe_chain_precision, size)):
+        out, err = io.StringIO(), io.StringIO()
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            rc = tool.main(argv)
+        tag = tool.__name__.rsplit(".", 1)[-1]
+        for line in err.getvalue().splitlines():
+            if not line.startswith("device:"):
+                print(f"{tag}: {line}" + ("" if line.endswith("]") else f" [{card}]"))
+        check(rc == 0, f"{tag} returned {rc}")
+        results[tag] = json.loads(out.getvalue().strip().splitlines()[-1])
+        print(f"{tag}: {json.dumps(results[tag])}")
+    check(list(results["roofline"]) == list(names), "roofline left a variant out")
+    check(list(results["probe_chain_precision"]) == list(probe_chain_precision.VARIANTS),
+          "probe_chain_precision left a variant out")
+    launches = {k: fn.launches for k, fn in counters.items()}
+    print(f"roofline: launches {launches}")
+    for name in list(_tool_counters()) + ["mixer", "chain", "cascade"]:
+        check(launches[name] >= 1, f"the tools did not launch the {name} kernel")
+    return results, launches
 
 
 def main() -> int:
@@ -1179,10 +1428,14 @@ def main() -> int:
         chain_err = phase_chain(torch, gen)
         cascade_err = phase_cascade(torch, gen)
         channel_err = phase_channels(torch, gen)
+        phase_probes(torch, gen)
         slices = phase_slices(torch, card)
         slices.update(phase_channel_slices(torch, card))
+        phase_conformance()
         times = phase_timing(torch, gen, card)
         times.update(phase_timing_channels(torch, gen, card))
+        probe_times = phase_timing_probes(torch, gen, card)
+        _, tool_launches = phase_roofline(card)
         if "jax" in sys.modules:
             raise Failed("jax was imported")
     except Exception as e:      # every failure ends the run non-zero
@@ -1201,6 +1454,19 @@ def main() -> int:
                      "bound_ms": bound_ms, "bound_by": by, "library_ms": None},
                     **more)
 
+    def probe_entry(name, source, replaces, variant, **others):
+        # at B = 16384, the tools' shape; every comparison of phase 4d is
+        # bitwise, so the error is 0; `others` are further variants of the
+        # same kernel, by their tool names
+        ms, plain_ms, bound_ms, by, lib_ms = probe_times[(variant, B_BIG)]
+        return dict({"name": name, "route": "cuda",
+                     "source": f"doppler_tpu_torch/csrc/{source}",
+                     "replaces": replaces, "launches": tool_launches[name],
+                     "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
+                     "bound_ms": bound_ms, "bound_by": by, "library_ms": lib_ms,
+                     "variant": variant},
+                    **{key: probe_times[(v, B_BIG)][0] for key, v in others.items()})
+
     default, config4 = slices["default"]["launches"], slices["config4"]["launches"]
     kernels = [
         entry("mixer", "mixer.cu", "doppler_tpu/ops/pallas/mixer.py:227",
@@ -1216,6 +1482,16 @@ def main() -> int:
         entry("cascade_channels", "cascade.cu",
               "doppler_tpu/ops/pallas/chain.py:1078",
               config4["cascade_channels"], channel_err["cascade"]),
+        probe_entry("mixer_q15", "mixer_q15.cu",
+                    "doppler_tpu/ops/pallas/mixer.py:357", "mixer_q15"),
+        probe_entry("probe_elementwise", "probes.cu", "tools/roofline.py:130",
+                    "copy", ms_copy_v4="copy-v4", ms_codec="codec",
+                    ms_codec_v4="codec-v4"),
+        probe_entry("chain_shape", "probes.cu", "tools/roofline.py:262",
+                    "chain-copy", ms_chain_mix="chain-mix"),
+        probe_entry("mix_shape", "probes.cu",
+                    "tools/probe_chain_precision.py:190", "mix-fold",
+                    ms_mix_select="mix-select"),
     ]
     for k in kernels:
         if k["launches"] < 1:

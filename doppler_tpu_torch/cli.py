@@ -386,7 +386,7 @@ def _main_channels(args, log, outtype: str, chunk_blocks: int, stdin) -> int:
     dt = counters.elapsed()
     log.info(
         "done: %d wideband samples x %d channels in %.6f s (%.6f Msps in); "
-        "host plan+stage %.6f s, device %.6f s",
+        "host plan+stage %.6f s, device span %.6f s",
         counters.samples, len(specs), dt,
         (counters.samples / dt if dt > 0 else 0.0) / 1e6,
         mpipe.host_s, mpipe.device_s,
@@ -498,7 +498,7 @@ def main(argv=None, stdin=None, stdout=None) -> int:
     dt = counters.elapsed()
     log.info(
         "done: %d samples in, %d out in %.6f s (%.6f Msps in); host plan+"
-        "stage %.6f s, device %.6f s",
+        "stage %.6f s, device span %.6f s",
         n_in, counters.samples, dt, (n_in / dt if dt > 0 else 0.0) / 1e6,
         pipe.host_s, pipe.device_s,
     )

@@ -1,5 +1,5 @@
-// Shared device helpers of the mixer, chain and cascade kernels: decode, the exact
-// Q0.64 NCO phase, the quarter-wave tone, the rotation and the encode.
+// Shared device helpers of the mixer, chain, cascade and probe kernels: decode,
+// the exact Q0.64 NCO phase, the quarter-wave tone, the rotation and the encode.
 //
 // Replaces the helpers the TPU kernels inline:
 //   doppler_tpu/ops/pallas/mixer.py:42  phase_q24
@@ -65,27 +65,49 @@ __device__ __forceinline__ int phase_q24(uint32_t j, const Plan& p) {
     return (int)(((uint64_t)j * p.d + c) >> 40);
 }
 
-// (cos θ, sin θ) for θ = −2π·q24·2⁻²⁴: a polynomial pair in x² on
-// [0, π/2) and a quadrant fold by swap-select plus sign-bit XOR.
-__device__ __forceinline__ void sincos_q24_neg(int q24, float& c, float& s) {
-    const int quad = q24 >> 22;
+// The polynomial pair (sin x, cos x) on x = (q24 mod 2²²)·(π/2)·2⁻²² in
+// [0, π/2), shared by both quadrant folds below.
+__device__ __forceinline__ void quarter_poly(int q24, float& sp, float& cp) {
     const float x = __fmul_rn((float)(q24 & 0x3FFFFF), 0x1.921fb6p-22f);
     const float x2 = __fmul_rn(x, x);
-    float sp = __fadd_rn(-0x1.9f6446p-13f, __fmul_rn(x2, 0x1.5d38b6p-19f));
+    sp = __fadd_rn(-0x1.9f6446p-13f, __fmul_rn(x2, 0x1.5d38b6p-19f));
     sp = __fadd_rn(0x1.110eb4p-7f, __fmul_rn(x2, sp));
     sp = __fadd_rn(-0x1.555542p-3f, __fmul_rn(x2, sp));
     sp = __fadd_rn(0x1.fffffep-1f, __fmul_rn(x2, sp));
     sp = __fmul_rn(x, sp);
-    float cp = __fadd_rn(0x1.9f6b42p-16f, __fmul_rn(x2, -0x1.17b5b2p-22f));
+    cp = __fadd_rn(0x1.9f6b42p-16f, __fmul_rn(x2, -0x1.17b5b2p-22f));
     cp = __fadd_rn(-0x1.6c1374p-10f, __fmul_rn(x2, cp));
     cp = __fadd_rn(0x1.555548p-5f, __fmul_rn(x2, cp));
     cp = __fadd_rn(-0x1.0p-1f, __fmul_rn(x2, cp));
     cp = __fadd_rn(1.0f, __fmul_rn(x2, cp));
+}
+
+// (cos θ, sin θ) for θ = −2π·q24·2⁻²⁴: the polynomial pair and a quadrant
+// fold by swap-select plus sign-bit XOR.
+__device__ __forceinline__ void sincos_q24_neg(int q24, float& c, float& s) {
+    const int quad = q24 >> 22;
+    float sp, cp;
+    quarter_poly(q24, sp, cp);
     const bool swap = quad & 1;
     const unsigned signc = (unsigned)((quad + 1) & 2) << 30;
     const unsigned signs = (unsigned)((quad & 2) ^ 2) << 30;
     c = __uint_as_float(__float_as_uint(swap ? sp : cp) ^ signc);
     s = __uint_as_float(__float_as_uint(swap ? cp : sp) ^ signs);
+}
+
+// The same tone with the quadrant fold written as a chain of selects over
+// negated values (tools/probe_chain_precision.py:108 sincos_select).  Only
+// the tone probe runs it: a negation flips the sign bit exactly as the XOR
+// does, so the two folds give the same bits, and the probe times one
+// against the other.
+__device__ __forceinline__ void sincos_q24_neg_select(int q24, float& c, float& s) {
+    const int quad = q24 >> 22;
+    float sp, cp;
+    quarter_poly(q24, sp, cp);
+    const float cos_u = quad == 0 ? cp : (quad == 1 ? -sp : (quad == 2 ? -cp : sp));
+    const float sin_u = quad == 0 ? sp : (quad == 1 ? cp : (quad == 2 ? -sp : -cp));
+    c = cos_u;
+    s = -sin_u;
 }
 
 // One LE i16 IQ pair word → planar floats scaled by 1/32768 (dsp.rs:85-99).
@@ -95,10 +117,16 @@ __device__ __forceinline__ void decode_i16(int w, float& fi, float& fq) {
 }
 
 // Mix one sample of block-local index j: (fi·c − fq·s, fi·s + fq·c).
+// kSelect takes the select-chain tone (the tone probe only).
+template <bool kSelect = false>
 __device__ __forceinline__ void mix_sample(float fi, float fq, uint32_t j,
                                            const Plan& p, float& oi, float& oq) {
     float c, s;
-    sincos_q24_neg(phase_q24(j, p), c, s);
+    if (kSelect) {
+        sincos_q24_neg_select(phase_q24(j, p), c, s);
+    } else {
+        sincos_q24_neg(phase_q24(j, p), c, s);
+    }
     oi = __fsub_rn(__fmul_rn(fi, c), __fmul_rn(fq, s));
     oq = __fadd_rn(__fmul_rn(fi, s), __fmul_rn(fq, c));
 }
@@ -108,7 +136,7 @@ __device__ __forceinline__ void mix_sample(float fi, float fq, uint32_t j,
 // channel, so its Q plane sits B·L after the I plane whatever C is.
 // `plans`/`stride` as in load_plan; `cur`/`p` cache the plan of the block
 // this thread loaded last.
-template <bool kInF32>
+template <bool kInF32, bool kSelect = false>
 __device__ __forceinline__ void mix_at(long long g, const void* __restrict__ in,
                                        const uint32_t* __restrict__ plans,
                                        size_t stride, int B, int L, int& cur,
@@ -126,7 +154,7 @@ __device__ __forceinline__ void mix_at(long long g, const void* __restrict__ in,
     } else {
         decode_i16(static_cast<const int*>(in)[g], fi, fq);
     }
-    mix_sample(fi, fq, (uint32_t)j, p, oi, oq);
+    mix_sample<kSelect>(fi, fq, (uint32_t)j, p, oi, oq);
 }
 
 // ×32767, truncate toward zero, NaN → 0, saturate (main.rs:76-84).

@@ -22,6 +22,8 @@ import numpy as np
 import torch
 
 __all__ = [
+    "unpack_i16_words",
+    "pack_i16_words",
     "i16_words_to_iq",
     "iq_to_i16_words",
     "saturating_trunc_i16",
@@ -35,15 +37,33 @@ _INV_32768 = float(np.float32(1.0 / 32768.0))  # exact power of two
 _SCALE_OUT = 32767.0                            # exact in float32
 
 
+def unpack_i16_words(words: torch.Tensor):
+    """int32 words (one LE i16 IQ pair each) → the (i, q) components as
+    int32 tensors in [−32768, 32767]."""
+    words = words.to(torch.int32)
+    lo = words & 0xFFFF
+    i = torch.where(lo >= 0x8000, lo - 0x10000, lo)   # sign-extend low half
+    q = words >> 16                                   # arithmetic shift
+    return i, q
+
+
+def pack_i16_words(iv: torch.Tensor, qv: torch.Tensor) -> torch.Tensor:
+    """(i, q) integer components in [−32768, 32767] → int32 words.
+
+    The pack runs in int64 so no signed shift can overflow; the final
+    narrowing is the explicit two's-complement wrap of ``[0, 2^32)``.
+    """
+    word = (iv.to(torch.int64) & 0xFFFF) | ((qv.to(torch.int64) & 0xFFFF) << 16)
+    word = torch.where(word >= (1 << 31), word - (1 << 32), word)
+    return word.to(torch.int32)
+
+
 def i16_words_to_iq(words: torch.Tensor):
     """int32 words (one LE i16 IQ pair each) → planar (i, q) float32.
 
     Decode contract of dsp.rs:85-99: int16 value / 32768.
     """
-    words = words.to(torch.int32)
-    lo = words & 0xFFFF
-    i = torch.where(lo >= 0x8000, lo - 0x10000, lo)   # sign-extend low half
-    q = words >> 16                                   # arithmetic shift
+    i, q = unpack_i16_words(words)
     return (i.to(torch.float32) * _INV_32768,
             q.to(torch.float32) * _INV_32768)
 
@@ -57,16 +77,9 @@ def saturating_trunc_i16(v: torch.Tensor) -> torch.Tensor:
 
 
 def iq_to_i16_words(i: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
-    """Planar (i, q) float32 → int32 words of LE i16 pairs (main.rs:76-84).
-
-    The pack runs in int64 so no signed shift can overflow; the final
-    narrowing is the explicit two's-complement wrap of ``[0, 2^32)``.
-    """
-    iv = saturating_trunc_i16(i * _SCALE_OUT).to(torch.int64) & 0xFFFF
-    qv = saturating_trunc_i16(q * _SCALE_OUT).to(torch.int64) & 0xFFFF
-    word = iv | (qv << 16)
-    word = torch.where(word >= (1 << 31), word - (1 << 32), word)
-    return word.to(torch.int32)
+    """Planar (i, q) float32 → int32 words of LE i16 pairs (main.rs:76-84)."""
+    return pack_i16_words(saturating_trunc_i16(i * _SCALE_OUT),
+                          saturating_trunc_i16(q * _SCALE_OUT))
 
 
 # ---------------------------------------------------------------------------

@@ -122,6 +122,17 @@ def load() -> ctypes.CDLL:
     lib.doppler_mix_blocks.restype = _i
     # in, out, plans, C, B, L, in_f32, out_f32, stream
     lib.doppler_mix_blocks.argtypes = [_vp, _vp, _vp, _i, _i, _i, _i, _i, _vp]
+    lib.doppler_mix_blocks_q15.restype = _i
+    # in, out, plans, B, L, stream
+    lib.doppler_mix_blocks_q15.argtypes = [_vp, _vp, _vp, _i, _i, _vp]
+    lib.doppler_probe_elementwise.restype = _i
+    # in, out, n, codec, vec, stream
+    lib.doppler_probe_elementwise.argtypes = [_vp, _vp, ctypes.c_longlong, _i,
+                                              _i, _vp]
+    lib.doppler_chain_shape.restype = _i
+    # in, out, side, plans, B, L, tile, keep, mode, stream
+    lib.doppler_chain_shape.argtypes = [_vp, _vp, _vp, _vp, _i, _i, _i, _i, _i,
+                                        _vp]
     lib.doppler_chain.restype = _i
     # in, out, plans, bank, carry_in, carry_out, C, B, L, P, Q, T, tile_m,
     # in_f32, out_f32, stream

@@ -7,7 +7,11 @@ and runs :func:`mix_blocks_fmt_plain` on a CPU tensor.
 channels mix one shared chunk, each with its own plan words (what
 ``doppler_tpu/runtime/channels.py:64`` ``_channels_mix_kernel`` computes).
 The kernel is bound by HBM bytes (8 B/sample i16→i16); see the source for
-its design.
+its design.  :func:`mix_blocks_q15` launches ``csrc/mixer_q15.cu`` (the port
+of ``doppler_tpu/ops/pallas/mixer.py:357`` ``mix_blocks_pallas_q15``): the
+same plan words and tone with the sample path in int32, timed beside the
+mixer by ``tools/roofline.py``; :func:`mix_blocks_q15_plain` is its plain
+version.
 
 Wire formats: ``'i16'`` is int32 words ``(B, L)`` (one LE i16 IQ pair
 each); ``'f32'`` is planar float32 ``(2, B, L)``, I plane first.  Channel
@@ -20,10 +24,12 @@ from __future__ import annotations
 import torch
 
 from doppler_tpu_torch.ops import codec, nco
+from doppler_tpu_torch.ops.sincos import sincos_q24_neg
 from doppler_tpu_torch.ops.cuda import build
 
 __all__ = ["mix_blocks_fmt", "mix_blocks_fmt_plain", "mix_blocks_fmt_channels",
-           "mix_blocks_fmt_channels_plain", "check_fmt", "check_fmt_channels",
+           "mix_blocks_fmt_channels_plain", "mix_blocks_q15",
+           "mix_blocks_q15_plain", "check_fmt", "check_fmt_channels",
            "stack_channels"]
 
 _FORMATS = ("i16", "f32")
@@ -160,5 +166,56 @@ def mix_blocks_fmt_channels(data: torch.Tensor, plans: torch.Tensor, *,
     return out
 
 
+def mix_blocks_q15_plain(words: torch.Tensor, plans: torch.Tensor) -> torch.Tensor:
+    """Plain torch version of the integer-domain mixer, int32 throughout.
+
+    The tone is quantised to Q15 by ``(v·32767 ± 0.5)`` truncated (round
+    half away from zero); ``re = i·c15 − q·s15`` and ``im = i·s15 + q·c15``
+    stay inside int32 because the scale is 32767, not 32768; ``÷2¹⁵``
+    truncates toward zero by adding 32767 to negatives before the
+    arithmetic shift; then saturate and pack.
+    """
+    check_fmt(words, plans, "i16", "i16")
+    iw, qw = codec.unpack_i16_words(words)
+    c, s = sincos_q24_neg(nco.phase_q24(plans, words.shape[-1]))
+
+    def q15(v):
+        half = torch.where(v >= 0, 0.5, -0.5).to(torch.float32)
+        return (v * 32767.0 + half).to(torch.int32)
+
+    def down(v):
+        v = torch.bitwise_right_shift(
+            v + (torch.bitwise_right_shift(v, 31) & 32767), 15)
+        return torch.clamp(v, -32768, 32767)
+
+    c15, s15 = q15(c), q15(s)
+    return codec.pack_i16_words(down(iw * c15 - qw * s15),
+                                down(iw * s15 + qw * c15))
+
+
+def mix_blocks_q15(words: torch.Tensor, plans: torch.Tensor) -> torch.Tensor:
+    """Integer-domain i16→i16 mixer over int32 words ``(B, L)`` with
+    ``(7, B)`` plan words.  Not byte-exact against the float32 mixer (the
+    tone carries 15 bits): a few LSB apart.
+
+    A CPU tensor runs the plain version; a CUDA tensor launches the kernel
+    or raises.
+    """
+    if words.device.type == "cpu":
+        return mix_blocks_q15_plain(words, plans)
+    if words.device.type != "cuda":
+        raise ValueError(f"no mixer for device {words.device}")
+    B, L = check_fmt(words, plans, "i16", "i16")
+    words, plans = words.contiguous(), plans.contiguous()
+    out = torch.empty_like(words)
+    rc = build.load().doppler_mix_blocks_q15(
+        words.data_ptr(), out.data_ptr(), plans.data_ptr(), B, L,
+        torch.cuda.current_stream(words.device).cuda_stream)
+    build.check(rc, "q15 mixer")
+    mix_blocks_q15.launches += 1
+    return out
+
+
 mix_blocks_fmt.launches = 0            # kernel launches (CUDA path only)
 mix_blocks_fmt_channels.launches = 0
+mix_blocks_q15.launches = 0

@@ -70,11 +70,13 @@ def phase_q24(plans: torch.Tensor, L: int) -> torch.Tensor:
     return (q32 >> 8).to(torch.int32)
 
 
-def mix_blocks(i: torch.Tensor, q: torch.Tensor, plans: torch.Tensor):
+def mix_blocks(i: torch.Tensor, q: torch.Tensor, plans: torch.Tensor, *,
+               tone=sincos_q24_neg):
     """Per-block planned mixer over ``(B, L)`` planar IQ.
 
     Mirrors main.rs:177: each reference block is mixed with its own
-    scheduled shift and its own samplenum continuation.
+    scheduled shift and its own samplenum continuation.  ``tone`` maps the
+    q24 phase to (cos, sin); the tone probe passes the select-chain form.
     """
-    c, s = sincos_q24_neg(phase_q24(plans, i.shape[-1]))
+    c, s = tone(phase_q24(plans, i.shape[-1]))
     return mix_tone(i, q, c, s)

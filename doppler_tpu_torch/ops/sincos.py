@@ -19,7 +19,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["sincos_q24_neg", "mix_tone"]
+__all__ = ["sincos_q24_neg", "sincos_q24_neg_select", "mix_tone"]
 
 
 def _f32(v: float) -> float:
@@ -44,6 +44,17 @@ def mix_tone(fi, fq, c, s):
     return fi * c - fq * s, fi * s + fq * c
 
 
+def _quarter_poly(q24: torch.Tensor):
+    """The polynomial pair (sin x, cos x) on x = (q24 mod 2²²)·(π/2)·2⁻²²."""
+    x = (q24 & 0x3FFFFF).to(torch.float32) * X_SCALE      # [0, π/2)
+    x2 = x * x
+    s1, s3, s5, s7, s9 = POLY_SIN
+    c2, c4, c6, c8, c10 = POLY_COS
+    s_p = x * (s1 + x2 * (s3 + x2 * (s5 + x2 * (s7 + x2 * s9))))
+    c_p = 1.0 + x2 * (c2 + x2 * (c4 + x2 * (c6 + x2 * (c8 + x2 * c10))))
+    return s_p, c_p
+
+
 def sincos_q24_neg(q24: torch.Tensor):
     """(cos θ, sin θ) for θ = −2π·q24·2⁻²⁴, q24 an int32 phase in [0, 2²⁴).
 
@@ -51,12 +62,7 @@ def sincos_q24_neg(q24: torch.Tensor):
     ``exp(-i·2π·frac(r·n))`` (dsp.rs:121-122).
     """
     quad = q24 >> 22                                      # 0..3
-    x = (q24 & 0x3FFFFF).to(torch.float32) * X_SCALE      # [0, π/2)
-    x2 = x * x
-    s1, s3, s5, s7, s9 = POLY_SIN
-    c2, c4, c6, c8, c10 = POLY_COS
-    s_p = x * (s1 + x2 * (s3 + x2 * (s5 + x2 * (s7 + x2 * s9))))
-    c_p = 1.0 + x2 * (c2 + x2 * (c4 + x2 * (c6 + x2 * (c8 + x2 * c10))))
+    s_p, c_p = _quarter_poly(q24)
     # quadrant fold: one swap-select per output + sign-bit XOR (cos θ is
     # negative in quadrants 1-2; the returned −sin θ in quadrants 0-1)
     swap = (quad & 1) == 1
@@ -68,3 +74,18 @@ def sincos_q24_neg(q24: torch.Tensor):
     c = (pick_c.view(torch.int32) ^ signc).view(torch.float32)
     s = (pick_s.view(torch.int32) ^ signs).view(torch.float32)
     return c, s
+
+
+def sincos_q24_neg_select(q24: torch.Tensor):
+    """:func:`sincos_q24_neg` with the quadrant fold written as a chain of
+    selects over negated values (``tools/probe_chain_precision.py:108``
+    ``sincos_select``).  A negation flips the sign bit as the XOR does, so
+    the two give the same bits; only the tone probe
+    (``ops.cuda.probes.mix_shape_run``) runs this one, to time one fold
+    against the other."""
+    quad = q24 >> 22
+    s_p, c_p = _quarter_poly(q24)
+    k0, k1, k2 = quad == 0, quad == 1, quad == 2
+    cos_u = torch.where(k0, c_p, torch.where(k1, -s_p, torch.where(k2, -c_p, s_p)))
+    sin_u = torch.where(k0, s_p, torch.where(k1, c_p, torch.where(k2, -s_p, -c_p)))
+    return cos_u, -sin_u

@@ -121,9 +121,13 @@ class Pipeline:
     ``block_bytes`` defaults to the reference's 8192 so track-mode schedules
     match the reference; ``chunk_blocks`` blocks form one device dispatch.
 
-    ``host_s`` accumulates the host's planning and staging seconds and
-    ``device_s`` the device seconds (CUDA events around each chunk's copies
-    and kernel) of finalized chunks.
+    ``host_s`` accumulates the host's planning and staging seconds.
+    ``device_s`` accumulates each finalized chunk's span between two CUDA
+    events: one recorded before its host→device copies are enqueued, one
+    after its device→host copy.  The span holds the copies and the kernels,
+    and also every gap in which the stream waits for the host to enqueue the
+    next piece of the chunk's work, so it is an upper bound of the time the
+    device was busy, not that time.
     """
 
     def __init__(

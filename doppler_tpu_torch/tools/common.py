@@ -1,0 +1,70 @@
+"""What the two timing tools share: the bench inputs and the timing loop."""
+
+from __future__ import annotations
+
+import argparse
+import sys
+
+import numpy as np
+import torch
+
+from doppler_tpu_torch.ops import nco
+from doppler_tpu_torch.ops.phase_plan import NCOState, plan_blocks
+from doppler_tpu_torch.runtime.pipeline import resolve_device
+from doppler_tpu_torch.runtime.timing import card_label, timed_dispatches
+
+FS = 1_024_000      # config 3's input rate
+OUT_RATE = 48_000
+L = 2048            # the reference block of i16 input (8192 bytes)
+
+
+def add_common_args(ap: argparse.ArgumentParser) -> None:
+    ap.add_argument("--samples", type=int, default=1 << 25)
+    ap.add_argument("--iters", type=int, default=6)
+    ap.add_argument("--dispatches", type=int, default=64)
+    ap.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
+                    help="cuda (default) fails without a card; cpu runs the "
+                         "kernels' plain versions, which measures no card")
+
+
+def bench_inputs(samples: int, device: torch.device):
+    """The JAX tools' data and plan (``tools/roofline.py:86-96``) at the
+    port's block length: ``(B, 2048)`` int32 words from NumPy seed ``0xBE``
+    and the plan words of shifts ``9000 − 0.01·k`` Hz at 1.024 Msps.
+    Returns ``(words, plans, B)`` on ``device``."""
+    B = max(1, samples // L)
+    rng = np.random.default_rng(0xBE)
+    words = rng.integers(-(1 << 31), 1 << 31, size=(B, L),
+                         dtype=np.int64).astype(np.int32)
+    plan = plan_blocks([9000.0 - 0.01 * k for k in range(B)], [L] * B, FS,
+                       NCOState(), L)
+    return (torch.from_numpy(words).to(device),
+            nco.plan_tensor(plan, device=device), B)
+
+
+def open_device(name: str) -> tuple[torch.device, str]:
+    """The device a tool was asked for (raises without a card unless it is
+    ``cpu``) and the label its lines carry."""
+    device = resolve_device(name)
+    label = card_label(device)
+    print(f"device: {label}", file=sys.stderr)
+    return device, label
+
+
+def best_of(steps: dict, iters: int, K: int, device: torch.device,
+            on_time=None) -> dict:
+    """Warm every step once, then ``iters`` rounds over all steps in turn
+    (interleaved, so a drift of the card's clocks falls on all alike);
+    returns each step's least seconds for K dispatches."""
+    for step in steps.values():
+        step()
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    best = {name: float("inf") for name in steps}
+    for it in range(iters):
+        for name, step in steps.items():
+            dt = timed_dispatches(step, K, device)
+            best[name] = min(best[name], dt)
+            if on_time is not None:
+                on_time(it, name, dt)
+    return best

@@ -17,7 +17,9 @@ later carries (FIR outputs) within 2^-20; kernel against kernel, its bytes
 do not depend on the chunk split.  The channel-batched launches hold the
 same tolerances against their plain versions, and kernel against kernel
 channel c is bitwise the one-channel launch with that channel's plan words
-and carry, whatever the chunk split.
+and carry, whatever the chunk split.  The Q15 mixer and the roofline probes are integer
+or share the mixer's separately rounded steps, so they are bitwise equal to
+their plain versions, the chain-shaped probes' XOR side output included.
 """
 
 import io
@@ -45,7 +47,10 @@ from doppler_tpu_torch.ops.cuda.mixer import (
     mix_blocks_fmt_channels,
     mix_blocks_fmt_channels_plain,
     mix_blocks_fmt_plain,
+    mix_blocks_q15,
+    mix_blocks_q15_plain,
 )
+from doppler_tpu_torch.ops.cuda import probes
 from doppler_tpu_torch.ops.filters import design_polyphase_bank
 from doppler_tpu_torch.ops.multistage import MultiStageResampler
 from doppler_tpu_torch.ops.phase_plan import NCOState, plan_blocks
@@ -428,3 +433,111 @@ def test_channels_pipeline_on_card_matches_cpu(card, fs, stages, rates):
             d = _lsb(torch.frombuffer(bytearray(g), dtype=torch.int32),
                      torch.frombuffer(bytearray(w), dtype=torch.int32))
             assert int(d.max()) <= 1 and float((d > 0).float().mean()) < 0.01
+
+
+# -- the Q15 mixer and the roofline probes ------------------------------------
+
+def _probe_case(card, B=64, L=2048, seed=40):
+    data, plan = _chunk(B, L, "i16", np.random.default_rng(seed),
+                        NCOState(samplenum=40000))
+    assert (plan.t < L).any()
+    return torch.from_numpy(data).to(card), nco.plan_tensor(plan, device=card)
+
+
+@pytest.mark.cuda
+def test_q15_kernel_bitwise_vs_plain(card):
+    x, p = _probe_case(card)
+    launches = mix_blocks_q15.launches
+    got = mix_blocks_q15(x, p)
+    torch.cuda.synchronize()
+    assert mix_blocks_q15.launches == launches + 1
+    assert torch.equal(got, mix_blocks_q15_plain(x, p))
+    # a 15-bit tone: within 2 LSB of the float32 mixer (1 from the tone's
+    # quantisation through each product, 1 from the truncation)
+    pairs = np.random.default_rng(41).integers(-9000, 9000, size=(64, 2048, 2),
+                                               dtype=np.int16)
+    x = torch.from_numpy(pairs.view(np.int32).reshape(64, 2048)).to(card)
+    assert int(_lsb(mix_blocks_q15(x, p), mix_blocks_fmt(x, p)).max()) <= 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("body", ["copy", "codec"])
+@pytest.mark.parametrize("vec", [1, 4])
+def test_elementwise_probe_bitwise_vs_plain(card, body, vec):
+    x, _ = _probe_case(card)
+    launches = probes.probe_elementwise.launches
+    got = probes.probe_elementwise(x, body=body, vec=vec)
+    torch.cuda.synchronize()
+    assert probes.probe_elementwise.launches == launches + 1
+    assert torch.equal(got, probes.probe_elementwise_plain(x, body=body))
+    # a ragged length: the last CTA's tail
+    tail = x.reshape(-1)[:2048 * 3 + 4 * 37]
+    assert torch.equal(probes.probe_elementwise(tail, body=body, vec=vec),
+                       probes.probe_elementwise_plain(tail, body=body))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile", [None, 512, 2688])
+def test_chain_shaped_probes_bitwise_vs_plain(card, tile):
+    """Copy, mix, and both tones: the kept words and the XOR of the rest.
+    A tile of 2688 samples straddles the 2048-sample blocks."""
+    x, p = _probe_case(card, B=63 if tile == 2688 else 64)
+    kw = dict(P=P, Q=Q, tile=tile)
+    launches = probes.chain_shape_run.launches, probes.mix_shape_run.launches
+    copy = probes.chain_shape_run(x, p, do_mix=False, **kw)
+    mix = probes.chain_shape_run(x, p, do_mix=True, **kw)
+    fold = probes.mix_shape_run(x, p, tone="fold", **kw)
+    select = probes.mix_shape_run(x, p, tone="select", **kw)
+    torch.cuda.synchronize()
+    assert probes.chain_shape_run.launches == launches[0] + 2
+    assert probes.mix_shape_run.launches == launches[1] + 2
+    for got, want in (
+            (copy, probes.chain_shape_run_plain(x, p, do_mix=False, **kw)),
+            (mix, probes.chain_shape_run_plain(x, p, do_mix=True, **kw)),
+            (fold, probes.mix_shape_run_plain(x, p, tone="fold", **kw)),
+            (select, probes.mix_shape_run_plain(x, p, tone="select", **kw))):
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert torch.equal(fold[0], select[0]) and torch.equal(fold[1], select[1])
+    # the mix probe's words are the mixer kernel's, sliced the same way
+    t = tile or probes.chain_tile(x.numel(), P, Q)
+    assert torch.equal(mix[0], mix_blocks_fmt(x, p).reshape(-1, t)[:, :t * P // Q])
+
+
+@pytest.mark.cuda
+def test_chain_shaped_probes_do_the_unstored_work(card):
+    """One input word outside the kept part of a tile changes that tile's
+    side word, in the copy and in the mix, exactly as the plain version says:
+    the kernel loaded and mixed a sample whose word it does not store."""
+    x, p = _probe_case(card)
+    t = probes.chain_tile(x.numel(), P, Q)
+    y = x.clone()
+    y.view(-1)[5 * t + t - 1] ^= 0x00010001       # the last sample of tile 5
+    for do_mix in (False, True):
+        a = probes.chain_shape_run(x, p, P=P, Q=Q, do_mix=do_mix)
+        b = probes.chain_shape_run(y, p, P=P, Q=Q, do_mix=do_mix)
+        want = probes.chain_shape_run_plain(y, p, P=P, Q=Q, do_mix=do_mix)
+        assert torch.equal(a[0], b[0])
+        changed = (a[1] != b[1]).nonzero().flatten().tolist()
+        assert changed == [5]
+        assert torch.equal(b[1], want[1])
+
+
+@pytest.mark.cuda
+def test_tools_run_on_the_card_through_the_kernels(card, capsys):
+    import json
+
+    from doppler_tpu_torch.tools import probe_chain_precision, roofline
+
+    fns = (mix_blocks_q15, probes.probe_elementwise, probes.chain_shape_run,
+           probes.mix_shape_run, mix_blocks_fmt, mix_resample_chain_stream,
+           mix_cascade_stream)
+    before = [f.launches for f in fns]
+    small = ["--samples", str(1 << 20), "--dispatches", "4", "--iters", "2"]
+    names = roofline.MIXER_SHAPED + roofline.CHAIN_SHAPED
+    assert roofline.main(small + ["--variants", ",".join(names)]) == 0
+    res = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert list(res) == list(names)
+    assert probe_chain_precision.main(small) == 0
+    res = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert list(res) == list(probe_chain_precision.VARIANTS)
+    assert all(f.launches > n for f, n in zip(fns, before))
