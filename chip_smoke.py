@@ -12,12 +12,14 @@ Phases (each prints one line or a few; any failure exits non-zero):
 4. chain   — the fused chain kernel against its plain version at config-3
              geometry (P/Q = 3/64, T = 370, B = 256) from a nonzero carry;
              its carry against the mixer's output; its bytes across chunk
-             splits.
+             splits; its bytes on seeded inputs (B = 256 and 16384) against
+             the SHA-256 digests pinned in ``tools/kernel_digests.py``.
 4b. cascade — the fused cascade kernel against its plain version at the
              config-3 stages (÷8 T = 65, 3/8 T = 51; B = 256) from nonzero
              carries in all four formats; stage-0 carry bitwise, later
              carries within 2^-20; its bytes across chunk splits; the split
-             front (float32 planes) at the 100 Msps → 48 ksps stages.
+             front (float32 planes) at the 100 Msps → 48 ksps stages; the
+             pinned digests of both.
 4c. channels — the three channel-batched kernels against their plain
              versions at C = 16, B = 256 (the channel mixer bitwise; the
              chain and the cascade at the config-3 geometries in all four
@@ -25,7 +27,8 @@ Phases (each prints one line or a few; any failure exits non-zero):
              channel c bitwise against the one-channel launch, and the chunk
              split; then config 5's width, C = 256: the split front over a
              full chunk and the channel mixer over an EOF chunk, against
-             their plain versions.
+             their plain versions; the pinned digests of the chain, the
+             cascade and the front at C = 16.
 4d. probes — the Q15 mixer and the roofline probes against their plain
              versions at B = 256 and B = 16384, plan words with the segment
              switch inside some blocks, all bitwise: Q15; copy and codec at 4-
@@ -277,7 +280,27 @@ def phase_chain(torch, gen):
             split_ok = torch.equal(torch.cat(parts), got) and torch.equal(c, c_got)
             print(f"chain: 256 blocks vs 4x64 blocks bitwise={split_ok}")
             check(split_ok, "chain bytes depend on the chunk split")
+    _check_digests(("chain",), (1,))
     return worst
+
+
+def _check_digests(kernels, channels):
+    """The kernels' outputs and carries on the seeded inputs of
+    ``tools/kernel_digests.py`` (B = 256 and 16384, i16 and float32 in, from
+    non-zero carries) against the SHA-256 pinned there, which were taken on
+    the kernels before their redesign: the bytes may depend on nothing but
+    the inputs."""
+    from doppler_tpu_torch.tools import kernel_digests
+
+    t0 = time.perf_counter()
+    got = kernel_digests.compute(kernels=kernels, channels=channels)
+    bad = kernel_digests.mismatches(got)
+    print(f"digests: {'/'.join(kernels)} at C={'/'.join(map(str, channels))}: "
+          f"{len(got) - len(bad)} of {len(got)} cases (B = "
+          f"{'/'.join(map(str, kernel_digests.BLOCKS))}, i16 and f32, outputs "
+          f"and carries) equal the pinned SHA-256 in "
+          f"{time.perf_counter() - t0:.1f} s")
+    check(not bad, f"bytes differ from the pinned digests: {bad}")
 
 
 def _cascade(torch, fs):
@@ -368,12 +391,14 @@ def phase_cascade(torch, gen):
     want, c_want = cascade.mix_cascade_plain(x1, p1, banks5, carry, **kw)
     err = float((got - want).abs().max())
     c0_ok, c_err = _carry_errs(torch, c_got, c_want)
-    tile = cascade._pick_tile(torch.cuda.current_device(), stages5, B_MAIN * L)
+    lay = cascade.plan_launch(torch.device("cuda"), stages5)
     print(f"cascade: split front {stages5} B={B_MAIN}: out {tuple(got.shape)} "
-          f"max|d|={err!r}; tile {tile} outputs; stage-0 carry bitwise={c0_ok}, "
-          f"stage-1 carry max|d|={c_err!r}")
+          f"max|d|={err!r}; tile {lay.tile} outputs, {lay.threads} threads, R "
+          f"{lay.regs}, {lay.smem_bytes} B of shared memory a CTA; stage-0 carry "
+          f"bitwise={c0_ok}, stage-1 carry max|d|={c_err!r}")
     check(err <= TOL_F32 and c0_ok and c_err <= TOL_F32,
           "split front differs from its plain version")
+    _check_digests(("cascade", "front"), (1,))
     return max(worst, err)
 
 
@@ -547,6 +572,7 @@ def phase_channels(torch, gen):
     print(f"channels: mixer i16->f32 C={C_WIDE} B={B_eof} L={L}: bitwise vs "
           f"plain={same}")
     check(same, f"channel mixer at C={C_WIDE} differs from plain")
+    _check_digests(("chain", "cascade", "front"), (C_MAIN,))
     return worst
 
 

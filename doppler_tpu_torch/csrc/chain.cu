@@ -12,17 +12,28 @@
 // (2, T−1) carry of the previous chunk.  Also returns the new carry: the
 // last T−1 samples of [carry | x].
 //
-// Design.  The TPU kernel walks its grid in order and carries the FIR
-// history in scratch from one grid step to the next; a GPU grid runs in
-// parallel, so that carry would race.  Here every CTA owns a tile of
-// outputs and mixes its own input span plus a T−1-sample halo into shared
-// memory.  Re-mixing the halo from the raw words is exact because the
-// phase is a pure function of the plan words and the sample index, so the
-// halo holds bitwise the values the neighbouring CTA mixes.  Only CTAs
-// whose span reaches before the chunk (the first) read carry_in; one extra
-// CTA (per channel) writes carry_out.  Each thread computes one output as a sequential
-// __fmaf_rn over l = 0..T−1 in fixed order, so the bytes do not depend on
-// the tile size or on how the stream is split into chunks.
+// Design.  A GPU grid runs in parallel, so no FIR history passes from CTA to
+// CTA: every CTA owns a tile of outputs and mixes its own input span plus a
+// T−1-sample halo into shared memory.  Re-mixing the halo from the raw words
+// is exact because the phase is a pure function of the plan words and the
+// sample index.  Only CTAs whose span reaches before the chunk (the first)
+// read carry_in; one extra CTA (per channel) writes carry_out.
+//
+// Thread 0 works out the CTA's tile and span into shared memory (the index
+// arithmetic is divisions); then a tile CTA runs two phases with a barrier
+// between them.  Phase 0 loads the tap rows and mixes the span with
+// nco.cuh's mix_span: a strided walker of the phase (one division a thread,
+// then additions; no 64-bit product a sample) over 16-byte loads of the
+// input, the samples stored as float2 (I, Q).  Phase 1 is fir.cuh's
+// register-tiled dot: a thread owns all three phases of R neighbouring
+// windows at P = 3 (one phase of R windows otherwise) and walks their common
+// x once, four taps a step, so a value loaded from shared memory feeds up to
+// 6·R FMAs; an output's four taps are one warp-uniform 16-byte load.  Each
+// output is still one __fmaf_rn chain over l = 0..T−1 in that order, so the
+// bytes depend neither on the tile, the threads, R nor on how the stream is
+// split into chunks.  The wrapper picks tile, threads and R
+// (ops/cuda/geometry.py, which also lays out the shared memory; the C side
+// takes its offsets).
 //
 // Channels: C channels run the same (B, L) chunk, each with its own plan
 // words (7, C, B) and its own carry (C, 2, T−1), into (C, n_out) words or
@@ -30,182 +41,235 @@
 // own tile CTAs and its own carry CTA; the channel is the fast index of the
 // grid (nco.cuh split_block), so the C CTAs that mix one input span run
 // together and the span comes from L2 after its first read.  Channel c's
-// bytes are those of a C = 1 launch with its plan words and carry: the same
-// code in the same order.  With C channels the work is C times the stream
-// kernel's on one read of the input, so beyond a few channels the bound is
-// the float32 rate (the mix and the FIR), not HBM.
+// bytes are those of a C = 1 launch with its plan words and carry.
 //
-// Bound: at config 3 (P/Q = 3/64, T = 370) the traffic is 4 + 4·3/64 ≈ 4.19
-// B per input sample and the FIR is 2·370·3/64 ≈ 35 FMA per input sample,
-// plus the ~13% of samples a CTA re-mixes for its halo.  A tile of 128
-// outputs spans ≈ 2731 inputs + 369 halo: ≈ 25 KB of float32 I/Q in
-// shared memory beside the (3, 370) bank (4.4 KB).
-//
-// Shared-memory banks: the 32 lanes of a warp read x[⌊mQ/P⌋ − l] for 32
-// consecutive m.  At P/Q = 3/64 those indices are 64k + {0, 21, 42}, which
-// fall in only 3 of the 32 banks (an 11-way conflict per load).  The spans
-// are therefore stored with one pad word after every 32 samples
-// (padded(k) = k + k/32), which spreads the same reads over the banks with
-// at most a 2-way conflict.  The padding moves data, not arithmetic: the
-// bytes are unchanged.
-#include <cuda_runtime.h>
-
+// Bound.  On paper: at config 3 (P/Q = 3/64, T = 370) 4 + 4·3/64 ≈ 4.19 B
+// and 29 (mix) + 4·370·3/64 ≈ 98 float32 operations an input sample, which
+// makes one stream bound by operations, narrowly.  In fact the two phases add,
+// and neither runs at that rate (PERF.md; NVIDIA H100 80GB HBM3, 700.00 W; a
+// 33.5 M-sample chunk takes 0.27 ms).  The mix is ≈ 60 instructions a sample,
+// nearly half of them integer at half rate, because its bytes are pinned to
+// the plain version's separately rounded steps (no FMA contraction) and its
+// phase is 64-bit: ≈ 0.105 ms.  The dot is bound by shared-memory loads: a
+// group of four steps is 37 instructions for 24 FFMA, 9.25 clocks of an SM's
+// issue, but its 4 loads of x and 3 of taps take an SM 14.5–16 clocks
+// (tools/fir_group_bench.py), and ragged groups at both ends of a window load
+// x for one or two phases only: ≈ 0.155 ms.  What limits the tile: at Q = 64
+// an output needs 21 input samples of 8 B in shared memory, so an SM holds
+// about 1150 outputs at a time, 12 warps of dot work at R = 1; R = 2 halves
+// the loads of x a FFMA and the warps, and is slower.  A tile of 384 outputs
+// (70 KB, three CTAs an SM) re-mixes 4.5% of the samples.
+#include "fir.cuh"
 #include "nco.cuh"
+
+namespace doppler {
+
+struct ChainArgs {
+    FirStage f;
+    int C, B, L;
+    int tile, n_tiles;
+    int vec4;               // the input takes 16-byte loads
+    int out_f32;
+    long long m_total;
+    const float* bank;      // (P, T)
+    const float* carry_in;  // (C, 2, T−1)
+    float* carry_out;       // (C, 2, T−1)
+};
+
+// Where fir_tile's outputs go: planes (2, C, m_total) or i16 words.
+struct ChainSink {
+    int out_f32;
+    void* out;
+    long long m_total;
+    int C, ch;
+    __device__ __forceinline__ void put(long long m, float vi, float vq) const {
+        if (out_f32) {
+            static_cast<float*>(out)[ch * m_total + m] = vi;
+            static_cast<float*>(out)[((long long)C + ch) * m_total + m] = vq;
+        } else {
+            static_cast<int*>(out)[ch * m_total + m] = pack_i16(vi, vq);
+        }
+    }
+};
+
+// What a CTA works on: its channel and its unit (a tile of outputs, or the
+// channel's carry), the tile's outputs as a FirRun and the span of x under
+// them.  The index arithmetic is 64-bit divisions: one thread does it, once.
+struct ChainPlan {
+    int ch, unit;
+    FirRun run;
+    long long lo, last, org;    // the span x[lo .. last]; x index of its k = 0
+};
+
+__device__ __forceinline__ void chain_plan(const ChainArgs& g, unsigned block,
+                                           ChainPlan& p) {
+    const FirStage& f = g.f;
+    split_block(block, g.C, g.n_tiles + (f.T > 1), p.ch, p.unit);
+    if (p.unit == g.n_tiles) return;
+    const long long m0 = (long long)p.unit * g.tile;
+    const int cnt = (int)min64((long long)g.tile, g.m_total - m0);
+    p.run = fir_make_run(f, m0, cnt);
+    p.org = span_origin(f, p.run.i_lo);
+    p.lo = div_nonneg(m0 * f.Q, f.P) - (f.T - 1);
+    p.last = div_nonneg((m0 + cnt - 1) * f.Q, f.P);
+}
+
+// Phase `ph` of the CTA with plan `p`, for thread `tid` of `nthreads`; true
+// while a further phase follows (after a barrier).
+template <bool kInF32>
+__device__ __forceinline__ bool chain_phase(
+        const void* __restrict__ in, void* __restrict__ out,
+        const uint32_t* __restrict__ plans, const ChainArgs& g,
+        const ChainPlan& p, int tid, int nthreads, int ph, float* smem) {
+    const FirStage& f = g.f;
+    const int H = f.T - 1;
+    const int ch = p.ch;
+    plans += (size_t)ch * g.B;
+    const size_t stride = (size_t)g.C * g.B;
+    const float* carry_in = g.carry_in + (size_t)ch * 2 * H;
+
+    if (p.unit == g.n_tiles) {                 // the carry CTA
+        const long long n_in = (long long)g.B * g.L;
+        float* carry_out = g.carry_out + (size_t)ch * 2 * H;
+        int cur = -1;
+        Plan pl;
+        for (int k = tid; k < H; k += nthreads) {
+            const long long n = n_in - H + k;
+            float vi, vq;
+            if (n < 0) {
+                vi = carry_in[H + n];
+                vq = carry_in[2 * H + n];
+            } else {
+                mix_at<kInF32>(n, in, plans, stride, g.B, g.L, cur, pl, vi, vq);
+            }
+            carry_out[k] = vi;
+            carry_out[H + k] = vq;
+        }
+        return false;
+    }
+
+    if (ph == 0) {
+        fir_load_taps(smem, f, g.bank, tid, nthreads);
+        SpanStore store{reinterpret_cast<float2*>(smem + f.buf_off), f.S, f.magic,
+                        p.org};
+        for (long long n = p.lo + tid; n < 0 && n <= p.last; n += nthreads)
+            store(n, carry_in[H + n], carry_in[2 * H + n]);
+        if (p.last >= max64(p.lo, 0))
+            mix_span<kInF32>(max64(p.lo, 0), p.last, in, plans, stride, g.B, g.L,
+                             g.vec4 != 0, tid, nthreads, store);
+        return true;
+    }
+    ChainSink sink{g.out_f32, out, g.m_total, g.C, ch};
+    fir_run(reinterpret_cast<const float2*>(smem + f.buf_off), smem + f.tap_off,
+            f, p.run, tid, nthreads, sink);
+    return false;
+}
+
+// ChainArgs from doppler_chain's arguments (below); false where they are
+// not ones the kernel takes.
+inline bool make_chain_args(ChainArgs& g, const void* in, const float* bank,
+                            const float* carry_in, float* carry_out, int C,
+                            int B, int L, int P, int Q, int T, int tile, int R,
+                            int tap_stride, int tap_off, int buf_off,
+                            int out_f32) {
+    if (C <= 0 || B <= 0 || L <= 0 || P <= 0 || Q <= 0 || T <= 0 || L % Q != 0 ||
+        tile <= 0 || !fir_r_ok(R) || tap_stride < T + 10 || tap_stride % 4 ||
+        tap_off % 4 || buf_off % 4)
+        return false;
+    g = ChainArgs{};
+    g.f.P = P;
+    g.f.Q = Q;
+    g.f.T = T;
+    g.f.R = R;
+    g.f.tap_stride = tap_stride;
+    g.f.tap_off = tap_off;
+    g.f.buf_off = buf_off;
+    fir_derive(g.f);
+    g.C = C;
+    g.B = B;
+    g.L = L;
+    g.tile = tile;
+    g.m_total = (long long)B * L / Q * P;
+    g.n_tiles = (int)((g.m_total + tile - 1) / tile);
+    g.vec4 = (L % 4 == 0 && reinterpret_cast<uintptr_t>(in) % 16 == 0) ? 1 : 0;
+    g.out_f32 = out_f32;
+    g.bank = bank;
+    g.carry_in = carry_in;
+    g.carry_out = carry_out;
+    return true;
+}
+
+}  // namespace doppler
+
+#ifdef __CUDACC__
+
+#include <cuda_runtime.h>
 
 namespace {
 
-// shared memory: the (P, T) bank, then the I and Q spans, each holding up
-// to span_cap samples at padded positions (span_words floats)
-long long span_cap(int tile_m, int P, int Q, int T) {
-    return ((long long)(tile_m - 1) * Q + P - 1) / P + T;
-}
+using doppler::ChainArgs;
 
-long long span_words(int tile_m, int P, int Q, int T) {
-    const long long cap = span_cap(tile_m, P, Q, T);
-    return cap + cap / 32 + 1;
-}
+constexpr int kMaxThreads = 512;
 
-long long smem_bytes(int tile_m, int P, int Q, int T) {
-    return 4 * ((long long)P * T + 2 * span_words(tile_m, P, Q, T));
-}
-
-__device__ __forceinline__ int padded(int k) { return k + (k >> 5); }
-
-// Mixed sample at chunk index g (g < 0: the carry).
 template <bool kInF32>
-__device__ __forceinline__ void mixed_at(long long g, const void* __restrict__ in,
-                                         const uint32_t* __restrict__ plans,
-                                         size_t stride,
-                                         const float* __restrict__ carry_in,
-                                         int B, int L, int H, int& cur,
-                                         doppler::Plan& p, float& oi, float& oq) {
-    if (g < 0) {
-        oi = carry_in[H + g];
-        oq = carry_in[2 * H + g];
-        return;
-    }
-    doppler::mix_at<kInF32>(g, in, plans, stride, B, L, cur, p, oi, oq);
-}
-
-template <bool kInF32, bool kOutF32>
-__global__ void chain_kernel(const void* __restrict__ in, void* __restrict__ out,
-                             const uint32_t* __restrict__ plans,
-                             const float* __restrict__ bank,
-                             const float* __restrict__ carry_in,
-                             float* __restrict__ carry_out,
-                             int C, int B, int L, int P, int Q, int T,
-                             long long m_total, int n_tiles, int words) {
-    extern __shared__ float smem[];
-    const int H = T - 1;
-    const long long n_in = (long long)B * L;
-    int cur = -1;
-    doppler::Plan p;
-
-    // this CTA's channel and unit: a tile of outputs, or the channel's carry
-    int c, unit;
-    doppler::split_block(blockIdx.x, C, n_tiles + (H > 0), c, unit);
-    plans += (size_t)c * B;
-    const size_t stride = (size_t)C * B;
-    carry_in += (size_t)c * 2 * H;
-    carry_out += (size_t)c * 2 * H;
-
-    if (unit == n_tiles) {                     // the carry CTA
-        for (int k = threadIdx.x; k < H; k += blockDim.x) {
-            float oi, oq;
-            mixed_at<kInF32>(n_in - H + k, in, plans, stride, carry_in, B, L,
-                             H, cur, p, oi, oq);
-            carry_out[k] = oi;
-            carry_out[H + k] = oq;
-        }
-        return;
-    }
-
-    float* bank_s = smem;
-    float* xs_i = smem + P * T;
-    float* xs_q = xs_i + words;
-    for (int k = threadIdx.x; k < P * T; k += blockDim.x) bank_s[k] = bank[k];
-
-    const long long m0 = (long long)unit * blockDim.x;
-    const long long m_end = min(m0 + (long long)blockDim.x, m_total);
-    const long long s0 = m0 * Q / P - H;       // first input of the span
-    const int count = (int)((m_end - 1) * Q / P - s0 + 1);
-    for (int k = threadIdx.x; k < count; k += blockDim.x) {
-        mixed_at<kInF32>(s0 + k, in, plans, stride, carry_in, B, L, H, cur, p,
-                         xs_i[padded(k)], xs_q[padded(k)]);
-    }
+__global__ void __launch_bounds__(kMaxThreads, 2)
+chain_kernel(const void* __restrict__ in, void* __restrict__ out,
+             const uint32_t* __restrict__ plans,
+             const __grid_constant__ ChainArgs g) {
+    extern __shared__ float4 smem4[];
+    float* smem = reinterpret_cast<float*>(smem4);
+    __shared__ doppler::ChainPlan plan;
+    if (threadIdx.x == 0) doppler::chain_plan(g, blockIdx.x, plan);
     __syncthreads();
-
-    const long long m = m0 + threadIdx.x;
-    if (m >= m_end) return;
-    const long long u = m * Q;
-    const long long nm = u / P;
-    const float* w = bank_s + (int)(u - nm * P) * T;
-    const int base = (int)(nm - s0);            // x[nm − l] is span[base − l]
-    float ai = 0.0f, aq = 0.0f;
-    for (int l = 0; l < T; ++l) {
-        const int k = padded(base - l);
-        ai = __fmaf_rn(w[l], xs_i[k], ai);
-        aq = __fmaf_rn(w[l], xs_q[k], aq);
-    }
-    if (kOutF32) {
-        // output planes (2, C, m_total): Q sits C·m_total after I
-        static_cast<float*>(out)[c * m_total + m] = ai;
-        static_cast<float*>(out)[((long long)C + c) * m_total + m] = aq;
-    } else {
-        static_cast<int*>(out)[c * m_total + m] = doppler::pack_i16(ai, aq);
+    for (int ph = 0;; ++ph) {
+        if (!doppler::chain_phase<kInF32>(in, out, plans, g, plan,
+                                          (int)threadIdx.x, (int)blockDim.x, ph,
+                                          smem))
+            break;
+        __syncthreads();
     }
 }
 
-template <bool kInF32, bool kOutF32>
-int launch(const void* in, void* out, const uint32_t* plans, const float* bank,
-           const float* carry_in, float* carry_out, int C, int B, int L, int P,
-           int Q, int T, int tile_m, cudaStream_t stream) {
-    const long long m_total = (long long)B * L / Q * P;
-    const int n_tiles = (int)((m_total + tile_m - 1) / tile_m);
-    const long long grid = (long long)C * (n_tiles + (T > 1 ? 1 : 0));
+template <bool kInF32>
+int launch(const void* in, void* out, const uint32_t* plans, const ChainArgs& g,
+           int threads, long long smem, cudaStream_t stream) {
+    const long long grid = (long long)g.C * (g.n_tiles + (g.f.T > 1 ? 1 : 0));
     if (grid > 0x7FFFFFFFLL) return (int)cudaErrorInvalidValue;
-    const long long smem = smem_bytes(tile_m, P, Q, T);
-    auto kernel = chain_kernel<kInF32, kOutF32>;
+    auto kernel = chain_kernel<kInF32>;
     if (smem > 48 * 1024) {
         cudaError_t e = cudaFuncSetAttribute(
             kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
         if (e != cudaSuccess) return (int)e;
     }
-    kernel<<<(unsigned)grid, tile_m, (size_t)smem, stream>>>(
-        in, out, plans, bank, carry_in, carry_out, C, B, L, P, Q, T, m_total,
-        n_tiles, (int)span_words(tile_m, P, Q, T));
+    kernel<<<(unsigned)grid, threads, (size_t)smem, stream>>>(in, out, plans, g);
     return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// Dynamic shared memory one CTA of `tile_m` outputs needs; the wrapper
-// sizes its tile with it.
-extern "C" long long doppler_chain_smem_bytes(int tile_m, int P, int Q, int T) {
-    return smem_bytes(tile_m, P, Q, T);
-}
-
 // in: int32 words (B, L) or float32 planes (2, B, L); out: int32 words
 // (C, B·L·P/Q) or float32 planes (2, C, B·L·P/Q); plans: (7, C, B) uint32;
-// bank: (P, T) float32; carry_in/carry_out: (C, 2, T−1) float32.
+// bank: (P, T) float32; carry_in/carry_out: (C, 2, T−1) float32.  tile:
+// outputs a CTA; threads: a multiple of 32 up to 512; R: windows a thread;
+// tap_stride, tap_off, buf_off: float offsets into the `smem` bytes of
+// dynamic shared memory, as ops/cuda/chain.py plan_launch lays them out.
 // Needs L % Q == 0.  Returns cudaGetLastError() after the launch.
 extern "C" int doppler_chain(const void* in, void* out, const uint32_t* plans,
                              const float* bank, const float* carry_in,
                              float* carry_out, int C, int B, int L, int P,
-                             int Q, int T, int tile_m, int in_f32, int out_f32,
+                             int Q, int T, int tile, int threads, int R,
+                             int tap_stride, int tap_off, int buf_off,
+                             long long smem, int in_f32, int out_f32,
                              void* stream) {
-    if (C <= 0 || B <= 0 || L <= 0 || P <= 0 || Q <= 0 || T <= 0 || L % Q != 0 ||
-        tile_m <= 0 || tile_m > 1024)
+    ChainArgs g;
+    if (threads < 32 || threads > kMaxThreads || threads % 32 || smem <= 0 ||
+        !doppler::make_chain_args(g, in, bank, carry_in, carry_out, C, B, L, P,
+                                  Q, T, tile, R, tap_stride, tap_off, buf_off,
+                                  out_f32))
         return (int)cudaErrorInvalidValue;
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define DOPPLER_CHAIN_LAUNCH(IN, OUT)                                          \
-    launch<IN, OUT>(in, out, plans, bank, carry_in, carry_out, C, B, L, P, Q,  \
-                    T, tile_m, s)
-    if (in_f32) {
-        return out_f32 ? DOPPLER_CHAIN_LAUNCH(true, true)
-                       : DOPPLER_CHAIN_LAUNCH(true, false);
-    }
-    return out_f32 ? DOPPLER_CHAIN_LAUNCH(false, true)
-                   : DOPPLER_CHAIN_LAUNCH(false, false);
-#undef DOPPLER_CHAIN_LAUNCH
+    return in_f32 ? launch<true>(in, out, plans, g, threads, smem, s)
+                  : launch<false>(in, out, plans, g, threads, smem, s);
 }
+
+#endif  // __CUDACC__

@@ -1,0 +1,186 @@
+// The chain and cascade kernels of doppler_tpu_torch/csrc run on the CPU:
+// a CTA's threads one after the other, phase by phase (the barrier between
+// two phases is the end of the loop over the threads), over the device
+// functions the kernels are made of — built with a host compiler through
+// csrc/host_shim.cuh.  Beside them a reference that sums every output as one
+// fmaf chain over l = 0..T−1 from mix_at's samples, one output at a time:
+// what the kernels must equal byte for byte whatever their tile, threads and
+// register tile.
+//
+//   g++ -O1 -ffp-contract=off -shared -fPIC -std=c++17 \
+//       -I doppler_tpu_torch/csrc -o emu.so \
+//       doppler_tpu_torch/csrc/host/kernel_emulation.cpp
+#include <cmath>
+#include <cstring>
+#include <limits>
+#include <vector>
+
+#include "cascade.cu"
+#include "chain.cu"
+
+using namespace doppler;
+
+namespace {
+
+// shared memory the way a fresh CTA finds it: nothing a result may depend on
+void poison(std::vector<float4>& smem) {
+    const float nan = std::numeric_limits<float>::quiet_NaN();
+    for (auto& v : smem) v = float4{nan, nan, nan, nan};
+}
+
+template <bool kInF32>
+void mixed_stream(const void* in, const uint32_t* plans, size_t stride, int B,
+                  int L, std::vector<float>& xi, std::vector<float>& xq) {
+    const long long n = (long long)B * L;
+    xi.resize(n);
+    xq.resize(n);
+    int cur = -1;
+    Plan p;
+    for (long long g = 0; g < n; ++g)
+        mix_at<kInF32>(g, in, plans, stride, B, L, cur, p, xi[g], xq[g]);
+}
+
+// one stage, one output at a time; x[k < 0] from the carry
+void ref_stage(const std::vector<float>& xi, const std::vector<float>& xq,
+               const float* carry, const float* bank, int P, int Q, int T,
+               std::vector<float>& yi, std::vector<float>& yq, float* carry_out) {
+    const int H = T - 1;
+    const long long n = (long long)xi.size(), m_total = n / Q * P;
+    auto at = [&](const std::vector<float>& x, int plane, long long k) {
+        return k < 0 ? carry[(plane + 1) * H + k] : x[k];
+    };
+    yi.resize(m_total);
+    yq.resize(m_total);
+    for (long long m = 0; m < m_total; ++m) {
+        const long long u = m * Q, nm = u / P;
+        const float* w = bank + (u - nm * P) * T;
+        float ai = 0.0f, aq = 0.0f;
+        for (int l = 0; l < T; ++l) {
+            ai = std::fmaf(w[l], at(xi, 0, nm - l), ai);
+            aq = std::fmaf(w[l], at(xq, 1, nm - l), aq);
+        }
+        yi[m] = ai;
+        yq[m] = aq;
+    }
+    for (int k = 0; k < H; ++k) {
+        carry_out[k] = at(xi, 0, n - H + k);
+        carry_out[H + k] = at(xq, 1, n - H + k);
+    }
+}
+
+void write_out(const std::vector<float>& yi, const std::vector<float>& yq,
+               void* out, int C, int ch, int out_f32) {
+    const long long n = (long long)yi.size();
+    for (long long j = 0; j < n; ++j) {
+        if (out_f32) {
+            static_cast<float*>(out)[ch * n + j] = yi[j];
+            static_cast<float*>(out)[((long long)C + ch) * n + j] = yq[j];
+        } else {
+            static_cast<int*>(out)[ch * n + j] = pack_i16(yi[j], yq[j]);
+        }
+    }
+}
+
+template <bool kInF32>
+void run_cascade(const void* in, void* out, const uint32_t* plans,
+                 const Geometry& g, int B, int L, int threads, long long smem) {
+    std::vector<float4> shared((smem + 15) / 16);
+    for (unsigned block = 0; block < (unsigned)(g.C * g.units); ++block) {
+        poison(shared);
+        CtaPlan plan;
+        cascade_plan(g, block, plan);
+        for (int ph = 0;; ++ph) {
+            bool more = false;
+            for (int tid = 0; tid < threads; ++tid)
+                more = cascade_phase<kInF32>(in, out, plans, g, B, L, plan, tid,
+                                             threads, ph,
+                                             reinterpret_cast<float*>(shared.data()));
+            if (!more) break;
+        }
+    }
+}
+
+template <bool kInF32>
+void run_chain(const void* in, void* out, const uint32_t* plans,
+               const ChainArgs& g, int threads, long long smem) {
+    std::vector<float4> shared((smem + 15) / 16);
+    const unsigned grid = (unsigned)(g.C * (g.n_tiles + (g.f.T > 1 ? 1 : 0)));
+    for (unsigned block = 0; block < grid; ++block) {
+        poison(shared);
+        ChainPlan plan;
+        chain_plan(g, block, plan);
+        for (int ph = 0;; ++ph) {
+            bool more = false;
+            for (int tid = 0; tid < threads; ++tid)
+                more = chain_phase<kInF32>(in, out, plans, g, plan, tid, threads,
+                                           ph, reinterpret_cast<float*>(shared.data()));
+            if (!more) break;
+        }
+    }
+}
+
+}  // namespace
+
+// doppler_cascade's arguments (csrc/cascade.cu), all pointers to host memory.
+extern "C" int emu_cascade(const void* in, void* out, const uint32_t* plans,
+                           const void* const* banks, const void* const* carry_in,
+                           void* const* carry_out, const int* layout, int S, int C,
+                           int B, int L, int tile, int threads, long long smem,
+                           int in_f32, int out_f32) {
+    Geometry g;
+    if (!make_geometry(g, in, banks, carry_in, carry_out, layout, S, C, B, L,
+                       tile, out_f32))
+        return 1;
+    if (in_f32) {
+        run_cascade<true>(in, out, plans, g, B, L, threads, smem);
+    } else {
+        run_cascade<false>(in, out, plans, g, B, L, threads, smem);
+    }
+    return 0;
+}
+
+// doppler_chain's arguments (csrc/chain.cu), all pointers to host memory.
+extern "C" int emu_chain(const void* in, void* out, const uint32_t* plans,
+                         const float* bank, const float* carry_in,
+                         float* carry_out, int C, int B, int L, int P, int Q,
+                         int T, int tile, int threads, int R, int tap_stride,
+                         int tap_off, int buf_off, long long smem, int in_f32,
+                         int out_f32) {
+    ChainArgs g;
+    if (!make_chain_args(g, in, bank, carry_in, carry_out, C, B, L, P, Q, T,
+                         tile, R, tap_stride, tap_off, buf_off, out_f32))
+        return 1;
+    if (in_f32) {
+        run_chain<true>(in, out, plans, g, threads, smem);
+    } else {
+        run_chain<false>(in, out, plans, g, threads, smem);
+    }
+    return 0;
+}
+
+// The reference: stages = 3 ints a stage (P, Q, T); the other arguments as
+// emu_cascade's.  A chain is a cascade of one stage.
+extern "C" int ref_cascade(const void* in, void* out, const uint32_t* plans,
+                           const void* const* banks, const void* const* carry_in,
+                           void* const* carry_out, const int* stages, int S, int C,
+                           int B, int L, int in_f32, int out_f32) {
+    for (int ch = 0; ch < C; ++ch) {
+        std::vector<float> xi, xq, yi, yq;
+        if (in_f32) {
+            mixed_stream<true>(in, plans + (size_t)ch * B, (size_t)C * B, B, L, xi, xq);
+        } else {
+            mixed_stream<false>(in, plans + (size_t)ch * B, (size_t)C * B, B, L, xi, xq);
+        }
+        for (int s = 0; s < S; ++s) {
+            const int P = stages[3 * s], Q = stages[3 * s + 1], T = stages[3 * s + 2];
+            const size_t off = (size_t)ch * 2 * (T - 1);
+            ref_stage(xi, xq, static_cast<const float*>(carry_in[s]) + off,
+                      static_cast<const float*>(banks[s]), P, Q, T, yi, yq,
+                      static_cast<float*>(carry_out[s]) + off);
+            xi.swap(yi);
+            xq.swap(yq);
+        }
+        write_out(xi, xq, out, C, ch, out_f32);
+    }
+    return 0;
+}

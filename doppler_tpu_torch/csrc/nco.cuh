@@ -17,6 +17,8 @@
 #include <cstddef>
 #include <cstdint>
 
+#include "host_shim.cuh"
+
 namespace doppler {
 
 // Per-block plan words: (D, C1, C2, t) of ops/phase_plan.py, as the
@@ -116,26 +118,34 @@ __device__ __forceinline__ void decode_i16(int w, float& fi, float& fq) {
     fq = __fmul_rn((float)(w >> 16), 0x1.0p-15f);
 }
 
-// Mix one sample of block-local index j: (fi·c − fq·s, fi·s + fq·c).
+// Rotate one sample by the tone of phase q24: (fi·c − fq·s, fi·s + fq·c).
 // kSelect takes the select-chain tone (the tone probe only).
 template <bool kSelect = false>
-__device__ __forceinline__ void mix_sample(float fi, float fq, uint32_t j,
-                                           const Plan& p, float& oi, float& oq) {
+__device__ __forceinline__ void mix_q24(float fi, float fq, int q24, float& oi,
+                                        float& oq) {
     float c, s;
     if (kSelect) {
-        sincos_q24_neg_select(phase_q24(j, p), c, s);
+        sincos_q24_neg_select(q24, c, s);
     } else {
-        sincos_q24_neg(phase_q24(j, p), c, s);
+        sincos_q24_neg(q24, c, s);
     }
     oi = __fsub_rn(__fmul_rn(fi, c), __fmul_rn(fq, s));
     oq = __fadd_rn(__fmul_rn(fi, s), __fmul_rn(fq, c));
+}
+
+// Mix one sample of block-local index j.
+template <bool kSelect = false>
+__device__ __forceinline__ void mix_sample(float fi, float fq, uint32_t j,
+                                           const Plan& p, float& oi, float& oq) {
+    mix_q24<kSelect>(fi, fq, phase_q24(j, p), oi, oq);
 }
 
 // Mixed sample at chunk index g ≥ 0 of a (B, L) chunk: int32 words, or
 // float32 planes (2, B, L) when kInF32 — the input is shared by every
 // channel, so its Q plane sits B·L after the I plane whatever C is.
 // `plans`/`stride` as in load_plan; `cur`/`p` cache the plan of the block
-// this thread loaded last.
+// this thread loaded last.  One division and one 64-bit product a sample:
+// the carry CTAs and single samples use it, the spans use mix_span below.
 template <bool kInF32, bool kSelect = false>
 __device__ __forceinline__ void mix_at(long long g, const void* __restrict__ in,
                                        const uint32_t* __restrict__ plans,
@@ -155,6 +165,153 @@ __device__ __forceinline__ void mix_at(long long g, const void* __restrict__ in,
         decode_i16(static_cast<const int*>(in)[g], fi, fq);
     }
     mix_sample<kSelect>(fi, fq, (uint32_t)j, p, oi, oq);
+}
+
+// The strided walker: the phase of samples g, g + step, g + 2·step, … without
+// a division or a 64-bit multiply a sample.  A thread divides once (seek),
+// then every advance adds the stride to j and step·D to the 64-bit product
+// j·D.  Unsigned addition wraps mod 2^64 exactly as the product does, so the
+// top 24 bits of (prod + C) are bitwise phase_q24's.  Where j runs past the
+// block the walker moves on to the block that holds it, reloads the plan
+// words there and multiplies once.
+struct Walker {
+    Plan p;
+    int b;              // block
+    uint32_t j;         // index inside the block
+    uint64_t prod;      // j·D mod 2^64
+    uint64_t step_d;    // step·D mod 2^64, of the block's D
+};
+
+__device__ __forceinline__ void walker_seek(Walker& w, long long g, uint32_t step,
+                                            const uint32_t* __restrict__ plans,
+                                            size_t stride, int L) {
+    // in 32 bits where g fits: a 64-bit division is a long subroutine
+    w.b = (g >> 32) == 0 ? (int)((uint32_t)g / (uint32_t)L) : (int)(g / L);
+    w.j = (uint32_t)(g - (long long)w.b * L);
+    w.p = load_plan(plans, stride, w.b);
+    w.prod = (uint64_t)w.j * w.p.d;
+    w.step_d = (uint64_t)step * w.p.d;
+}
+
+// Forward by `step` samples; the caller never advances past the chunk.
+__device__ __forceinline__ void walker_advance(Walker& w, uint32_t step,
+                                               const uint32_t* __restrict__ plans,
+                                               size_t stride, int L) {
+    w.j += step;
+    if (w.j < (uint32_t)L) {
+        w.prod += w.step_d;
+        return;
+    }
+    do {
+        w.j -= (uint32_t)L;
+        ++w.b;
+    } while (w.j >= (uint32_t)L);
+    w.p = load_plan(plans, stride, w.b);
+    w.prod = (uint64_t)w.j * w.p.d;
+    w.step_d = (uint64_t)step * w.p.d;
+}
+
+// phase_q24 of the sample i places after the walker's (same block).
+__device__ __forceinline__ int walker_q24(const Walker& w, uint32_t i,
+                                          uint64_t prod_i) {
+    const uint64_t c = w.j + i < w.p.t ? w.p.c1 : w.p.c2;
+    return (int)((prod_i + c) >> 40);
+}
+
+// Mixed samples g = first..last of a (B, L) chunk (0 ≤ first, last < B·L),
+// shared out over the CTA's threads: store(g, i, q) is called once for
+// every g, by some thread.  `in`, `plans`, `stride` as in mix_at.  With
+// `vec4` a thread takes four neighbouring samples from one 16-byte load
+// (two for float32 planes) on a 4-aligned g; the caller passes it only when
+// L % 4 == 0 and `in` is 16-byte aligned, so a group never leaves its block
+// or the chunk.  Otherwise one sample a step.  Either way the values are
+// bitwise mix_at's.
+template <bool kInF32, bool kSelect = false, class Store>
+__device__ __forceinline__ void mix_span(long long first, long long last,
+                                         const void* __restrict__ in,
+                                         const uint32_t* __restrict__ plans,
+                                         size_t stride, int B, int L, bool vec4,
+                                         int tid, int nthreads, Store& store) {
+    const long long n_in = (long long)B * L;
+    Walker w;
+    if (vec4) {
+        long long g = (first & ~3LL) + 4LL * tid;
+        if (g > last) return;
+        const uint32_t step = 4u * (uint32_t)nthreads;
+        walker_seek(w, g, step, plans, stride, L);
+        for (;;) {
+            float fi[4], fq[4];
+            if (kInF32) {
+                const float4 vi = *reinterpret_cast<const float4*>(
+                    static_cast<const float*>(in) + g);
+                const float4 vq = *reinterpret_cast<const float4*>(
+                    static_cast<const float*>(in) + n_in + g);
+                fi[0] = vi.x; fi[1] = vi.y; fi[2] = vi.z; fi[3] = vi.w;
+                fq[0] = vq.x; fq[1] = vq.y; fq[2] = vq.z; fq[3] = vq.w;
+            } else {
+                const int4 v = *reinterpret_cast<const int4*>(
+                    static_cast<const int*>(in) + g);
+                decode_i16(v.x, fi[0], fq[0]);
+                decode_i16(v.y, fi[1], fq[1]);
+                decode_i16(v.z, fi[2], fq[2]);
+                decode_i16(v.w, fi[3], fq[3]);
+            }
+            // the four phases first, then the four tones and rotations as
+            // one straight line: four independent chains for the scheduler
+            int q24[4];
+            if (w.j + 3u < w.p.t || w.j >= w.p.t) {
+                // all four on one side of the switch at t, as nearly every
+                // group is: C joins the running sum once, not once a sample
+                uint64_t sum = w.prod + (w.j < w.p.t ? w.p.c1 : w.p.c2);
+#pragma unroll
+                for (int i = 0; i < 4; ++i) {
+                    q24[i] = (int)(sum >> 40);
+                    sum += w.p.d;
+                }
+            } else {
+                uint64_t prod = w.prod;
+#pragma unroll
+                for (int i = 0; i < 4; ++i) {
+                    q24[i] = walker_q24(w, (uint32_t)i, prod);
+                    prod += w.p.d;
+                }
+            }
+            float oi[4], oq[4];
+#pragma unroll
+            for (int i = 0; i < 4; ++i)
+                mix_q24<kSelect>(fi[i], fq[i], q24[i], oi[i], oq[i]);
+            if (g >= first && g + 3 <= last) {      // all but the ragged ends
+#pragma unroll
+                for (int i = 0; i < 4; ++i) store(g + i, oi[i], oq[i]);
+            } else {
+#pragma unroll
+                for (int i = 0; i < 4; ++i)
+                    if (g + i >= first && g + i <= last) store(g + i, oi[i], oq[i]);
+            }
+            g += step;
+            if (g > last) break;
+            walker_advance(w, step, plans, stride, L);
+        }
+    } else {
+        long long g = first + tid;
+        if (g > last) return;
+        const uint32_t step = (uint32_t)nthreads;
+        walker_seek(w, g, step, plans, stride, L);
+        for (;;) {
+            float fi, fq, oi, oq;
+            if (kInF32) {
+                fi = static_cast<const float*>(in)[g];
+                fq = static_cast<const float*>(in)[n_in + g];
+            } else {
+                decode_i16(static_cast<const int*>(in)[g], fi, fq);
+            }
+            mix_q24<kSelect>(fi, fq, walker_q24(w, 0u, w.prod), oi, oq);
+            store(g, oi, oq);
+            g += step;
+            if (g > last) break;
+            walker_advance(w, step, plans, stride, L);
+        }
+    }
 }
 
 // ×32767, truncate toward zero, NaN → 0, saturate (main.rs:76-84).

@@ -28,8 +28,9 @@
 // of `tile` input samples; CTA t reads its tile and writes the tile's first
 // `keep` = tile·P/Q words to out[t, :]: raw (copy), or mixed and encoded
 // with the fold tone (mix) or the select-chain tone (mix-select).  The
-// launch has the chain kernel's shape: 128 threads a CTA, a tile of about
-// 128·Q/P inputs, mix_at's per-sample block lookup.
+// launch has 128 threads a CTA and a tile of about 128·Q/P inputs, and the
+// mix is the product kernels' own front, nco.cuh's mix_span (the strided
+// walker over 16-byte loads).
 //
 // Every sample's work is kept alive.  A word that is not stored would
 // otherwise be dead code: nvcc would drop its load (copy) or its whole mix
@@ -48,7 +49,7 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kPerThread = 8;
 constexpr int kTile = kThreads * kPerThread;
-constexpr int kShapeThreads = 128;      // the chain kernel's CTA
+constexpr int kShapeThreads = 128;      // threads of a chain-shaped CTA
 
 // ×32767, truncate toward zero, saturate: encode_i16 without its NaN guard.
 __device__ __forceinline__ int encode_unguarded(float v) {
@@ -103,32 +104,48 @@ int launch_elementwise(const int* in, int* out, long long n, cudaStream_t s) {
     return (int)cudaGetLastError();
 }
 
+// A mixed sample of the tile: stored if it is one of the kept words, XORed
+// into the thread's side word otherwise.
+struct ShapeStore {
+    int* row;
+    long long g0;
+    int keep;
+    int acc;
+    __device__ __forceinline__ void operator()(long long g, float oi, float oq) {
+        const int w = doppler::pack_i16(oi, oq);
+        if (g - g0 < keep) {
+            row[g - g0] = w;
+        } else {
+            acc ^= w;
+        }
+    }
+};
+
 // kMode: 0 copy, 1 mix with the fold tone, 2 mix with the select-chain tone.
 template <int kMode>
 __global__ void __launch_bounds__(kShapeThreads)
 chain_shape_kernel(const int* __restrict__ in, int* __restrict__ out,
                    int* __restrict__ side, const uint32_t* __restrict__ plans,
-                   int B, int L, int tile, int keep) {
+                   int B, int L, int tile, int keep, int vec4) {
     const long long g0 = (long long)blockIdx.x * tile;
     int* row = out + (long long)blockIdx.x * keep;
-    int cur = -1;
-    doppler::Plan p;
     int acc = 0;
-    for (int k = threadIdx.x; k < tile; k += kShapeThreads) {
-        int w;
-        if (kMode == 0) {
-            w = in[g0 + k];
-        } else {
-            float oi, oq;
-            doppler::mix_at<false, (kMode == 2)>(g0 + k, in, plans, (size_t)B,
-                                                 B, L, cur, p, oi, oq);
-            w = doppler::pack_i16(oi, oq);
+    if (kMode == 0) {
+        for (int k = threadIdx.x; k < tile; k += kShapeThreads) {
+            const int w = in[g0 + k];
+            if (k < keep) {
+                row[k] = w;
+            } else {
+                acc ^= w;
+            }
         }
-        if (k < keep) {
-            row[k] = w;
-        } else {
-            acc ^= w;
-        }
+    } else {
+        // the product kernels' mix front: the strided walker of nco.cuh
+        ShapeStore store{row, g0, keep, 0};
+        doppler::mix_span<false, (kMode == 2)>(
+            g0, g0 + tile - 1, in, plans, (size_t)B, B, L, vec4 != 0,
+            (int)threadIdx.x, kShapeThreads, store);
+        acc = store.acc;
     }
     // XOR of the CTA's unstored words: warps first, then across warps
     for (int o = 16; o > 0; o >>= 1) acc ^= __shfl_xor_sync(0xFFFFFFFFu, acc, o);
@@ -147,8 +164,9 @@ int launch_shape(const int* in, int* out, int* side, const uint32_t* plans,
                  int B, int L, int tile, int keep, cudaStream_t s) {
     const long long n_tiles = (long long)B * L / tile;
     if (n_tiles > 0x7FFFFFFFLL) return (int)cudaErrorInvalidValue;
+    const int vec4 = (L % 4 == 0 && reinterpret_cast<uintptr_t>(in) % 16 == 0);
     chain_shape_kernel<kMode><<<(unsigned)n_tiles, kShapeThreads, 0, s>>>(
-        in, out, side, plans, B, L, tile, keep);
+        in, out, side, plans, B, L, tile, keep, vec4);
     return (int)cudaGetLastError();
 }
 

@@ -24,7 +24,7 @@ import tempfile
 import time
 from pathlib import Path
 
-__all__ = ["NVCC_FLAGS", "load", "check", "build_info"]
+__all__ = ["NVCC_FLAGS", "load", "check", "build_info", "shared_memory_limit"]
 
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
@@ -134,22 +134,29 @@ def load() -> ctypes.CDLL:
     lib.doppler_chain_shape.argtypes = [_vp, _vp, _vp, _vp, _i, _i, _i, _i, _i,
                                         _vp]
     lib.doppler_chain.restype = _i
-    # in, out, plans, bank, carry_in, carry_out, C, B, L, P, Q, T, tile_m,
-    # in_f32, out_f32, stream
+    # in, out, plans, bank, carry_in, carry_out, C, B, L, P, Q, T, tile,
+    # threads, R, tap_stride, tap_off, buf_off, smem, in_f32, out_f32, stream
     lib.doppler_chain.argtypes = [_vp, _vp, _vp, _vp, _vp, _vp, _i, _i, _i, _i,
-                                  _i, _i, _i, _i, _i, _vp]
-    lib.doppler_chain_smem_bytes.restype = ctypes.c_longlong
-    lib.doppler_chain_smem_bytes.argtypes = [_i, _i, _i, _i]
+                                  _i, _i, _i, _i, _i, _i, _i, _i,
+                                  ctypes.c_longlong, _i, _i, _vp]
     lib.doppler_cascade.restype = _i
-    # in, out, plans, banks, carry_in, carry_out, pqt, S, C, B, L, tile,
-    # in_f32, out_f32, stream
+    # in, out, plans, banks, carry_in, carry_out, layout, S, C, B, L, tile,
+    # threads, smem, in_f32, out_f32, stream
     lib.doppler_cascade.argtypes = [_vp, _vp, _vp, _vpp, _vpp, _vpp, _ip, _i,
-                                    _i, _i, _i, _i, _i, _i, _vp]
-    lib.doppler_cascade_smem_bytes.restype = ctypes.c_longlong
-    lib.doppler_cascade_smem_bytes.argtypes = [_ip, _i, ctypes.c_longlong, _i]
+                                    _i, _i, _i, _i, _i, ctypes.c_longlong, _i,
+                                    _i, _vp]
     lib.doppler_error_string.restype = ctypes.c_char_p
     lib.doppler_error_string.argtypes = [_i]
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def shared_memory_limit(index: int | None) -> int:
+    """Bytes of shared memory one CTA may take on CUDA device ``index``
+    (None: the current device)."""
+    import torch
+
+    return torch.cuda.get_device_properties(index).shared_memory_per_block_optin
 
 
 def check(rc: int, what: str) -> None:

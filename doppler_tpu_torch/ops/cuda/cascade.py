@@ -27,12 +27,11 @@ fuse; a split cascade runs the ÷2^k front here with ``final_dense=True``
 from __future__ import annotations
 
 import ctypes
-import functools
 
 import torch
 
 from doppler_tpu_torch.ops import codec
-from doppler_tpu_torch.ops.cuda import build
+from doppler_tpu_torch.ops.cuda import build, geometry
 from doppler_tpu_torch.ops.cuda.mixer import (
     check_fmt,
     check_fmt_channels,
@@ -44,8 +43,7 @@ from doppler_tpu_torch.ops.resample import window_dot
 __all__ = ["mix_cascade_stream", "mix_cascade_plain", "mix_cascade_channels",
            "mix_cascade_channels_plain", "split_point", "chunk_out_count"]
 
-_MAX_STAGES = 4         # the kernel's per-stage argument slots
-_TILES = (128, 64, 32)  # final outputs per CTA, largest that fits first
+_MAX_STAGES = geometry.MAX_STAGES    # the kernel's per-stage argument slots
 
 
 def split_point(stages) -> int:
@@ -160,30 +158,33 @@ def mix_cascade_channels_plain(data, plans, banks, carries, *, stages,
             tuple(torch.stack(per_stage) for per_stage in zip(*tails)))
 
 
-@functools.lru_cache(maxsize=None)
-def _pick_tile(dev_index: int, stages, n0: int) -> int:
-    """Largest tile of ``_TILES`` whose CTA fits the card's shared memory."""
-    limit = torch.cuda.get_device_properties(dev_index).shared_memory_per_block_optin
-    pqt = (ctypes.c_int * (3 * len(stages)))(*(v for st in stages for v in st))
-    need = {}
-    for tile in _TILES:
-        need[tile] = build.load().doppler_cascade_smem_bytes(
-            pqt, len(stages), n0, tile)
-        if 0 < need[tile] <= limit:
-            return tile
-    raise ValueError(
-        f"cascade stages (P, Q, T) = {stages} need {need} bytes of shared "
-        f"memory per CTA for tiles {_TILES}; the card allows {limit}")
+def plan_launch(dev: torch.device, stages, geom=None) -> geometry.Layout:
+    """The launch's tile, threads, register tiles and shared-memory layout:
+    :func:`geometry.pick_cascade` for the card, or ``geom`` =
+    ``(tile, threads, (R per stage))`` as given (the card tests walk
+    several)."""
+    limit = build.shared_memory_limit(dev.index)
+    if geom is None:
+        return geometry.pick_cascade(tuple(stages), limit)
+    tile, threads, regs = geom
+    lay = geometry.layout(stages, tile, threads, regs)
+    if lay.smem_bytes > limit:
+        raise ValueError(
+            f"cascade stages (P, Q, T) = {stages} with tile {tile} need "
+            f"{lay.smem_bytes} bytes of shared memory per CTA; the card "
+            f"allows {limit}")
+    return lay
 
 
 def _launch(data, plans, banks, carries, C, B, L, stages, n_out, intype,
-            outtype):
+            outtype, geom=None):
     """Launch the kernel over ``(7, C, B)`` plan words and per-stage
     ``(C, 2, T−1)`` carries; returns ``(C, B, M)`` words or ``(2, C, B, M)``
-    planes and the per-stage ``(C, 2, T−1)`` carries."""
+    planes and the per-stage ``(C, 2, T−1)`` carries.  ``geom`` as in
+    :func:`plan_launch`."""
     dev = data.device
     S = len(stages)
-    tile = _pick_tile(dev.index, stages, B * L)
+    lay = plan_launch(dev, stages, geom)
     data, plans = data.contiguous(), plans.contiguous()
     banks = [b.contiguous() for b in banks]
     carries = [c.contiguous() for c in carries]
@@ -198,9 +199,9 @@ def _launch(data, plans, banks, carries, C, B, L, stages, n_out, intype,
     rc = build.load().doppler_cascade(
         data.data_ptr(), out.data_ptr(), plans.data_ptr(), ptrs(banks),
         ptrs(carries), ptrs(carries_out),
-        (ctypes.c_int * (3 * S))(*(v for st in stages for v in st)), S, C, B, L,
-        tile, int(intype == "f32"), int(outtype == "f32"),
-        torch.cuda.current_stream(dev).cuda_stream)
+        (ctypes.c_int * (7 * S))(*(v for row in lay.rows for v in row)), S, C,
+        B, L, lay.tile, lay.threads, lay.smem_bytes, int(intype == "f32"),
+        int(outtype == "f32"), torch.cuda.current_stream(dev).cuda_stream)
     build.check(rc, "cascade")
     return out, carries_out
 

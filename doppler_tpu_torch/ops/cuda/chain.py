@@ -25,7 +25,7 @@ from __future__ import annotations
 import torch
 
 from doppler_tpu_torch.ops import codec
-from doppler_tpu_torch.ops.cuda import build
+from doppler_tpu_torch.ops.cuda import build, geometry
 from doppler_tpu_torch.ops.cuda.mixer import (
     check_fmt,
     check_fmt_channels,
@@ -36,8 +36,6 @@ from doppler_tpu_torch.ops.resample import window_dot
 
 __all__ = ["mix_resample_chain_stream", "mix_resample_chain_plain",
            "mix_resample_chain_channels", "mix_resample_chain_channels_plain"]
-
-_TILE_M = 128     # outputs per CTA (threads per CTA)
 
 
 def _check_rest(data, bank, carry, carry_shape, L, P, Q, T):
@@ -98,21 +96,29 @@ def mix_resample_chain_channels_plain(data, plans, bank, carries, *, P: int,
     return stack_channels(outs, outtype), torch.stack(tails)
 
 
-def _check_smem(dev: torch.device, P: int, Q: int, T: int) -> None:
-    """Every geometry the pipeline sends here fits (Q ≤ 128 needs at most
-    ~160 KB); a caller's larger Q may not."""
-    limit = torch.cuda.get_device_properties(dev).shared_memory_per_block_optin
-    need = build.load().doppler_chain_smem_bytes(_TILE_M, P, Q, T)
-    if need > limit:
+def plan_launch(dev: torch.device, P: int, Q: int, T: int,
+                geom=None) -> geometry.Layout:
+    """The launch's tile, threads, register tile and shared-memory layout:
+    :func:`geometry.pick_chain` for the card, or ``geom`` =
+    ``(tile, threads, R)`` as given (the card tests walk several)."""
+    limit = build.shared_memory_limit(dev.index)
+    if geom is None:
+        return geometry.pick_chain(P, Q, T, limit)
+    tile, threads, R = geom
+    lay = geometry.layout(((P, Q, T),), tile, threads, (R,))
+    if lay.smem_bytes > limit:
         raise ValueError(
-            f"chain geometry P={P} Q={Q} T={T} needs {need} bytes of shared "
-            f"memory per CTA; the card allows {limit}")
+            f"chain geometry P={P} Q={Q} T={T} with tile {tile} needs "
+            f"{lay.smem_bytes} bytes of shared memory per CTA; the card "
+            f"allows {limit}")
+    return lay
 
 
-def _launch(data, plans, bank, carries, C, B, L, P, Q, T, intype, outtype):
+def _launch(data, plans, bank, carries, C, B, L, P, Q, T, intype, outtype,
+            geom=None):
     """Launch the kernel over ``(7, C, B)`` plan words and ``(C, 2, T−1)``
     carries; returns ``(C, B, M)`` words or ``(2, C, B, M)`` planes and the
-    ``(C, 2, T−1)`` carries."""
+    ``(C, 2, T−1)`` carries.  ``geom`` as in :func:`plan_launch`."""
     dev = data.device
     data, plans = data.contiguous(), plans.contiguous()
     bank, carries = bank.contiguous(), carries.contiguous()
@@ -122,11 +128,13 @@ def _launch(data, plans, bank, carries, C, B, L, P, Q, T, intype, outtype):
     else:
         out = torch.empty((2, C, B, M), dtype=torch.float32, device=dev)
     carries_out = torch.empty((C, 2, T - 1), dtype=torch.float32, device=dev)
-    _check_smem(dev, P, Q, T)
+    lay = plan_launch(dev, P, Q, T, geom)
+    _, _, _, R, stride, tap_off, buf_off = lay.rows[0]
     rc = build.load().doppler_chain(
         data.data_ptr(), out.data_ptr(), plans.data_ptr(), bank.data_ptr(),
         carries.data_ptr(), carries_out.data_ptr(), C, B, L, P, Q, T,
-        _TILE_M, int(intype == "f32"), int(outtype == "f32"),
+        lay.tile, lay.threads, R, stride, tap_off, buf_off, lay.smem_bytes,
+        int(intype == "f32"), int(outtype == "f32"),
         torch.cuda.current_stream(dev).cuda_stream)
     build.check(rc, "chain")
     return out, carries_out

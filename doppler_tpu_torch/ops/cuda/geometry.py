@@ -1,0 +1,219 @@
+"""Launch geometry of the chain and cascade kernels, in Python.
+
+The kernels (``csrc/chain.cu``, ``csrc/cascade.cu``, ``csrc/fir.cuh``) take
+their tile, their thread count, each stage's register tile ``R`` and the
+layout of their shared memory from here, so the CPU tests reach all of it:
+what a CTA holds, that it fits the card, that the CTAs cover every output
+and every carry entry once.  Nothing here touches a device.
+
+Terms (``csrc/fir.cuh``): output ``j = P·i + p`` of a stage is phase ``p``
+of window ``i`` and reads ``x[Q·i + off_p − l]``, ``off_p = ⌊p·Q/P⌋``.  A
+thread owns ``NP`` phases (3 where ``P = 3``, else 1) of ``R`` neighbouring
+windows.  A span of ``x`` is float2 at ``pad(k) = k + ⌊k/S⌋``, ``S = Q·R``,
+with ``k = 0`` at ``x[Q·i_lo − (T−1) − SLACK]``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import functools
+
+__all__ = ["SLACK", "MAX_THREADS", "r_choices", "tap_stride", "span_words",
+           "span_back", "Layout", "layout", "cta_units", "cta_spans",
+           "ctas_per_sm", "pick_cascade", "pick_chain"]
+
+SLACK = 3             # csrc/fir.cuh kSlack
+MAX_THREADS = 512     # the kernels' __launch_bounds__
+MAX_STAGES = 4
+SM_SHARED_BYTES = 233472    # shared memory of one H100 SM (228 KB)
+CTA_RESERVED_BYTES = 1024   # what the system keeps of it for each CTA
+TILES = (1024, 768, 512, 384, 256, 192, 128, 96, 64, 48, 32, 16, 8)
+
+
+def r_choices(P: int) -> tuple:
+    """Register tiles ``csrc/fir.cuh fir_run`` is compiled for."""
+    return (1, 2)
+
+
+def n_phases(P: int) -> int:
+    return 3 if P == 3 else 1
+
+
+def tap_stride(T: int) -> int:
+    """Floats a tap row takes: 4 in front, a lead of up to 3, its T taps and
+    3 behind (a group of four taps may start 3 early and end 3 late)."""
+    return (T + 10 + 3) // 4 * 4
+
+
+def span_back(c: int, P: int, Q: int, T: int) -> int:
+    """Entries of x a run of ``c`` outputs reads, at most."""
+    return ((c - 1) * Q + P - 1) // P + T
+
+
+def span_words(c: int, P: int, Q: int, T: int, R: int) -> int:
+    """float2 entries of the padded span under a run of ``c`` outputs that
+    may start at any phase: whole groups of R windows, the slack below."""
+    windows = (c + P - 2) // P + 1
+    groups = -(-windows // R)
+    top = Q * (groups * R - 1) + ((P - 1) * Q) // P + (T - 1) + SLACK
+    return top + top // (Q * R) + 1
+
+
+@dataclasses.dataclass(frozen=True)
+class Layout:
+    """One launch: ``rows`` is 7 ints a stage, ``P, Q, T, R, tap_stride,
+    tap_off, buf_off`` (float offsets into the CTA's dynamic shared memory),
+    as the C entry points take them."""
+    tile: int
+    threads: int
+    regs: tuple
+    rows: tuple
+    words: tuple          # float2 entries of each stage's span
+    smem_bytes: int
+
+
+def layout(stages, tile: int, threads: int, regs) -> Layout:
+    """Shared-memory layout for final tiles of ``tile`` outputs over
+    ``stages`` = ``(P, Q, T)`` each, with ``regs[s]`` windows a thread."""
+    return _layout(tuple(tuple(int(v) for v in st) for st in stages),
+                   int(tile), int(threads), tuple(int(r) for r in regs))
+
+
+@functools.lru_cache(maxsize=None)
+def _layout(stages, tile, threads, regs) -> Layout:
+    S = len(stages)
+    if not 1 <= S <= MAX_STAGES or len(regs) != S:
+        raise ValueError(f"1 to {MAX_STAGES} stages with one R each")
+    if tile < 1 or threads % 32 or not 32 <= threads <= MAX_THREADS:
+        raise ValueError(f"tile {tile} / threads {threads}: threads must be a "
+                         f"multiple of 32 up to {MAX_THREADS}")
+    for (P, _, _), R in zip(stages, regs):
+        if R not in r_choices(P):
+            raise ValueError(f"R={R} is not one of {r_choices(P)} for P={P}")
+    # the largest span of x_s any CTA holds: the output tile's, or that of a
+    # carry CTA (up to `tile` entries of x_t at the end of the chunk)
+    words = [0] * S
+    for t in range(1, S + 1):
+        c = tile if t == S else min(tile, stages[t][2] - 1)
+        for s in range(t - 1, -1, -1):
+            if c <= 0:
+                break
+            P, Q, T = stages[s]
+            words[s] = max(words[s], span_words(c, P, Q, T, regs[s]))
+            c = span_back(c, P, Q, T)
+    rows, off = [], 0
+    for P, _, T in stages:
+        rows.append([tap_stride(T), off])
+        off += P * tap_stride(T)
+    for s, w in enumerate(words):
+        rows[s].append(off)
+        off += (2 * w + 3) // 4 * 4
+    return Layout(tile, threads, regs,
+                  tuple((P, Q, T, R, *row)
+                        for (P, Q, T), R, row in zip(stages, regs, rows)),
+                  tuple(words), 4 * off)
+
+
+def cta_units(stages, n0: int, tile: int):
+    """The CTAs of one channel as ``(t, a, c)``: entries ``a .. a+c−1`` of
+    x_t (``t = len(stages)``: the output), the tiles first, then each stage's
+    carry CTAs — ``csrc/cascade.cu cascade_phase``'s own walk."""
+    n_in = [n0]
+    for P, Q, _ in stages:
+        n_in.append(n_in[-1] // Q * P)
+    S = len(stages)
+    units = [(S, a, min(tile, n_in[S] - a)) for a in range(0, n_in[S], tile)]
+    for t, (_, _, T) in enumerate(stages):
+        H = T - 1
+        units += [(t, n_in[t] - H + k, min(tile, H - k))
+                  for k in range(0, H, tile)]
+    return units
+
+
+def cta_spans(stages, regs, t: int, a: int, c: int):
+    """What the CTA with target ``(t, a, c)`` holds of each x_s, ``s < t``:
+    ``(j0, n_j, lo, cnt, origin, top)`` — it computes outputs
+    ``j0 .. j0+n_j−1`` of stage s from ``x_s[lo .. lo+cnt−1]``, its span
+    starts at x index ``origin`` and its highest padded index is ``top``."""
+    spans = {}
+    for s in range(t - 1, -1, -1):
+        P, Q, T = stages[s]
+        R = regs[s]
+        j0 = max(a, 0)
+        n_j = max(a + c - j0, 0)
+        if n_j == 0:
+            spans[s] = (j0, 0, 0, 0, 0, -1)
+            a, c = 0, 0
+            continue
+        i_lo = j0 // P
+        origin = i_lo * Q - (T - 1) - SLACK
+        lo = j0 * Q // P - (T - 1)
+        cnt = (j0 + n_j - 1) * Q // P - lo + 1
+        groups = -(-((j0 + n_j - 1) // P - i_lo + 1) // R)
+        k = Q * (groups * R - 1) + ((P - 1) * Q) // P + (T - 1) + SLACK
+        spans[s] = (j0, n_j, lo, cnt, origin, k + k // (Q * R))
+        a, c = lo, cnt
+    return spans
+
+
+REGISTERS_PER_SM = 65536
+REGISTERS_PER_THREAD = 64   # the kernels' __launch_bounds__(512, 2)
+
+
+def ctas_per_sm(smem_bytes: int, threads: int) -> int:
+    """CTAs of this size one SM holds: by shared memory, by its 2048 threads
+    and by its registers."""
+    return min(SM_SHARED_BYTES // (smem_bytes + CTA_RESERVED_BYTES),
+               2048 // threads,
+               REGISTERS_PER_SM // (REGISTERS_PER_THREAD * threads))
+
+
+def _regs_for(stages, tile: int, threads: int) -> tuple:
+    """Each stage's R: 2 where that still gives every thread of the CTA an
+    item of the stage's work under an output tile (x is then loaded once for
+    two windows), else 1."""
+    counts, c = [], tile
+    for P, Q, T in reversed(stages):
+        counts.append(c)
+        c = span_back(c, P, Q, T)
+    regs = []
+    for (P, _, _), c in zip(stages, reversed(counts)):
+        windows = -(-c // P)
+        fits = [R for R in r_choices(P)
+                if -(-windows // R) * (P // n_phases(P)) >= threads]
+        regs.append(max(fits, default=1))
+    return tuple(regs)
+
+
+@functools.lru_cache(maxsize=None)
+def pick_cascade(stages, limit: int) -> Layout:
+    """Tile, threads and register tiles for ``stages`` on a card whose CTA
+    may take ``limit`` bytes of shared memory.
+
+    The mix is bound by its ≈ 60 instructions a sample and the dot by its
+    shared-memory loads (``csrc/chain.cu``), so the pick is about keeping an
+    SM's warps many while the halo a tile re-mixes stays small: a single stage runs 256 threads a CTA
+    and takes the largest tile of :data:`TILES` that leaves three CTAs on an
+    SM; a cascade, whose first phase mixes many samples for few outputs, runs
+    512 threads and takes the largest tile that leaves two.  Where no tile
+    leaves that many, the largest that fits at all.  (``tools/kernel_sweep.py``
+    times the alternatives on a card.)"""
+    threads, want = (256, 3) if len(stages) == 1 else (512, 2)
+    fallback = None
+    for tile in TILES:
+        lay = layout(stages, tile, threads, _regs_for(stages, tile, threads))
+        if lay.smem_bytes > limit:
+            continue
+        if ctas_per_sm(lay.smem_bytes, threads) >= want:
+            return lay
+        fallback = fallback or lay
+    if fallback is None:
+        raise ValueError(
+            f"stages (P, Q, T) = {stages} need more than {limit} bytes of "
+            f"shared memory a CTA even for a tile of {TILES[-1]} outputs")
+    return fallback
+
+
+def pick_chain(P: int, Q: int, T: int, limit: int) -> Layout:
+    """:func:`pick_cascade` for the one-stage chain."""
+    return pick_cascade(((P, Q, T),), limit)

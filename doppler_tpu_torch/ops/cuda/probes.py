@@ -32,8 +32,10 @@ version computes the same XOR, so ``side`` equal on the card shows that the
 kernel did all of the tile's work.
 
 The TPU tiling of the originals (``W``, ``S``, 128 lanes, ``Wc``, ``A``,
-``G``) is not carried over: :func:`chain_tile` takes the tile from the chain
-kernel's own (its CTA's 128 outputs span about ``128·Q/P`` inputs).
+``G``) is not carried over: :func:`chain_tile` takes a tile of about
+``128·Q/P`` inputs, what 128 outputs of the chain span.  The mix is the
+product kernels' own front, ``csrc/nco.cuh``'s ``mix_span`` (the strided
+walker over 16-byte loads), so ``chain-mix`` times what the chain pays.
 """
 
 from __future__ import annotations
@@ -42,7 +44,6 @@ import torch
 
 from doppler_tpu_torch.ops import codec, nco
 from doppler_tpu_torch.ops.cuda import build
-from doppler_tpu_torch.ops.cuda.chain import _TILE_M
 from doppler_tpu_torch.ops.cuda.mixer import check_fmt
 from doppler_tpu_torch.ops.sincos import sincos_q24_neg, sincos_q24_neg_select
 
@@ -51,13 +52,14 @@ __all__ = ["probe_elementwise", "probe_elementwise_plain", "chain_shape_run",
            "chain_tile"]
 
 _BODIES = ("copy", "codec")
+_TILE_M = 128     # a chain-shaped tile holds about this many kept words
 _TONES = {"fold": sincos_q24_neg, "select": sincos_q24_neg_select}
 _MODE = {None: 0, "fold": 1, "select": 2}     # csrc/probes.cu kMode
 
 
 def chain_tile(n: int, P: int, Q: int) -> int:
     """Input samples a tile: the largest multiple of Q that divides ``n``
-    and is at most the span of the chain kernel's CTA, ``128·Q/P``."""
+    and is at most ``128·Q/P``, the inputs under 128 outputs of the chain."""
     for tile in range(_TILE_M * Q // P // Q * Q, 0, -Q):
         if n % tile == 0:
             return tile

@@ -20,6 +20,11 @@ channel c is bitwise the one-channel launch with that channel's plan words
 and carry, whatever the chunk split.  The Q15 mixer and the roofline probes are integer
 or share the mixer's separately rounded steps, so they are bitwise equal to
 their plain versions, the chain-shaped probes' XOR side output included.
+
+The chain and cascade kernels are also held to the SHA-256 digests of
+``tools/kernel_digests.py``, taken on the kernels they replaced: their bytes
+may depend on nothing but their inputs, so every tile, thread count and
+register tile gives the same bytes, and a redesign gives the old ones.
 """
 
 import io
@@ -50,6 +55,8 @@ from doppler_tpu_torch.ops.cuda.mixer import (
     mix_blocks_q15,
     mix_blocks_q15_plain,
 )
+from doppler_tpu_torch.ops.cuda import cascade as cascade_mod
+from doppler_tpu_torch.ops.cuda import chain as chain_mod
 from doppler_tpu_torch.ops.cuda import probes
 from doppler_tpu_torch.ops.filters import design_polyphase_bank
 from doppler_tpu_torch.ops.multistage import MultiStageResampler
@@ -57,6 +64,7 @@ from doppler_tpu_torch.ops.phase_plan import NCOState, plan_blocks
 from doppler_tpu_torch.ops.resample import attach_resampler
 from doppler_tpu_torch.runtime.channels import ChannelSpec, MultiChannelPipeline
 from doppler_tpu_torch.runtime.pipeline import ConstScheduler, Pipeline
+from doppler_tpu_torch.tools import kernel_digests
 
 torch.set_num_threads(1)   # leave the other test workers their cores
 
@@ -541,3 +549,164 @@ def test_tools_run_on_the_card_through_the_kernels(card, capsys):
     res = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert list(res) == list(probe_chain_precision.VARIANTS)
     assert all(f.launches > n for f, n in zip(fns, before))
+
+
+# -- the bytes of the chain and cascade kernels -------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fmt", ["i16", "f32"])
+@pytest.mark.parametrize("B", kernel_digests.BLOCKS)
+def test_kernel_bytes_equal_the_pinned_digests(card, B, fmt):
+    """Chain, config-3 cascade and 100 Msps front, one stream and 16
+    channels, from non-zero carries: every output and every carry has the
+    SHA-256 of the kernels before their redesign."""
+    got = kernel_digests.compute(blocks=(B,), fmts=(fmt,))
+    assert len(got) == 6
+    assert kernel_digests.mismatches(got) == []
+
+
+def _digest_case(kernel, card, B, fmt, C=3):
+    stages, banks = kernel_digests.geometry(kernel)
+    data, plans = kernel_digests.seeded_inputs(B, fmt, C)
+    carries = kernel_digests.seeded_carries(stages, C)
+    t = lambda a: torch.from_numpy(a).to(card)             # noqa: E731
+    return stages, [t(b) for b in banks], t(data), t(plans), [t(c) for c in carries]
+
+
+CHAIN_GEOMS = [(128, 128, 1), (192, 128, 2), (384, 512, 1), (512, 256, 2), (33, 32, 1)]
+CASCADE_GEOMS = {
+    "cascade": [(128, 128, (1, 1)), (256, 256, (2, 1)), (512, 512, (2, 2)),
+                (96, 64, (1, 2))],
+    "front": [(16, 128, (1, 1)), (32, 512, (2, 1)), (32, 256, (2, 2)),
+              (8, 64, (1, 2))],
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fmt", ["i16", "f32"])
+def test_chain_bytes_do_not_depend_on_the_launch_geometry(card, fmt):
+    """Tiles, thread counts and register tiles through ``_launch``'s
+    ``geom``: the picked geometry's bytes, output and carry."""
+    C, B, L = 3, 48, kernel_digests.L
+    ((P, Q, T),), (bank,), data, plans, (carry,) = _digest_case("chain", card, B, fmt)
+    args = (data, plans, bank, carry, C, B, L, P, Q, T, fmt, fmt)
+    want = chain_mod._launch(*args)
+    for geom in CHAIN_GEOMS:
+        got = chain_mod._launch(*args, geom=geom)
+        torch.cuda.synchronize()
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), geom
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fmt", ["i16", "f32"])
+@pytest.mark.parametrize("kernel", list(CASCADE_GEOMS))
+def test_cascade_bytes_do_not_depend_on_the_launch_geometry(card, kernel, fmt):
+    C, B, L = 3, 48, kernel_digests.L
+    stages, banks, data, plans, carries = _digest_case(kernel, card, B, fmt)
+    n_out = cascade_mod.chunk_out_count(stages, B, L)
+    outtype = "f32" if kernel == "front" else fmt
+    args = (data, plans, banks, carries, C, B, L, stages, n_out, fmt, outtype)
+    want = cascade_mod._launch(*args)
+    for geom in CASCADE_GEOMS[kernel]:
+        got = cascade_mod._launch(*args, geom=geom)
+        torch.cuda.synchronize()
+        assert torch.equal(got[0], want[0]), geom
+        assert all(torch.equal(a, b) for a, b in zip(got[1], want[1])), geom
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("L", [96, 98, 1000])
+def test_walker_bitwise_at_block_lengths_that_are_no_power_of_two(card, L):
+    """The chain-shaped mix probe runs the kernels' mix front (the strided
+    walker: 16-byte loads where 4 | L, one sample a step at L = 98) over
+    blocks that a thread's stride crosses several at a time, with the
+    segment switch inside some blocks: the mixer kernel's words."""
+    B = 64
+    data, plan = _chunk(B, L, "i16", np.random.default_rng(50 + L),
+                        NCOState(samplenum=40000))
+    assert (plan.t < L).any() and (plan.t > 0).any()
+    x = torch.from_numpy(data).to(card)
+    p = nco.plan_tensor(plan, device=card)
+    tile = probes.chain_tile(B * L, 1, 4)
+    got = probes.chain_shape_run(x, p, P=1, Q=4, do_mix=True)
+    want = probes.chain_shape_run_plain(x, p, P=1, Q=4, do_mix=True)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert torch.equal(got[0], mix_blocks_fmt(x, p).reshape(-1, tile)[:, :tile // 4])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("intype,outtype", [("i16", "i16"), ("f32", "f32")])
+def test_chain_and_cascade_at_a_block_length_that_is_no_power_of_two(
+        card, intype, outtype):
+    """L = 960: against plain (≤ 1 LSB / 2^-20), the stage-0 carries bitwise
+    the mixer kernel's last samples, 32 blocks against 4 × 8."""
+    B, L = 32, 960
+    rng, state = np.random.default_rng(60), NCOState(samplenum=40000)
+    data, plan = _chunk(B, L, intype, rng, state)
+    assert (plan.t < L).any()
+    x = torch.from_numpy(data).to(card)
+    p = nco.plan_tensor(plan, device=card)
+    mixed = mix_blocks_fmt(x, p, intype=intype, outtype="f32").reshape(2, -1)
+    blocks = (lambda b: x[b:b + 8]) if intype == "i16" else (lambda b: x[:, b:b + 8])
+    kw = dict(intype=intype, outtype=outtype)
+
+    bank = torch.from_numpy(BANK).to(card)
+    carry = torch.from_numpy(
+        kernel_digests.seeded_carries(((P, Q, T),), 1)[0][0]).to(card)
+    got, c_got = mix_resample_chain_stream(x, p, bank, carry, P=P, Q=Q, T=T, **kw)
+    want, c_want = mix_resample_chain_plain(x, p, bank, carry, P=P, Q=Q, T=T, **kw)
+    _assert_close(got, want, outtype)
+    assert torch.equal(c_got, mixed[:, -(T - 1):]) and torch.equal(c_got, c_want)
+    c, parts = carry, []
+    for b in range(0, B, 8):
+        o, c = mix_resample_chain_stream(blocks(b).contiguous(),
+                                         p[:, b:b + 8].contiguous(), bank, c,
+                                         P=P, Q=Q, T=T, **kw)
+        parts.append(o)
+    assert torch.equal(torch.cat(parts, dim=-2), got) and torch.equal(c, c_got)
+
+    stages, banks = _cascade_args(MultiStageResampler(FS, 48000), card)
+    carries = [torch.from_numpy(cr[0]).to(card)
+               for cr in kernel_digests.seeded_carries(stages, 1)]
+    got, c_got = mix_cascade_stream(x, p, banks, carries, stages=stages, **kw)
+    want, c_want = mix_cascade_plain(x, p, banks, carries, stages=stages, **kw)
+    _assert_close(got, want, outtype)
+    assert torch.equal(c_got[0], mixed[:, -(stages[0][2] - 1):])
+    assert float((c_got[1] - c_want[1]).abs().max()) <= 2.0 ** -20
+    c, parts = carries, []
+    for b in range(0, B, 8):
+        o, c = mix_cascade_stream(blocks(b).contiguous(),
+                                  p[:, b:b + 8].contiguous(), banks, c,
+                                  stages=stages, **kw)
+        parts.append(o)
+    torch.cuda.synchronize()
+    assert torch.equal(torch.cat(parts, dim=-2), got)
+    assert all(torch.equal(a, b) for a, b in zip(c, c_got))
+
+
+@pytest.mark.cuda
+def test_chain_indices_beyond_32_bits(card):
+    """A chunk of 1.43 G samples: output index × Q passes 2^32, so the CTA
+    plans divide in 64 bits and the walker seeks beyond 2^31.  The last 64
+    blocks' outputs are those of a launch over these blocks alone, from the
+    carry the mixer kernel gives for the samples before them."""
+    B, L, tail = 700_000, 2048, 64
+    gen = torch.Generator(device=card).manual_seed(70)
+    x = torch.randint(-(1 << 31), 1 << 31, (B, L), dtype=torch.int64,
+                      device=card, generator=gen).to(torch.int32)
+    p = torch.randint(-(1 << 31), 1 << 31, (7, B), dtype=torch.int64,
+                      device=card, generator=gen).to(torch.int32)
+    p[6] = torch.randint(0, L + 1, (B,), device=card, generator=gen).to(torch.int32)
+    bank = torch.from_numpy(BANK).to(card)
+    zero = torch.zeros(2, T - 1, device=card)
+    whole, c_whole = mix_resample_chain_stream(x, p, bank, zero, P=P, Q=Q, T=T)
+    before = mix_blocks_fmt(x[B - tail - 1:B - tail].contiguous(),
+                            p[:, B - tail - 1:B - tail].contiguous(),
+                            outtype="f32").reshape(2, -1)[:, -(T - 1):]
+    part, c_part = mix_resample_chain_stream(
+        x[B - tail:].contiguous(), p[:, B - tail:].contiguous(), bank,
+        before.contiguous(), P=P, Q=Q, T=T)
+    torch.cuda.synchronize()
+    assert B * L * P > 1 << 32
+    assert torch.equal(whole[B - tail:], part) and torch.equal(c_whole, c_part)

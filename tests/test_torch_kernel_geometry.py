@@ -1,0 +1,402 @@
+"""The geometry of the redesigned chain and cascade kernels, on the CPU.
+
+What runs here without a card:
+
+- the incremental phase of ``csrc/nco.cuh``'s walker, as an integer model:
+  equal to ``doppler_tpu_torch.ops.nco.phase_q24`` and, through it, to
+  ``doppler_tpu.ops.pallas.mixer.phase_q24``, bitwise;
+- ``ops/cuda/geometry.py``: the picked tiles fit 227 KB, the CTAs cover every
+  output and every carry entry once, every span fits its buffer;
+- a walk of ``csrc/fir.cuh``'s register tile in Python: each output meets
+  its taps in ascending order, each once;
+- the kernels' own device functions, built with the host compiler through
+  ``csrc/host_shim.cuh`` and run a thread at a time
+  (``csrc/host/kernel_emulation.cpp``): bytes equal to a one-output-at-a-time
+  reference for every tile, thread count and register tile tried, and within
+  the card tests' tolerance of the plain torch versions (≤ 1 LSB in under 1%
+  of i16 samples, 2^-20 on float32).  Skipped where there is no ``g++``.
+"""
+
+import ctypes
+import shutil
+import subprocess
+from pathlib import Path
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from doppler_tpu.ops.pallas import mixer as jax_mixer
+from doppler_tpu_torch.ops import nco
+from doppler_tpu_torch.ops.cuda import cascade, chain, geometry
+from doppler_tpu_torch.ops.multistage import MultiStageResampler
+from doppler_tpu_torch.ops.resample import RationalResampler
+
+torch.set_num_threads(1)   # leave the other test workers their cores
+
+CSRC = Path(geometry.__file__).resolve().parents[2] / "csrc"
+H100_SMEM = 232448         # shared memory one CTA may take on an H100 (227 KB)
+M64 = (1 << 64) - 1
+
+
+# -- (a) the walker's incremental phase --------------------------------------
+
+def _random_plans(rng, B, L):
+    words = rng.integers(0, 1 << 32, size=(7, B), dtype=np.uint64).astype(np.uint32)
+    kind = rng.integers(0, 3, size=B)
+    words[6] = np.where(kind == 0, rng.integers(1, L, size=B),
+                        np.where(kind == 1, L, 0))
+    return words
+
+
+def _walker_q24(words, L, g, step, count):
+    """``csrc/nco.cuh``: walker_seek at chunk index g, then walker_advance by
+    ``step``, ``count`` samples in all; Python ints masked to 64 bits."""
+    def load(b):
+        w = [int(v) for v in words[:, b]]
+        return (w[0] << 32 | w[1], w[2] << 32 | w[3], w[4] << 32 | w[5], w[6])
+
+    b, j = divmod(g, L)
+    d, c1, c2, t = load(b)
+    prod, step_d = j * d & M64, step * d & M64
+    out = []
+    for _ in range(count):
+        out.append(((prod + (c1 if j < t else c2)) & M64) >> 40)
+        j += step
+        if j < L:
+            prod = prod + step_d & M64
+            continue
+        while j >= L:
+            j -= L
+            b += 1
+        if b >= words.shape[1]:
+            break
+        d, c1, c2, t = load(b)
+        prod, step_d = j * d & M64, step * d & M64
+    return out
+
+
+@pytest.mark.parametrize("seed", range(4))
+@pytest.mark.parametrize("L", [96, 2048, 65536])
+@pytest.mark.parametrize("step", [128, 384, 1024, 4 * 512])
+def test_walker_phase_equals_phase_q24(seed, L, step):
+    rng = np.random.default_rng([seed, L, step])
+    B = max(4, 3 * step // L + 2)
+    words = _random_plans(rng, B, L)
+    want = nco.phase_q24(torch.from_numpy(words.view(np.int32)), L).numpy().reshape(-1)
+    if seed == 0 and step == 128:
+        j = jnp.arange(L, dtype=jnp.uint32)[None, :]
+        ref = np.asarray(jax_mixer.phase_q24(
+            j, *(jnp.asarray(words[k])[:, None] for k in range(7)),
+            small_j=L <= 65536)).reshape(-1)
+        assert np.array_equal(want, ref)
+    for g in (0, int(rng.integers(1, L)), int(rng.integers(L, 2 * L))):
+        count = (B * L - g + step - 1) // step
+        got = _walker_q24(words, L, g, step, count)
+        assert len(got) == count
+        assert np.array_equal(np.asarray(got), want[g::step])
+
+
+# -- (b) the tile pickers ------------------------------------------------------
+
+def _stages(fs, fused_only=True):
+    ms = MultiStageResampler(fs, 48000)
+    k = cascade.split_point(ms.stages) if fused_only else len(ms.stages)
+    return tuple((st.P, st.Q, st.T) for st in ms.stages[:k])
+
+
+PICKED = {
+    "config 3 cascade": (_stages(1_024_000), 256 * 2048),
+    "config 3 chain": (((3, 64, 370),), 256 * 2048),
+    "config 4 chain, a short chunk": (((3, 64, 370),), 2 * 2048),
+    "config 5 / split front": (_stages(100_000_000), 256 * 2048),
+    "2.048 Msps, three stages": (_stages(2_048_000), 64 * 2048),
+    "250 ksps front": (_stages(250_000), 16 * 2048),
+}
+
+
+@pytest.mark.parametrize("name", PICKED)
+def test_picked_geometry_fits_and_covers(name):
+    stages, n0 = PICKED[name]
+    lay = geometry.pick_cascade(stages, H100_SMEM)
+    assert 0 < lay.smem_bytes <= H100_SMEM
+    assert lay.threads % 32 == 0 and lay.threads <= geometry.MAX_THREADS
+    assert all(R in geometry.r_choices(P) for (P, _, _), R in zip(stages, lay.regs))
+    _check_cover(stages, n0, lay)
+
+
+@pytest.mark.parametrize("tile,threads,regs", [
+    (16, 64, (1, 1)), (100, 96, (2, 2)), (128, 512, (2, 1)), (7, 32, (1, 2))])
+def test_any_geometry_covers(tile, threads, regs):
+    stages = _stages(1_024_000)
+    _check_cover(stages, 8 * 2048, geometry.layout(stages, tile, threads, regs))
+
+
+def _check_cover(stages, n0, lay):
+    """Every output and every carry entry is some CTA's target exactly once;
+    every span a CTA fills and every index it reads lies inside its buffer."""
+    n_in = [n0]
+    for P, Q, _ in stages:
+        n_in.append(n_in[-1] // Q * P)
+    S = len(stages)
+    seen = [np.zeros(n_in[S], dtype=np.int32)] + [
+        np.zeros(T - 1, dtype=np.int32) for _, _, T in stages]
+    for t, a, c in geometry.cta_units(stages, n0, lay.tile):
+        assert c >= 1
+        if t == S:
+            seen[0][a:a + c] += 1
+        else:
+            first = n_in[t] - (stages[t][2] - 1)
+            seen[1 + t][a - first:a - first + c] += 1
+        for s, (j0, n_j, lo, cnt, origin, top) in geometry.cta_spans(
+                stages, lay.regs, t, a, c).items():
+            assert top < lay.words[s]
+            if n_j:
+                assert lo - origin >= geometry.SLACK and lo + cnt - 1 < n_in[s]
+    assert all((v == 1).all() for v in seen)
+    # the buffers do not overlap and end inside the CTA's shared memory
+    end = 0
+    for (P, _, T, _, stride, tap_off, _) in lay.rows:
+        assert tap_off == end and stride >= T + 10 and stride % 4 == 0
+        end += P * stride
+    for (_, _, _, _, _, _, buf_off), w in zip(lay.rows, lay.words):
+        assert buf_off >= end and buf_off % 4 == 0
+        end = buf_off + 2 * w
+    assert 4 * end <= lay.smem_bytes
+
+
+# -- (c) the register tile's walk ---------------------------------------------
+
+def _tile_visits(P, Q, T, R, j0, cnt, threads):
+    """``csrc/fir.cuh fir_tile`` without the arithmetic: for each output the
+    list of ``(tap, x index)`` in the order the thread meets them."""
+    NP = geometry.n_phases(P)
+    i_lo = j0 // P
+    W = (j0 + cnt - 1) // P - i_lo + 1
+    G = -(-W // R)
+    visits = {}
+    for item in range(G * (P if NP == 1 else 1)):
+        p0 = item // G if NP == 1 else 0
+        grp = item - p0 * G
+        off = [((p0 + p) * Q) // P for p in range(NP)]
+        n_top = Q * (i_lo + grp * R + R - 1) + off[-1]
+        n_steps = T + Q * (R - 1) + off[-1] - off[0]
+        for t4 in range(0, n_steps, 4):
+            for p in range(NP):
+                for r in range(R):
+                    j = (i_lo + grp * R + r) * P + p0 + p
+                    l4 = t4 - (Q * (R - 1 - r) + off[-1] - off[p])
+                    for u in range(4):
+                        if 0 <= l4 + u < T:
+                            visits.setdefault(j, []).append((l4 + u, n_top - t4 - u))
+    return {j: v for j, v in visits.items() if j0 <= j < j0 + cnt}
+
+
+@pytest.mark.parametrize("P,Q,T,R", [
+    (3, 64, 370, 1), (3, 64, 370, 2), (3, 8, 51, 2), (1, 8, 65, 2),
+    (1, 16, 95, 1), (1, 2, 15, 2), (5, 16, 41, 2), (2, 6, 17, 1)])
+def test_register_tile_visits_taps_in_ascending_order(P, Q, T, R):
+    j0, cnt = 37, 101
+    visits = _tile_visits(P, Q, T, R, j0, cnt, threads=64)
+    assert sorted(visits) == list(range(j0, j0 + cnt))
+    for j, seq in visits.items():
+        assert [l for l, _ in seq] == list(range(T))
+        assert [n for _, n in seq] == [j * Q // P - l for l in range(T)]
+
+
+# -- (d) the kernels' device functions on the CPU -----------------------------
+
+@pytest.fixture(scope="module")
+def emu(tmp_path_factory):
+    gxx = shutil.which("g++")
+    if gxx is None:
+        pytest.skip("needs g++ to build the kernels' device functions for the host")
+    lib = tmp_path_factory.mktemp("emu") / "kernel_emulation.so"
+    subprocess.run([gxx, "-O1", "-ffp-contract=off", "-shared", "-fPIC",
+                    "-std=c++17", "-I", str(CSRC), "-o", str(lib),
+                    str(CSRC / "host" / "kernel_emulation.cpp")], check=True)
+    return ctypes.CDLL(str(lib))
+
+
+def _ptrs(arrays):
+    return (ctypes.c_void_p * len(arrays))(*(a.ctypes.data for a in arrays))
+
+
+def _ints(values):
+    return (ctypes.c_int * len(values))(*values)
+
+
+def _case(seed, stages, C, B, L, fmt, misalign=False):
+    rng = np.random.default_rng(seed)
+    if fmt == "i16":
+        raw = rng.integers(-(1 << 31), 1 << 31, size=B * L + 1,
+                           dtype=np.int64).astype(np.int32)
+        data = raw[1:] if misalign else raw[:-1]
+        data = data.reshape(B, L)
+    else:
+        data = (rng.standard_normal((2, B, L), dtype=np.float32) * np.float32(0.3))
+    plans = np.stack([_random_plans(rng, B, L) for _ in range(C)], axis=1)
+    banks = [_bank(rng, st) for st in stages]
+    carries = [(rng.standard_normal((C, 2, T - 1), dtype=np.float32)
+                * np.float32(0.3)) for _, _, T in stages]
+    return data, np.ascontiguousarray(plans), banks, carries
+
+
+def _designed_banks():
+    """The banks the pipelines would use, by ``(P, Q, T)``."""
+    found = {}
+    for fs in (1_024_000, 100_000_000, 2_048_000, 250_000):
+        for st in MultiStageResampler(fs, 48000).stages:
+            found[st.P, st.Q, st.T] = np.ascontiguousarray(st.bank, dtype=np.float32)
+    rs = RationalResampler(1_024_000, 48000)
+    found[rs.P, rs.Q, rs.T] = np.ascontiguousarray(rs.bank, dtype=np.float32)
+    return found
+
+
+BANKS = _designed_banks()
+
+
+def _bank(rng, stage):
+    """The designed bank of a stage the pipelines know, else random taps."""
+    P, _, T = stage
+    if stage in BANKS:
+        return BANKS[stage]
+    return (rng.standard_normal((P, T)) / np.sqrt(T)).astype(np.float32)
+
+
+def _outputs(stages, C, B, L, outtype):
+    n = B * L
+    for P, Q, _ in stages:
+        n = n // Q * P
+    out = (np.zeros((C, n), dtype=np.int32) if outtype == "i16"
+           else np.zeros((2, C, n), dtype=np.float32))
+    return out, [np.zeros((C, 2, T - 1), dtype=np.float32) for _, _, T in stages]
+
+
+def _reference(emu, case, stages, C, B, L, fmt, outtype):
+    data, plans, banks, carries = case
+    out, c_out = _outputs(stages, C, B, L, outtype)
+    emu.ref_cascade(ctypes.c_void_p(data.ctypes.data), ctypes.c_void_p(out.ctypes.data),
+                    ctypes.c_void_p(plans.ctypes.data), _ptrs(banks), _ptrs(carries),
+                    _ptrs(c_out), _ints([v for st in stages for v in st]),
+                    len(stages), C, B, L, int(fmt == "f32"), int(outtype == "f32"))
+    return out, c_out
+
+
+def _emulate_cascade(emu, case, stages, C, B, L, fmt, outtype, lay):
+    data, plans, banks, carries = case
+    out, c_out = _outputs(stages, C, B, L, outtype)
+    rc = emu.emu_cascade(ctypes.c_void_p(data.ctypes.data), ctypes.c_void_p(out.ctypes.data),
+                    ctypes.c_void_p(plans.ctypes.data), _ptrs(banks), _ptrs(carries),
+                    _ptrs(c_out), _ints([v for row in lay.rows for v in row]),
+                    len(stages), C, B, L, lay.tile, lay.threads,
+                    ctypes.c_longlong(lay.smem_bytes), int(fmt == "f32"),
+                    int(outtype == "f32"))
+    assert rc == 0, "the entry point's checks refuse these arguments"
+    return out, c_out
+
+
+def _emulate_chain(emu, case, stage, C, B, L, fmt, outtype, lay):
+    data, plans, banks, carries = case
+    out, c_out = _outputs((stage,), C, B, L, outtype)
+    P, Q, T, R, stride, tap_off, buf_off = lay.rows[0]
+    rc = emu.emu_chain(ctypes.c_void_p(data.ctypes.data), ctypes.c_void_p(out.ctypes.data),
+                  ctypes.c_void_p(plans.ctypes.data),
+                  ctypes.c_void_p(banks[0].ctypes.data),
+                  ctypes.c_void_p(carries[0].ctypes.data),
+                  ctypes.c_void_p(c_out[0].ctypes.data), C, B, L, P, Q, T,
+                  lay.tile, lay.threads, R, stride, tap_off, buf_off,
+                  ctypes.c_longlong(lay.smem_bytes), int(fmt == "f32"),
+                  int(outtype == "f32"))
+    assert rc == 0, "the entry point's checks refuse these arguments"
+    return out, c_out
+
+
+def _same(got, want):
+    return (got[0].tobytes() == want[0].tobytes()
+            and all(a.tobytes() == b.tobytes() for a, b in zip(got[1], want[1])))
+
+
+def _close_to_plain(out, stages, case, B, L, fmt, outtype, chain_stage=None):
+    """Channel 0 of the reference against the port's plain torch version."""
+    data, plans, banks, carries = case
+    t = torch.from_numpy
+    if chain_stage:
+        P, Q, T = chain_stage
+        want, _ = chain.mix_resample_chain_plain(
+            t(data.copy()), t(plans[:, 0].copy().view(np.int32)), t(banks[0]),
+            t(carries[0][0]), P=P, Q=Q, T=T, intype=fmt, outtype=outtype)
+    else:
+        want, _ = cascade.mix_cascade_plain(
+            t(data.copy()), t(plans[:, 0].copy().view(np.int32)),
+            [t(b) for b in banks], [t(c[0]) for c in carries], stages=stages,
+            intype=fmt, outtype=outtype)
+    if outtype == "i16":
+        d = np.abs(out[0].view(np.int16).astype(np.int32)
+                   - want.numpy().reshape(-1).view(np.int16).astype(np.int32))
+        assert d.max() <= 1 and (d > 0).mean() < 0.01
+    else:
+        assert np.abs(out[:, 0].reshape(-1) - want.numpy().reshape(-1)).max() <= 2.0 ** -20
+
+
+CHAIN = (3, 64, 370)
+
+
+@pytest.mark.parametrize("fmt", ["i16", "f32"])
+@pytest.mark.parametrize("tile,threads,R", [
+    (128, 128, 1), (96, 64, 2), (384, 256, 2), (33, 32, 1)])
+def test_emulated_chain_kernel_bytes(emu, fmt, tile, threads, R):
+    C, B, L = 2, 5, 2048
+    case = _case(1, (CHAIN,), C, B, L, fmt)
+    want = _reference(emu, case, (CHAIN,), C, B, L, fmt, fmt)
+    lay = geometry.layout((CHAIN,), tile, threads, (R,))
+    assert _same(_emulate_chain(emu, case, CHAIN, C, B, L, fmt, fmt, lay), want)
+    assert _same(_emulate_cascade(emu, case, (CHAIN,), C, B, L, fmt, fmt, lay), want)
+    if (tile, R) == (128, 1):
+        _close_to_plain(want[0], (CHAIN,), case, B, L, fmt, fmt, chain_stage=CHAIN)
+
+
+@pytest.mark.parametrize("stages,B,L,geoms", [
+    (_stages(1_024_000), 3, 2048, [(128, 128, (1, 1)), (256, 256, (2, 1)),
+                                   (96, 64, (2, 2)), (50, 32, (1, 2))]),
+    (_stages(100_000_000), 8, 2048, [(64, 512, (2, 1)), (16, 128, (2, 2)),
+                                     (32, 256, (1, 2))]),
+    (_stages(2_048_000), 2, 2048, [(128, 128, (2, 2, 1)), (40, 64, (1, 1, 2))]),
+    (_stages(250_000), 3, 96, [(64, 64, (2,)), (24, 32, (1,))]),
+    (((5, 16, 41), (2, 4, 9)), 4, 160, [(48, 64, (2, 1)), (20, 32, (1, 2))]),
+], ids=["config3", "front100M", "three", "L96", "odd"])
+@pytest.mark.parametrize("fmt", ["i16", "f32"])
+def test_emulated_cascade_kernel_bytes(emu, stages, B, L, geoms, fmt):
+    C = 2
+    dense = all(Q % P == 0 for P, Q, _ in stages)
+    outtype = "f32" if dense else fmt
+    case = _case(2, stages, C, B, L, fmt)
+    want = _reference(emu, case, stages, C, B, L, fmt, outtype)
+    for tile, threads, regs in geoms:
+        lay = geometry.layout(stages, tile, threads, regs)
+        got = _emulate_cascade(emu, case, stages, C, B, L, fmt, outtype, lay)
+        assert _same(got, want), (tile, threads, regs)
+    if L == 2048:
+        _close_to_plain(want[0], stages, case, B, L, fmt, outtype)
+
+
+def test_emulated_kernel_scalar_loads_on_a_misaligned_input(emu):
+    """An input that is not 16-byte aligned takes the walker's one-sample
+    path; the bytes are the same."""
+    stages, C, B, L = _stages(1_024_000), 1, 2, 2048
+    case = _case(3, stages, C, B, L, "i16", misalign=True)
+    assert case[0].ctypes.data % 16 != 0
+    want = _reference(emu, case, stages, C, B, L, "i16", "i16")
+    lay = geometry.layout(stages, 64, 96, (2, 1))
+    assert _same(_emulate_cascade(emu, case, stages, C, B, L, "i16", "i16", lay), want)
+
+
+def test_emulated_kernel_short_chunk_takes_carries_through(emu):
+    """A chunk shorter than a stage's history: carry entries that come from
+    the carry in, spans that start before the chunk."""
+    stages, C, B, L = _stages(1_024_000), 2, 1, 64
+    case = _case(4, stages, C, B, L, "f32")
+    want = _reference(emu, case, stages, C, B, L, "f32", "f32")
+    lay = geometry.layout(stages, 16, 32, (2, 1))
+    assert _same(_emulate_cascade(emu, case, stages, C, B, L, "f32", "f32", lay), want)
