@@ -37,6 +37,14 @@ Phases (each prints one line or a few; any failure exits non-zero):
              did the work of every sample it does not store); select == fold;
              chain-mix's words == the mixer kernel's, sliced alike; Q15 against
              the exact mixer kernel within 2 LSB, SNR printed.
+4e. fast  — the kernel of ``--precision fast`` (``csrc/chain_fast.cu``) at
+             config-3 geometry, B = 256, from nonzero carries, all four
+             formats, one stream and C = 16: against the split3 plain version
+             (≤ 1 LSB in under 1%; float32 within 1e-5 of the largest
+             output) and the exact kernel (≤ 1 LSB, SNR > 80 dB; float32 3e-5),
+             carries bitwise the exact kernel's, bytes across three launch
+             geometries, the 256 against 4 × 64 block split and channel c
+             against the one-channel launch.
 5. slices  — synthetic captures through the CLI entry point
              ``doppler_tpu_torch.cli.main`` on the card, each with the launch
              counts set to 0 just before it and read just after:
@@ -57,6 +65,11 @@ Phases (each prints one line or a few; any failure exits non-zero):
              counts, and SNR against the golden model (on the first, the
              middle and the last channel from the plan words, and on the
              middle channel from the reference's sequential mix as well).
+             With ``--precision fast``: (i) again, whose bytes must be (i)'s
+             (the cascade stays exact); (iii-fast) (iii) through the fast
+             kernel, against (iii)'s golden and within 1 LSB of (iii)'s
+             bytes; (v-fast) the first 5 s of (v) through the fast channel
+             kernel, against (v)'s goldens and within 1 LSB of (v)'s bytes.
 5b. conformance — ``doppler_tpu_torch.tools.conformance --device cuda``:
              the five BASELINE configs through ``python -m doppler_tpu_torch``
              subprocesses on the card against the golden model, > 60 dB each.
@@ -73,7 +86,8 @@ Phases (each prints one line or a few; any failure exits non-zero):
 
 The kernels' JSON record takes the mixer's and the cascade's launch counts
 from slice (i), the chain's from slice (iii), the channel cascade's from
-(iv), the channel chain's from (v), and the Q15 mixer's and the probes' from
+(iv), the channel chain's from (v), the fast kernel's from (iii-fast) and
+(v-fast), and the Q15 mixer's and the probes' from
 phase 6b; the Q15 mixer's and the probes' times are at B = 16384, the
 tools' shape.  The line before the last is that
 record; the last line is ``{"ok": true, "device": {...}}``.  Without a CUDA
@@ -105,6 +119,7 @@ N_SLICE = 20_480_000 + 1000        # 20 s at 1.024 Msps, plus a partial block
 N_SPLIT = 50_000_000 + 1000        # 0.5 s at 100 Msps
 N_CH_CHAIN = 10_240_000 + 1000     # the first 10 s of the channels capture
 N_CH_MIX = 5_120_000 + 1000        # its first 5 s
+N_CH_FAST = N_CH_MIX               # (v-fast): the first 5 s
 N_WIDE = 10_000_000 + 1000         # 0.1 s at 100 Msps
 C_MAIN = 16                        # BASELINE config 4's channel count
 C_WIDE = 256                       # BASELINE config 5's
@@ -112,6 +127,7 @@ GOLDEN_BLOCKS = 512
 TOL_F32 = 2.0 ** -20
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
 F32_FLOP_PER_S = 67e12             # float32 outside the tensor cores
+BF16_FLOP_PER_S = 989e12           # dense bf16 on the tensor cores
 MIX_FLOP = 29                      # csrc/nco.cuh: decode 2, tone 21, rotate 6
 TLE_LINES = (
     "1 88888U          80275.98708465  .00073094  13844-3  66816-4 0    8",
@@ -576,6 +592,105 @@ def phase_channels(torch, gen):
     return worst
 
 
+FAST_REL = 1e-5                    # fast kernel vs its plain version, f32 out
+FAST_GEOMS = ((16, 32), (64, 128), (128, 256))
+
+
+def _fast_vs(torch, got, want, outtype, what, *, exact=False):
+    """The fast kernel against its plain version (≤ 1 LSB in under 1%;
+    float32 within FAST_REL of the largest output) or, ``exact``, against the
+    exact kernel (≤ 1 LSB and SNR ≥ 80 dB; float32 within 3e-5): a tensor
+    core does not add as IEEE float32 does.  Returns (max LSB or max |d|,
+    text)."""
+    if outtype == "i16":
+        d = _lsb_diff(torch, got, want)
+        err, frac = float(d.max()), float((d > 0).float().mean())
+        if exact:
+            snr = _snr_db_words(torch, want, got)
+            check(err <= 1 and snr > 80.0, f"{what} vs exact: {err} LSB, {snr} dB")
+            return err, f"vs exact max LSB={err:g} frac={frac!r} SNR={snr!r} dB"
+        check(err <= 1 and frac < 0.01, f"{what} off by >1 LSB ({err}, {frac})")
+        return err, f"max LSB={err:g} frac={frac!r}"
+    err, scale = float((got - want).abs().max()), float(want.abs().max())
+    rel = 3e-5 if exact else FAST_REL
+    check(err <= rel * scale, f"{what} f32 off by {err} of {scale}")
+    return err, f"{'vs exact ' if exact else ''}max|d|={err!r} (|y|max {scale!r})"
+
+
+def phase_chain_fast(torch, gen):
+    """The kernel of ``--precision fast`` (csrc/chain_fast.cu) at config-3
+    geometry, B = 256, from nonzero carries, all four formats: one stream and
+    C = 16 against the split3 plain version and against the exact kernel;
+    carries bitwise the exact kernel's; bytes across launch geometries, the
+    256 against 4 × 64 block split and channel c against the one-channel
+    launch."""
+    from doppler_tpu_torch.ops.cuda import chain
+    from doppler_tpu_torch.ops.resample import RationalResampler
+
+    rs = RationalResampler(FS, OUT_RATE)
+    P, Q, T = rs.P, rs.Q, rs.T
+    bank = torch.from_numpy(rs.bank).cuda()
+    C, B, L = C_MAIN, B_MAIN, 2048
+    worst = {"stream": 0.0, "channels": 0.0}
+    for intype, outtype in FORMATS:
+        kw = dict(P=P, Q=Q, T=T, intype=intype, outtype=outtype)
+        x0, x1 = (_data(torch, intype, B, L, gen) for _ in range(2))
+        p0 = _channel_plans(torch, C, B, L)
+        p1 = _channel_plans(torch, C, B, L, samplenum=7)
+        zero = torch.zeros(C, 2, T - 1, device="cuda")
+        _, carry = chain.mix_resample_chain_channels(x0, p0, bank, zero, **kw)
+        # one stream: channel 0's plan words and carry
+        ps, cs_ = p1[:, 0].contiguous(), carry[0].contiguous()
+        got, c_got = chain.mix_resample_chain_stream(x1, ps, bank, cs_,
+                                                     dot_precision="split3", **kw)
+        torch.cuda.synchronize()
+        want, c_want = chain.mix_resample_chain_plain(x1, ps, bank, cs_,
+                                                      dot_precision="split3", **kw)
+        exact, c_exact = chain.mix_resample_chain_stream(x1, ps, bank, cs_, **kw)
+        err, text = _fast_vs(torch, got, want, outtype, f"chain_fast {intype}->{outtype}")
+        _, text_x = _fast_vs(torch, got, exact, outtype,
+                             f"chain_fast {intype}->{outtype}", exact=True)
+        check(torch.equal(c_got, c_exact) and torch.equal(c_got, c_want),
+              f"chain_fast {intype}->{outtype} carry differs from the exact kernel's")
+        geoms = all(torch.equal(chain._launch_fast(
+            x1, ps, bank, cs_[None], 1, B, L, P, Q, T, intype, outtype, geom=g)[0]
+            .reshape(got.shape), got) for g in FAST_GEOMS)
+        print(f"chain_fast: {intype}->{outtype} B={B}: {text}; {text_x}; carry "
+              f"bitwise the exact kernel's; {len(FAST_GEOMS)} geometries bitwise={geoms}")
+        check(geoms, "chain_fast bytes depend on the launch geometry")
+        worst["stream"] = max(worst["stream"], err)
+        # C = 16
+        got_c, c_got_c = chain.mix_resample_chain_channels(x1, p1, bank, carry,
+                                                           dot_precision="split3", **kw)
+        torch.cuda.synchronize()
+        want_c, c_want_c = chain.mix_resample_chain_channels_plain(
+            x1, p1, bank, carry, dot_precision="split3", **kw)
+        _, c_exact_c = chain.mix_resample_chain_channels(x1, p1, bank, carry, **kw)
+        err, text = _fast_vs(torch, got_c, want_c, outtype,
+                             f"chain_channels_fast {intype}->{outtype}")
+        check(torch.equal(c_got_c, c_exact_c) and torch.equal(c_got_c, c_want_c),
+              "chain_channels_fast carries differ from the exact kernel's")
+        rows = all(torch.equal(_channel_of(got_c, c, outtype), chain.mix_resample_chain_stream(
+            x1, p1[:, c].contiguous(), bank, carry[c].contiguous(),
+            dot_precision="split3", **kw)[0]) for c in range(C))
+        print(f"chain_fast: channels {intype}->{outtype} C={C} B={B}: {text}; carries "
+              f"bitwise the exact kernel's; rows vs C=1 launch bitwise={rows}")
+        check(rows, "chain_channels_fast: a channel differs from its one-channel launch")
+        worst["channels"] = max(worst["channels"], err)
+        if (intype, outtype) == ("i16", "i16"):
+            c, parts = cs_, []
+            for k in range(0, B, 64):
+                o, c = chain.mix_resample_chain_stream(
+                    x1[k:k + 64].contiguous(), ps[:, k:k + 64].contiguous(), bank, c,
+                    dot_precision="split3", **kw)
+                parts.append(o)
+            torch.cuda.synchronize()
+            split_ok = torch.equal(torch.cat(parts), got) and torch.equal(c, c_got)
+            print(f"chain_fast: 256 blocks vs 4x64 blocks bitwise={split_ok}")
+            check(split_ok, "chain_fast bytes depend on the chunk split")
+    return worst
+
+
 def _snr_db_words(torch, ref, test):
     """SNR of i16 IQ words ``test`` against ``ref``, in float64 on the card."""
     r = ref.view(torch.int16).double()
@@ -748,24 +863,36 @@ def _golden(mixed, stages):
 
 
 def _counters():
+    """Each kernel's launch count: (wrapper, attribute)."""
     from doppler_tpu_torch.ops.cuda import cascade, chain, mixer
 
-    return {"mixer": mixer.mix_blocks_fmt,
-            "chain": chain.mix_resample_chain_stream,
-            "cascade": cascade.mix_cascade_stream,
-            "mixer_channels": mixer.mix_blocks_fmt_channels,
-            "chain_channels": chain.mix_resample_chain_channels,
-            "cascade_channels": cascade.mix_cascade_channels}
+    return {"mixer": (mixer.mix_blocks_fmt, "launches"),
+            "chain": (chain.mix_resample_chain_stream, "launches"),
+            "chain_fast": (chain.mix_resample_chain_stream, "launches_fast"),
+            "cascade": (cascade.mix_cascade_stream, "launches"),
+            "mixer_channels": (mixer.mix_blocks_fmt_channels, "launches"),
+            "chain_channels": (chain.mix_resample_chain_channels, "launches"),
+            "chain_channels_fast": (chain.mix_resample_chain_channels, "launches_fast"),
+            "cascade_channels": (cascade.mix_cascade_channels, "launches")}
 
 
 def _tool_counters():
     """The kernels that only the measuring tools launch."""
     from doppler_tpu_torch.ops.cuda import mixer, probes
 
-    return {"mixer_q15": mixer.mix_blocks_q15,
-            "probe_elementwise": probes.probe_elementwise,
-            "chain_shape": probes.chain_shape_run,
-            "mix_shape": probes.mix_shape_run}
+    return {"mixer_q15": (mixer.mix_blocks_q15, "launches"),
+            "probe_elementwise": (probes.probe_elementwise, "launches"),
+            "chain_shape": (probes.chain_shape_run, "launches"),
+            "mix_shape": (probes.mix_shape_run, "launches")}
+
+
+def _zero_counts(counters):
+    for fn, attr in counters.values():
+        setattr(fn, attr, 0)
+
+
+def _read_counts(counters):
+    return {k: getattr(fn, attr) for k, (fn, attr) in counters.items()}
 
 
 def _run_slice(name, argv, raw, card, channels=1):
@@ -780,14 +907,13 @@ def _run_slice(name, argv, raw, card, channels=1):
     logger = logging.getLogger("doppler_tpu_torch")
     for h in list(logger.handlers):
         logger.removeHandler(h)
-    for fn in _counters().values():
-        fn.launches = 0
+    _zero_counts(_counters())
     t0 = time.perf_counter()
     with contextlib.redirect_stderr(log):
         rc = cli.main(argv + ["--device", "cuda", "--log-format", "json"],
                       stdin=io.BytesIO(raw), stdout=sink)
     wall = time.perf_counter() - t0
-    launches = {k: fn.launches for k, fn in _counters().items()}
+    launches = _read_counts(_counters())
     check(rc == 0, f"{name}: cli.main returned {rc}: {log.getvalue()[-2000:]}")
     msgs = [json.loads(ln)["msg"] for ln in log.getvalue().splitlines()]
     done = [m for m in msgs if m.startswith("done:")]
@@ -862,6 +988,15 @@ def phase_slices(torch, card):
         snr = _check_slice("default", out, N_SLICE, ms.out_count_for(N_SLICE),
                            launches, "cascade", _golden(mixed, ms.stages))
         res["default"] = dict(split, launches=launches, snr_db=snr)
+        # --precision fast leaves the cascade exact: the same bytes
+        out_fast, launches, _, split = _run_slice(
+            "default-fast", track + ["--precision", "fast"], raw, card)
+        same = out_fast == out
+        print(f"slice default-fast: bytes equal to the exact run's={same}")
+        check(same and launches["cascade"] == N_SLICE // (B_MAIN * 2048)
+              and launches["chain_fast"] == 0,
+              "default-fast: the cascade under --precision fast is not the exact run")
+        res["default-fast"] = dict(split, launches=launches)
 
         # (ii) the split route: ÷16·÷16 fused front, 384/3125 tail
         argv = ["const", "-s", str(FS_SPLIT), "-i", "i16", "--shift", str(OFFSET),
@@ -876,9 +1011,24 @@ def phase_slices(torch, card):
         out, launches, _, split = _run_slice(
             "chain", track + ["--resample-stages", "single"], raw, card)
         rs = RationalResampler(FS, OUT_RATE)
+        golden = _golden(mixed, [rs])
         snr = _check_slice("chain", out, N_SLICE, -(-N_SLICE * 3 // 64),
-                           launches, "chain", _golden(mixed, [rs]))
+                           launches, "chain", golden)
         res["chain"] = dict(split, launches=launches, snr_db=snr)
+
+        # (iii-fast) the same with --precision fast: the fast kernel, held
+        # to (iii)'s golden and within 1 LSB of (iii)'s bytes
+        out_fast, launches, _, split = _run_slice(
+            "chain-fast", track + ["--resample-stages", "single", "--precision",
+                                   "fast"], raw, card)
+        snr = _check_slice("chain-fast", out_fast, N_SLICE, -(-N_SLICE * 3 // 64),
+                           launches, "chain_fast", golden)
+        d = _lsb_diff(torch, torch.frombuffer(bytearray(out_fast), dtype=torch.int32),
+                      torch.frombuffer(bytearray(out), dtype=torch.int32))
+        lsb, frac = int(d.max()), float((d > 0).float().mean())
+        print(f"slice chain-fast: against (iii)'s bytes max LSB={lsb} frac={frac!r}")
+        check(lsb <= 1, f"chain-fast: {lsb} LSB from the exact run")
+        res["chain-fast"] = dict(split, launches=launches, snr_db=snr)
     return res
 
 
@@ -1059,12 +1209,34 @@ def phase_channel_slices(torch, card):
             "config4-chain", tmp, cfg4,
             io_args + ["--resample-to", str(OUT_RATE), "--resample-stages", "single"],
             raw4[:N_CH_CHAIN * 4], card, top)
+        goldens_v = {c: _golden(mixed4[c], [rs]) for c in checked}
         snr = _check_channels_slice(
             "config4-chain", outs, N_CH_CHAIN, -(-N_CH_CHAIN * 3 // 64), launches,
             _launches(chain_channels=full(N_CH_CHAIN), mixer_channels=1),
-            [(c, "plan-word", _golden(mixed4[c], [rs])) for c in checked]
+            [(c, "plan-word", goldens_v[c]) for c in checked]
             + [(mid, "sequential", _golden(seq["config 4", mid], [rs]))])
         res["config4-chain"] = dict(split, launches=launches, snr_db=snr)
+
+        # (v-fast) its first 5 s with --precision fast: the fast channel
+        # kernel, held to (v)'s goldens and within 1 LSB of (v)'s bytes
+        n_fast = full(N_CH_FAST) * B_MAIN * 2048 * 3 // 64
+        outs_f, launches, split = _run_channels_slice(
+            "config4-chain-fast", tmp, cfg4,
+            io_args + ["--resample-to", str(OUT_RATE), "--resample-stages", "single",
+                       "--precision", "fast"],
+            raw4[:N_CH_FAST * 4], card, top)
+        snr = _check_channels_slice(
+            "config4-chain-fast", outs_f, N_CH_FAST, -(-N_CH_FAST * 3 // 64), launches,
+            _launches(chain_channels_fast=full(N_CH_FAST), mixer_channels=1),
+            [(c, "plan-word", goldens_v[c]) for c in checked])
+        lsb = max(int(_lsb_diff(
+            torch, torch.frombuffer(bytearray(f[:4 * n_fast]), dtype=torch.int32),
+            torch.frombuffer(bytearray(o[:4 * n_fast]), dtype=torch.int32)).max())
+            for f, o in zip(outs_f, outs))
+        print(f"slice config4-chain-fast: the {n_fast} outputs of its full chunks "
+              f"against (v)'s on every channel: max LSB={lsb}")
+        check(lsb <= 1, f"config4-chain-fast: {lsb} LSB from the exact run")
+        res["config4-chain-fast"] = dict(split, launches=launches, snr_db=snr)
 
         # (vi) 16 const channels, no resampler: the channel mixer alone
         outs, launches, split = _run_channels_slice(
@@ -1135,26 +1307,34 @@ def _device_text(dev_us, bound_ms):
     return f"device {dev_us!r} us (the bound is {bound_ms * 1e3 / dev_us!r} of it)"
 
 
-def _bound(C, B, L, stages, *, out_bytes=4):
+def _bound(C, B, L, stages, *, out_bytes=4, split3=False):
     """The least time the card could take: (ms, 'bytes' or 'operations').
 
     Bytes: the shared chunk (int32 words) and the plan words read once, each
     channel's output written once, banks and carries once.  Operations, in
     float32 outside the tensor cores: the mix (MIX_FLOP a sample) for every
     channel, 4·T·P/Q per stage input sample (I and Q, multiply and add), and
-    2 a sample to encode i16.  ``stages`` = () is the mixer."""
+    2 a sample to encode i16.  ``stages`` = () is the mixer.  ``split3``:
+    the dot is three bf16 products a tap on the tensor cores instead, at
+    their own rate, beside the float32 mix (the bank is read as its two
+    bf16 halves)."""
     n = B * L
     byts = 4 * n + 28 * C * B
-    flop = C * n * MIX_FLOP
+    flop, tensor = C * n * MIX_FLOP, 0
     for P, Q, T in stages:
-        flop += C * 4 * T * P * (n // Q)
+        dot = C * 4 * T * P * (n // Q)
+        if split3:
+            tensor += 3 * dot
+        else:
+            flop += dot
         byts += 4 * P * T + 2 * C * 2 * 4 * (T - 1)
         n = n // Q * P
     byts += C * n * out_bytes
     if out_bytes == 4:
         flop += C * n * 2
     t_b, t_f = byts / HBM_BYTES_PER_S, flop / F32_FLOP_PER_S
-    return max(t_b, t_f) * 1e3, "bytes" if t_b >= t_f else "operations"
+    t_t = tensor / BF16_FLOP_PER_S
+    return max(t_b, t_f, t_t) * 1e3, "bytes" if t_b >= max(t_f, t_t) else "operations"
 
 
 def phase_timing_channels(torch, gen, card):
@@ -1189,6 +1369,12 @@ def phase_timing_channels(torch, gen, card):
                 lambda: chain.mix_resample_chain_channels(x, p, bank, carry, **ckw),
                 lambda: chain.mix_resample_chain_channels_plain(x, p, bank, carry, **ckw),
                 "chain_kernel", chain_stage),
+            "chain_channels_fast": (
+                lambda: chain.mix_resample_chain_channels(x, p, bank, carry,
+                                                          dot_precision="split3", **ckw),
+                lambda: chain.mix_resample_chain_channels_plain(
+                    x, p, bank, carry, dot_precision="split3", **ckw),
+                "chain_fast_kernel", chain_stage),
             "cascade_channels": (
                 lambda: cascade.mix_cascade_channels(x, p, b3, z3, stages=c3),
                 lambda: cascade.mix_cascade_channels_plain(x, p, b3, z3, stages=c3),
@@ -1196,12 +1382,18 @@ def phase_timing_channels(torch, gen, card):
         }
         runs = 20 if B == B_MAIN else 3       # the big plain versions take seconds
         for name, (kern, plain, trace_name, stages) in cases.items():
-            pl_a = _median_ms(torch, plain, runs=runs, warmup=1)
+            fast = name.endswith("_fast")
+            if fast and B == B_BIG:
+                # its plain version takes ≈ 2 s a call: one call, no warm-up
+                pl_a = pl_b = _median_ms(torch, plain, runs=1, warmup=0)
+            else:
+                pl_a = _median_ms(torch, plain, runs=runs, warmup=1)
             k_a = _median_ms(torch, kern)
             k_b = _median_ms(torch, kern)
-            pl_b = _median_ms(torch, plain, runs=runs, warmup=1)
+            if not (fast and B == B_BIG):
+                pl_b = _median_ms(torch, plain, runs=runs, warmup=1)
             dev_us = _device_us(torch, kern, trace_name)
-            bound_ms, by = _bound(C, B, L, stages)
+            bound_ms, by = _bound(C, B, L, stages, split3=fast)
             k_ms, pl_ms = min(k_a, k_b), min(pl_a, pl_b)
             n = C * B * L
             dev = "not measured" if dev_us is None else f"{dev_us!r} us"
@@ -1259,6 +1451,10 @@ def phase_timing(torch, gen, card):
                       lambda: mix_blocks_fmt_plain(x, p)),
             "chain": (lambda: mix_resample_chain_stream(x, p, bank, carry, P=3, Q=64, T=rs.T),
                       lambda: mix_resample_chain_plain(x, p, bank, carry, P=3, Q=64, T=rs.T)),
+            "chain_fast": (lambda: mix_resample_chain_stream(
+                               x, p, bank, carry, P=3, Q=64, T=rs.T, dot_precision="split3"),
+                           lambda: mix_resample_chain_plain(
+                               x, p, bank, carry, P=3, Q=64, T=rs.T, dot_precision="split3")),
             "cascade": (lambda: mix_cascade_stream(x, p, b3, z3, stages=c3),
                         lambda: mix_cascade_plain(x, p, b3, z3, stages=c3)),
         }
@@ -1267,22 +1463,26 @@ def phase_timing(torch, gen, card):
             lambda: mix_cascade_stream(x, p5, b5, z5, **front),
             lambda: mix_cascade_plain(x, p5, b5, z5, **front))
         trace_names = {"mixer": "mixer_kernel", "chain": "chain_kernel",
+                       "chain_fast": "chain_fast_kernel",
                        "cascade": "cascade_kernel", "split front": "cascade_kernel"}
         for name, (kern, plain) in pairs.items():
             # plain, kernel, kernel, plain: the first of each pair warms up
-            pl_a = _median_ms(torch, plain)
+            runs = 5 if name == "chain_fast" and B == B_BIG else 20
+            pl_a = _median_ms(torch, plain, runs=runs)
             k_a = _median_ms(torch, kern)
             k_b = _median_ms(torch, kern)
-            pl_b = _median_ms(torch, plain)
+            pl_b = _median_ms(torch, plain, runs=runs)
             k_ms, pl_ms = min(k_a, k_b), min(pl_a, pl_b)
             # HBM bytes per input sample: words in, words or planes out
             bpi = {"mixer": 8.0, "split front": 4.0 + 8.0 / 256}.get(
                 name, 4.0 + 4.0 * 3 / 64)
             fmt = "i16->f32" if name == "split front" else "i16->i16"
-            stages = {"mixer": (), "chain": ((3, 64, rs.T),), "cascade": c3,
+            stages = {"mixer": (), "chain": ((3, 64, rs.T),),
+                      "chain_fast": ((3, 64, rs.T),), "cascade": c3,
                       "split front": c5}[name]
             bound_ms, by = _bound(1, B, L, stages,
-                                  out_bytes=8 if name == "split front" else 4)
+                                  out_bytes=8 if name == "split front" else 4,
+                                  split3=name == "chain_fast")
             dev_us = _device_us(torch, kern, trace_names[name])
             print(f"timing: {name} {fmt} B={B} ({n} samples): kernel "
                   f"{k_a!r}/{k_b!r} ms, plain {pl_a!r}/{pl_b!r} ms; "
@@ -1402,8 +1602,7 @@ def phase_roofline(card):
     from doppler_tpu_torch.tools import probe_chain_precision, roofline
 
     counters = dict(_counters(), **_tool_counters())
-    for fn in counters.values():
-        fn.launches = 0
+    _zero_counts(counters)
     size = ["--samples", str(B_BIG * 2048), "--dispatches", "16", "--iters", "4"]
     names = roofline.MIXER_SHAPED + roofline.CHAIN_SHAPED
     results = {}
@@ -1422,9 +1621,9 @@ def phase_roofline(card):
     check(list(results["roofline"]) == list(names), "roofline left a variant out")
     check(list(results["probe_chain_precision"]) == list(probe_chain_precision.VARIANTS),
           "probe_chain_precision left a variant out")
-    launches = {k: fn.launches for k, fn in counters.items()}
+    launches = _read_counts(counters)
     print(f"roofline: launches {launches}")
-    for name in list(_tool_counters()) + ["mixer", "chain", "cascade"]:
+    for name in list(_tool_counters()) + ["mixer", "chain", "chain_fast", "cascade"]:
         check(launches[name] >= 1, f"the tools did not launch the {name} kernel")
     return results, launches
 
@@ -1454,6 +1653,7 @@ def main() -> int:
         chain_err = phase_chain(torch, gen)
         cascade_err = phase_cascade(torch, gen)
         channel_err = phase_channels(torch, gen)
+        fast_err = phase_chain_fast(torch, gen)
         phase_probes(torch, gen)
         slices = phase_slices(torch, card)
         slices.update(phase_channel_slices(torch, card))
@@ -1505,6 +1705,13 @@ def main() -> int:
         entry("chain_channels", "chain.cu", "doppler_tpu/ops/pallas/chain.py:556",
               slices["config4-chain"]["launches"]["chain_channels"],
               channel_err["chain"]),
+        entry("chain_fast", "chain_fast.cu", "doppler_tpu/ops/pallas/chain.py:404",
+              slices["chain-fast"]["launches"]["chain_fast"], fast_err["stream"],
+              branch="dot_precision='split3'"),
+        entry("chain_channels_fast", "chain_fast.cu",
+              "doppler_tpu/ops/pallas/chain.py:556",
+              slices["config4-chain-fast"]["launches"]["chain_channels_fast"],
+              fast_err["channels"], branch="dot_precision='split3'"),
         entry("cascade_channels", "cascade.cu",
               "doppler_tpu/ops/pallas/chain.py:1078",
               config4["cascade_channels"], channel_err["cascade"]),

@@ -16,12 +16,16 @@ Flag-compatible with ``doppler_tpu/cli.py`` for what this package runs:
   JAX package), ``--exact-ratio``, ``--drain``, ``--log-format``,
   ``--log-level``, ``--input``, ``--output``, ``--save-state`` /
   ``--load-state`` (a resumable checkpoint in the JAX package's format;
-  a resumed run seeks ``--input`` and appends to its output), and
-  ``--device {cuda,cpu}`` (default ``cuda``; no silent CPU fallback).
+  a resumed run seeks ``--input`` and appends to its output),
+  ``--precision {exact,fast}`` (default ``exact``; ``fast`` runs the
+  single-stage chain's FIR dot, stream and channel-batched, on bf16 tensor
+  cores as three exact products a tap, within 1 LSB of ``exact``; cascades
+  and the EOF chunk stay exact), and ``--device {cuda,cpu}`` (default
+  ``cuda``; no silent CPU fallback).
 
 The JAX package's ``--mesh``, ``--distributed``, ``--host-channels``,
-``--impl``, ``--precision``, ``--prefetch-chunks`` and ``--resample-impl``
-are not ported; their flags do not exist here.
+``--impl``, ``--prefetch-chunks`` and ``--resample-impl`` are not ported;
+their flags do not exist here.
 
 IQ bytes flow stdin → stdout; telemetry goes to stderr only (main.rs:212-233).
 """
@@ -111,6 +115,13 @@ def _add_io_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--exact-ratio", action="store_true",
                    help="use exact rational NCO rate instead of mirroring the "
                         "reference's f32-rounded shift/samplerate ratio")
+    p.add_argument("--precision", choices=["exact", "fast"], default="exact",
+                   help="resampler dot precision: 'exact' (default) sums "
+                        "float32 products; 'fast' runs the fused single-"
+                        "stage chain (stream and channels) as three bf16 "
+                        "tensor-core products a tap (x_h·t_h + x_h·t_l + "
+                        "x_l·t_h), within 1 LSB of 'exact'; cascades and "
+                        "the EOF chunk stay exact")
     p.add_argument("--drain", action="store_true",
                    help="flush the resampler FIR tail with zeros at EOF")
     p.add_argument("--log-format", choices=["fern", "json"], default="fern",
@@ -330,6 +341,7 @@ def _main_channels(args, log, outtype: str, chunk_blocks: int, stdin) -> int:
             quantize_ratio_f32=not args.exact_ratio,
             drain_on_eof=args.drain,
             resample_stages=args.resample_stages,
+            precision=args.precision,
             device=args.device,
         )
     except (ValueError, RuntimeError) as e:
@@ -443,6 +455,7 @@ def main(argv=None, stdin=None, stdout=None) -> int:
             chunk_blocks=chunk_blocks,
             quantize_ratio_f32=not args.exact_ratio,
             drain_on_eof=args.drain,
+            precision=args.precision,
             device=args.device,
         )
         if args.resample_to is not None:

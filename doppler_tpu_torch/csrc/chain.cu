@@ -59,8 +59,8 @@
 // about 1150 outputs at a time, 12 warps of dot work at R = 1; R = 2 halves
 // the loads of x a FFMA and the warps, and is slower.  A tile of 384 outputs
 // (70 KB, three CTAs an SM) re-mixes 4.5% of the samples.
+#include "chain.cuh"
 #include "fir.cuh"
-#include "nco.cuh"
 
 namespace doppler {
 
@@ -74,22 +74,6 @@ struct ChainArgs {
     const float* bank;      // (P, T)
     const float* carry_in;  // (C, 2, T−1)
     float* carry_out;       // (C, 2, T−1)
-};
-
-// Where fir_tile's outputs go: planes (2, C, m_total) or i16 words.
-struct ChainSink {
-    int out_f32;
-    void* out;
-    long long m_total;
-    int C, ch;
-    __device__ __forceinline__ void put(long long m, float vi, float vq) const {
-        if (out_f32) {
-            static_cast<float*>(out)[ch * m_total + m] = vi;
-            static_cast<float*>(out)[((long long)C + ch) * m_total + m] = vq;
-        } else {
-            static_cast<int*>(out)[ch * m_total + m] = pack_i16(vi, vq);
-        }
-    }
 };
 
 // What a CTA works on: its channel and its unit (a tile of outputs, or the
@@ -129,22 +113,8 @@ __device__ __forceinline__ bool chain_phase(
     const float* carry_in = g.carry_in + (size_t)ch * 2 * H;
 
     if (p.unit == g.n_tiles) {                 // the carry CTA
-        const long long n_in = (long long)g.B * g.L;
-        float* carry_out = g.carry_out + (size_t)ch * 2 * H;
-        int cur = -1;
-        Plan pl;
-        for (int k = tid; k < H; k += nthreads) {
-            const long long n = n_in - H + k;
-            float vi, vq;
-            if (n < 0) {
-                vi = carry_in[H + n];
-                vq = carry_in[2 * H + n];
-            } else {
-                mix_at<kInF32>(n, in, plans, stride, g.B, g.L, cur, pl, vi, vq);
-            }
-            carry_out[k] = vi;
-            carry_out[H + k] = vq;
-        }
+        chain_carry<kInF32>(in, plans, stride, g.B, g.L, H, carry_in,
+                            g.carry_out + (size_t)ch * 2 * H, tid, nthreads);
         return false;
     }
 
@@ -152,11 +122,8 @@ __device__ __forceinline__ bool chain_phase(
         fir_load_taps(smem, f, g.bank, tid, nthreads);
         SpanStore store{reinterpret_cast<float2*>(smem + f.buf_off), f.S, f.magic,
                         p.org};
-        for (long long n = p.lo + tid; n < 0 && n <= p.last; n += nthreads)
-            store(n, carry_in[H + n], carry_in[2 * H + n]);
-        if (p.last >= max64(p.lo, 0))
-            mix_span<kInF32>(max64(p.lo, 0), p.last, in, plans, stride, g.B, g.L,
-                             g.vec4 != 0, tid, nthreads, store);
+        chain_fill<kInF32>(p.lo, p.last, in, plans, stride, g.B, g.L,
+                           g.vec4 != 0, H, carry_in, tid, nthreads, store);
         return true;
     }
     ChainSink sink{g.out_f32, out, g.m_total, g.C, ch};

@@ -5,7 +5,11 @@
 // csrc/host_shim.cuh.  Beside them a reference that sums every output as one
 // fmaf chain over l = 0..T−1 from mix_at's samples, one output at a time:
 // what the kernels must equal byte for byte whatever their tile, threads and
-// register tile.
+// register tile.  The kernel of --precision fast (chain_fast.cu) runs a
+// warp's 32 lanes at once where it calls mma.sync: its host stand-in takes
+// the 32 lanes' fragments in the PTX layout.  Its bytes are its own (a
+// tensor core does not add as IEEE float32 does), so its reference is the
+// plain torch version, within a tolerance, and itself across geometries.
 //
 //   g++ -O1 -ffp-contract=off -shared -fPIC -std=c++17 \
 //       -I doppler_tpu_torch/csrc -o emu.so \
@@ -17,15 +21,16 @@
 
 #include "cascade.cu"
 #include "chain.cu"
+#include "chain_fast.cu"
 
 using namespace doppler;
 
 namespace {
 
-// shared memory the way a fresh CTA finds it: nothing a result may depend on
+// shared memory the way a fresh CTA finds it: nothing a result may depend
+// on (all ones: a NaN as float32 and as bf16)
 void poison(std::vector<float4>& smem) {
-    const float nan = std::numeric_limits<float>::quiet_NaN();
-    for (auto& v : smem) v = float4{nan, nan, nan, nan};
+    std::memset(smem.data(), 0xFF, smem.size() * sizeof(float4));
 }
 
 template <bool kInF32>
@@ -119,6 +124,26 @@ void run_chain(const void* in, void* out, const uint32_t* plans,
     }
 }
 
+template <bool kInF32, bool kOddQ>
+void run_chain_fast(const void* in, void* out, const uint32_t* plans,
+                    const FastArgs& g, int threads, long long smem) {
+    std::vector<float4> shared((smem + 15) / 16);
+    const unsigned grid = (unsigned)(g.C * (g.n_tiles + (g.T > 1 ? 1 : 0)));
+    for (unsigned block = 0; block < grid; ++block) {
+        poison(shared);
+        int ch, unit;
+        split_block(block, g.C, g.n_tiles + (g.T > 1), ch, unit);
+        for (int ph = 0;; ++ph) {
+            bool more = false;
+            for (int tid = 0; tid < threads; ++tid)
+                more = chain_fast_phase<kInF32, kOddQ>(
+                    in, out, plans, g, ch, unit, tid, threads, ph,
+                    reinterpret_cast<unsigned*>(shared.data()));
+            if (!more) break;
+        }
+    }
+}
+
 }  // namespace
 
 // doppler_cascade's arguments (csrc/cascade.cu), all pointers to host memory.
@@ -182,5 +207,24 @@ extern "C" int ref_cascade(const void* in, void* out, const uint32_t* plans,
         }
         write_out(xi, xq, out, C, ch, out_f32);
     }
+    return 0;
+}
+
+// doppler_chain_fast's arguments (csrc/chain_fast.cu), all pointers to host
+// memory.
+extern "C" int emu_chain_fast(const void* in, void* out, const uint32_t* plans,
+                              const uint16_t* bank_h, const uint16_t* bank_l,
+                              const float* carry_in, float* carry_out, int C,
+                              int B, int L, int P, int Q, int T, int wt,
+                              int threads, int plane, int g_off, int x_off,
+                              long long smem, int in_f32, int out_f32) {
+    FastArgs g;
+    if (threads % 32 || !make_fast_args(g, in, bank_h, bank_l, carry_in, carry_out,
+                                        C, B, L, P, Q, T, wt, plane, g_off, x_off,
+                                        out_f32, smem))
+        return 1;
+    auto run = in_f32 ? (Q & 1 ? run_chain_fast<true, true> : run_chain_fast<true, false>)
+                      : (Q & 1 ? run_chain_fast<false, true> : run_chain_fast<false, false>);
+    run(in, out, plans, g, threads, smem);
     return 0;
 }

@@ -21,8 +21,13 @@
 struct float2 { float x, y; };
 struct alignas(16) float4 { float x, y, z, w; };
 struct alignas(16) int4 { int x, y, z, w; };
+struct alignas(16) uint4 { unsigned x, y, z, w; };
+struct alignas(8) uint2 { unsigned x, y; };
 
 inline float2 make_float2(float x, float y) { return float2{x, y}; }
+inline uint4 make_uint4(unsigned x, unsigned y, unsigned z, unsigned w) {
+    return uint4{x, y, z, w};
+}
 
 template <class T>
 inline T __ldg(const T* p) { return *p; }

@@ -16,6 +16,7 @@
 
 #include <cstddef>
 #include <cstdint>
+#include <type_traits>
 
 #include "host_shim.cuh"
 
@@ -218,14 +219,22 @@ __device__ __forceinline__ int walker_q24(const Walker& w, uint32_t i,
     return (int)((prod_i + c) >> 40);
 }
 
+// Whether a store takes a whole group of four samples at once:
+// store.group(g, oi, oq) for the mixed samples g .. g+3, g ≡ 0 (mod 4).
+template <class S, class = void>
+struct HasGroupStore : std::false_type {};
+template <class S>
+struct HasGroupStore<S, std::void_t<decltype(&S::group)>> : std::true_type {};
+
 // Mixed samples g = first..last of a (B, L) chunk (0 ≤ first, last < B·L),
 // shared out over the CTA's threads: store(g, i, q) is called once for
-// every g, by some thread.  `in`, `plans`, `stride` as in mix_at.  With
-// `vec4` a thread takes four neighbouring samples from one 16-byte load
-// (two for float32 planes) on a 4-aligned g; the caller passes it only when
-// L % 4 == 0 and `in` is 16-byte aligned, so a group never leaves its block
-// or the chunk.  Otherwise one sample a step.  Either way the values are
-// bitwise mix_at's.
+// every g, by some thread (a store with a `group` member takes the groups
+// of four that lie whole inside, on the 16-byte path).  `in`, `plans`,
+// `stride` as in mix_at.  With `vec4` a thread takes four neighbouring
+// samples from one 16-byte load (two for float32 planes) on a 4-aligned g;
+// the caller passes it only when L % 4 == 0 and `in` is 16-byte aligned, so
+// a group never leaves its block or the chunk.  Otherwise one sample a step.
+// Either way the values are bitwise mix_at's.
 template <bool kInF32, bool kSelect = false, class Store>
 __device__ __forceinline__ void mix_span(long long first, long long last,
                                          const void* __restrict__ in,
@@ -281,8 +290,12 @@ __device__ __forceinline__ void mix_span(long long first, long long last,
             for (int i = 0; i < 4; ++i)
                 mix_q24<kSelect>(fi[i], fq[i], q24[i], oi[i], oq[i]);
             if (g >= first && g + 3 <= last) {      // all but the ragged ends
+                if constexpr (HasGroupStore<Store>::value) {
+                    store.group(g, oi, oq);
+                } else {
 #pragma unroll
-                for (int i = 0; i < 4; ++i) store(g + i, oi[i], oq[i]);
+                    for (int i = 0; i < 4; ++i) store(g + i, oi[i], oq[i]);
+                }
             } else {
 #pragma unroll
                 for (int i = 0; i < 4; ++i)

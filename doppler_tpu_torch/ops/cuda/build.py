@@ -139,6 +139,12 @@ def load() -> ctypes.CDLL:
     lib.doppler_chain.argtypes = [_vp, _vp, _vp, _vp, _vp, _vp, _i, _i, _i, _i,
                                   _i, _i, _i, _i, _i, _i, _i, _i,
                                   ctypes.c_longlong, _i, _i, _vp]
+    lib.doppler_chain_fast.restype = _i
+    # in, out, plans, bank_h, bank_l, carry_in, carry_out, C, B, L, P, Q, T,
+    # windows, threads, plane, g_off, x_off, smem, in_f32, out_f32, stream
+    lib.doppler_chain_fast.argtypes = [_vp, _vp, _vp, _vp, _vp, _vp, _vp, _i, _i,
+                                       _i, _i, _i, _i, _i, _i, _i, _i, _i,
+                                       ctypes.c_longlong, _i, _i, _vp]
     lib.doppler_cascade.restype = _i
     # in, out, plans, banks, carry_in, carry_out, layout, S, C, B, L, tile,
     # threads, smem, in_f32, out_f32, stream

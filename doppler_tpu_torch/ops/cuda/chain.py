@@ -10,6 +10,14 @@ channels over one shared chunk, each with its own plan words
 ``plans[:, c]`` and carry ``carries[c]``, in one launch; channel c's result
 is bitwise the stream call's.
 
+``dot_precision="split3"`` (``--precision fast``) is the other function of
+the same TPU kernel (``chain.py:191-221``, ``_acc_slices``): the FIR dot
+over bf16-exact halves, ``x_h·t_h + x_h·t_l + x_l·t_h`` (``ops.precision``).
+A CUDA tensor launches ``csrc/chain_fast.cu``, a bf16 tensor-core kernel,
+and counts it in ``.launches_fast``; a CPU tensor runs the plain version
+with ``window_dot(split3=True)``.  The carry is the mixed history either
+way, bitwise the exact path's.
+
 The carry is the flat ``(2, T−1)`` float32 history — the last T−1 mixed
 samples, exactly ``RationalResampler._hist_i/_hist_q`` — not the TPU's
 128-lane row layout.  Output m of block b has chunk-local index
@@ -32,10 +40,21 @@ from doppler_tpu_torch.ops.cuda.mixer import (
     mix_blocks_fmt_plain,
     stack_channels,
 )
+from doppler_tpu_torch.ops.precision import split3_bank
 from doppler_tpu_torch.ops.resample import window_dot
 
 __all__ = ["mix_resample_chain_stream", "mix_resample_chain_plain",
-           "mix_resample_chain_channels", "mix_resample_chain_channels_plain"]
+           "mix_resample_chain_channels", "mix_resample_chain_channels_plain",
+           "DOT_PRECISIONS", "bank_halves"]
+
+
+DOT_PRECISIONS = ("highest", "split3")
+
+
+def _check_precision(dot_precision: str) -> None:
+    if dot_precision not in DOT_PRECISIONS:
+        raise ValueError(f"dot_precision must be one of {DOT_PRECISIONS}, "
+                         f"got {dot_precision!r}")
 
 
 def _check_rest(data, bank, carry, carry_shape, L, P, Q, T):
@@ -64,17 +83,20 @@ def _check_channels(data, plans, bank, carries, intype, outtype, P, Q, T):
 
 
 def mix_resample_chain_plain(data, plans, bank, carry, *, P: int, Q: int,
-                             T: int, intype: str = "i16", outtype: str = "i16"):
+                             T: int, intype: str = "i16", outtype: str = "i16",
+                             dot_precision: str = "highest"):
     """Plain torch version: the mixer's plain version, then the
-    gather + fixed-tree dot of ``ops.resample.window_dot`` over the
-    ``[carry | mixed]`` buffer, then encode.  Returns ``(out, carry_out)``.
+    gather + fixed-tree dot of ``ops.resample.window_dot`` (``split3``: over
+    the bf16-exact halves) over the ``[carry | mixed]`` buffer, then encode.
+    Returns ``(out, carry_out)``.
     """
+    _check_precision(dot_precision)
     B, L = _check(data, plans, bank, carry, intype, outtype, P, Q, T)
     mixed = mix_blocks_fmt_plain(data, plans, intype=intype, outtype="f32")
     buf = torch.cat([carry, mixed.reshape(2, B * L)], dim=1)
     M = B * L // Q * P
     yi, yq = window_dot(buf[0], buf[1], bank.flip(-1), 0, 0,
-                        P=P, Q=Q, T=T, M=M)
+                        P=P, Q=Q, T=T, M=M, split3=dot_precision == "split3")
     carry_out = buf[:, buf.shape[1] - (T - 1):].clone()
     if outtype == "i16":
         return codec.iq_to_i16_words(yi, yq).reshape(B, M // B), carry_out
@@ -83,7 +105,8 @@ def mix_resample_chain_plain(data, plans, bank, carry, *, P: int, Q: int,
 
 def mix_resample_chain_channels_plain(data, plans, bank, carries, *, P: int,
                                       Q: int, T: int, intype: str = "i16",
-                                      outtype: str = "i16"):
+                                      outtype: str = "i16",
+                                      dot_precision: str = "highest"):
     """Plain torch version of the channel-batched chain: the stream plain
     version once per channel with ``plans[:, c]`` and ``carries[c]``,
     stacked.  Returns ``(out, carries_out)``."""
@@ -91,7 +114,8 @@ def mix_resample_chain_channels_plain(data, plans, bank, carries, *, P: int,
                               P, Q, T)
     outs, tails = zip(*(
         mix_resample_chain_plain(data, plans[:, c], bank, carries[c], P=P,
-                                 Q=Q, T=T, intype=intype, outtype=outtype)
+                                 Q=Q, T=T, intype=intype, outtype=outtype,
+                                 dot_precision=dot_precision)
         for c in range(C)))
     return stack_channels(outs, outtype), torch.stack(tails)
 
@@ -114,6 +138,15 @@ def plan_launch(dev: torch.device, P: int, Q: int, T: int,
     return lay
 
 
+def _outputs(dev, C, B, L, P, Q, T, outtype):
+    M = L // Q * P
+    if outtype == "i16":
+        out = torch.empty((C, B, M), dtype=torch.int32, device=dev)
+    else:
+        out = torch.empty((2, C, B, M), dtype=torch.float32, device=dev)
+    return out, torch.empty((C, 2, T - 1), dtype=torch.float32, device=dev)
+
+
 def _launch(data, plans, bank, carries, C, B, L, P, Q, T, intype, outtype,
             geom=None):
     """Launch the kernel over ``(7, C, B)`` plan words and ``(C, 2, T−1)``
@@ -122,12 +155,7 @@ def _launch(data, plans, bank, carries, C, B, L, P, Q, T, intype, outtype,
     dev = data.device
     data, plans = data.contiguous(), plans.contiguous()
     bank, carries = bank.contiguous(), carries.contiguous()
-    M = L // Q * P
-    if outtype == "i16":
-        out = torch.empty((C, B, M), dtype=torch.int32, device=dev)
-    else:
-        out = torch.empty((2, C, B, M), dtype=torch.float32, device=dev)
-    carries_out = torch.empty((C, 2, T - 1), dtype=torch.float32, device=dev)
+    out, carries_out = _outputs(dev, C, B, L, P, Q, T, outtype)
     lay = plan_launch(dev, P, Q, T, geom)
     _, _, _, R, stride, tap_off, buf_off = lay.rows[0]
     rc = build.load().doppler_chain(
@@ -140,34 +168,101 @@ def _launch(data, plans, bank, carries, C, B, L, P, Q, T, intype, outtype,
     return out, carries_out
 
 
+_HALVES: dict = {}
+
+
+def bank_halves(bank):
+    """The bank's bf16 halves ``t_h, t_l`` (:func:`split3_bank`) as bf16
+    tensors on its device, computed once per bank: the entry holds the bank,
+    so its storage is not reused while cached, and an in-place change of the
+    bank (its version) computes them anew."""
+    key = (bank.data_ptr(), bank._version, bank.device)
+    hit = _HALVES.get(key)
+    if hit is None or hit[0] is not bank:
+        if len(_HALVES) >= 16:
+            _HALVES.clear()
+        t_h, t_l = split3_bank(bank)
+        hit = _HALVES[key] = (bank, t_h.to(torch.bfloat16).contiguous(),
+                              t_l.to(torch.bfloat16).contiguous())
+    return hit[1], hit[2]
+
+
+def plan_launch_fast(dev: torch.device, P: int, Q: int, T: int,
+                     geom=None) -> geometry.FastLayout:
+    """The fast kernel's windows a CTA, threads and shared-memory layout:
+    :func:`geometry.pick_chain_fast` for the card, or ``geom`` =
+    ``(windows, threads)`` as given (the card tests walk several)."""
+    limit = build.shared_memory_limit(dev.index)
+    if geom is None:
+        return geometry.pick_chain_fast(P, Q, T, limit)
+    lay = geometry.fast_layout(P, Q, T, *geom)
+    if lay.smem_bytes > limit:
+        raise ValueError(
+            f"fast chain geometry P={P} Q={Q} T={T} with {geom[0]} windows "
+            f"needs {lay.smem_bytes} bytes of shared memory per CTA; the card "
+            f"allows {limit}")
+    return lay
+
+
+def _launch_fast(data, plans, bank, carries, C, B, L, P, Q, T, intype,
+                 outtype, geom=None):
+    """:func:`_launch` for ``csrc/chain_fast.cu``; ``geom`` as in
+    :func:`plan_launch_fast`.  Raises where Q is not a power of two (the
+    chain route's gate admits only Q | 128)."""
+    dev = data.device
+    lay = plan_launch_fast(dev, P, Q, T, geom)
+    data, plans, carries = data.contiguous(), plans.contiguous(), carries.contiguous()
+    t_h, t_l = bank_halves(bank)
+    out, carries_out = _outputs(dev, C, B, L, P, Q, T, outtype)
+    rc = build.load().doppler_chain_fast(
+        data.data_ptr(), out.data_ptr(), plans.data_ptr(), t_h.data_ptr(),
+        t_l.data_ptr(), carries.data_ptr(), carries_out.data_ptr(), C, B, L,
+        P, Q, T, lay.windows, lay.threads, lay.plane, lay.g_off, lay.x_off,
+        lay.smem_bytes, int(intype == "f32"), int(outtype == "f32"),
+        torch.cuda.current_stream(dev).cuda_stream)
+    build.check(rc, "fast chain")
+    return out, carries_out
+
+
 def mix_resample_chain_stream(data, plans, bank, carry, *, P: int, Q: int,
-                              T: int, intype: str = "i16", outtype: str = "i16"):
+                              T: int, intype: str = "i16", outtype: str = "i16",
+                              dot_precision: str = "highest"):
     """Streaming fused chain, all four wire formats.
 
     ``data``: int32 words ``(B, L)`` or float32 planes ``(2, B, L)``;
     ``plans``: ``(7, B)`` plan words; ``bank``: the ``(P, T)`` polyphase
     bank; ``carry``: ``(2, T−1)`` float32.  Returns ``(out, carry_out)``
     with ``out`` int32 ``(B, L·P/Q)`` or float32 ``(2, B, L·P/Q)``.
+    ``dot_precision``: ``"highest"`` (float32 dots) or ``"split3"`` (the
+    fast kernel, see the module docstring).
 
     A CPU tensor runs the plain version; a CUDA tensor launches the kernel
     (one channel) or raises.
     """
+    _check_precision(dot_precision)
     if data.device.type == "cpu":
         return mix_resample_chain_plain(data, plans, bank, carry, P=P, Q=Q,
-                                        T=T, intype=intype, outtype=outtype)
+                                        T=T, intype=intype, outtype=outtype,
+                                        dot_precision=dot_precision)
     if data.device.type != "cuda":
         raise ValueError(f"no chain kernel for device {data.device}")
     B, L = _check(data, plans, bank, carry, intype, outtype, P, Q, T)
-    out, carry_out = _launch(data, plans, bank, carry, 1, B, L, P, Q, T,
-                             intype, outtype)
-    mix_resample_chain_stream.launches += 1
+    if dot_precision == "split3":
+        out, carry_out = _launch_fast(data, plans, bank, carry[None], 1, B, L,
+                                      P, Q, T, intype, outtype)
+        mix_resample_chain_stream.launches_fast += 1
+    else:
+        out, carry_out = _launch(data, plans, bank, carry, 1, B, L, P, Q, T,
+                                 intype, outtype)
+        mix_resample_chain_stream.launches += 1
     M = L // Q * P
     return out.reshape((B, M) if outtype == "i16" else (2, B, M)), carry_out[0]
 
 
 def mix_resample_chain_channels(data, plans, bank, carries, *, P: int, Q: int,
                                 T: int, intype: str = "i16",
-                                outtype: str = "i16"):
+                                outtype: str = "i16",
+                                dot_precision: str = "highest"):
     """Channel-batched streaming chain: one launch for all channels.
 
     ``data``: the shared chunk, int32 words ``(B, L)`` or float32 planes
@@ -179,21 +274,30 @@ def mix_resample_chain_channels(data, plans, bank, carries, *, P: int, Q: int,
     ``carries[c]``.
 
     A CPU tensor runs the plain version; a CUDA tensor launches the kernel
-    or raises.
+    of ``dot_precision`` or raises.
     """
+    _check_precision(dot_precision)
     if data.device.type == "cpu":
         return mix_resample_chain_channels_plain(
             data, plans, bank, carries, P=P, Q=Q, T=T, intype=intype,
-            outtype=outtype)
+            outtype=outtype, dot_precision=dot_precision)
     if data.device.type != "cuda":
         raise ValueError(f"no chain kernel for device {data.device}")
     C, B, L = _check_channels(data, plans, bank, carries, intype, outtype,
                               P, Q, T)
-    out, carries_out = _launch(data, plans, bank, carries, C, B, L, P, Q, T,
-                               intype, outtype)
-    mix_resample_chain_channels.launches += 1
+    if dot_precision == "split3":
+        out, carries_out = _launch_fast(data, plans, bank, carries, C, B, L,
+                                        P, Q, T, intype, outtype)
+        mix_resample_chain_channels.launches_fast += 1
+    else:
+        out, carries_out = _launch(data, plans, bank, carries, C, B, L, P, Q,
+                                   T, intype, outtype)
+        mix_resample_chain_channels.launches += 1
     return out, carries_out
 
 
-mix_resample_chain_stream.launches = 0   # kernel launches (CUDA path only)
+# kernel launches (CUDA path only): csrc/chain.cu, csrc/chain_fast.cu
+mix_resample_chain_stream.launches = 0
+mix_resample_chain_stream.launches_fast = 0
 mix_resample_chain_channels.launches = 0
+mix_resample_chain_channels.launches_fast = 0

@@ -1,4 +1,5 @@
-"""Launch geometry of the chain and cascade kernels, in Python.
+"""Launch geometry of the chain and cascade kernels, in Python (and, at the
+end, of the chain kernel of ``--precision fast``, ``csrc/chain_fast.cu``).
 
 The kernels (``csrc/chain.cu``, ``csrc/cascade.cu``, ``csrc/fir.cuh``) take
 their tile, their thread count, each stage's register tile ``R`` and the
@@ -20,7 +21,8 @@ import functools
 
 __all__ = ["SLACK", "MAX_THREADS", "r_choices", "tap_stride", "span_words",
            "span_back", "Layout", "layout", "cta_units", "cta_spans",
-           "ctas_per_sm", "pick_cascade", "pick_chain"]
+           "ctas_per_sm", "pick_cascade", "pick_chain", "FastLayout",
+           "fast_layout", "pick_chain_fast"]
 
 SLACK = 3             # csrc/fir.cuh kSlack
 MAX_THREADS = 512     # the kernels' __launch_bounds__
@@ -217,3 +219,78 @@ def pick_cascade(stages, limit: int) -> Layout:
 def pick_chain(P: int, Q: int, T: int, limit: int) -> Layout:
     """:func:`pick_cascade` for the one-stage chain."""
     return pick_cascade(((P, Q, T),), limit)
+
+
+# -- the kernel of --precision fast (csrc/chain_fast.cu) ----------------------
+
+FAST_WINDOWS = (128, 96, 64, 48, 32, 16)
+FAST_MAX_THREADS = 256      # csrc/chain_fast.cu's __launch_bounds__(256, 3)
+
+
+@dataclasses.dataclass(frozen=True)
+class FastLayout:
+    """One launch of ``csrc/chain_fast.cu``: ``windows`` a CTA (a multiple of
+    16), ``threads``, its k-steps ``ks`` and N-tiles ``nt``, the bf16 entries
+    of each of its four span planes, and the word offsets of the B fragments
+    and of the planes in its ``smem_bytes`` of shared memory."""
+    windows: int
+    threads: int
+    ks: int
+    nt: int
+    plane: int
+    g_off: int
+    x_off: int
+    smem_bytes: int
+
+
+def fast_pad(Q: int) -> int:
+    """bf16 entries after every Q entries of a plane: 8 (four words) where
+    Q ≥ 16, so that the row stride is 4 mod 8 words and the 8 rows of a
+    fragment load meet 8 different 16-byte bank groups; else none."""
+    return 8 if Q >= 16 else 0
+
+
+def fast_lead(T: int) -> int:
+    """Band columns below the taps, ``(1 − T) mod 4``: they put span entry 0
+    at an input index that is a multiple of 4, so the mix stores its groups
+    of four as one 8-byte store a plane."""
+    return (1 - T) % 4
+
+
+def fast_layout(P: int, Q: int, T: int, windows: int, threads: int) -> FastLayout:
+    """Shared-memory layout of a CTA of ``windows`` windows: the B fragments
+    (``ks·nt·32`` lanes of 16 bytes) first, then the planes I_h, I_l, Q_h,
+    Q_l, each holding ``Q·(windows−1) + 16·ks`` span entries with their pads."""
+    if Q & (Q - 1) or Q < 1:
+        raise ValueError(f"the fast chain kernel needs Q a power of two (Q={Q})")
+    if windows < 16 or windows % 16:
+        raise ValueError(f"windows {windows} must be a positive multiple of 16")
+    if threads % 32 or not 32 <= threads <= FAST_MAX_THREADS:
+        raise ValueError(f"threads {threads} must be a multiple of 32 up to "
+                         f"{FAST_MAX_THREADS}")
+    ks = -(-(T + fast_lead(T) + (P - 1) * Q // P) // 16)
+    nt = -(-P // 8)
+    last = Q * (windows - 1) + 16 * ks - 1
+    plane = -(-(last + fast_pad(Q) * (last // Q) + 1) // 8) * 8
+    g_words = 128 * ks * nt
+    return FastLayout(windows, threads, ks, nt, plane, 0, g_words,
+                      4 * (g_words + 2 * plane))
+
+
+def pick_chain_fast(P: int, Q: int, T: int, limit: int) -> FastLayout:
+    """One warp for every 16 windows, and the most windows that leave three
+    CTAs on an SM (the exact chain's rule, :func:`pick_cascade`); where none
+    does, the most that fit."""
+    fallback = None
+    for windows in FAST_WINDOWS:
+        threads = min(FAST_MAX_THREADS, 2 * windows)
+        lay = fast_layout(P, Q, T, windows, threads)
+        if lay.smem_bytes > limit:
+            continue
+        if ctas_per_sm(lay.smem_bytes, threads) >= 3:
+            return lay
+        fallback = fallback or lay
+    if fallback is None:
+        raise ValueError(f"the fast chain at P/Q/T = {P}/{Q}/{T} needs more "
+                         f"than {limit} bytes of shared memory a CTA")
+    return fallback

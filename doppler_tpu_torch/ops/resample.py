@@ -24,6 +24,7 @@ import numpy as np
 import torch
 
 from doppler_tpu_torch.ops.filters import design_polyphase_bank
+from doppler_tpu_torch.ops.precision import split3_bank, split_bf16_exact
 
 __all__ = ["RationalResampler", "window_dot", "tree_sum_last", "attach_resampler"]
 
@@ -51,7 +52,7 @@ def tree_sum_last(x: torch.Tensor) -> torch.Tensor:
 
 
 def window_dot(xi, xq, bank_rev, rem0: int, off0: int, *, P: int, Q: int,
-               T: int, M: int):
+               T: int, M: int, split3: bool = False):
     """Resample M outputs from a padded input window.
 
     ``xi, xq``   : ``(H + N,)`` planar input — or ``(C, H + N)``, one row
@@ -68,6 +69,11 @@ def window_dot(xi, xq, bank_rev, rem0: int, off0: int, *, P: int, Q: int,
     Returns ``(M,)`` — or ``(C, M)`` — planes; row c of a batched call is
     bitwise the unbatched call on row c (the same products into the same
     tree).
+
+    ``split3``: the ``--precision fast`` function (``ops.precision``): the
+    inputs and the taps split into bf16-exact halves, each tap's term
+    ``x_h·t_h + x_h·t_l + x_l·t_h`` (three exact products, two float32
+    adds in that order) into the same tree.
     """
     dev = xi.device
     last = xi.shape[-1] - 1
@@ -76,15 +82,26 @@ def window_dot(xi, xq, bank_rev, rem0: int, off0: int, *, P: int, Q: int,
     taps_k = torch.arange(T, dtype=torch.int64, device=dev)
     yi = torch.empty(lead + (M,), dtype=torch.float32, device=dev)
     yq = torch.empty(lead + (M,), dtype=torch.float32, device=dev)
+    if split3:
+        rev_h, rev_l = split3_bank(bank_rev)
+        planes = (split_bf16_exact(xi), split_bf16_exact(xq))
     for m_lo in range(0, M, slab):
         j = torch.arange(m_lo, min(M, m_lo + slab), dtype=torch.int64,
                          device=dev)
         u = j * Q + rem0                        # upsampled offsets
         base = off0 + u // P                    # window start per output
         idx = (base[:, None] + taps_k[None, :]).clamp_(0, last)
+        out = slice(m_lo, m_lo + j.numel())
+        if split3:
+            t_h, t_l = rev_h[u % P], rev_l[u % P]
+            for y, (x_h, x_l) in zip((yi, yq), planes):
+                g_h = x_h[..., idx]
+                y[..., out] = tree_sum_last(g_h * t_h + g_h * t_l
+                                            + x_l[..., idx] * t_h)
+            continue
         taps = bank_rev[u % P]                  # (m, T)
-        yi[..., m_lo:m_lo + j.numel()] = tree_sum_last(xi[..., idx] * taps)
-        yq[..., m_lo:m_lo + j.numel()] = tree_sum_last(xq[..., idx] * taps)
+        yi[..., out] = tree_sum_last(xi[..., idx] * taps)
+        yq[..., out] = tree_sum_last(xq[..., idx] * taps)
     return yi, yq
 
 

@@ -16,7 +16,8 @@ Routes, per chunk, decided as the JAX package decides them so both send the
 same chunks the same way:
 
 - every channel at one output rate, a single-stage resampler, a full chunk →
-  the channel-batched chain kernel (``ops.cuda.chain``);
+  the channel-batched chain kernel (``ops.cuda.chain``; its ``split3``
+  kernel under ``precision='fast'``);
 - one rate, a ``MultiStageResampler``, a full chunk → the channel-batched
   cascade kernel (``ops.cuda.cascade``) over its leading ``split_point``
   stages; when that is not all of them the front's float32 planes run the
@@ -91,6 +92,10 @@ class MultiChannelPipeline:
     and also every gap in which the stream waits for the host to enqueue the
     next piece of the chunk's work, so it is an upper bound of the time the
     device was busy, not that time.
+
+    ``precision``: ``'exact'`` or ``'fast'``, as in the JAX package: 'fast'
+    runs only the channel-batched chain's dot as ``split3``; the cascade and
+    the unfused route stay exact.
     """
 
     def __init__(
@@ -107,10 +112,15 @@ class MultiChannelPipeline:
         reset_quirk: bool = True,
         drain_on_eof: bool = False,
         resample_stages: str = "single",
+        precision: str = "exact",
         device="cuda",
     ):
         if not channels:
             raise ValueError("need at least one channel")
+        if precision not in ("exact", "fast"):
+            raise ValueError(
+                f"precision must be 'exact' or 'fast', got {precision!r}")
+        self._chain_dot = "split3" if precision == "fast" else "highest"
         self.device = resolve_device(device)
         self.drain_on_eof = drain_on_eof
         self._drained = False   # did THIS run flush the FIR tails? (checkpoint)
@@ -298,7 +308,7 @@ class MultiChannelPipeline:
             out, self._chain_carries = chain.mix_resample_chain_channels(
                 data, plans, self._chain_bank, self._chain_carries,
                 P=rs.P, Q=rs.Q, T=rs.T, intype=self.intype,
-                outtype=self.outtype)
+                outtype=self.outtype, dot_precision=self._chain_dot)
             n_out = self._advance([rs], [self._chain_carries], total)
             return [(everyone, out, n_out)]
 

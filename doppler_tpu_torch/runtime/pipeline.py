@@ -5,7 +5,9 @@ O(blocks) work — framing, schedule evaluation, plan words, staging — and
 the device runs one kernel per *chunk* of ``chunk_blocks`` reference blocks:
 
 - a full chunk with a single-stage resampler → the fused chain kernel
-  (``ops.cuda.chain``), carrying the FIR history from chunk to chunk;
+  (``ops.cuda.chain``), carrying the FIR history from chunk to chunk; under
+  ``precision='fast'`` its ``split3`` kernel (bf16 tensor-core dots, ≤ 1 LSB
+  of the exact one);
 - a full chunk with a ``MultiStageResampler`` → the fused cascade kernel
   (``ops.cuda.cascade``) over its leading ``split_point`` stages: all of
   them (mix + every stage + encode), or the ÷2^k front when the final
@@ -120,6 +122,11 @@ class Pipeline:
     IQ dtypes, and a :class:`Scheduler` supplying per-block shifts.
     ``block_bytes`` defaults to the reference's 8192 so track-mode schedules
     match the reference; ``chunk_blocks`` blocks form one device dispatch.
+    ``precision``: ``'exact'`` or ``'fast'``, as in the JAX package: 'fast'
+    runs the fused single-stage chain's dot as ``split3``
+    (``ops.cuda.chain``); the cascade, the mixer + resampler route of the
+    EOF chunk and the drain stay exact, so with a cascade 'fast' gives the
+    exact bytes.
 
     ``host_s`` accumulates the host's planning and staging seconds.
     ``device_s`` accumulates each finalized chunk's span between two CUDA
@@ -141,10 +148,15 @@ class Pipeline:
         chunk_blocks: int = 256,
         quantize_ratio_f32: bool = True,
         drain_on_eof: bool = False,
+        precision: str = "exact",
         device="cuda",
     ):
         if samplerate <= 0:
             raise ValueError("samplerate must be positive")
+        if precision not in ("exact", "fast"):
+            raise ValueError(
+                f"precision must be 'exact' or 'fast', got {precision!r}")
+        self._chain_dot = "split3" if precision == "fast" else "highest"
         self.device = resolve_device(device)
         self.samplerate = int(samplerate)
         self.intype = intype
@@ -371,7 +383,7 @@ class Pipeline:
             out, self._chain_carry = chain.mix_resample_chain_stream(
                 data, plans, self._chain_bank, self._chain_carry,
                 P=rs.P, Q=rs.Q, T=rs.T, intype=self.intype,
-                outtype=self.outtype,
+                outtype=self.outtype, dot_precision=self._chain_dot,
             )
             return out, self._advance_chain_state(total, self._chain_carry)
 

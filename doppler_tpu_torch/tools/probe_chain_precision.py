@@ -4,16 +4,18 @@ the config-3 bench shape (one process, best of N rounds).
 Counterpart of ``tools/probe_chain_precision.py``.  Variants:
 
   hi          the fused chain kernel: float32 FMA dots, the exact path
+  split3      the kernel of ``--precision fast`` (``csrc/chain_fast.cu``):
+              the same function as three exact bf16 products a tap on the
+              tensor cores (the JAX tool's ``split3-*``)
   mix-select  the chain-shaped mix + encode probe with the select-chain
               quadrant fold (``ops.sincos.sincos_q24_neg_select``)
   mix-fold    the same with the product tone's XOR sign fold; the two write
               the same words
 
-Waiting for ``--precision fast`` (the ``split3`` branch of the chain kernel),
-and listed here so that they are not forgotten: the JAX tool's ``def`` and
-``split3-*`` variants.  Its ``phase_impl`` axis (``flat`` / ``outer``) has no
-counterpart: the port's phase is one 64-bit multiply-add a sample and needs
-no strength reduction.
+Not ported: the JAX tool's ``def`` variant (one bf16 pass, ``DEFAULT`` dot
+precision; ROADMAP queue 1).  Its ``phase_impl`` axis (``flat`` / ``outer``)
+has no counterpart: the port's phase is one 64-bit multiply-add a sample and
+needs no strength reduction.
 
 Data, plan and timing as ``tools/roofline.py``.  One stderr line a round and
 variant, then one JSON line ``{variant: {gsps, ms}}`` on stdout (``ms`` for
@@ -34,7 +36,7 @@ from doppler_tpu_torch.ops.cuda import chain, probes
 from doppler_tpu_torch.ops.resample import RationalResampler
 from doppler_tpu_torch.tools import common
 
-VARIANTS = ("hi", "mix-select", "mix-fold")
+VARIANTS = ("hi", "split3", "mix-select", "mix-fold")
 
 
 def main(argv=None) -> int:
@@ -57,6 +59,8 @@ def main(argv=None) -> int:
     makers = {
         "hi": lambda: chain.mix_resample_chain_stream(
             words, plans, bank, carry, P=P, Q=Q, T=T),
+        "split3": lambda: chain.mix_resample_chain_stream(
+            words, plans, bank, carry, P=P, Q=Q, T=T, dot_precision="split3"),
         "mix-select": lambda: probes.mix_shape_run(words, plans, P=P, Q=Q,
                                                    tone="select"),
         "mix-fold": lambda: probes.mix_shape_run(words, plans, P=P, Q=Q,

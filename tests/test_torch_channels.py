@@ -474,8 +474,7 @@ def test_cli_bad_config_is_rc_1(tmp_path, body):
 def test_cli_channels_rejects_unported_flags(tmp_path):
     (tmp_path / "c.json").write_text('{"channels": [{"name": "x", "shift": 1}]}')
     for extra in (["--mesh", "channel=2"], ["--host-channels", "2"],
-                  ["--impl", "pallas"], ["--precision", "fast"],
-                  ["--prefetch-chunks", "2"],
+                  ["--impl", "pallas"], ["--prefetch-chunks", "2"],
                   ["--distributed", "coordinator=h:1,num_processes=2,process_id=0"]):
         assert cli.main(["channels", "-s", str(FS), "-i", "i16", "--config",
                          str(tmp_path / "c.json"), "--device", "cpu"] + extra,

@@ -540,6 +540,7 @@ def test_tools_run_on_the_card_through_the_kernels(card, capsys):
            probes.mix_shape_run, mix_blocks_fmt, mix_resample_chain_stream,
            mix_cascade_stream)
     before = [f.launches for f in fns]
+    fast_before = mix_resample_chain_stream.launches_fast
     small = ["--samples", str(1 << 20), "--dispatches", "4", "--iters", "2"]
     names = roofline.MIXER_SHAPED + roofline.CHAIN_SHAPED
     assert roofline.main(small + ["--variants", ",".join(names)]) == 0
@@ -549,6 +550,7 @@ def test_tools_run_on_the_card_through_the_kernels(card, capsys):
     res = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert list(res) == list(probe_chain_precision.VARIANTS)
     assert all(f.launches > n for f, n in zip(fns, before))
+    assert mix_resample_chain_stream.launches_fast > fast_before
 
 
 # -- the bytes of the chain and cascade kernels -------------------------------
@@ -710,3 +712,160 @@ def test_chain_indices_beyond_32_bits(card):
     torch.cuda.synchronize()
     assert B * L * P > 1 << 32
     assert torch.equal(whole[B - tail:], part) and torch.equal(c_whole, c_part)
+
+
+# -- the kernel of --precision fast (csrc/chain_fast.cu) ----------------------
+#
+# Tolerances: a tensor core does not add as IEEE float32 does, so the fast
+# kernel is held to its plain version (the split3 function summed as a fixed
+# tree) within 1 LSB in under 1% of i16 samples and 1e-5 of the largest
+# float32 output, and to the exact kernel within the JAX tests' bounds of
+# split3 (≤ 1 LSB and ≥ 80 dB; float32 3e-5).  Against itself it is bitwise:
+# across launch geometries, chunk cuts and channels.  Its carry is the exact
+# kernel's, bitwise.
+
+FAST_GEOMS = [(16, 32), (64, 128), (96, 192), (128, 256), (48, 64)]
+
+
+def _close_fast(got, want, outtype):
+    if outtype == "i16":
+        d = _lsb(got, want)
+        assert int(d.max()) <= 1 and float((d > 0).float().mean()) < 0.01
+    else:
+        err = float((got - want).abs().max())
+        assert err <= 1e-5 * float(want.abs().max()), err
+
+
+def _snr_vs_exact(fast, exact, outtype):
+    if outtype == "i16":
+        g = fast.view(torch.int16).double() / 32768
+        w = exact.view(torch.int16).double() / 32768
+        assert float((g - w).abs().max()) <= 1 / 32768
+        err = float(((g - w) ** 2).mean())
+        assert 10 * np.log10(float((w ** 2).mean()) / max(err, 1e-30)) > 80.0
+    else:
+        assert float((fast - exact).abs().max()) < 3e-5 * float(exact.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("intype,outtype", FORMATS)
+def test_fast_chain_kernel_vs_plain_and_exact(card, intype, outtype):
+    rng, state = np.random.default_rng(80), NCOState()
+    bank = torch.from_numpy(BANK).to(card)
+    kw = dict(P=P, Q=Q, T=T, intype=intype, outtype=outtype)
+    carry = torch.zeros(2, T - 1, device=card)
+    for _ in range(2):                 # the second chunk starts from a carry
+        data, plan = _chunk(32, 2048, intype, rng, state)
+        x = torch.from_numpy(data).to(card)
+        p = nco.plan_tensor(plan, device=card)
+        fast0, exact0 = (mix_resample_chain_stream.launches_fast,
+                         mix_resample_chain_stream.launches)
+        got, c_got = mix_resample_chain_stream(x, p, bank, carry,
+                                               dot_precision="split3", **kw)
+        torch.cuda.synchronize()
+        assert mix_resample_chain_stream.launches_fast == fast0 + 1
+        assert mix_resample_chain_stream.launches == exact0
+        want, c_want = mix_resample_chain_plain(x, p, bank, carry,
+                                                dot_precision="split3", **kw)
+        exact, c_exact = mix_resample_chain_stream(x, p, bank, carry, **kw)
+        torch.cuda.synchronize()
+        _close_fast(got, want, outtype)
+        _snr_vs_exact(got, exact, outtype)
+        assert torch.equal(c_got, c_exact) and torch.equal(c_got, c_want)
+        carry = c_got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("intype,outtype", FORMATS)
+def test_fast_channel_chain_kernel(card, intype, outtype):
+    """C = 16 against plain; carries bitwise the exact kernel's; channel c
+    bitwise the one-channel launch."""
+    C16 = 16
+    rng = np.random.default_rng(81)
+    data, _ = _chunk(32, 2048, intype, rng, NCOState())
+    plans = torch.stack([
+        nco.plan_tensor(plan_blocks(
+            [327843.76 - 9000.0 * c] * 16 + [-15000.0 + 777.0 * c] * 16,
+            [2048] * 32, FS, NCOState(samplenum=c), 2048))
+        for c in range(C16)], dim=1)
+    x, p = torch.from_numpy(data).to(card), plans.to(card)
+    bank = torch.from_numpy(BANK).to(card)
+    carries = torch.from_numpy(
+        (rng.standard_normal((C16, 2, T - 1)) * 0.3).astype(np.float32)).to(card)
+    kw = dict(P=P, Q=Q, T=T, intype=intype, outtype=outtype)
+    fast0 = mix_resample_chain_channels.launches_fast
+    got, c_got = mix_resample_chain_channels(x, p, bank, carries,
+                                             dot_precision="split3", **kw)
+    torch.cuda.synchronize()
+    assert mix_resample_chain_channels.launches_fast == fast0 + 1
+    want, c_want = mix_resample_chain_channels_plain(x, p, bank, carries,
+                                                     dot_precision="split3", **kw)
+    _, c_exact = mix_resample_chain_channels(x, p, bank, carries, **kw)
+    torch.cuda.synchronize()
+    _close_fast(got, want, outtype)
+    assert torch.equal(c_got, c_exact) and torch.equal(c_got, c_want)
+    for c in (0, 7, C16 - 1):
+        one, c_one = mix_resample_chain_stream(
+            x, p[:, c].contiguous(), bank, carries[c].contiguous(),
+            dot_precision="split3", **kw)
+        assert torch.equal(_channel(got, c, outtype), one)
+        assert torch.equal(c_got[c], c_one)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fmt", ["i16", "f32"])
+def test_fast_chain_bytes_do_not_depend_on_geometry_or_chunk_cut(card, fmt):
+    """Every (windows, threads) of FAST_GEOMS through ``_launch_fast``'s
+    ``geom``, and 256 blocks against 4 × 64, from a non-zero carry."""
+    C3, B = 3, 256
+    ((P_, Q_, T_),), (bank,), data, plans, (carry,) = _digest_case(
+        "chain", card, B, fmt, C=C3)
+    args = (data, plans, bank, carry, C3, B, 2048, P_, Q_, T_, fmt, fmt)
+    want = chain_mod._launch_fast(*args)
+    for geom in FAST_GEOMS:
+        got = chain_mod._launch_fast(*args, geom=geom)
+        torch.cuda.synchronize()
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), geom
+    kw = dict(P=P_, Q=Q_, T=T_, intype=fmt, outtype=fmt, dot_precision="split3")
+    blocks = (lambda b: data[b:b + 64]) if fmt == "i16" else (lambda b: data[:, b:b + 64])
+    whole, c_whole = mix_resample_chain_stream(data, plans[:, 0].contiguous(),
+                                               bank, carry[0], **kw)
+    c, parts = carry[0], []
+    for b in range(0, B, 64):
+        o, c = mix_resample_chain_stream(blocks(b).contiguous(),
+                                         plans[:, 0, b:b + 64].contiguous(),
+                                         bank, c, **kw)
+        parts.append(o)
+    torch.cuda.synchronize()
+    assert torch.equal(torch.cat(parts, dim=-2), whole) and torch.equal(c, c_whole)
+    assert torch.equal(_channel(want[0], 0, fmt).reshape(whole.shape), whole)
+
+
+@pytest.mark.cuda
+def test_fast_pipeline_on_card(card):
+    """``Pipeline(precision='fast')`` on the card: its full chunks launch
+    the fast kernel and no exact chain kernel, ≤ 1 LSB of the CPU run; with
+    the cascade, 'fast' is the exact run's bytes."""
+    rng = np.random.default_rng(83)
+    data = rng.integers(-9000, 9000, size=2 * (2048 * 40 + 700),
+                        dtype=np.int16).tobytes()
+
+    def run(device, precision, stages="single"):
+        pipe = Pipeline(FS, "i16", "i16", ConstScheduler(-15000.0),
+                        chunk_blocks=16, precision=precision, device=device)
+        attach_resampler(pipe, 48000, stages=stages)
+        out = io.BytesIO()
+        pipe.run(io.BytesIO(data), out)
+        return out.getvalue()
+
+    fast0, exact0 = (mix_resample_chain_stream.launches_fast,
+                     mix_resample_chain_stream.launches)
+    gpu = run("cuda", "fast")
+    assert mix_resample_chain_stream.launches_fast - fast0 == (2048 * 40 + 700) // (16 * 2048)
+    assert mix_resample_chain_stream.launches == exact0
+    cpu = run("cpu", "fast")
+    assert len(gpu) == len(cpu) > 0
+    d = _lsb(torch.frombuffer(bytearray(gpu), dtype=torch.int32),
+             torch.frombuffer(bytearray(cpu), dtype=torch.int32))
+    assert int(d.max()) <= 1 and float((d > 0).float().mean()) < 0.01
+    assert run("cuda", "fast", "auto") == run("cuda", "exact", "auto")

@@ -15,6 +15,14 @@ What runs here without a card:
   reference for every tile, thread count and register tile tried, and within
   the card tests' tolerance of the plain torch versions (≤ 1 LSB in under 1%
   of i16 samples, 2^-20 on float32).  Skipped where there is no ``g++``.
+- the kernel of ``--precision fast`` (``csrc/chain_fast.cu``) the same way,
+  a warp's 32 lanes at once where it calls ``mma.sync`` (the host stand-in
+  computes the 16×8×16 product from the lanes' fragments in the PTX
+  layout): the same bytes for every CTA size and thread count, carries
+  bitwise the exact kernel's, and within 1 LSB in under 1% of i16 samples,
+  1e-5 of the largest float32 output, of the split3 plain version, at
+  config 3's stage and at stages that take two N-tiles, no plane pad, or
+  Q = 1 (16-bit fragment loads).
 """
 
 import ctypes
@@ -31,6 +39,7 @@ from doppler_tpu.ops.pallas import mixer as jax_mixer
 from doppler_tpu_torch.ops import nco
 from doppler_tpu_torch.ops.cuda import cascade, chain, geometry
 from doppler_tpu_torch.ops.multistage import MultiStageResampler
+from doppler_tpu_torch.ops.precision import split3_bank
 from doppler_tpu_torch.ops.resample import RationalResampler
 
 torch.set_num_threads(1)   # leave the other test workers their cores
@@ -400,3 +409,84 @@ def test_emulated_kernel_short_chunk_takes_carries_through(emu):
     want = _reference(emu, case, stages, C, B, L, "f32", "f32")
     lay = geometry.layout(stages, 16, 32, (2, 1))
     assert _same(_emulate_cascade(emu, case, stages, C, B, L, "f32", "f32", lay), want)
+
+
+# -- (e) the kernel of --precision fast ---------------------------------------
+
+FAST_STAGES = {
+    "config3": ((3, 64, 370), 5, 2048),
+    "short chunk": ((3, 64, 370), 1, 128),
+    "two N-tiles": ((11, 32, 45), 3, 512),
+    "Q = 8, no pad": ((5, 8, 30), 3, 256),
+    "Q = 1": ((2, 1, 23), 2, 96),
+}
+FAST_GEOMS = [(96, 192), (16, 32), (64, 96), (48, 128)]
+
+
+@pytest.mark.parametrize("stage", [v[0] for v in FAST_STAGES.values()],
+                         ids=list(FAST_STAGES))
+def test_fast_layout_fits_and_holds_every_fragment(stage):
+    P, Q, T = stage
+    lay = geometry.pick_chain_fast(P, Q, T, H100_SMEM)
+    assert lay.smem_bytes <= H100_SMEM and lay.threads == min(256, 2 * lay.windows)
+    for windows, threads in FAST_GEOMS + [(lay.windows, lay.threads)]:
+        lay = geometry.fast_layout(P, Q, T, windows, threads)
+        # every tap of every phase lies in the k-steps; the last entry a
+        # fragment reads lies in its plane; fragments and planes apart
+        assert 16 * lay.ks >= T + geometry.fast_lead(T) + (P - 1) * Q // P
+        assert lay.nt * 8 >= P and (T - 1 + geometry.fast_lead(T)) % 4 == 0
+        last = Q * (windows - 1) + 16 * lay.ks - 1
+        assert last + geometry.fast_pad(Q) * (last // Q) < lay.plane
+        assert lay.plane % 8 == 0 and lay.x_off == 128 * lay.ks * lay.nt
+        assert lay.smem_bytes == 4 * (lay.x_off + 2 * lay.plane)
+    with pytest.raises(ValueError, match="power of two"):
+        geometry.fast_layout(3, 48, 100, 16, 32)
+
+
+def _emulate_chain_fast(emu, case, stage, C, B, L, fmt, lay):
+    data, plans, banks, carries = case
+    out, c_out = _outputs((stage,), C, B, L, fmt)
+    t_h, t_l = (h.to(torch.bfloat16).view(torch.int16).numpy().copy()
+                for h in split3_bank(torch.from_numpy(banks[0])))
+    P, Q, T = stage
+    rc = emu.emu_chain_fast(
+        ctypes.c_void_p(data.ctypes.data), ctypes.c_void_p(out.ctypes.data),
+        ctypes.c_void_p(plans.ctypes.data), ctypes.c_void_p(t_h.ctypes.data),
+        ctypes.c_void_p(t_l.ctypes.data), ctypes.c_void_p(carries[0].ctypes.data),
+        ctypes.c_void_p(c_out[0].ctypes.data), C, B, L, P, Q, T, lay.windows,
+        lay.threads, lay.plane, lay.g_off, lay.x_off,
+        ctypes.c_longlong(lay.smem_bytes), int(fmt == "f32"), int(fmt == "f32"))
+    assert rc == 0, "the entry point's checks refuse these arguments"
+    return out, c_out
+
+
+@pytest.mark.parametrize("fmt", ["i16", "f32"])
+@pytest.mark.parametrize("name", list(FAST_STAGES))
+def test_emulated_fast_chain_kernel(emu, name, fmt):
+    stage, B, L = FAST_STAGES[name]
+    P, Q, T = stage
+    C = 2
+    case = _case(5, (stage,), C, B, L, fmt)
+    outs = [_emulate_chain_fast(emu, case, stage, C, B, L, fmt,
+                                geometry.fast_layout(P, Q, T, w, t))
+            for w, t in FAST_GEOMS]
+    assert all(_same(o, outs[0]) for o in outs[1:])
+    out, c_out = outs[0]
+    # the carry is the exact kernel's: the mixed history
+    assert _same((out[:0], c_out), (out[:0], _reference(emu, case, (stage,), C, B,
+                                                        L, fmt, fmt)[1]))
+    data, plans, banks, carries = case
+    t = torch.from_numpy
+    for c in range(C):
+        want, _ = chain.mix_resample_chain_plain(
+            t(data.copy()), t(plans[:, c].copy().view(np.int32)), t(banks[0]),
+            t(carries[0][c]), P=P, Q=Q, T=T, intype=fmt, outtype=fmt,
+            dot_precision="split3")
+        if fmt == "i16":
+            d = np.abs(out[c].view(np.int16).astype(np.int32)
+                       - want.numpy().reshape(-1).view(np.int16).astype(np.int32))
+            # under 1% of the samples, or one where a chunk has few
+            assert d.max() <= 1 and (d > 0).sum() <= max(1, d.size // 100)
+        else:
+            w = want.numpy().reshape(2, -1)
+            assert np.abs(out[:, c] - w).max() <= 1e-5 * np.abs(w).max()

@@ -262,7 +262,7 @@ def test_cuda_device_raises_without_card(monkeypatch):
 
 
 def test_cli_rejects_unported_flags():
-    for extra in (["--mesh", "time=2"], ["--precision", "fast"],
+    for extra in (["--mesh", "time=2"],
                   ["--prefetch-chunks", "2"], ["--resample-impl", "conv"],
                   ["--impl", "pallas"], ["--host-channels", "2"],
                   ["--distributed", "coordinator=h:1,num_processes=2,process_id=0"]):
