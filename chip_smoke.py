@@ -45,6 +45,17 @@ Phases (each prints one line or a few; any failure exits non-zero):
              carries bitwise the exact kernel's, bytes across three launch
              geometries, the 256 against 4 × 64 block split and channel c
              against the one-channel launch.
+4f. cascade_fast — the cascade of the bf16 dots (``csrc/cascade_fast.cu``,
+             ``dot_precision`` ``split3`` and ``default``) at the config-3
+             stages, B = 256, from nonzero carries, all four formats: against
+             its plain version (split3 as 4e; default ≥ 70 dB and beyond
+             1 LSB, float32 1e-5 of the largest output, in under 0.1% of
+             samples) and the exact kernel (split3 ≤ 1 LSB, > 80 dB;
+             default ≥ 45 dB); stage-0 carries bitwise the exact kernel's;
+             bytes and carries across three launch geometries and the 256
+             against 4 × 64 block split; the 100 Msps split front; then
+             ``csrc/chain_fast.cu`` with one pass (kernels 2 and 4 in
+             ``default``) at C = 1 and 16 against its plain version.
 5. slices  — synthetic captures through the CLI entry point
              ``doppler_tpu_torch.cli.main`` on the card, each with the launch
              counts set to 0 just before it and read just after:
@@ -78,16 +89,21 @@ Phases (each prints one line or a few; any failure exits non-zero):
              the channel-batched ones at C = 16 with ``torch.profiler``'s
              device time, each kernel's bound, and each slice's host/device
              split; the Q15 mixer and the probes likewise, with the
-             library's ``copy_`` beside the two copies.
+             library's ``copy_`` beside the two copies; the bf16-dot
+             branches (chain and cascade, split3 and default) likewise.
 6b. roofline — the launch counts set to 0, then
-             ``doppler_tpu_torch.tools.roofline.main`` (all variants) and
-             ``…probe_chain_precision.main`` in process at 33,554,432 samples;
-             every variant's line; then the counts are read.
+             ``doppler_tpu_torch.tools.roofline.main`` (all variants),
+             ``…probe_chain_precision.main`` (its ``def`` variant included),
+             ``…probe_cascade_precision.main`` (exact, fast, def) and
+             ``…probe_split_tail.main`` (full, front: the tail's share) in
+             process at 33,554,432 samples; every variant's line; then the
+             counts are read.
 
 The kernels' JSON record takes the mixer's and the cascade's launch counts
 from slice (i), the chain's from slice (iii), the channel cascade's from
 (iv), the channel chain's from (v), the fast kernel's from (iii-fast) and
-(v-fast), and the Q15 mixer's and the probes' from
+(v-fast), and the Q15 mixer's, the probes', the one-pass chain's and the
+fast cascade's (split3 and default, which no CLI path reaches) from
 phase 6b; the Q15 mixer's and the probes' times are at B = 16384, the
 tools' shape.  The line before the last is that
 record; the last line is ``{"ok": true, "device": {...}}``.  Without a CUDA
@@ -691,6 +707,193 @@ def phase_chain_fast(torch, gen):
     return worst
 
 
+def _default_vs(torch, got, want, outtype, what):
+    """The one-pass cascade against its plain version: ≥ 70 dB, and beyond
+    1 LSB (float32: FAST_REL of the largest output) in under 0.1% of
+    samples.  Its later stages read x_s that the two sum in other orders;
+    where those lie either side of a bf16 rounding boundary the one pass
+    takes x_h one bf16 ulp apart and nothing takes the difference up, so a
+    few outputs move by up to 2^-8 of x_s times a tap.  Returns (max LSB or
+    max |d|, text)."""
+    if outtype == "i16":
+        d = _lsb_diff(torch, got, want)
+        err, off = float(d.max()), float((d > 1).float().mean())
+        snr = _snr_db_words(torch, want, got)
+    else:
+        d = (got - want).abs()
+        err, scale = float(d.max()), float(want.abs().max())
+        off = float((d > FAST_REL * scale).float().mean())
+        w = want.double()
+        snr = float(10 * torch.log10((w * w).sum() / (d.double() ** 2).sum()))
+    check(off < 1e-3 and snr >= 70.0, f"{what}: {off} of samples off, {snr} dB")
+    return err, (f"max {'LSB' if outtype == 'i16' else '|d|'}={err!r}, beyond "
+                 f"the bound {off!r} of samples, {snr!r} dB")
+
+
+CASCADE_FAST_GEOMS = ((16, 32), (32, 128), (64, 256))
+DOTS = ("split3", "default")
+DEFAULT_VS_EXACT_DB = 45.0         # one bf16 pass against the float32 dots
+
+
+def _snr_db(torch, ref, test, outtype):
+    """SNR of ``test`` against ``ref``, i16 words or float32 planes."""
+    if outtype == "i16":
+        return _snr_db_words(torch, ref, test)
+    r = ref.double()
+    d = r - test.double()
+    return float(10 * torch.log10((r * r).sum() / (d * d).sum()))
+
+
+def phase_cascade_fast(torch, gen):
+    """The cascade of the bf16 dots (csrc/cascade_fast.cu) at the config-3
+    stages, from nonzero carries, split3 and default: all four formats at
+    B = 256 and i16 -> i16 at B = 16384, the tools' shape (the one path that
+    launches this kernel).  Against its plain version and the exact kernel;
+    stage-0 carries bitwise the exact kernel's; bytes and carries across
+    three launch geometries; the 256 against 4 × 64 block split; the 100 Msps
+    split front; then chain_fast.cu's one pass (kernels 2 and 4 in default)
+    against its plain version and the exact kernel, at both B."""
+    from doppler_tpu_torch.ops import nco
+    from doppler_tpu_torch.ops.cuda import cascade, chain
+    from doppler_tpu_torch.ops.precision import PASSES
+    from doppler_tpu_torch.ops.resample import RationalResampler
+
+    _, stages, banks = _cascade(torch, FS)
+    L = 2048
+    zero = tuple(torch.zeros(2, T - 1, device="cuda") for _, _, T in stages)
+    worst = {dot: 0.0 for dot in DOTS}
+    for B, formats in ((B_MAIN, FORMATS), (B_BIG, (("i16", "i16"),))):
+        for intype, outtype in formats:
+            x0, x1 = (_data(torch, intype, B, L, gen) for _ in range(2))
+            p0 = nco.plan_tensor(_plan(B, L), device="cuda")
+            p1 = nco.plan_tensor(_plan(B, L, samplenum=7), device="cuda")
+            _, carry = cascade.mix_cascade_stream(x0, p0, banks, zero, stages=stages,
+                                                  intype=intype, outtype="f32")
+            kw = dict(stages=stages, intype=intype, outtype=outtype)
+            exact, c_exact = cascade.mix_cascade_stream(x1, p1, banks, carry, **kw)
+            for dot in DOTS:
+                what = f"cascade_fast {dot} {intype}->{outtype} B={B}"
+                got, c_got = cascade.mix_cascade_stream(x1, p1, banks, carry,
+                                                        dot_precision=dot, **kw)
+                torch.cuda.synchronize()
+                want, c_want = cascade.mix_cascade_plain(x1, p1, banks, carry,
+                                                         dot_precision=dot, **kw)
+                check(torch.equal(c_got[0], c_exact[0])
+                      and torch.equal(c_got[0], c_want[0]),
+                      f"{what}: stage-0 carry differs from the exact kernel's")
+                _, c_err = _carry_errs(torch, c_got, c_want)
+                if dot == "split3":
+                    err, text = _fast_vs(torch, got, want, outtype, what)
+                    _, text_x = _fast_vs(torch, got, exact, outtype, what, exact=True)
+                    check(c_err <= FAST_REL * max(float(c.abs().max()) for c in c_want[1:]),
+                          f"{what}: later carries off by {c_err}")
+                else:
+                    err, text = _default_vs(torch, got, want, outtype, what)
+                    snr = _snr_db(torch, exact, got, outtype)
+                    check(snr >= DEFAULT_VS_EXACT_DB, f"{what}: {snr} dB from the exact kernel")
+                    text_x = f"vs exact SNR={snr!r} dB"
+                args = (x1, p1, banks, carry, B, L, stages, B * L * 3 // 64,
+                        intype, outtype, PASSES[dot])
+                flat = got.reshape(-1)
+                geoms = True
+                for g in CASCADE_FAST_GEOMS:
+                    o, c = cascade._launch_fast(*args, geom=g)
+                    geoms &= (torch.equal(o.reshape(-1), flat)
+                              and all(torch.equal(a, b) for a, b in zip(c, c_got)))
+                print(f"cascade_fast: {dot} {intype}->{outtype} B={B}: {text}; "
+                      f"{text_x}; stage-0 carry bitwise the exact kernel's, stage-1 "
+                      f"carry max|d|={c_err!r} from plain; {len(CASCADE_FAST_GEOMS)} "
+                      f"geometries bitwise={geoms}")
+                check(geoms, f"{what}: bytes depend on the launch geometry")
+                worst[dot] = max(worst[dot], err)
+                if (B, intype, outtype) == (B_MAIN, "i16", "i16"):
+                    c, parts = carry, []
+                    for k in range(0, B, 64):
+                        o, c = cascade.mix_cascade_stream(
+                            x1[k:k + 64].contiguous(), p1[:, k:k + 64].contiguous(),
+                            banks, c, stages=stages, dot_precision=dot)
+                        parts.append(o)
+                    torch.cuda.synchronize()
+                    split_ok = (torch.equal(torch.cat(parts), got)
+                                and all(torch.equal(a, b) for a, b in zip(c, c_got)))
+                    print(f"cascade_fast: {dot} 256 blocks vs 4x64 blocks "
+                          f"bitwise={split_ok}")
+                    check(split_ok, f"{what}: bytes depend on the chunk split")
+
+    # the split front at the 100 Msps stages: float32 planes out
+    _, stages5, banks5 = _cascade(torch, FS_SPLIT)
+    zero5 = tuple(torch.zeros(2, T - 1, device="cuda") for _, _, T in stages5)
+    x0, x1 = (_data(torch, "i16", B_MAIN, L, gen) for _ in range(2))
+    p0 = nco.plan_tensor(_plan(B_MAIN, L, fs=FS_SPLIT), device="cuda")
+    p1 = nco.plan_tensor(_plan(B_MAIN, L, samplenum=7, fs=FS_SPLIT), device="cuda")
+    kw = dict(stages=stages5, outtype="f32", final_dense=True)
+    _, carry = cascade.mix_cascade_stream(x0, p0, banks5, zero5, **kw)
+    exact, c_exact = cascade.mix_cascade_stream(x1, p1, banks5, carry, **kw)
+    lay = cascade.plan_launch_fast(torch.device("cuda"), stages5)
+    for dot in DOTS:
+        got, c_got = cascade.mix_cascade_stream(x1, p1, banks5, carry,
+                                                dot_precision=dot, **kw)
+        torch.cuda.synchronize()
+        want, c_want = cascade.mix_cascade_plain(x1, p1, banks5, carry,
+                                                 dot_precision=dot, **kw)
+        what = f"cascade_fast {dot} split front"
+        if dot == "split3":
+            err, text = _fast_vs(torch, got, want, "f32", what)
+            _, text_x = _fast_vs(torch, got, exact, "f32", what, exact=True)
+        else:
+            err, text = _default_vs(torch, got, want, "f32", what)
+            snr = _snr_db(torch, exact, got, "f32")
+            check(snr >= DEFAULT_VS_EXACT_DB, f"{what}: {snr} dB from the exact kernel")
+            text_x = f"vs exact SNR={snr!r} dB"
+        check(torch.equal(c_got[0], c_want[0]) and torch.equal(c_got[0], c_exact[0]),
+              f"{what}: stage-0 carry differs")
+        print(f"cascade_fast: {dot} split front {stages5} B={B_MAIN}: {text}; "
+              f"{text_x}; {lay.windows} windows, {lay.threads} threads, "
+              f"{lay.smem_bytes} B of shared memory a CTA; stage-0 carry bitwise "
+              f"the exact kernel's")
+        worst[dot] = max(worst[dot], err)
+
+    # kernels 2 and 4 in default: chain_fast.cu with one pass
+    rs = RationalResampler(FS, OUT_RATE)
+    bank = torch.from_numpy(rs.bank).cuda()
+    ckw = dict(P=rs.P, Q=rs.Q, T=rs.T)
+    for B, formats in ((B_MAIN, FORMATS), (B_BIG, (("i16", "i16"),))):
+        for intype, outtype in formats:
+            x = _data(torch, intype, B, L, gen)
+            C = C_MAIN if B == B_MAIN else 1
+            p = _channel_plans(torch, C, B, L)
+            carries = torch.randn((C, 2, rs.T - 1), device="cuda", generator=gen) * 0.3
+            kw = dict(ckw, intype=intype, outtype=outtype)
+            ps, cs_ = p[:, 0].contiguous(), carries[0].contiguous()
+            what = f"chain_fast default {intype}->{outtype} B={B}"
+            got, c_got = chain.mix_resample_chain_stream(x, ps, bank, cs_,
+                                                         dot_precision="default", **kw)
+            torch.cuda.synchronize()
+            want, _ = chain.mix_resample_chain_plain(x, ps, bank, cs_,
+                                                     dot_precision="default", **kw)
+            exact, c_exact = chain.mix_resample_chain_stream(x, ps, bank, cs_, **kw)
+            err, text = _fast_vs(torch, got, want, outtype, what)
+            check(torch.equal(c_got, c_exact), f"{what}: carry differs")
+            snr = _snr_db(torch, exact, got, outtype)
+            check(snr >= DEFAULT_VS_EXACT_DB, f"{what}: {snr} dB from the exact kernel")
+            line = (f"chain_fast: default {intype}->{outtype} B={B}: {text}; vs exact "
+                    f"SNR={snr!r} dB; carry bitwise")
+            worst["chain default"] = max(worst.get("chain default", 0.0), err)
+            if (B, intype, outtype) == (B_MAIN, "i16", "i16"):
+                got_c, _ = chain.mix_resample_chain_channels(x, p, bank, carries,
+                                                             dot_precision="default", **kw)
+                torch.cuda.synchronize()
+                want_c, _ = chain.mix_resample_chain_channels_plain(
+                    x, p, bank, carries, dot_precision="default", **kw)
+                _, text_c = _fast_vs(torch, got_c, want_c, outtype,
+                                     "chain_channels_fast default")
+                check(torch.equal(got_c[0], got), "chain_channels_fast default: "
+                      "channel 0 differs from the one-channel launch")
+                line += f"; C={C_MAIN}: {text_c}, channel 0 bitwise the C=1 launch"
+            print(line)
+    return worst
+
+
 def _snr_db_words(torch, ref, test):
     """SNR of i16 IQ words ``test`` against ``ref``, in float64 on the card."""
     r = ref.view(torch.int16).double()
@@ -863,16 +1066,23 @@ def _golden(mixed, stages):
 
 
 def _counters():
-    """Each kernel's launch count: (wrapper, attribute)."""
+    """Each kernel's launch count: (wrapper, attribute).  A ``*_fast``
+    count holds both pass counts of its source, ``*_default`` the one-pass
+    launches among them."""
     from doppler_tpu_torch.ops.cuda import cascade, chain, mixer
 
     return {"mixer": (mixer.mix_blocks_fmt, "launches"),
             "chain": (chain.mix_resample_chain_stream, "launches"),
             "chain_fast": (chain.mix_resample_chain_stream, "launches_fast"),
+            "chain_fast_default": (chain.mix_resample_chain_stream, "launches_default"),
             "cascade": (cascade.mix_cascade_stream, "launches"),
+            "cascade_fast": (cascade.mix_cascade_stream, "launches_fast"),
+            "cascade_fast_default": (cascade.mix_cascade_stream, "launches_default"),
             "mixer_channels": (mixer.mix_blocks_fmt_channels, "launches"),
             "chain_channels": (chain.mix_resample_chain_channels, "launches"),
             "chain_channels_fast": (chain.mix_resample_chain_channels, "launches_fast"),
+            "chain_channels_fast_default": (chain.mix_resample_chain_channels,
+                                            "launches_default"),
             "cascade_channels": (cascade.mix_cascade_channels, "launches")}
 
 
@@ -1307,24 +1517,24 @@ def _device_text(dev_us, bound_ms):
     return f"device {dev_us!r} us (the bound is {bound_ms * 1e3 / dev_us!r} of it)"
 
 
-def _bound(C, B, L, stages, *, out_bytes=4, split3=False):
+def _bound(C, B, L, stages, *, out_bytes=4, passes=0):
     """The least time the card could take: (ms, 'bytes' or 'operations').
 
     Bytes: the shared chunk (int32 words) and the plan words read once, each
     channel's output written once, banks and carries once.  Operations, in
     float32 outside the tensor cores: the mix (MIX_FLOP a sample) for every
     channel, 4·T·P/Q per stage input sample (I and Q, multiply and add), and
-    2 a sample to encode i16.  ``stages`` = () is the mixer.  ``split3``:
-    the dot is three bf16 products a tap on the tensor cores instead, at
-    their own rate, beside the float32 mix (the bank is read as its two
-    bf16 halves)."""
+    2 a sample to encode i16.  ``stages`` = () is the mixer.  ``passes``
+    (3: split3, 1: default): the dot is that many bf16 products a tap on the
+    tensor cores instead, at their own rate, beside the float32 mix (the
+    bank is read as its two bf16 halves)."""
     n = B * L
     byts = 4 * n + 28 * C * B
     flop, tensor = C * n * MIX_FLOP, 0
     for P, Q, T in stages:
         dot = C * 4 * T * P * (n // Q)
-        if split3:
-            tensor += 3 * dot
+        if passes:
+            tensor += passes * dot
         else:
             flop += dot
         byts += 4 * P * T + 2 * C * 2 * 4 * (T - 1)
@@ -1375,6 +1585,12 @@ def phase_timing_channels(torch, gen, card):
                 lambda: chain.mix_resample_chain_channels_plain(
                     x, p, bank, carry, dot_precision="split3", **ckw),
                 "chain_fast_kernel", chain_stage),
+            "chain_channels_fast_default": (
+                lambda: chain.mix_resample_chain_channels(x, p, bank, carry,
+                                                          dot_precision="default", **ckw),
+                lambda: chain.mix_resample_chain_channels_plain(
+                    x, p, bank, carry, dot_precision="default", **ckw),
+                "chain_fast_kernel", chain_stage),
             "cascade_channels": (
                 lambda: cascade.mix_cascade_channels(x, p, b3, z3, stages=c3),
                 lambda: cascade.mix_cascade_channels_plain(x, p, b3, z3, stages=c3),
@@ -1382,7 +1598,7 @@ def phase_timing_channels(torch, gen, card):
         }
         runs = 20 if B == B_MAIN else 3       # the big plain versions take seconds
         for name, (kern, plain, trace_name, stages) in cases.items():
-            fast = name.endswith("_fast")
+            fast = "_fast" in name
             if fast and B == B_BIG:
                 # its plain version takes ≈ 2 s a call: one call, no warm-up
                 pl_a = pl_b = _median_ms(torch, plain, runs=1, warmup=0)
@@ -1393,7 +1609,8 @@ def phase_timing_channels(torch, gen, card):
             if not (fast and B == B_BIG):
                 pl_b = _median_ms(torch, plain, runs=runs, warmup=1)
             dev_us = _device_us(torch, kern, trace_name)
-            bound_ms, by = _bound(C, B, L, stages, split3=fast)
+            bound_ms, by = _bound(C, B, L, stages, passes=(
+                1 if name.endswith("_default") else 3) if fast else 0)
             k_ms, pl_ms = min(k_a, k_b), min(pl_a, pl_b)
             n = C * B * L
             dev = "not measured" if dev_us is None else f"{dev_us!r} us"
@@ -1457,6 +1674,21 @@ def phase_timing(torch, gen, card):
                                x, p, bank, carry, P=3, Q=64, T=rs.T, dot_precision="split3")),
             "cascade": (lambda: mix_cascade_stream(x, p, b3, z3, stages=c3),
                         lambda: mix_cascade_plain(x, p, b3, z3, stages=c3)),
+            "chain_fast_default": (lambda: mix_resample_chain_stream(
+                                       x, p, bank, carry, P=3, Q=64, T=rs.T,
+                                       dot_precision="default"),
+                                   lambda: mix_resample_chain_plain(
+                                       x, p, bank, carry, P=3, Q=64, T=rs.T,
+                                       dot_precision="default")),
+            "cascade_fast": (lambda: mix_cascade_stream(x, p, b3, z3, stages=c3,
+                                                        dot_precision="split3"),
+                             lambda: mix_cascade_plain(x, p, b3, z3, stages=c3,
+                                                       dot_precision="split3")),
+            "cascade_fast_default": (
+                lambda: mix_cascade_stream(x, p, b3, z3, stages=c3,
+                                           dot_precision="default"),
+                lambda: mix_cascade_plain(x, p, b3, z3, stages=c3,
+                                          dot_precision="default")),
         }
         p5 = nco.plan_tensor(_plan(B, L, fs=FS_SPLIT), device="cuda")
         pairs["split front"] = (
@@ -1464,10 +1696,15 @@ def phase_timing(torch, gen, card):
             lambda: mix_cascade_plain(x, p5, b5, z5, **front))
         trace_names = {"mixer": "mixer_kernel", "chain": "chain_kernel",
                        "chain_fast": "chain_fast_kernel",
-                       "cascade": "cascade_kernel", "split front": "cascade_kernel"}
+                       "chain_fast_default": "chain_fast_kernel",
+                       "cascade": "cascade_kernel", "split front": "cascade_kernel",
+                       "cascade_fast": "cascade_fast_kernel",
+                       "cascade_fast_default": "cascade_fast_kernel"}
+        passes = {"chain_fast": 3, "chain_fast_default": 1, "cascade_fast": 3,
+                  "cascade_fast_default": 1}
         for name, (kern, plain) in pairs.items():
             # plain, kernel, kernel, plain: the first of each pair warms up
-            runs = 5 if name == "chain_fast" and B == B_BIG else 20
+            runs = 5 if name in passes and B == B_BIG else 20
             pl_a = _median_ms(torch, plain, runs=runs)
             k_a = _median_ms(torch, kern)
             k_b = _median_ms(torch, kern)
@@ -1478,11 +1715,13 @@ def phase_timing(torch, gen, card):
                 name, 4.0 + 4.0 * 3 / 64)
             fmt = "i16->f32" if name == "split front" else "i16->i16"
             stages = {"mixer": (), "chain": ((3, 64, rs.T),),
-                      "chain_fast": ((3, 64, rs.T),), "cascade": c3,
-                      "split front": c5}[name]
+                      "chain_fast": ((3, 64, rs.T),),
+                      "chain_fast_default": ((3, 64, rs.T),), "cascade": c3,
+                      "split front": c5, "cascade_fast": c3,
+                      "cascade_fast_default": c3}[name]
             bound_ms, by = _bound(1, B, L, stages,
                                   out_bytes=8 if name == "split front" else 4,
-                                  split3=name == "chain_fast")
+                                  passes=passes.get(name, 0))
             dev_us = _device_us(torch, kern, trace_names[name])
             print(f"timing: {name} {fmt} B={B} ({n} samples): kernel "
                   f"{k_a!r}/{k_b!r} ms, plain {pl_a!r}/{pl_b!r} ms; "
@@ -1599,7 +1838,12 @@ def phase_conformance():
 def phase_roofline(card):
     """The measuring tools in process at the bench shape, with every launch
     count set to 0 just before and read just after."""
-    from doppler_tpu_torch.tools import probe_chain_precision, roofline
+    from doppler_tpu_torch.tools import (
+        probe_cascade_precision,
+        probe_chain_precision,
+        probe_split_tail,
+        roofline,
+    )
 
     counters = dict(_counters(), **_tool_counters())
     _zero_counts(counters)
@@ -1607,7 +1851,8 @@ def phase_roofline(card):
     names = roofline.MIXER_SHAPED + roofline.CHAIN_SHAPED
     results = {}
     for tool, argv in ((roofline, size + ["--variants", ",".join(names)]),
-                       (probe_chain_precision, size)):
+                       (probe_chain_precision, size), (probe_cascade_precision, size),
+                       (probe_split_tail, size)):
         out, err = io.StringIO(), io.StringIO()
         with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
             rc = tool.main(argv)
@@ -1621,10 +1866,23 @@ def phase_roofline(card):
     check(list(results["roofline"]) == list(names), "roofline left a variant out")
     check(list(results["probe_chain_precision"]) == list(probe_chain_precision.VARIANTS),
           "probe_chain_precision left a variant out")
+    check(list(results["probe_cascade_precision"])
+          == list(probe_cascade_precision.VARIANTS),
+          "probe_cascade_precision left a variant out")
+    tail = results["probe_split_tail"]
+    check(0.0 < tail["tail_share"] < 1.0, f"probe_split_tail: {tail}")
+    print(f"probe_split_tail: the 384/3125 tail takes {tail['tail_share']!r} of "
+          f"the split route's chunk ({tail['full_ms'] / 16!r} against "
+          f"{tail['front_ms'] / 16!r} ms a dispatch of {B_BIG * 2048} samples) "
+          f"[{card}]")
     launches = _read_counts(counters)
     print(f"roofline: launches {launches}")
-    for name in list(_tool_counters()) + ["mixer", "chain", "chain_fast", "cascade"]:
+    for name in list(_tool_counters()) + ["mixer", "chain", "chain_fast", "cascade",
+                                          "chain_fast_default", "cascade_fast",
+                                          "cascade_fast_default"]:
         check(launches[name] >= 1, f"the tools did not launch the {name} kernel")
+    check(launches["cascade_fast"] > launches["cascade_fast_default"],
+          "the tools did not launch the split3 cascade")
     return results, launches
 
 
@@ -1645,23 +1903,30 @@ def main() -> int:
         return 1
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    def timed(phase, *args):
+        t0 = time.perf_counter()
+        res = phase(*args)
+        print(f"phase {phase.__name__}: {time.perf_counter() - t0:.1f} s")
+        return res
+
     try:
         card = phase_device(torch)
-        phase_build()
+        timed(phase_build)
         gen = torch.Generator(device="cuda").manual_seed(0)
-        mix_err = phase_mixer(torch, gen)
-        chain_err = phase_chain(torch, gen)
-        cascade_err = phase_cascade(torch, gen)
-        channel_err = phase_channels(torch, gen)
-        fast_err = phase_chain_fast(torch, gen)
-        phase_probes(torch, gen)
-        slices = phase_slices(torch, card)
-        slices.update(phase_channel_slices(torch, card))
-        phase_conformance()
-        times = phase_timing(torch, gen, card)
-        times.update(phase_timing_channels(torch, gen, card))
-        probe_times = phase_timing_probes(torch, gen, card)
-        _, tool_launches = phase_roofline(card)
+        mix_err = timed(phase_mixer, torch, gen)
+        chain_err = timed(phase_chain, torch, gen)
+        cascade_err = timed(phase_cascade, torch, gen)
+        channel_err = timed(phase_channels, torch, gen)
+        fast_err = timed(phase_chain_fast, torch, gen)
+        cfast_err = timed(phase_cascade_fast, torch, gen)
+        timed(phase_probes, torch, gen)
+        slices = timed(phase_slices, torch, card)
+        slices.update(timed(phase_channel_slices, torch, card))
+        timed(phase_conformance)
+        times = timed(phase_timing, torch, gen, card)
+        times.update(timed(phase_timing_channels, torch, gen, card))
+        probe_times = timed(phase_timing_probes, torch, gen, card)
+        _, tool_launches = timed(phase_roofline, card)
         if "jax" in sys.modules:
             raise Failed("jax was imported")
     except Exception as e:      # every failure ends the run non-zero
@@ -1715,6 +1980,20 @@ def main() -> int:
         entry("cascade_channels", "cascade.cu",
               "doppler_tpu/ops/pallas/chain.py:1078",
               config4["cascade_channels"], channel_err["cascade"]),
+        # the branches no CLI path reaches (the JAX CLI's cascades pass
+        # 'highest'): their launches are the tools' path's, phase 6b
+        entry("chain_fast_default", "chain_fast.cu",
+              "doppler_tpu/ops/pallas/chain.py:404",
+              tool_launches["chain_fast_default"], cfast_err["chain default"],
+              branch="dot_precision='default'"),
+        entry("cascade_fast", "cascade_fast.cu",
+              "doppler_tpu/ops/pallas/chain.py:960",
+              tool_launches["cascade_fast"] - tool_launches["cascade_fast_default"],
+              cfast_err["split3"], branch="dot_precision='split3'"),
+        entry("cascade_fast_default", "cascade_fast.cu",
+              "doppler_tpu/ops/pallas/chain.py:960",
+              tool_launches["cascade_fast_default"], cfast_err["default"],
+              branch="dot_precision='default'"),
         probe_entry("mixer_q15", "mixer_q15.cu",
                     "doppler_tpu/ops/pallas/mixer.py:357", "mixer_q15"),
         probe_entry("probe_elementwise", "probes.cu", "tools/roofline.py:130",

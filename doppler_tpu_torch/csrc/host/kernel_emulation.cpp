@@ -9,7 +9,8 @@
 // warp's 32 lanes at once where it calls mma.sync: its host stand-in takes
 // the 32 lanes' fragments in the PTX layout.  Its bytes are its own (a
 // tensor core does not add as IEEE float32 does), so its reference is the
-// plain torch version, within a tolerance, and itself across geometries.
+// plain torch version, within a tolerance, and itself across geometries;
+// so is the cascade's (cascade_fast.cu), on the same stand-in.
 //
 //   g++ -O1 -ffp-contract=off -shared -fPIC -std=c++17 \
 //       -I doppler_tpu_torch/csrc -o emu.so \
@@ -20,6 +21,7 @@
 #include <vector>
 
 #include "cascade.cu"
+#include "cascade_fast.cu"
 #include "chain.cu"
 #include "chain_fast.cu"
 
@@ -124,7 +126,7 @@ void run_chain(const void* in, void* out, const uint32_t* plans,
     }
 }
 
-template <bool kInF32, bool kOddQ>
+template <bool kInF32, bool kOddQ, int kPasses>
 void run_chain_fast(const void* in, void* out, const uint32_t* plans,
                     const FastArgs& g, int threads, long long smem) {
     std::vector<float4> shared((smem + 15) / 16);
@@ -136,8 +138,27 @@ void run_chain_fast(const void* in, void* out, const uint32_t* plans,
         for (int ph = 0;; ++ph) {
             bool more = false;
             for (int tid = 0; tid < threads; ++tid)
-                more = chain_fast_phase<kInF32, kOddQ>(
+                more = chain_fast_phase<kInF32, kOddQ, kPasses>(
                     in, out, plans, g, ch, unit, tid, threads, ph,
+                    reinterpret_cast<unsigned*>(shared.data()));
+            if (!more) break;
+        }
+    }
+}
+
+template <bool kInF32, int kPasses>
+void run_cascade_fast(const void* in, void* out, const uint32_t* plans,
+                      const FastCascade& g, int threads, long long smem) {
+    std::vector<float4> shared((smem + 15) / 16);
+    for (unsigned block = 0; block < (unsigned)g.units; ++block) {
+        poison(shared);
+        FastCtaPlan plan;
+        fast_cascade_plan(g, block, plan);
+        for (int ph = 0;; ++ph) {
+            bool more = false;
+            for (int tid = 0; tid < threads; ++tid)
+                more = fast_cascade_phase<kInF32, kPasses>(
+                    in, out, plans, g, plan, tid, threads, ph,
                     reinterpret_cast<unsigned*>(shared.data()));
             if (!more) break;
         }
@@ -211,20 +232,74 @@ extern "C" int ref_cascade(const void* in, void* out, const uint32_t* plans,
 }
 
 // doppler_chain_fast's arguments (csrc/chain_fast.cu), all pointers to host
-// memory.
+// memory; passes 3 (split3) or 1 (default).
 extern "C" int emu_chain_fast(const void* in, void* out, const uint32_t* plans,
                               const uint16_t* bank_h, const uint16_t* bank_l,
                               const float* carry_in, float* carry_out, int C,
                               int B, int L, int P, int Q, int T, int wt,
                               int threads, int plane, int g_off, int x_off,
-                              long long smem, int in_f32, int out_f32) {
+                              long long smem, int in_f32, int out_f32,
+                              int passes) {
     FastArgs g;
-    if (threads % 32 || !make_fast_args(g, in, bank_h, bank_l, carry_in, carry_out,
-                                        C, B, L, P, Q, T, wt, plane, g_off, x_off,
-                                        out_f32, smem))
+    if (threads % 32 || (passes != 1 && passes != 3) ||
+        !make_fast_args(g, in, bank_h, bank_l, carry_in, carry_out, C, B, L, P, Q,
+                        T, wt, plane, g_off, x_off, out_f32, smem))
         return 1;
-    auto run = in_f32 ? (Q & 1 ? run_chain_fast<true, true> : run_chain_fast<true, false>)
-                      : (Q & 1 ? run_chain_fast<false, true> : run_chain_fast<false, false>);
+    auto run = passes == 1
+        ? (in_f32 ? (Q & 1 ? run_chain_fast<true, true, 1> : run_chain_fast<true, false, 1>)
+                  : (Q & 1 ? run_chain_fast<false, true, 1> : run_chain_fast<false, false, 1>))
+        : (in_f32 ? (Q & 1 ? run_chain_fast<true, true, 3> : run_chain_fast<true, false, 3>)
+                  : (Q & 1 ? run_chain_fast<false, true, 3> : run_chain_fast<false, false, 3>));
     run(in, out, plans, g, threads, smem);
     return 0;
+}
+
+// doppler_cascade_fast's arguments (csrc/cascade_fast.cu), all pointers to
+// host memory.
+extern "C" int emu_cascade_fast(const void* in, void* out, const uint32_t* plans,
+                                const void* const* banks_h, const void* const* banks_l,
+                                const void* const* carry_in, void* const* carry_out,
+                                const int* layout, int S, int B, int L, int wt,
+                                int threads, long long smem, int in_f32, int out_f32,
+                                int passes) {
+    FastCascade g;
+    if (threads % 32 || (passes != 1 && passes != 3) ||
+        !make_fast_cascade(g, in, banks_h, banks_l, carry_in, carry_out, layout, S,
+                           B, L, wt, out_f32, smem))
+        return 1;
+    auto run = passes == 1 ? (in_f32 ? run_cascade_fast<true, 1> : run_cascade_fast<false, 1>)
+                           : (in_f32 ? run_cascade_fast<true, 3> : run_cascade_fast<false, 3>);
+    run(in, out, plans, g, threads, smem);
+    return 0;
+}
+
+// fast_cascade_plan of every CTA of a launch (doppler_cascade_fast's layout,
+// S, B, L, wt and smem; no data): 3 + 6·S values a CTA, t, a, c, then per
+// stage s < S ja, jb, w0, rows, org, len (zeros above t).  Returns the CTA
+// count, or −1 where the arguments are refused.
+extern "C" int emu_fast_cascade_plans(const int* layout, int S, int B, int L, int wt,
+                                      long long smem, long long* out) {
+    const void* none[kFastStages] = {};
+    FastCascade g;
+    if (!make_fast_cascade(g, nullptr, none, none, none, const_cast<void* const*>(none),
+                           layout, S, B, L, wt, 0, smem))
+        return -1;
+    for (int block = 0; block < g.units; ++block) {
+        FastCtaPlan p;
+        fast_cascade_plan(g, (unsigned)block, p);
+        long long* o = out + (long long)block * (3 + 6 * S);
+        o[0] = p.t;
+        o[1] = p.a;
+        o[2] = p.c;
+        for (int s = 0; s < S; ++s) {
+            const bool on = s < p.t;
+            o[3 + 6 * s] = on ? p.ja[s] : 0;
+            o[4 + 6 * s] = on ? p.jb[s] : 0;
+            o[5 + 6 * s] = on ? p.w0[s] : 0;
+            o[6 + 6 * s] = on ? p.rows[s] : 0;
+            o[7 + 6 * s] = on ? p.org[s] : 0;
+            o[8 + 6 * s] = on ? p.len[s] : 0;
+        }
+    }
+    return g.units;
 }

@@ -141,16 +141,23 @@ def load() -> ctypes.CDLL:
                                   ctypes.c_longlong, _i, _i, _vp]
     lib.doppler_chain_fast.restype = _i
     # in, out, plans, bank_h, bank_l, carry_in, carry_out, C, B, L, P, Q, T,
-    # windows, threads, plane, g_off, x_off, smem, in_f32, out_f32, stream
+    # windows, threads, plane, g_off, x_off, smem, in_f32, out_f32, passes,
+    # stream
     lib.doppler_chain_fast.argtypes = [_vp, _vp, _vp, _vp, _vp, _vp, _vp, _i, _i,
                                        _i, _i, _i, _i, _i, _i, _i, _i, _i,
-                                       ctypes.c_longlong, _i, _i, _vp]
+                                       ctypes.c_longlong, _i, _i, _i, _vp]
     lib.doppler_cascade.restype = _i
     # in, out, plans, banks, carry_in, carry_out, layout, S, C, B, L, tile,
     # threads, smem, in_f32, out_f32, stream
     lib.doppler_cascade.argtypes = [_vp, _vp, _vp, _vpp, _vpp, _vpp, _ip, _i,
                                     _i, _i, _i, _i, _i, ctypes.c_longlong, _i,
                                     _i, _vp]
+    lib.doppler_cascade_fast.restype = _i
+    # in, out, plans, banks_h, banks_l, carry_in, carry_out, layout, S, B, L,
+    # windows, threads, smem, in_f32, out_f32, passes, stream
+    lib.doppler_cascade_fast.argtypes = [_vp, _vp, _vp, _vpp, _vpp, _vpp, _vpp,
+                                         _ip, _i, _i, _i, _i, _i,
+                                         ctypes.c_longlong, _i, _i, _i, _vp]
     lib.doppler_error_string.restype = ctypes.c_char_p
     lib.doppler_error_string.argtypes = [_i]
     return lib

@@ -18,6 +18,21 @@ chunk-local output grid is its absolute grid when the stream starts on it.
 Channel layouts: plan words int32 ``(7, C, B)``, per-stage carries
 ``(C, 2, T−1)``, output int32 ``(C, B, M)`` or float32 ``(2, C, B, M)``.
 
+``dot_precision`` of the stream call: ``"highest"`` (float32 dots, the
+kernel above) or the two other functions of the same TPU kernel
+(``chain.py:819-820``, every stage through ``_acc_slices``): ``"split3"``,
+``x_h·t_h + x_h·t_l + x_l·t_h`` over bf16-exact halves, and ``"default"``,
+``x_h·t_h`` alone, each stage's input being the float32 sum of the stage
+before, split again.  A CUDA tensor launches ``csrc/cascade_fast.cu``, a
+bf16 tensor-core kernel, counted in ``.launches_fast`` (the one-pass
+launches also in ``.launches_default``); a CPU tensor runs the plain
+version with ``window_dot(dot=dot_precision)``.  Both take a chunk only
+where every stage's window count (chunk input count / Q) is a multiple of
+16 (``geometry.check_cascade_fast_chunk``).  The stage-0 carry is the mixed
+history, bitwise the exact path's; a later stage's carry holds that
+function's own x_s.  The channel-batched cascade has no ``dot_precision``,
+as in JAX (``chain.py:1078``).
+
 :func:`split_point` is the JAX package's rule for how many leading stages
 fuse; a split cascade runs the ÷2^k front here with ``final_dense=True``
 (float32 planes out) and the remaining stages through their own
@@ -38,6 +53,7 @@ from doppler_tpu_torch.ops.cuda.mixer import (
     mix_blocks_fmt_plain,
     stack_channels,
 )
+from doppler_tpu_torch.ops.precision import PASSES, bank_halves, check_precision
 from doppler_tpu_torch.ops.resample import window_dot
 
 __all__ = ["mix_cascade_stream", "mix_cascade_plain", "mix_cascade_channels",
@@ -80,9 +96,10 @@ def chunk_out_count(stages, B: int, L: int) -> int | None:
 
 
 def _check(data, plans, banks, carries, stages, intype, outtype, final_dense,
-           channels: bool = False):
+           channels: bool = False, dot_precision: str = "highest"):
     """Validate one call; returns (C, B, L, stages, n_out) with C = None for
     a single stream (``(7, B)`` plans, ``(2, T−1)`` carries)."""
+    check_precision(dot_precision)
     if channels:
         C, B, L = check_fmt_channels(data, plans, intype, outtype)
         lead = (C,)
@@ -112,6 +129,8 @@ def _check(data, plans, banks, carries, stages, intype, outtype, final_dense,
                              f"{carry.dtype} {tuple(carry.shape)}")
         if bank.device != data.device or carry.device != data.device:
             raise ValueError("banks, carries and data must be on one device")
+    if dot_precision in PASSES:
+        geometry.check_cascade_fast_chunk(stages, B, L)
     return C, B, L, stages, n_out
 
 
@@ -123,12 +142,19 @@ def _encode(yi, yq, outtype, B):
 
 def mix_cascade_plain(data, plans, banks, carries, *, stages,
                       intype: str = "i16", outtype: str = "i16",
-                      final_dense: bool = False):
+                      final_dense: bool = False,
+                      dot_precision: str = "highest"):
     """Plain torch version: the mixer's plain version, then
-    ``ops.resample.window_dot`` per stage over ``[carry_s | x_s]``, then
-    encode.  Returns ``(out, carries_out)``."""
+    ``ops.resample.window_dot(dot=dot_precision)`` per stage over
+    ``[carry_s | x_s]``, then encode.  Returns ``(out, carries_out)``.
+
+    ``default`` is held to one bf16 pass of the split operands, ``x_h·t_h``
+    with float32 sums, which is what a DEFAULT dot is on the TPU; the JAX
+    function run on the CPU (interpret mode) computes a DEFAULT dot in
+    float32 and is no reference for it."""
     _, B, L, stages, _ = _check(data, plans, banks, carries, stages, intype,
-                                outtype, final_dense)
+                                outtype, final_dense,
+                                dot_precision=dot_precision)
     x = mix_blocks_fmt_plain(data, plans, intype=intype,
                              outtype="f32").reshape(2, B * L)
     carries_out = []
@@ -136,7 +162,7 @@ def mix_cascade_plain(data, plans, banks, carries, *, stages,
         buf = torch.cat([carry, x], dim=1)
         carries_out.append(buf[:, buf.shape[1] - (T - 1):].clone())
         yi, yq = window_dot(buf[0], buf[1], bank.flip(-1), 0, 0, P=P, Q=Q,
-                            T=T, M=x.shape[1] // Q * P)
+                            T=T, M=x.shape[1] // Q * P, dot=dot_precision)
         x = torch.stack([yi, yq])
     return _encode(x[0], x[1], outtype, B), tuple(carries_out)
 
@@ -206,9 +232,57 @@ def _launch(data, plans, banks, carries, C, B, L, stages, n_out, intype,
     return out, carries_out
 
 
+def plan_launch_fast(dev: torch.device, stages,
+                     geom=None) -> geometry.CascadeFastLayout:
+    """The fast kernel's windows a tile CTA, threads and shared-memory
+    layout: :func:`geometry.pick_cascade_fast` for the card, or ``geom`` =
+    ``(windows, threads)`` as given (the card tests walk several)."""
+    limit = build.shared_memory_limit(dev.index)
+    if geom is None:
+        return geometry.pick_cascade_fast(stages, limit)
+    lay = geometry.cascade_fast_layout(stages, *geom)
+    if lay.smem_bytes > limit:
+        raise ValueError(
+            f"fast cascade stages (P, Q, T) = {stages} with {geom[0]} windows "
+            f"need {lay.smem_bytes} bytes of shared memory per CTA; the card "
+            f"allows {limit}")
+    return lay
+
+
+def _launch_fast(data, plans, banks, carries, B, L, stages, n_out, intype,
+                 outtype, passes, geom=None):
+    """Launch ``csrc/cascade_fast.cu`` with ``passes`` bf16 passes (3:
+    split3, 1: default) over ``(7, B)`` plan words and per-stage ``(2, T−1)``
+    carries; returns ``(n_out,)`` words or ``(2, n_out)`` planes and the
+    per-stage carries.  ``geom`` as in :func:`plan_launch_fast`."""
+    dev = data.device
+    S = len(stages)
+    lay = plan_launch_fast(dev, stages, geom)
+    data, plans = data.contiguous(), plans.contiguous()
+    halves = [bank_halves(b) for b in banks]
+    carries = [c.contiguous() for c in carries]
+    if outtype == "i16":
+        out = torch.empty((n_out,), dtype=torch.int32, device=dev)
+    else:
+        out = torch.empty((2, n_out), dtype=torch.float32, device=dev)
+    carries_out = tuple(torch.empty((2, T - 1), dtype=torch.float32, device=dev)
+                        for _, _, T in stages)
+    ptrs = lambda ts: (ctypes.c_void_p * S)(*(t.data_ptr() for t in ts))  # noqa: E731
+    rc = build.load().doppler_cascade_fast(
+        data.data_ptr(), out.data_ptr(), plans.data_ptr(),
+        ptrs(h for h, _ in halves), ptrs(l for _, l in halves), ptrs(carries),
+        ptrs(carries_out),
+        (ctypes.c_int * (6 * S))(*(v for row in lay.rows for v in row)), S, B,
+        L, lay.windows, lay.threads, lay.smem_bytes, int(intype == "f32"),
+        int(outtype == "f32"), passes, torch.cuda.current_stream(dev).cuda_stream)
+    build.check(rc, "fast cascade")
+    return out, carries_out
+
+
 def mix_cascade_stream(data, plans, banks, carries, *, stages,
                        intype: str = "i16", outtype: str = "i16",
-                       final_dense: bool = False):
+                       final_dense: bool = False,
+                       dot_precision: str = "highest"):
     """Streaming fused mix + cascade, all four wire formats.
 
     ``data``: int32 words ``(B, L)`` or float32 planes ``(2, B, L)``;
@@ -216,23 +290,35 @@ def mix_cascade_stream(data, plans, banks, carries, *, stages,
     bank and one ``(2, T−1)`` float32 carry per stage of ``stages``.
     Returns ``(out, carries_out)`` with ``out`` int32 ``(B, M)`` or float32
     ``(2, B, M)``, ``M = L·∏P/∏Q``.  ``final_dense=True`` marks the split
-    cascade's ÷2^k front (float32 planes out).
+    cascade's ÷2^k front (float32 planes out).  ``dot_precision``:
+    ``"highest"``, ``"split3"`` or ``"default"`` (the module docstring).
 
     A CPU tensor runs the plain version; a CUDA tensor launches the kernel
-    (one channel) or raises.
+    of ``dot_precision`` (one channel) or raises.
     """
     if data.device.type == "cpu":
         return mix_cascade_plain(data, plans, banks, carries, stages=stages,
                                  intype=intype, outtype=outtype,
-                                 final_dense=final_dense)
+                                 final_dense=final_dense,
+                                 dot_precision=dot_precision)
     if data.device.type != "cuda":
         raise ValueError(f"no cascade kernel for device {data.device}")
     _, B, L, stages, n_out = _check(data, plans, banks, carries, stages,
-                                    intype, outtype, final_dense)
+                                    intype, outtype, final_dense,
+                                    dot_precision=dot_precision)
+    M = n_out // B
+    if dot_precision in PASSES:
+        out, carries_out = _launch_fast(data, plans, banks, carries, B, L,
+                                        stages, n_out, intype, outtype,
+                                        PASSES[dot_precision])
+        mix_cascade_stream.launches_fast += 1
+        if dot_precision == "default":
+            mix_cascade_stream.launches_default += 1
+        return (out.reshape((B, M) if outtype == "i16" else (2, B, M)),
+                carries_out)
     out, carries_out = _launch(data, plans, banks, carries, 1, B, L, stages,
                                n_out, intype, outtype)
     mix_cascade_stream.launches += 1
-    M = n_out // B
     return (out.reshape((B, M) if outtype == "i16" else (2, B, M)),
             tuple(c[0] for c in carries_out))
 
@@ -267,5 +353,9 @@ def mix_cascade_channels(data, plans, banks, carries, *, stages,
     return out, carries_out
 
 
-mix_cascade_stream.launches = 0   # kernel launches (CUDA path only)
+# kernel launches (CUDA path only): csrc/cascade.cu, csrc/cascade_fast.cu
+# (both pass counts), and of those the one-pass ('default') launches
+mix_cascade_stream.launches = 0
+mix_cascade_stream.launches_fast = 0
+mix_cascade_stream.launches_default = 0
 mix_cascade_channels.launches = 0

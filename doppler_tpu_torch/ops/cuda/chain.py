@@ -12,10 +12,13 @@ is bitwise the stream call's.
 
 ``dot_precision="split3"`` (``--precision fast``) is the other function of
 the same TPU kernel (``chain.py:191-221``, ``_acc_slices``): the FIR dot
-over bf16-exact halves, ``x_h·t_h + x_h·t_l + x_l·t_h`` (``ops.precision``).
-A CUDA tensor launches ``csrc/chain_fast.cu``, a bf16 tensor-core kernel,
-and counts it in ``.launches_fast``; a CPU tensor runs the plain version
-with ``window_dot(split3=True)``.  The carry is the mixed history either
+over bf16-exact halves, ``x_h·t_h + x_h·t_l + x_l·t_h`` (``ops.precision``);
+``dot_precision="default"`` its third (``chain.py:222-237``), the TPU's one
+bf16 pass of a DEFAULT-precision dot, ``x_h·t_h`` alone.  A CUDA tensor
+launches ``csrc/chain_fast.cu``, a bf16 tensor-core kernel (three passes or
+one), and counts it in ``.launches_fast`` (the one-pass launches also in
+``.launches_default``); a CPU tensor runs the plain version with
+``window_dot(dot=dot_precision)``.  The carry is the mixed history either
 way, bitwise the exact path's.
 
 The carry is the flat ``(2, T−1)`` float32 history — the last T−1 mixed
@@ -40,21 +43,11 @@ from doppler_tpu_torch.ops.cuda.mixer import (
     mix_blocks_fmt_plain,
     stack_channels,
 )
-from doppler_tpu_torch.ops.precision import split3_bank
+from doppler_tpu_torch.ops.precision import PASSES, bank_halves, check_precision
 from doppler_tpu_torch.ops.resample import window_dot
 
 __all__ = ["mix_resample_chain_stream", "mix_resample_chain_plain",
-           "mix_resample_chain_channels", "mix_resample_chain_channels_plain",
-           "DOT_PRECISIONS", "bank_halves"]
-
-
-DOT_PRECISIONS = ("highest", "split3")
-
-
-def _check_precision(dot_precision: str) -> None:
-    if dot_precision not in DOT_PRECISIONS:
-        raise ValueError(f"dot_precision must be one of {DOT_PRECISIONS}, "
-                         f"got {dot_precision!r}")
+           "mix_resample_chain_channels", "mix_resample_chain_channels_plain"]
 
 
 def _check_rest(data, bank, carry, carry_shape, L, P, Q, T):
@@ -86,17 +79,22 @@ def mix_resample_chain_plain(data, plans, bank, carry, *, P: int, Q: int,
                              T: int, intype: str = "i16", outtype: str = "i16",
                              dot_precision: str = "highest"):
     """Plain torch version: the mixer's plain version, then the
-    gather + fixed-tree dot of ``ops.resample.window_dot`` (``split3``: over
-    the bf16-exact halves) over the ``[carry | mixed]`` buffer, then encode.
-    Returns ``(out, carry_out)``.
+    gather + fixed-tree dot of ``ops.resample.window_dot`` (``split3`` and
+    ``default``: over the bf16-exact halves) over the ``[carry | mixed]``
+    buffer, then encode.  Returns ``(out, carry_out)``.
+
+    ``default`` is held to one bf16 pass of the split operands, ``x_h·t_h``
+    with float32 sums, which is what a DEFAULT dot is on the TPU; the JAX
+    function run on the CPU (interpret mode) computes a DEFAULT dot in
+    float32 and is no reference for it.
     """
-    _check_precision(dot_precision)
+    check_precision(dot_precision)
     B, L = _check(data, plans, bank, carry, intype, outtype, P, Q, T)
     mixed = mix_blocks_fmt_plain(data, plans, intype=intype, outtype="f32")
     buf = torch.cat([carry, mixed.reshape(2, B * L)], dim=1)
     M = B * L // Q * P
     yi, yq = window_dot(buf[0], buf[1], bank.flip(-1), 0, 0,
-                        P=P, Q=Q, T=T, M=M, split3=dot_precision == "split3")
+                        P=P, Q=Q, T=T, M=M, dot=dot_precision)
     carry_out = buf[:, buf.shape[1] - (T - 1):].clone()
     if outtype == "i16":
         return codec.iq_to_i16_words(yi, yq).reshape(B, M // B), carry_out
@@ -168,25 +166,6 @@ def _launch(data, plans, bank, carries, C, B, L, P, Q, T, intype, outtype,
     return out, carries_out
 
 
-_HALVES: dict = {}
-
-
-def bank_halves(bank):
-    """The bank's bf16 halves ``t_h, t_l`` (:func:`split3_bank`) as bf16
-    tensors on its device, computed once per bank: the entry holds the bank,
-    so its storage is not reused while cached, and an in-place change of the
-    bank (its version) computes them anew."""
-    key = (bank.data_ptr(), bank._version, bank.device)
-    hit = _HALVES.get(key)
-    if hit is None or hit[0] is not bank:
-        if len(_HALVES) >= 16:
-            _HALVES.clear()
-        t_h, t_l = split3_bank(bank)
-        hit = _HALVES[key] = (bank, t_h.to(torch.bfloat16).contiguous(),
-                              t_l.to(torch.bfloat16).contiguous())
-    return hit[1], hit[2]
-
-
 def plan_launch_fast(dev: torch.device, P: int, Q: int, T: int,
                      geom=None) -> geometry.FastLayout:
     """The fast kernel's windows a CTA, threads and shared-memory layout:
@@ -205,10 +184,11 @@ def plan_launch_fast(dev: torch.device, P: int, Q: int, T: int,
 
 
 def _launch_fast(data, plans, bank, carries, C, B, L, P, Q, T, intype,
-                 outtype, geom=None):
-    """:func:`_launch` for ``csrc/chain_fast.cu``; ``geom`` as in
-    :func:`plan_launch_fast`.  Raises where Q is not a power of two (the
-    chain route's gate admits only Q | 128)."""
+                 outtype, geom=None, passes=3):
+    """:func:`_launch` for ``csrc/chain_fast.cu`` with ``passes`` bf16
+    passes (3: split3, 1: default); ``geom`` as in :func:`plan_launch_fast`.
+    Raises where Q is not a power of two (the chain route's gate admits only
+    Q | 128)."""
     dev = data.device
     lay = plan_launch_fast(dev, P, Q, T, geom)
     data, plans, carries = data.contiguous(), plans.contiguous(), carries.contiguous()
@@ -218,7 +198,7 @@ def _launch_fast(data, plans, bank, carries, C, B, L, P, Q, T, intype,
         data.data_ptr(), out.data_ptr(), plans.data_ptr(), t_h.data_ptr(),
         t_l.data_ptr(), carries.data_ptr(), carries_out.data_ptr(), C, B, L,
         P, Q, T, lay.windows, lay.threads, lay.plane, lay.g_off, lay.x_off,
-        lay.smem_bytes, int(intype == "f32"), int(outtype == "f32"),
+        lay.smem_bytes, int(intype == "f32"), int(outtype == "f32"), passes,
         torch.cuda.current_stream(dev).cuda_stream)
     build.check(rc, "fast chain")
     return out, carries_out
@@ -233,13 +213,13 @@ def mix_resample_chain_stream(data, plans, bank, carry, *, P: int, Q: int,
     ``plans``: ``(7, B)`` plan words; ``bank``: the ``(P, T)`` polyphase
     bank; ``carry``: ``(2, T−1)`` float32.  Returns ``(out, carry_out)``
     with ``out`` int32 ``(B, L·P/Q)`` or float32 ``(2, B, L·P/Q)``.
-    ``dot_precision``: ``"highest"`` (float32 dots) or ``"split3"`` (the
-    fast kernel, see the module docstring).
+    ``dot_precision``: ``"highest"`` (float32 dots), ``"split3"`` or
+    ``"default"`` (the fast kernel, see the module docstring).
 
     A CPU tensor runs the plain version; a CUDA tensor launches the kernel
     (one channel) or raises.
     """
-    _check_precision(dot_precision)
+    check_precision(dot_precision)
     if data.device.type == "cpu":
         return mix_resample_chain_plain(data, plans, bank, carry, P=P, Q=Q,
                                         T=T, intype=intype, outtype=outtype,
@@ -247,10 +227,13 @@ def mix_resample_chain_stream(data, plans, bank, carry, *, P: int, Q: int,
     if data.device.type != "cuda":
         raise ValueError(f"no chain kernel for device {data.device}")
     B, L = _check(data, plans, bank, carry, intype, outtype, P, Q, T)
-    if dot_precision == "split3":
+    if dot_precision in PASSES:
         out, carry_out = _launch_fast(data, plans, bank, carry[None], 1, B, L,
-                                      P, Q, T, intype, outtype)
+                                      P, Q, T, intype, outtype,
+                                      passes=PASSES[dot_precision])
         mix_resample_chain_stream.launches_fast += 1
+        if dot_precision == "default":
+            mix_resample_chain_stream.launches_default += 1
     else:
         out, carry_out = _launch(data, plans, bank, carry, 1, B, L, P, Q, T,
                                  intype, outtype)
@@ -276,7 +259,7 @@ def mix_resample_chain_channels(data, plans, bank, carries, *, P: int, Q: int,
     A CPU tensor runs the plain version; a CUDA tensor launches the kernel
     of ``dot_precision`` or raises.
     """
-    _check_precision(dot_precision)
+    check_precision(dot_precision)
     if data.device.type == "cpu":
         return mix_resample_chain_channels_plain(
             data, plans, bank, carries, P=P, Q=Q, T=T, intype=intype,
@@ -285,10 +268,13 @@ def mix_resample_chain_channels(data, plans, bank, carries, *, P: int, Q: int,
         raise ValueError(f"no chain kernel for device {data.device}")
     C, B, L = _check_channels(data, plans, bank, carries, intype, outtype,
                               P, Q, T)
-    if dot_precision == "split3":
+    if dot_precision in PASSES:
         out, carries_out = _launch_fast(data, plans, bank, carries, C, B, L,
-                                        P, Q, T, intype, outtype)
+                                        P, Q, T, intype, outtype,
+                                        passes=PASSES[dot_precision])
         mix_resample_chain_channels.launches_fast += 1
+        if dot_precision == "default":
+            mix_resample_chain_channels.launches_default += 1
     else:
         out, carries_out = _launch(data, plans, bank, carries, C, B, L, P, Q,
                                    T, intype, outtype)
@@ -296,8 +282,11 @@ def mix_resample_chain_channels(data, plans, bank, carries, *, P: int, Q: int,
     return out, carries_out
 
 
-# kernel launches (CUDA path only): csrc/chain.cu, csrc/chain_fast.cu
+# kernel launches (CUDA path only): csrc/chain.cu, csrc/chain_fast.cu (both
+# pass counts), and of those the one-pass ('default') launches
 mix_resample_chain_stream.launches = 0
 mix_resample_chain_stream.launches_fast = 0
+mix_resample_chain_stream.launches_default = 0
 mix_resample_chain_channels.launches = 0
 mix_resample_chain_channels.launches_fast = 0
+mix_resample_chain_channels.launches_default = 0

@@ -1,5 +1,6 @@
 """Launch geometry of the chain and cascade kernels, in Python (and, at the
-end, of the chain kernel of ``--precision fast``, ``csrc/chain_fast.cu``).
+end, of the kernels of the bf16 dots, ``csrc/chain_fast.cu`` and
+``csrc/cascade_fast.cu``).
 
 The kernels (``csrc/chain.cu``, ``csrc/cascade.cu``, ``csrc/fir.cuh``) take
 their tile, their thread count, each stage's register tile ``R`` and the
@@ -22,7 +23,9 @@ import functools
 __all__ = ["SLACK", "MAX_THREADS", "r_choices", "tap_stride", "span_words",
            "span_back", "Layout", "layout", "cta_units", "cta_spans",
            "ctas_per_sm", "pick_cascade", "pick_chain", "FastLayout",
-           "fast_layout", "pick_chain_fast"]
+           "fast_layout", "pick_chain_fast", "CascadeFastLayout",
+           "cascade_fast_spans", "cascade_fast_layout", "pick_cascade_fast",
+           "check_cascade_fast_chunk", "fast_cta_units", "fast_cta_spans"]
 
 SLACK = 3             # csrc/fir.cuh kSlack
 MAX_THREADS = 512     # the kernels' __launch_bounds__
@@ -257,21 +260,32 @@ def fast_lead(T: int) -> int:
     return (1 - T) % 4
 
 
+def fast_dims(P: int, Q: int, T: int) -> tuple:
+    """A stage's k-steps ``ks`` (K = 16·ks band columns) and N-tiles ``nt``
+    (``csrc/fast_dot.cuh fast_derive``); Q must be a power of two."""
+    if Q & (Q - 1) or Q < 1:
+        raise ValueError(f"the fast kernels need Q a power of two (Q={Q})")
+    return -(-(T + fast_lead(T) + (P - 1) * Q // P) // 16), -(-P // 8)
+
+
+def fast_plane(span: int, Q: int) -> int:
+    """bf16 entries of a plane that holds a span of ``span`` entries with its
+    pads: a multiple of 8."""
+    last = span - 1
+    return -(-(last + fast_pad(Q) * (last // Q) + 1) // 8) * 8
+
+
 def fast_layout(P: int, Q: int, T: int, windows: int, threads: int) -> FastLayout:
     """Shared-memory layout of a CTA of ``windows`` windows: the B fragments
     (``ks·nt·32`` lanes of 16 bytes) first, then the planes I_h, I_l, Q_h,
     Q_l, each holding ``Q·(windows−1) + 16·ks`` span entries with their pads."""
-    if Q & (Q - 1) or Q < 1:
-        raise ValueError(f"the fast chain kernel needs Q a power of two (Q={Q})")
+    ks, nt = fast_dims(P, Q, T)
     if windows < 16 or windows % 16:
         raise ValueError(f"windows {windows} must be a positive multiple of 16")
     if threads % 32 or not 32 <= threads <= FAST_MAX_THREADS:
         raise ValueError(f"threads {threads} must be a multiple of 32 up to "
                          f"{FAST_MAX_THREADS}")
-    ks = -(-(T + fast_lead(T) + (P - 1) * Q // P) // 16)
-    nt = -(-P // 8)
-    last = Q * (windows - 1) + 16 * ks - 1
-    plane = -(-(last + fast_pad(Q) * (last // Q) + 1) // 8) * 8
+    plane = fast_plane(Q * (windows - 1) + 16 * ks, Q)
     g_words = 128 * ks * nt
     return FastLayout(windows, threads, ks, nt, plane, 0, g_words,
                       4 * (g_words + 2 * plane))
@@ -294,3 +308,146 @@ def pick_chain_fast(P: int, Q: int, T: int, limit: int) -> FastLayout:
         raise ValueError(f"the fast chain at P/Q/T = {P}/{Q}/{T} needs more "
                          f"than {limit} bytes of shared memory a CTA")
     return fallback
+
+
+# -- the cascade kernel of the bf16 dots (csrc/cascade_fast.cu) ---------------
+
+CASCADE_FAST_WINDOWS = (256, 192, 160, 128, 112, 96, 80, 64, 48, 32, 16)
+
+
+@dataclasses.dataclass(frozen=True)
+class CascadeFastLayout:
+    """One launch of ``csrc/cascade_fast.cu``: ``windows`` of the last stage
+    a tile CTA (a multiple of 16), ``threads``, and per stage ``rows`` of 6
+    ints as the C entry point takes them, ``P, Q, T, plane, g_off, x_off``
+    (the bf16 entries of each of its four span planes, the word offsets of
+    its B fragments and of its planes), ``spans`` the most entries of x_s a
+    CTA's span holds, in ``smem_bytes`` of shared memory."""
+    windows: int
+    threads: int
+    rows: tuple
+    spans: tuple
+    smem_bytes: int
+
+
+def cascade_fast_spans(stages, windows: int) -> tuple:
+    """The most entries of each x_s any CTA's span holds
+    (``csrc/cascade_fast.cu fast_span_bound``): a tile CTA's last stage is
+    ``windows`` windows; below it, and below a carry CTA's up to ``windows``
+    entries of x_t, a run of c needed outputs lies in ⌈(c−1)/P⌉ + 1 windows,
+    15 more where its first rounds down to a multiple of 16, in whole
+    M-tiles of 16; their span is Q·(rows − 1) + 16·ks entries."""
+    S = len(stages)
+    need = [0] * S
+    for t in range(1, S + 1):
+        c = windows * stages[t - 1][0] if t == S else min(windows, stages[t][2] - 1)
+        if c <= 0:
+            continue
+        for s in range(t - 1, -1, -1):
+            P, Q, T = stages[s]
+            w = -(-(c - 1) // P) + 1
+            rows = windows if (t == S and s == t - 1) else (w + 30) // 16 * 16
+            c = Q * (rows - 1) + 16 * fast_dims(P, Q, T)[0]
+            need[s] = max(need[s], c)
+    return tuple(need)
+
+
+def cascade_fast_layout(stages, windows: int, threads: int) -> CascadeFastLayout:
+    """Shared-memory layout for tiles of ``windows`` last-stage windows over
+    ``stages`` = ``(P, Q, T)`` each: per stage its B fragments, then its four
+    planes."""
+    return _cascade_fast_layout(tuple(tuple(int(v) for v in st) for st in stages),
+                                int(windows), int(threads))
+
+
+@functools.lru_cache(maxsize=None)
+def _cascade_fast_layout(stages, windows, threads) -> CascadeFastLayout:
+    if not 1 <= len(stages) <= MAX_STAGES:
+        raise ValueError(f"1 to {MAX_STAGES} stages")
+    if windows < 16 or windows % 16:
+        raise ValueError(f"windows {windows} must be a positive multiple of 16")
+    if threads % 32 or not 32 <= threads <= FAST_MAX_THREADS:
+        raise ValueError(f"threads {threads} must be a multiple of 32 up to "
+                         f"{FAST_MAX_THREADS}")
+    spans = cascade_fast_spans(stages, windows)
+    rows, off = [], 0
+    for (P, Q, T), span in zip(stages, spans):
+        ks, nt = fast_dims(P, Q, T)
+        plane = fast_plane(span, Q)
+        rows.append((P, Q, T, plane, off, off + 128 * ks * nt))
+        off += 128 * ks * nt + 2 * plane
+    return CascadeFastLayout(windows, threads, tuple(rows), spans, 4 * off)
+
+
+@functools.lru_cache(maxsize=None)
+def pick_cascade_fast(stages, limit: int) -> CascadeFastLayout:
+    """256 threads, and the most windows that leave three CTAs on an SM by
+    their shared memory, else two, else the most that fit."""
+    lays = [cascade_fast_layout(stages, w, FAST_MAX_THREADS)
+            for w in CASCADE_FAST_WINDOWS]
+    for want in (3, 2, 1):
+        for lay in lays:
+            if (lay.smem_bytes <= limit
+                    and ctas_per_sm(lay.smem_bytes, FAST_MAX_THREADS) >= want):
+                return lay
+    raise ValueError(f"the fast cascade {stages} needs more than {limit} bytes "
+                     "of shared memory a CTA")
+
+
+def check_cascade_fast_chunk(stages, B: int, L: int) -> None:
+    """Raise unless every stage's window count in a ``(B, L)`` chunk (its
+    chunk input count / Q) is a multiple of 16: the fast cascade's M-tiles
+    start at multiples of 16 windows of each stage's chunk-local grid, which
+    is then the stream's absolute grid mod 16 in any cut of the stream into
+    such chunks, so an output sits in the same row of its mma whatever the
+    cut (``csrc/cascade_fast.cu``, "Bytes")."""
+    n = B * L
+    for s, (P, Q, _) in enumerate(stages):
+        if n % (16 * Q):
+            raise ValueError(
+                f"the fast cascade needs every stage's chunk input count to be "
+                f"a multiple of 16·Q; stage {s} (Q={Q}) gets {n} samples from a "
+                f"chunk of {B}×{L}")
+        n = n // Q * P
+
+
+def fast_cta_units(stages, n0: int, windows: int):
+    """The CTAs of ``csrc/cascade_fast.cu`` as ``(t, a, c)``: entries
+    ``a .. a+c−1`` of x_t (``t = len(stages)``: the output), the tiles of
+    ``windows`` last-stage windows first, then each stage's carry CTAs of up
+    to ``windows`` entries — ``fast_cascade_plan``'s own walk."""
+    n_in = [n0]
+    for P, Q, _ in stages:
+        n_in.append(n_in[-1] // Q * P)
+    S, P = len(stages), stages[-1][0]
+    units = [(S, a, min(windows * P, n_in[S] - a))
+             for a in range(0, n_in[S], windows * P)]
+    for t, (_, _, T) in enumerate(stages):
+        H = T - 1
+        units += [(t, n_in[t] - H + k, min(windows, H - k))
+                  for k in range(0, H, windows)]
+    return units
+
+
+def fast_cta_spans(stages, n0: int, t: int, a: int, c: int):
+    """What the CTA with target ``(t, a, c)`` computes of each stage
+    ``s < t`` (``fast_cascade_plan``): ``(ja, jb, w0, rows, org, len)`` —
+    it keeps outputs ``ja .. jb`` of stage s, computes ``rows`` windows from
+    ``w0`` and reads ``len`` entries of x_s from index ``org``."""
+    n_in = [n0]
+    for P, Q, _ in stages:
+        n_in.append(n_in[-1] // Q * P)
+    spans = {}
+    ja, jb = max(a, 0), a + c - 1
+    for s in range(t - 1, -1, -1):
+        P, Q, T = stages[s]
+        if jb < ja:
+            spans[s] = (ja, jb, 0, 0, 0, 0)
+            continue
+        w0 = ja // P // 16 * 16
+        rows = (jb // P - w0 + 16) // 16 * 16
+        org = w0 * Q - (T - 1) - fast_lead(T)
+        length = Q * (rows - 1) + 16 * fast_dims(P, Q, T)[0]
+        spans[s] = (ja, jb, w0, rows, org, length)
+        ja, jb = max(org, 0), min(org + length, n_in[s]) - 1
+    return spans

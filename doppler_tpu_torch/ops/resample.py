@@ -24,7 +24,11 @@ import numpy as np
 import torch
 
 from doppler_tpu_torch.ops.filters import design_polyphase_bank
-from doppler_tpu_torch.ops.precision import split3_bank, split_bf16_exact
+from doppler_tpu_torch.ops.precision import (
+    check_precision,
+    split3_bank,
+    split_bf16_exact,
+)
 
 __all__ = ["RationalResampler", "window_dot", "tree_sum_last", "attach_resampler"]
 
@@ -52,7 +56,7 @@ def tree_sum_last(x: torch.Tensor) -> torch.Tensor:
 
 
 def window_dot(xi, xq, bank_rev, rem0: int, off0: int, *, P: int, Q: int,
-               T: int, M: int, split3: bool = False):
+               T: int, M: int, dot: str = "highest"):
     """Resample M outputs from a padded input window.
 
     ``xi, xq``   : ``(H + N,)`` planar input — or ``(C, H + N)``, one row
@@ -70,10 +74,13 @@ def window_dot(xi, xq, bank_rev, rem0: int, off0: int, *, P: int, Q: int,
     bitwise the unbatched call on row c (the same products into the same
     tree).
 
-    ``split3``: the ``--precision fast`` function (``ops.precision``): the
-    inputs and the taps split into bf16-exact halves, each tap's term
+    ``dot``: ``"highest"``, the float32 products; ``"split3"``, the
+    ``--precision fast`` function (``ops.precision``): the inputs and the
+    taps split into bf16-exact halves, each tap's term
     ``x_h·t_h + x_h·t_l + x_l·t_h`` (three exact products, two float32
-    adds in that order) into the same tree.
+    adds in that order) into the same tree; ``"default"``, the one bf16
+    pass of the TPU's DEFAULT dot: ``x_h·t_h`` alone (an exact product)
+    into the same tree.
     """
     dev = xi.device
     last = xi.shape[-1] - 1
@@ -82,7 +89,8 @@ def window_dot(xi, xq, bank_rev, rem0: int, off0: int, *, P: int, Q: int,
     taps_k = torch.arange(T, dtype=torch.int64, device=dev)
     yi = torch.empty(lead + (M,), dtype=torch.float32, device=dev)
     yq = torch.empty(lead + (M,), dtype=torch.float32, device=dev)
-    if split3:
+    check_precision(dot)
+    if dot != "highest":
         rev_h, rev_l = split3_bank(bank_rev)
         planes = (split_bf16_exact(xi), split_bf16_exact(xq))
     for m_lo in range(0, M, slab):
@@ -92,12 +100,17 @@ def window_dot(xi, xq, bank_rev, rem0: int, off0: int, *, P: int, Q: int,
         base = off0 + u // P                    # window start per output
         idx = (base[:, None] + taps_k[None, :]).clamp_(0, last)
         out = slice(m_lo, m_lo + j.numel())
-        if split3:
+        if dot == "split3":
             t_h, t_l = rev_h[u % P], rev_l[u % P]
             for y, (x_h, x_l) in zip((yi, yq), planes):
                 g_h = x_h[..., idx]
                 y[..., out] = tree_sum_last(g_h * t_h + g_h * t_l
                                             + x_l[..., idx] * t_h)
+            continue
+        if dot == "default":
+            t_h = rev_h[u % P]
+            for y, (x_h, _) in zip((yi, yq), planes):
+                y[..., out] = tree_sum_last(x_h[..., idx] * t_h)
             continue
         taps = bank_rev[u % P]                  # (m, T)
         yi[..., out] = tree_sum_last(xi[..., idx] * taps)

@@ -1,4 +1,4 @@
-"""What the two timing tools share: the bench inputs and the timing loop."""
+"""What the timing tools share: the bench inputs and the timing loop."""
 
 from __future__ import annotations
 
@@ -27,16 +27,16 @@ def add_common_args(ap: argparse.ArgumentParser) -> None:
                          "kernels' plain versions, which measures no card")
 
 
-def bench_inputs(samples: int, device: torch.device):
+def bench_inputs(samples: int, device: torch.device, fs: int = FS):
     """The JAX tools' data and plan (``tools/roofline.py:86-96``) at the
     port's block length: ``(B, 2048)`` int32 words from NumPy seed ``0xBE``
-    and the plan words of shifts ``9000 − 0.01·k`` Hz at 1.024 Msps.
-    Returns ``(words, plans, B)`` on ``device``."""
+    and the plan words of shifts ``9000 − 0.01·k`` Hz at ``fs`` (1.024 Msps
+    unless given).  Returns ``(words, plans, B)`` on ``device``."""
     B = max(1, samples // L)
     rng = np.random.default_rng(0xBE)
     words = rng.integers(-(1 << 31), 1 << 31, size=(B, L),
                          dtype=np.int64).astype(np.int32)
-    plan = plan_blocks([9000.0 - 0.01 * k for k in range(B)], [L] * B, FS,
+    plan = plan_blocks([9000.0 - 0.01 * k for k in range(B)], [L] * B, fs,
                        NCOState(), L)
     return (torch.from_numpy(words).to(device),
             nco.plan_tensor(plan, device=device), B)

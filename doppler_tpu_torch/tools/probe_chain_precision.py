@@ -7,15 +7,16 @@ Counterpart of ``tools/probe_chain_precision.py``.  Variants:
   split3      the kernel of ``--precision fast`` (``csrc/chain_fast.cu``):
               the same function as three exact bf16 products a tap on the
               tensor cores (the JAX tool's ``split3-*``)
+  def         the same kernel with one bf16 pass, ``x_h·t_h``
+              (``dot_precision='default'``; the JAX tool's ``def-*``)
   mix-select  the chain-shaped mix + encode probe with the select-chain
               quadrant fold (``ops.sincos.sincos_q24_neg_select``)
   mix-fold    the same with the product tone's XOR sign fold; the two write
               the same words
 
-Not ported: the JAX tool's ``def`` variant (one bf16 pass, ``DEFAULT`` dot
-precision; ROADMAP queue 1).  Its ``phase_impl`` axis (``flat`` / ``outer``)
-has no counterpart: the port's phase is one 64-bit multiply-add a sample and
-needs no strength reduction.
+The JAX tool's ``phase_impl`` axis (``flat`` / ``outer``) has no
+counterpart: the port's phase is one 64-bit multiply-add a sample and needs
+no strength reduction.
 
 Data, plan and timing as ``tools/roofline.py``.  One stderr line a round and
 variant, then one JSON line ``{variant: {gsps, ms}}`` on stdout (``ms`` for
@@ -36,7 +37,7 @@ from doppler_tpu_torch.ops.cuda import chain, probes
 from doppler_tpu_torch.ops.resample import RationalResampler
 from doppler_tpu_torch.tools import common
 
-VARIANTS = ("hi", "split3", "mix-select", "mix-fold")
+VARIANTS = ("hi", "split3", "def", "mix-select", "mix-fold")
 
 
 def main(argv=None) -> int:
@@ -61,6 +62,8 @@ def main(argv=None) -> int:
             words, plans, bank, carry, P=P, Q=Q, T=T),
         "split3": lambda: chain.mix_resample_chain_stream(
             words, plans, bank, carry, P=P, Q=Q, T=T, dot_precision="split3"),
+        "def": lambda: chain.mix_resample_chain_stream(
+            words, plans, bank, carry, P=P, Q=Q, T=T, dot_precision="default"),
         "mix-select": lambda: probes.mix_shape_run(words, plans, P=P, Q=Q,
                                                    tone="select"),
         "mix-fold": lambda: probes.mix_shape_run(words, plans, P=P, Q=Q,

@@ -21,6 +21,11 @@ and carry, whatever the chunk split.  The Q15 mixer and the roofline probes are 
 or share the mixer's separately rounded steps, so they are bitwise equal to
 their plain versions, the chain-shaped probes' XOR side output included.
 
+The kernels of the bf16 dots (``csrc/chain_fast.cu``, ``csrc/cascade_fast.cu``,
+``dot_precision`` ``split3`` and ``default``) are held to their plain
+versions within a tolerance, bitwise only against themselves and in the
+carries that are mixed samples (tolerances above their tests).
+
 The chain and cascade kernels are also held to the SHA-256 digests of
 ``tools/kernel_digests.py``, taken on the kernels they replaced: their bytes
 may depend on nothing but their inputs, so every tile, thread count and
@@ -869,3 +874,183 @@ def test_fast_pipeline_on_card(card):
              torch.frombuffer(bytearray(cpu), dtype=torch.int32))
     assert int(d.max()) <= 1 and float((d > 0).float().mean()) < 0.01
     assert run("cuda", "fast", "auto") == run("cuda", "exact", "auto")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("intype,outtype", FORMATS)
+def test_default_chain_kernels_vs_plain(card, intype, outtype):
+    """``dot_precision="default"`` on kernels 2 and 4: ``csrc/chain_fast.cu``
+    with one pass against its plain version, C = 1 and C = 3; counted in
+    ``.launches_fast`` and ``.launches_default``; carries bitwise the exact
+    kernel's."""
+    rng = np.random.default_rng(84)
+    data, plan = _chunk(32, 2048, intype, rng, NCOState())
+    x = torch.from_numpy(data).to(card)
+    p = nco.plan_tensor(plan, device=card)
+    bank = torch.from_numpy(BANK).to(card)
+    carries = torch.from_numpy(
+        (rng.standard_normal((3, 2, T - 1)) * 0.3).astype(np.float32)).to(card)
+    kw = dict(P=P, Q=Q, T=T, intype=intype, outtype=outtype)
+    counts = (mix_resample_chain_stream.launches_fast,
+              mix_resample_chain_stream.launches_default)
+    got, c_got = mix_resample_chain_stream(x, p, bank, carries[0],
+                                           dot_precision="default", **kw)
+    torch.cuda.synchronize()
+    assert (mix_resample_chain_stream.launches_fast,
+            mix_resample_chain_stream.launches_default) == (counts[0] + 1, counts[1] + 1)
+    want, _ = mix_resample_chain_plain(x, p, bank, carries[0],
+                                       dot_precision="default", **kw)
+    _, c_exact = mix_resample_chain_stream(x, p, bank, carries[0], **kw)
+    _close_fast(got, want, outtype)
+    assert torch.equal(c_got, c_exact)
+    plans = torch.stack([p] * 3, dim=1).contiguous()
+    ch0 = mix_resample_chain_channels.launches_default
+    got_c, _ = mix_resample_chain_channels(x, plans, bank, carries,
+                                           dot_precision="default", **kw)
+    torch.cuda.synchronize()
+    assert mix_resample_chain_channels.launches_default == ch0 + 1
+    want_c, _ = mix_resample_chain_channels_plain(x, plans, bank, carries,
+                                                  dot_precision="default", **kw)
+    _close_fast(got_c, want_c, outtype)
+    assert torch.equal(_channel(got_c, 0, outtype), got)
+
+
+# -- the cascade of the bf16 dots (csrc/cascade_fast.cu) ----------------------
+#
+# Tolerances.  split3 as the fast chain's: against its plain version ≤ 1 LSB
+# in under 1% (float32 1e-5 of the largest output, the later carries too),
+# against the exact kernel ≤ 1 LSB and ≥ 80 dB (float32 3e-5).  default
+# against its plain version: ≥ 70 dB, and over 1 LSB (float32: 1e-5 of the
+# largest output) in under 0.1% of samples.  Its later stages read x_s
+# that the kernel and the plain version sum in other orders; where the two
+# float32 values lie either side of a bf16 rounding boundary, their one
+# pass takes x_h one bf16 ulp (2^-8 of x_s) apart and nothing takes the
+# difference up (split3's x_l does), so a few outputs move by up to that
+# times a tap.  default against the exact kernel ≥ 45 dB (it keeps 8 bits
+# of each operand; 50 dB measured on the CPU).  Stage-0 carries bitwise the
+# exact kernel's; bitwise against itself across geometries and chunk cuts.
+
+CASCADE_FAST_GEOMS = [(16, 32), (32, 128), (64, 256)]
+
+
+def _snr_db(fast, exact):
+    """SNR of ``fast`` against ``exact``: i16 words, or float32 planes."""
+    if fast.dtype == torch.int32:
+        g, w = fast.view(torch.int16).double(), exact.view(torch.int16).double()
+    else:
+        g, w = fast.double(), exact.double()
+    return 10 * np.log10(float((w * w).sum()) / max(float(((g - w) ** 2).sum()), 1e-30))
+
+
+def _close_default(got, want, outtype):
+    """The one-pass cascade against its plain version (above)."""
+    if outtype == "i16":
+        off = _lsb(got, want) > 1
+    else:
+        off = (got - want).abs() > 1e-5 * float(want.abs().max())
+    assert float(off.float().mean()) < 1e-3 and _snr_db(got, want) >= 70.0
+
+
+def _close_carries(got, want):
+    for g, w in zip(got[1:], want[1:]):
+        assert float((g - w).abs().max()) <= 1e-5 * float(w.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dot", ["split3", "default"])
+@pytest.mark.parametrize("intype,outtype", FORMATS)
+def test_cascade_fast_kernel_vs_plain_and_exact(card, intype, outtype, dot):
+    """Config-3 stages; the second chunk starts from the carries of the
+    first."""
+    stages, banks = _cascade_args(MultiStageResampler(FS, 48000), card)
+    rng, state = np.random.default_rng(85), NCOState()
+    carries = tuple(torch.zeros(2, T_ - 1, device=card) for _, _, T_ in stages)
+    kw = dict(stages=stages, intype=intype, outtype=outtype)
+    for _ in range(2):
+        data, plan = _chunk(32, 2048, intype, rng, state)
+        x = torch.from_numpy(data).to(card)
+        p = nco.plan_tensor(plan, device=card)
+        counts = (mix_cascade_stream.launches, mix_cascade_stream.launches_fast,
+                  mix_cascade_stream.launches_default)
+        got, c_got = mix_cascade_stream(x, p, banks, carries, dot_precision=dot, **kw)
+        torch.cuda.synchronize()
+        assert (mix_cascade_stream.launches, mix_cascade_stream.launches_fast,
+                mix_cascade_stream.launches_default) == (
+            counts[0], counts[1] + 1, counts[2] + (dot == "default"))
+        want, c_want = mix_cascade_plain(x, p, banks, carries, dot_precision=dot, **kw)
+        exact, c_exact = mix_cascade_stream(x, p, banks, carries, **kw)
+        torch.cuda.synchronize()
+        if dot == "split3":
+            _close_fast(got, want, outtype)
+            _snr_vs_exact(got, exact, outtype)
+            _close_carries(c_got, c_want)
+        else:
+            _close_default(got, want, outtype)
+            assert _snr_db(got, exact) >= 45.0
+        assert torch.equal(c_got[0], c_exact[0]) and torch.equal(c_got[0], c_want[0])
+        carries = c_got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dot", ["split3", "default"])
+def test_cascade_fast_split_front(card, dot):
+    """The ÷16·÷16 front of the 100 Msps route, float32 planes out."""
+    ms = MultiStageResampler(100_000_000, 48000)
+    stages, banks = _cascade_args(ms, card, split_point(ms.stages))
+    data, plan = _chunk(32, 2048, "i16", np.random.default_rng(86), NCOState())
+    x = torch.from_numpy(data).to(card)
+    p = nco.plan_tensor(plan, device=card)
+    rng = np.random.default_rng(87)
+    carries = tuple(torch.from_numpy((rng.standard_normal((2, T_ - 1)) * 0.3)
+                                     .astype(np.float32)).to(card)
+                    for _, _, T_ in stages)
+    kw = dict(stages=stages, outtype="f32", final_dense=True, dot_precision=dot)
+    got, c_got = mix_cascade_stream(x, p, banks, carries, **kw)
+    want, c_want = mix_cascade_plain(x, p, banks, carries, **kw)
+    torch.cuda.synchronize()
+    if dot == "split3":
+        _close_fast(got, want, "f32")
+        _close_carries(c_got, c_want)
+    else:
+        _close_default(got, want, "f32")
+    assert torch.equal(c_got[0], c_want[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dot", ["split3", "default"])
+@pytest.mark.parametrize("fmt", ["i16", "f32"])
+def test_cascade_fast_bytes_do_not_depend_on_geometry_or_chunk_cut(card, fmt, dot):
+    """Every (windows, threads) of CASCADE_FAST_GEOMS through
+    ``_launch_fast``'s ``geom``, and 256 blocks against 4 × 64, from
+    non-zero carries."""
+    from doppler_tpu_torch.ops.precision import PASSES
+
+    stages, banks = _cascade_args(MultiStageResampler(FS, 48000), card)
+    B = 256
+    data, plan = _chunk(B, 2048, fmt, np.random.default_rng(88), NCOState())
+    x = torch.from_numpy(data).to(card)
+    p = nco.plan_tensor(plan, device=card)
+    rng = np.random.default_rng(89)
+    carries = tuple(torch.from_numpy((rng.standard_normal((2, T_ - 1)) * 0.3)
+                                     .astype(np.float32)).to(card)
+                    for _, _, T_ in stages)
+    n_out = B * 2048 * 3 // 64
+    args = (x, p, banks, carries, B, 2048, stages, n_out, fmt, fmt, PASSES[dot])
+    want = cascade_mod._launch_fast(*args)
+    for geom in CASCADE_FAST_GEOMS:
+        got = cascade_mod._launch_fast(*args, geom=geom)
+        torch.cuda.synchronize()
+        assert torch.equal(got[0], want[0]), geom
+        assert all(torch.equal(a, b) for a, b in zip(got[1], want[1])), geom
+    kw = dict(stages=stages, intype=fmt, outtype=fmt, dot_precision=dot)
+    blocks = (lambda b: x[b:b + 64]) if fmt == "i16" else (lambda b: x[:, b:b + 64])
+    whole, c_whole = mix_cascade_stream(x, p, banks, carries, **kw)
+    c, parts = carries, []
+    for b in range(0, B, 64):
+        o, c = mix_cascade_stream(blocks(b).contiguous(), p[:, b:b + 64].contiguous(),
+                                  banks, c, **kw)
+        parts.append(o)
+    torch.cuda.synchronize()
+    assert torch.equal(torch.cat(parts, dim=-2), whole)
+    assert all(torch.equal(a, b) for a, b in zip(c, c_whole))
+    assert torch.equal(whole.reshape(-1), want[0].reshape(-1))

@@ -20,9 +20,17 @@ What runs here without a card:
   computes the 16×8×16 product from the lanes' fragments in the PTX
   layout): the same bytes for every CTA size and thread count, carries
   bitwise the exact kernel's, and within 1 LSB in under 1% of i16 samples,
-  1e-5 of the largest float32 output, of the split3 plain version, at
-  config 3's stage and at stages that take two N-tiles, no plane pad, or
-  Q = 1 (16-bit fragment loads).
+  1e-5 of the largest float32 output, of the plain version of its dot
+  precision (three passes: split3; one: default), at config 3's stage and
+  at stages that take two N-tiles, no plane pad, or Q = 1 (16-bit fragment
+  loads);
+- the cascade of the bf16 dots (``csrc/cascade_fast.cu``) the same way:
+  its CTAs cover every output and carry entry once, every M-tile starts at
+  a multiple of 16 windows and every span fits its planes; the same bytes
+  and carries for every tile and thread count and across a chunk cut,
+  stage-0 carries bitwise the exact kernel's, within the same tolerance of
+  its plain version (carries too), in CTAs whose shared memory starts as
+  NaN, so every band entry a fragment reads is written.
 """
 
 import ctypes
@@ -443,7 +451,7 @@ def test_fast_layout_fits_and_holds_every_fragment(stage):
         geometry.fast_layout(3, 48, 100, 16, 32)
 
 
-def _emulate_chain_fast(emu, case, stage, C, B, L, fmt, lay):
+def _emulate_chain_fast(emu, case, stage, C, B, L, fmt, lay, passes=3):
     data, plans, banks, carries = case
     out, c_out = _outputs((stage,), C, B, L, fmt)
     t_h, t_l = (h.to(torch.bfloat16).view(torch.int16).numpy().copy()
@@ -455,20 +463,24 @@ def _emulate_chain_fast(emu, case, stage, C, B, L, fmt, lay):
         ctypes.c_void_p(t_l.ctypes.data), ctypes.c_void_p(carries[0].ctypes.data),
         ctypes.c_void_p(c_out[0].ctypes.data), C, B, L, P, Q, T, lay.windows,
         lay.threads, lay.plane, lay.g_off, lay.x_off,
-        ctypes.c_longlong(lay.smem_bytes), int(fmt == "f32"), int(fmt == "f32"))
+        ctypes.c_longlong(lay.smem_bytes), int(fmt == "f32"), int(fmt == "f32"),
+        passes)
     assert rc == 0, "the entry point's checks refuse these arguments"
     return out, c_out
 
 
+@pytest.mark.parametrize("passes", [3, 1])
 @pytest.mark.parametrize("fmt", ["i16", "f32"])
 @pytest.mark.parametrize("name", list(FAST_STAGES))
-def test_emulated_fast_chain_kernel(emu, name, fmt):
+def test_emulated_fast_chain_kernel(emu, name, fmt, passes):
+    """Three passes (split3) or one (default) against the plain version of
+    that dot precision."""
     stage, B, L = FAST_STAGES[name]
     P, Q, T = stage
     C = 2
     case = _case(5, (stage,), C, B, L, fmt)
     outs = [_emulate_chain_fast(emu, case, stage, C, B, L, fmt,
-                                geometry.fast_layout(P, Q, T, w, t))
+                                geometry.fast_layout(P, Q, T, w, t), passes)
             for w, t in FAST_GEOMS]
     assert all(_same(o, outs[0]) for o in outs[1:])
     out, c_out = outs[0]
@@ -481,7 +493,7 @@ def test_emulated_fast_chain_kernel(emu, name, fmt):
         want, _ = chain.mix_resample_chain_plain(
             t(data.copy()), t(plans[:, c].copy().view(np.int32)), t(banks[0]),
             t(carries[0][c]), P=P, Q=Q, T=T, intype=fmt, outtype=fmt,
-            dot_precision="split3")
+            dot_precision="split3" if passes == 3 else "default")
         if fmt == "i16":
             d = np.abs(out[c].view(np.int16).astype(np.int32)
                        - want.numpy().reshape(-1).view(np.int16).astype(np.int32))
@@ -490,3 +502,191 @@ def test_emulated_fast_chain_kernel(emu, name, fmt):
         else:
             w = want.numpy().reshape(2, -1)
             assert np.abs(out[:, c] - w).max() <= 1e-5 * np.abs(w).max()
+
+
+# -- (f) the cascade kernel of the bf16 dots ----------------------------------
+
+FAST_CASCADES = {
+    "config3": (_stages(1_024_000), 2, 2048),
+    "front100M": (_stages(100_000_000), 2, 2048),
+    "three": (_stages(2_048_000), 1, 2048),
+}
+CASCADE_FAST_GEOMS = [(16, 32), (32, 64), (48, 128)]
+
+
+@pytest.mark.parametrize("name", ["config 3 cascade", "config 5 / split front",
+                                  "2.048 Msps, three stages", "config 3 chain"])
+@pytest.mark.parametrize("windows", [None, 16, 48])
+def test_cascade_fast_geometry_fits_and_covers(name, windows):
+    """Every output and carry entry is one CTA's target; every window a CTA
+    computes starts its M-tile at a multiple of 16; its span lies inside the
+    layout's planes; stage s−1 keeps exactly the entries of x_s the span
+    reads from the chunk."""
+    stages, n0 = PICKED[name]
+    lay = (geometry.pick_cascade_fast(stages, H100_SMEM) if windows is None
+           else geometry.cascade_fast_layout(stages, windows, 256))
+    assert 0 < lay.smem_bytes <= H100_SMEM or windows is not None
+    geometry.check_cascade_fast_chunk(stages, n0 // 2048, 2048)
+    n_in = [n0]
+    for P, Q, _ in stages:
+        n_in.append(n_in[-1] // Q * P)
+    S = len(stages)
+    seen = [np.zeros(n_in[S], dtype=np.int32)] + [
+        np.zeros(T - 1, dtype=np.int32) for _, _, T in stages]
+    for t, a, c in geometry.fast_cta_units(stages, n0, lay.windows):
+        if t == S:
+            seen[0][a:a + c] += 1
+        else:
+            first = n_in[t] - (stages[t][2] - 1)
+            seen[1 + t][a - first:a - first + c] += 1
+        spans = geometry.fast_cta_spans(stages, n0, t, a, c)
+        want = (max(a, 0), a + c - 1)
+        for s in range(t - 1, -1, -1):
+            P, Q, T = stages[s]
+            ja, jb, w0, rows, org, length = spans[s]
+            assert (ja, jb) == want
+            if jb < ja:
+                break
+            assert w0 % 16 == 0 and rows % 16 == 0
+            assert w0 <= ja // P and jb // P < w0 + rows
+            assert length <= lay.spans[s]
+            want = (max(org, 0), min(org + length, n_in[s]) - 1)
+    assert all((v == 1).all() for v in seen)
+    # the regions of the stages lie apart, inside the CTA
+    end = 0
+    for (P, Q, T, plane, g_off, x_off), span in zip(lay.rows, lay.spans):
+        ks, nt = geometry.fast_dims(P, Q, T)
+        assert g_off == end and x_off == g_off + 128 * ks * nt
+        last = span - 1
+        assert last + geometry.fast_pad(Q) * (last // Q) < plane and plane % 8 == 0
+        end = x_off + 2 * plane
+    assert 4 * end == lay.smem_bytes
+    with pytest.raises(ValueError, match="16·Q"):
+        geometry.check_cascade_fast_chunk(_stages(100_000_000), 3, 2048)
+
+
+@pytest.mark.parametrize("name", list(FAST_CASCADES))
+def test_emulated_fast_cascade_plan_is_the_geometry_walk(emu, name):
+    """``csrc/cascade_fast.cu fast_cascade_plan`` of every CTA equals
+    ``geometry.fast_cta_units`` / ``fast_cta_spans``, which the test above
+    holds to the rules (tiles at multiples of 16 windows, spans inside the
+    planes, every target once)."""
+    stages, B, L = FAST_CASCADES[name]
+    B *= 8
+    for windows in (16, 48):
+        lay = geometry.cascade_fast_layout(stages, windows, 256)
+        units = geometry.fast_cta_units(stages, B * L, windows)
+        S = len(stages)
+        out = np.zeros((len(units), 3 + 6 * S), dtype=np.int64)
+        n = emu.emu_fast_cascade_plans(
+            _ints([v for row in lay.rows for v in row]), S, B, L, windows,
+            ctypes.c_longlong(lay.smem_bytes), ctypes.c_void_p(out.ctypes.data))
+        assert n == len(units)
+        for row, (t, a, c) in zip(out, units):
+            want = [t, a, c] + [0] * (6 * S)
+            for s, span in geometry.fast_cta_spans(stages, B * L, t, a, c).items():
+                want[3 + 6 * s:9 + 6 * s] = span
+            assert row.tolist() == want
+    lay = geometry.cascade_fast_layout(stages, 16, 256)
+    small = list(lay.rows[0])
+    small[3] = 8                                     # planes too small: refused
+    assert emu.emu_fast_cascade_plans(
+        _ints(small + [v for row in lay.rows[1:] for v in row]), len(stages), B,
+        L, 16, ctypes.c_longlong(lay.smem_bytes), None) == -1
+
+
+def _halves(bank):
+    return [h.to(torch.bfloat16).view(torch.int16).numpy().copy()
+            for h in split3_bank(torch.from_numpy(bank))]
+
+
+def _emulate_cascade_fast(emu, case, stages, B, L, fmt, outtype, lay, passes):
+    """Channel 0 of ``case`` through ``emu_cascade_fast``."""
+    data, plans, banks, carries = case
+    out, c_out = _outputs(stages, 1, B, L, outtype)
+    halves = [_halves(b) for b in banks]
+    c_in = [np.ascontiguousarray(c[0]) for c in carries]
+    c_out = [c[0] for c in c_out]
+    rc = emu.emu_cascade_fast(
+        ctypes.c_void_p(data.ctypes.data), ctypes.c_void_p(out.ctypes.data),
+        ctypes.c_void_p(np.ascontiguousarray(plans[:, 0]).ctypes.data),
+        _ptrs([h for h, _ in halves]), _ptrs([l for _, l in halves]), _ptrs(c_in),
+        _ptrs(c_out), _ints([v for row in lay.rows for v in row]), len(stages), B,
+        L, lay.windows, lay.threads, ctypes.c_longlong(lay.smem_bytes),
+        int(fmt == "f32"), int(outtype == "f32"), passes)
+    assert rc == 0, "the entry point's checks refuse these arguments"
+    return out, c_out
+
+
+def _fast_close(got, want, outtype, passes):
+    """The card tests' tolerance of a fast cascade against its plain version
+    (``test_torch_cuda.py``): three passes ≤ 1 LSB in under 1% of samples,
+    float32 1e-5 of the largest output; one pass ≥ 70 dB and beyond those
+    bounds in under 0.1% (a later stage's bf16 rounding of x_s may differ
+    by one ulp where the two sum x_s in other orders)."""
+    if outtype == "i16":
+        g = got.reshape(-1).view(np.int16).astype(np.float64)
+        w = want.reshape(-1).view(np.int16).astype(np.float64)
+        off = np.abs(g - w) > (1 if passes == 1 else 0)
+    else:
+        g, w = got.reshape(2, -1).astype(np.float64), want.reshape(2, -1)
+        off = np.abs(g - w) > 1e-5 * np.abs(w).max()
+    if passes == 3:
+        assert not off.any() if outtype == "f32" else (
+            np.abs(g - w).max() <= 1 and off.sum() <= max(1, off.size // 100))
+        return
+    snr = 10 * np.log10((w ** 2).sum() / max(((g - w) ** 2).sum(), 1e-30))
+    assert off.mean() < 1e-3 and snr >= 70.0
+
+
+@pytest.mark.parametrize("passes", [3, 1])
+@pytest.mark.parametrize("fmt", ["i16", "f32"])
+@pytest.mark.parametrize("name", list(FAST_CASCADES))
+def test_emulated_fast_cascade_kernel(emu, name, fmt, passes):
+    """The same bytes and carries for every tile and thread count, in a CTA
+    whose shared memory starts as NaN (every band entry a fragment reads is
+    written); the stage-0 carry bitwise the exact kernel's; within the card
+    tests' tolerance of the plain version of its dot precision, the later
+    carries included."""
+    stages, B, L = FAST_CASCADES[name]
+    dense = all(Q % P == 0 for P, Q, _ in stages)
+    outtype = "f32" if dense else fmt
+    case = _case(6, stages, 1, B, L, fmt)
+    outs = [_emulate_cascade_fast(emu, case, stages, B, L, fmt, outtype,
+                                  geometry.cascade_fast_layout(stages, w, t), passes)
+            for w, t in CASCADE_FAST_GEOMS]
+    assert all(_same(o, outs[0]) for o in outs[1:])
+    out, c_out = outs[0]
+    exact = _reference(emu, case, stages, 1, B, L, fmt, outtype)
+    assert c_out[0].tobytes() == exact[1][0][0].tobytes()
+    data, plans, banks, carries = case
+    t = torch.from_numpy
+    want, c_want = cascade.mix_cascade_plain(
+        t(data.copy()), t(plans[:, 0].copy().view(np.int32)), [t(b) for b in banks],
+        [t(c[0]) for c in carries], stages=stages, intype=fmt, outtype=outtype,
+        final_dense=dense, dot_precision="split3" if passes == 3 else "default")
+    _fast_close(out[0] if outtype == "i16" else out[:, 0], want.numpy(), outtype,
+                passes)
+    for got, w in zip(c_out[1:], c_want[1:]):
+        _fast_close(got, w.numpy(), "f32", passes)
+
+
+def test_emulated_fast_cascade_bytes_do_not_depend_on_the_chunk_cut(emu):
+    """Config 3: 4 blocks in one chunk against 4 chunks of one block, from
+    the carries each leaves."""
+    stages, B, L = _stages(1_024_000), 4, 2048
+    case = _case(7, stages, 1, B, L, "i16")
+    lay = geometry.cascade_fast_layout(stages, 32, 64)
+    whole, c_whole = _emulate_cascade_fast(emu, case, stages, B, L, "i16", "i16",
+                                           lay, 3)
+    data, plans, banks, carries = case
+    parts = []
+    for b in range(B):
+        part = (np.ascontiguousarray(data[b:b + 1]),
+                np.ascontiguousarray(plans[:, :, b:b + 1]), banks, carries)
+        o, c_out = _emulate_cascade_fast(emu, part, stages, 1, L, "i16", "i16",
+                                         lay, 3)
+        parts.append(o)
+        carries = [c[None] for c in c_out]
+    assert np.concatenate(parts, axis=1).tobytes() == whole.tobytes()
+    assert all(a.tobytes() == b.tobytes() for a, b in zip(c_out, c_whole))

@@ -12,6 +12,10 @@ the JAX package's.
   the port's exact plain chain: ≤ 1 LSB and ≥ 80 dB, float32 within 3e-5
   (the JAX tests' own bounds, ``tests/test_pallas_chain.py``).  Its carries
   are bitwise the exact ones: the carry is the mixed history.
+- ``dot_precision="default"`` (one bf16 pass, ``x_h·t_h``) against its
+  stated reference, the float64 sum of those products (JAX on the CPU
+  computes a DEFAULT dot in float32 and is no reference for it), and
+  ≥ 45 dB from the exact chain.
 - The pipelines and the CLI with ``precision="fast"`` against the JAX
   pipelines (``impl="pallas"``, interpret mode), and byte-identical to
   ``"exact"`` on the cascade route, which 'fast' leaves exact.
@@ -48,6 +52,7 @@ from doppler_tpu_torch.ops.cuda.chain import (
     mix_resample_chain_plain,
     mix_resample_chain_stream,
 )
+from doppler_tpu_torch.ops.cuda.mixer import mix_blocks_fmt_plain
 from doppler_tpu_torch.ops.filters import design_polyphase_bank
 from doppler_tpu_torch.ops.phase_plan import NCOState, plan_blocks
 from doppler_tpu_torch.ops.precision import split3_bank, split_bf16_exact
@@ -240,7 +245,7 @@ def test_fast_rejects_an_unknown_dot_precision():
         mix_resample_chain_stream(torch.from_numpy(data),
                                   torch.from_numpy(fields.view(np.int32)),
                                   torch.from_numpy(BANK), torch.zeros(2, T - 1),
-                                  P=P, Q=Q, T=T, dot_precision="default")
+                                  P=P, Q=Q, T=T, dot_precision="high")
     with pytest.raises(ValueError, match="precision must be 'exact' or 'fast'"):
         Pipeline(FS, "i16", "i16", ConstScheduler(0.0), precision="bf16",
                  device="cpu")
@@ -248,6 +253,36 @@ def test_fast_rejects_an_unknown_dot_precision():
         MultiChannelPipeline(FS, "i16", "i16",
                              [ChannelSpec("a", ConstScheduler(0.0))],
                              precision="bf16", device="cpu")
+
+
+def test_default_plain_chain_is_one_bf16_pass():
+    """``dot_precision="default"``: JAX on the CPU computes a DEFAULT dot in
+    float32, so its reference is what that dot is on the TPU, one bf16 pass
+    of the split operands: the float64 sum of ``x_h·t_h``, within 2^-22 of
+    the largest output; ≥ 45 dB from the exact chain; the carry bitwise."""
+    (data, fields), = _chunks(8, 1, 17)
+    x, p = torch.from_numpy(data), torch.from_numpy(fields.view(np.int32))
+    bank = torch.from_numpy(BANK)
+    rng = np.random.default_rng(18)
+    carry = torch.from_numpy((rng.standard_normal((2, T - 1)) * 0.3).astype(np.float32))
+    kw = dict(P=P, Q=Q, T=T)
+    got, c_got = mix_resample_chain_stream(x, p, bank, carry, outtype="f32",
+                                           dot_precision="default", **kw)
+    mixed = mix_blocks_fmt_plain(x, p, intype="i16", outtype="f32").reshape(2, -1)
+    buf_h = split_bf16_exact(torch.cat([carry, mixed], dim=1))[0].double().numpy()
+    t_h = split_bf16_exact(torch.from_numpy(BANK))[0].double().numpy()
+    m = np.arange(got.shape[-1] * got.shape[-2])
+    idx = (m * Q // P + T - 1)[:, None] - np.arange(T)[None, :]
+    want = np.stack([(buf_h[c][idx] * t_h[(m * Q) % P]).sum(axis=1) for c in range(2)])
+    assert np.abs(got.reshape(2, -1).double().numpy() - want).max() <= (
+        2.0 ** -22 * np.abs(want).max())
+    words, _ = mix_resample_chain_stream(x, p, bank, carry,
+                                         dot_precision="default", **kw)
+    exact, c_exact = mix_resample_chain_stream(x, p, bank, carry, **kw)
+    assert torch.equal(c_got, c_exact)
+    w = _i16(exact.numpy()).astype(np.float64)
+    d = _i16(words.numpy()) - w
+    assert 10 * np.log10((w ** 2).sum() / (d ** 2).sum()) >= 45.0
 
 
 # -- the pipelines and the CLI ------------------------------------------------

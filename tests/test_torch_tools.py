@@ -1,8 +1,8 @@
-"""The port's measuring tools on the CPU: ``runtime/timing.py``, the roofline
-and tone tools at a small ``--samples`` with ``--device cpu`` (the kernels'
-plain versions: a check of the control flow, no measurement), the conformance
-harness config by config, and the walk that shows no module of the package
-imports jax or the JAX package.
+"""The port's measuring tools on the CPU: ``runtime/timing.py``, the roofline,
+tone, cascade-precision and split-tail tools at a small ``--samples`` with
+``--device cpu`` (the kernels' plain versions: a check of the control flow,
+no measurement), the conformance harness config by config, and the walk
+that shows no module of the package imports jax or the JAX package.
 
 Conformance's bar is the harness's own: > 60 dB against the golden model
 after i16 quantization, exact lengths (±2 on config 5).
@@ -19,7 +19,13 @@ import pytest
 import torch
 
 from doppler_tpu_torch.runtime.timing import card_label, timed_dispatches
-from doppler_tpu_torch.tools import conformance, probe_chain_precision, roofline
+from doppler_tpu_torch.tools import (
+    conformance,
+    probe_cascade_precision,
+    probe_chain_precision,
+    probe_split_tail,
+    roofline,
+)
 
 torch.set_num_threads(1)   # leave the other test workers their cores
 
@@ -85,12 +91,37 @@ def test_probe_chain_precision_emits_every_asked_variant(capsys):
     assert list(res) == list(probe_chain_precision.VARIANTS)
     assert all(set(v) == {"gsps", "ms"} and v["ms"] > 0 for v in res.values())
     assert "iter 1 mix-fold" in err                  # interleaved rounds
-    assert probe_chain_precision.main(SMALL + ["--variants", "mix-fold,def"]) == 0
+    assert probe_chain_precision.main(SMALL + ["--variants", "mix-fold,default"]) == 0
     res, _ = _json_line(capsys)
     assert list(res) == ["mix-fold"]
 
 
-@pytest.mark.parametrize("tool", [roofline, probe_chain_precision, conformance])
+def test_probe_cascade_precision_emits_every_asked_variant(capsys):
+    assert probe_cascade_precision.main(SMALL) == 0
+    res, err = _json_line(capsys)
+    assert list(res) == list(probe_cascade_precision.VARIANTS) == ["exact", "fast", "def"]
+    assert all(set(v) == {"gsps", "ms"} and v["ms"] > 0 for v in res.values())
+    assert "iter 1 def" in err and "1/8(T=65) -> 3/8(T=51)" in err
+    assert probe_cascade_precision.main(SMALL + ["--variants", "fast,split3"]) == 0
+    res, _ = _json_line(capsys)
+    assert list(res) == ["fast"]
+
+
+def test_probe_split_tail_emits_both_variants_and_the_share(capsys):
+    assert probe_split_tail.main(SMALL) == 0
+    res, err = _json_line(capsys)
+    assert set(res) == {"full_gsps", "front_gsps", "full_ms", "front_ms",
+                        "tail_share"}
+    assert res["tail_share"] == pytest.approx(1.0 - res["front_ms"] / res["full_ms"])
+    assert "384/3125(T=163)" in err and "iter 1 front" in err
+    assert probe_split_tail.main(SMALL + ["--variants", "front"]) == 0
+    res, _ = _json_line(capsys)
+    assert set(res) == {"front_gsps", "front_ms"}
+
+
+@pytest.mark.parametrize("tool", [roofline, probe_chain_precision,
+                                  probe_cascade_precision, probe_split_tail,
+                                  conformance])
 def test_tools_fail_without_a_card_unless_asked_for_the_cpu(tool):
     if torch.cuda.is_available():
         pytest.skip("only a machine without a card can show this")
@@ -154,6 +185,8 @@ def test_no_module_of_the_port_imports_jax():
     walked = proc.stdout.split()
     for name in ("doppler_tpu_torch.tools.roofline",
                  "doppler_tpu_torch.tools.probe_chain_precision",
+                 "doppler_tpu_torch.tools.probe_cascade_precision",
+                 "doppler_tpu_torch.tools.probe_split_tail",
                  "doppler_tpu_torch.tools.conformance",
                  "doppler_tpu_torch.ops.cuda.probes",
                  "doppler_tpu_torch.runtime.timing",
