@@ -6,9 +6,13 @@
 Phases (each prints one line or a few; any failure exits non-zero):
 
 1. device  — ``nvidia-smi`` name and power limit, torch's CUDA version.
-2. build   — compiles ``doppler_tpu_torch/csrc`` with nvcc (sm_90a).
+2. build   — compiles ``doppler_tpu_torch/csrc`` with nvcc (sm_90a); the
+             mixer's SASS instructions a channel-sample (``cuobjdump``).
 3. mixer   — the mixer kernel against its plain torch version on the card,
-             all four wire formats, at the pipeline's chunk (B = 256).
+             all four wire formats, at the pipeline's chunk (B = 256), on
+             its 16-byte path and its one-sample path (an L that is not a
+             multiple of 4, a misaligned input), float32 input with NaN and
+             ±inf among its samples: bitwise.
 4. chain   — the fused chain kernel against its plain version at config-3
              geometry (P/Q = 3/64, T = 370, B = 256) from a nonzero carry;
              its carry against the mixer's output; its bytes across chunk
@@ -89,8 +93,11 @@ Phases (each prints one line or a few; any failure exits non-zero):
              the channel-batched ones at C = 16 with ``torch.profiler``'s
              device time, each kernel's bound, and each slice's host/device
              split; the Q15 mixer and the probes likewise, with the
-             library's ``copy_`` beside the two copies; the bf16-dot
-             branches (chain and cascade, split3 and default) likewise.
+             library's ``copy_`` beside the two copies (events and device
+             time); the bf16-dot branches (chain and cascade, split3 and
+             default) likewise; the split3 chain's mix and dot each alone
+             (the other cut); the channel mixer by channels a CTA at C = 16
+             and at C = 256.
 6b. roofline — the launch counts set to 0, then
              ``doppler_tpu_torch.tools.roofline.main`` (all variants),
              ``…probe_chain_precision.main`` (its ``def`` variant included),
@@ -142,7 +149,9 @@ C_WIDE = 256                       # BASELINE config 5's
 GOLDEN_BLOCKS = 512
 TOL_F32 = 2.0 ** -20
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
-F32_FLOP_PER_S = 67e12             # float32 outside the tensor cores
+F32_FLOP_PER_S = 67e12             # float32 FMA outside the tensor cores (2 a FMA)
+F32_OPS_PER_S = F32_FLOP_PER_S / 2  # float32 operations that are not an FMA: one
+                                   # instruction each (-fmad=false), half the rate
 BF16_FLOP_PER_S = 989e12           # dense bf16 on the tensor cores
 MIX_FLOP = 29                      # csrc/nco.cuh: decode 2, tone 21, rotate 6
 TLE_LINES = (
@@ -199,7 +208,63 @@ def phase_build():
     for line in info["log"].splitlines():
         if "Used" in line or "spill" in line:
             print(f"build: ptxas {line.split('ptxas info    :')[-1].strip()}")
+    _print_sass_counts(info["path"])
     return secs
+
+
+# The mixer's instance whose SASS is counted (i16 -> i16, the 16-byte path)
+# and the channel-samples one trip of its channel loop handles (csrc/mixer.cu:
+# kMixerIters groups of four).
+SASS_MIXER = (("mixer_kernel", "ILb0ELb0ELb1E"), 16)
+
+
+def _sass_instructions(path):
+    """Static SASS of every kernel in the library at ``path`` (``cuobjdump
+    -sass`` of the toolkit that built it): name -> [(address, opcode text)],
+    NOPs left out."""
+    from doppler_tpu_torch.ops.cuda import build
+
+    tool = os.path.join(os.path.dirname(build._nvcc()), "cuobjdump")
+    res = subprocess.run([tool, "-sass", path], capture_output=True, text=True,
+                         timeout=300)
+    check(res.returncode == 0, f"cuobjdump failed: {res.stderr.strip()[:400]}")
+    funcs, name = {}, None
+    for line in res.stdout.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            name = m.group(1)
+            funcs[name] = []
+            continue
+        m = re.search(r"/\*([0-9a-f]{4,})\*/\s+([^/;]+);", line)
+        if name and m and not m.group(2).strip().startswith("NOP"):
+            funcs[name].append((int(m.group(1), 16), m.group(2).strip()))
+    return funcs
+
+
+def _print_sass_counts(path):
+    """The mixer's static instruction count: the whole kernel, and its
+    channel loop (the longest backward branch), per channel-sample at the
+    channel group the C = 16, B = 16384 launch picks."""
+    from doppler_tpu_torch.ops.cuda import build
+
+    keys, per_trip = SASS_MIXER
+    funcs = _sass_instructions(path)
+    found = [(n, ins) for n, ins in funcs.items() if all(k in n for k in keys)]
+    check(len(found) == 1, f"sass: {len(found)} kernels match {keys}")
+    name, ins = found[0]
+    loop = (0, 0)
+    for addr, text in ins:
+        m = re.search(r"\bBRA\b[^;]*?(0x[0-9a-f]+)", text)
+        if m and int(m.group(1), 16) < addr:
+            loop = max(loop, (addr - int(m.group(1), 16), int(m.group(1), 16)))
+    span, top = loop
+    check(span > 0, f"sass: no channel loop in {name}")
+    in_loop = sum(1 for a, _ in ins if top <= a <= top + span)
+    G = build.load().doppler_mixer_group(C_MAIN, B_BIG, 2048)
+    per = (len(ins) - in_loop) / (per_trip * G) + in_loop / per_trip
+    print(f"sass: mixer i16->i16 ({name}): {len(ins)} instructions, {in_loop} of them "
+          f"in the channel loop ({per_trip} channel-samples a trip); at C={C_MAIN} "
+          f"B={B_BIG} (G={G}): {per!r} a channel-sample")
 
 
 def _plan(B, L, samplenum=40000, fs=FS):
@@ -224,34 +289,49 @@ def _lsb_diff(torch, a, b):
 FORMATS = (("i16", "i16"), ("i16", "f32"), ("f32", "i16"), ("f32", "f32"))
 
 
+def _bitwise(torch, got, want):
+    """Equal bits, NaN in the same places (whatever its payload)."""
+    if not got.is_floating_point():
+        return torch.equal(got, want)
+    nan = got.isnan()
+    return (torch.equal(nan, want.isnan())
+            and torch.equal(got[~nan].view(torch.int32), want[~nan].view(torch.int32)))
+
+
 def phase_mixer(torch, gen):
+    """The mixer in the four formats at B = 256 on its 16-byte path, then on
+    its one-sample path (an L that is not a multiple of 4, an input that is
+    not 16-byte aligned): bitwise the plain version, float32 input with NaN,
+    ±inf and out-of-range values among its samples."""
     from doppler_tpu_torch.ops import nco
     from doppler_tpu_torch.ops.cuda.mixer import mix_blocks_fmt, mix_blocks_fmt_plain
 
-    worst = 0.0
-    for intype, outtype in FORMATS:
-        L = 2048 if intype == "i16" else 1024
+    cases = [(intype, outtype, 2048 if intype == "i16" else 1024, False)
+             for intype, outtype in FORMATS]
+    cases += [("i16", "i16", 2046, False), ("f32", "f32", 1022, False),
+              ("i16", "i16", 2048, True), ("f32", "i16", 1024, True)]
+    for intype, outtype, L, misalign in cases:
         plan = _plan(B_MAIN, L)
         check((plan.t < L).any(), "plan words have no segment switch")
         x = _data(torch, intype, B_MAIN, L, gen)
+        if intype == "f32":     # the encode's NaN -> 0 and its saturation
+            x.view(-1)[::997] = float("nan")
+            x.view(-1)[5::1009] = float("inf")
+            x.view(-1)[7::1013] = -3.0
+        if misalign:            # the same values 4 bytes past a 16-byte boundary
+            flat = torch.empty(x.numel() + 1, dtype=x.dtype, device="cuda")
+            flat[1:] = x.reshape(-1)
+            x = flat[1:].view(x.shape)
         p = nco.plan_tensor(plan, device="cuda")
         got = mix_blocks_fmt(x, p, intype=intype, outtype=outtype)
         torch.cuda.synchronize()
         want = mix_blocks_fmt_plain(x, p, intype=intype, outtype=outtype)
-        if outtype == "f32":
-            err = float((got - want).abs().max())
-            ok = torch.equal(got, want)
-            print(f"mixer: {intype}->{outtype} B={B_MAIN} L={L}: max|d|={err!r} "
-                  f"bitwise={ok}")
-            check(ok, f"mixer {intype}->{outtype} not bitwise equal to plain")
-        else:
-            d = _lsb_diff(torch, got, want)
-            err, frac = float(d.max()), float((d > 0).float().mean())
-            print(f"mixer: {intype}->{outtype} B={B_MAIN} L={L}: max LSB={err:g} "
-                  f"frac={frac!r} bitwise={torch.equal(got, want)}")
-            check(err <= 1 and frac < 0.01, f"mixer {intype}->{outtype} off by >1 LSB")
-        worst = max(worst, err)
-    return worst
+        ok = _bitwise(torch, got, want)
+        path = "16-byte" if L % 4 == 0 and not misalign else "one-sample"
+        print(f"mixer: {intype}->{outtype} B={B_MAIN} L={L} ({path} path"
+              f"{', misaligned input' if misalign else ''}): bitwise={ok}")
+        check(ok, f"mixer {intype}->{outtype} L={L} not bitwise equal to plain")
+    return 0.0
 
 
 def phase_chain(torch, gen):
@@ -609,7 +689,8 @@ def phase_channels(torch, gen):
 
 
 FAST_REL = 1e-5                    # fast kernel vs its plain version, f32 out
-FAST_GEOMS = ((16, 32), (64, 128), (128, 256))
+# (windows, threads): windows a multiple of 16·D = 32 (D = 2 at 3/64, L = 2048)
+FAST_GEOMS = ((32, 64), (64, 128), (128, 256))
 
 
 def _fast_vs(torch, got, want, outtype, what, *, exact=False):
@@ -889,7 +970,12 @@ def phase_cascade_fast(torch, gen):
                                      "chain_channels_fast default")
                 check(torch.equal(got_c[0], got), "chain_channels_fast default: "
                       "channel 0 differs from the one-channel launch")
-                line += f"; C={C_MAIN}: {text_c}, channel 0 bitwise the C=1 launch"
+                geoms = all(torch.equal(chain._launch_fast(
+                    x, ps, bank, cs_[None], 1, B, L, rs.P, rs.Q, rs.T, intype, outtype,
+                    geom=g, passes=1)[0].reshape(got.shape), got) for g in FAST_GEOMS)
+                check(geoms, "chain_fast default bytes depend on the launch geometry")
+                line += (f"; C={C_MAIN}: {text_c}, channel 0 bitwise the C=1 launch; "
+                         f"{len(FAST_GEOMS)} geometries bitwise")
             print(line)
     return worst
 
@@ -1492,21 +1578,32 @@ def _median_ms(torch, fn, runs=20, warmup=3):
 def _device_us(torch, fn, kernel_name, runs=10):
     """Mean device time of the kernel whose name holds ``kernel_name`` over
     ``runs`` calls of ``fn``, from ``torch.profiler``; None when the trace
-    holds no such kernel."""
+    holds no such kernel.  ``kernel_name`` None: every device event of a
+    call (kernels and copies), summed."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
+    # an empty session first: records a previous session left behind land in
+    # it, not in the one that is read (a kernel of the same name, timed just
+    # before, would otherwise count here)
+    with profile(activities=[ProfilerActivity.CUDA]):
+        torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(runs):
             fn()
         torch.cuda.synchronize()
     total, count = 0.0, 0
     for ev in prof.key_averages():
-        if kernel_name in ev.key:
+        on_device = getattr(ev, "device_type", None) == torch.autograd.DeviceType.CUDA
+        # the port's kernels, not PyTorch's own (at::native::elementwise_kernel)
+        ours = kernel_name is not None and kernel_name in ev.key and "at::native" not in ev.key
+        if ours if kernel_name is not None else on_device:
             total += getattr(ev, "device_time_total", None) or getattr(
                 ev, "cuda_time_total", 0.0)
             count += ev.count
+    if kernel_name is None:
+        return total / runs if total > 0 else None
     return total / count if count and total > 0 else None
 
 
@@ -1523,26 +1620,29 @@ def _bound(C, B, L, stages, *, out_bytes=4, passes=0):
     Bytes: the shared chunk (int32 words) and the plan words read once, each
     channel's output written once, banks and carries once.  Operations, in
     float32 outside the tensor cores: the mix (MIX_FLOP a sample) for every
-    channel, 4·T·P/Q per stage input sample (I and Q, multiply and add), and
-    2 a sample to encode i16.  ``stages`` = () is the mixer.  ``passes``
-    (3: split3, 1: default): the dot is that many bf16 products a tap on the
-    tensor cores instead, at their own rate, beside the float32 mix (the
-    bank is read as its two bf16 halves)."""
+    channel and 2 a sample to encode i16, each one instruction (the build's
+    -fmad=false contracts none into an FMA) at F32_OPS_PER_S; and 4·T·P/Q per
+    stage input sample (I and Q, an FMA counted as two) at F32_FLOP_PER_S.
+    ``stages`` = () is the mixer.  ``passes`` (3: split3, 1: default): the
+    dot is that many bf16 products a tap on the tensor cores instead, at
+    their own rate, beside the float32 mix (the bank is read as its two bf16
+    halves)."""
     n = B * L
     byts = 4 * n + 28 * C * B
-    flop, tensor = C * n * MIX_FLOP, 0
+    ops, fma, tensor = C * n * MIX_FLOP, 0, 0
     for P, Q, T in stages:
         dot = C * 4 * T * P * (n // Q)
         if passes:
             tensor += passes * dot
         else:
-            flop += dot
+            fma += dot
         byts += 4 * P * T + 2 * C * 2 * 4 * (T - 1)
         n = n // Q * P
     byts += C * n * out_bytes
     if out_bytes == 4:
-        flop += C * n * 2
-    t_b, t_f = byts / HBM_BYTES_PER_S, flop / F32_FLOP_PER_S
+        ops += C * n * 2
+    t_b = byts / HBM_BYTES_PER_S
+    t_f = ops / F32_OPS_PER_S + fma / F32_FLOP_PER_S
     t_t = tensor / BF16_FLOP_PER_S
     return max(t_b, t_f, t_t) * 1e3, "bytes" if t_b >= max(t_f, t_t) else "operations"
 
@@ -1622,6 +1722,47 @@ def phase_timing_channels(torch, gen, card):
                   f"{n / k_ms / 1e6!r} G channel-samples/s; bound {bound_ms!r} ms "
                   f"({by}){share} [{card}]")
             res[(name, B)] = (k_ms, pl_ms, bound_ms, by)
+    # the channel mixer over its channel groups G at C = 16, at the CLI's
+    # chunk and at B = 16384, then at config 5's width, C = 256 (at B = 16384
+    # its plan words are the C = 16 set 16 times over: the same work, and
+    # 34 GB of output)
+    from doppler_tpu_torch.ops.cuda import build
+    from doppler_tpu_torch.runtime.timing import timed_dispatches
+
+    for B in (B_MAIN, B_BIG):
+        x = _data(torch, "i16", B, L, gen)
+        p = _channel_plans(torch, C, B, L)
+        sweep = {}
+        for G in (16, 8, 4, 2, 1):  # 8 launches back to back, best of 3; device
+            step = lambda G=G: mixer._launch(x, p, C, B, L, "i16", "i16", G=G)  # noqa: E731
+            step()
+            sweep[G] = (min(timed_dispatches(step, 8) for _ in range(3)) / 8 * 1e6,
+                        _device_us(torch, step, "mixer_kernel"))
+        print(f"timing: mixer_channels C={C} B={B} us a launch by channels a CTA G "
+              f"(picked {build.load().doppler_mixer_group(C, B, L)}): (8 back to back "
+              f"between CUDA events, device) {sweep} [{card}]")
+        res[("mixer G sweep", B)] = sweep
+    for B in (B_MAIN, B_BIG):
+        x = _data(torch, "i16", B, L, gen)
+        p = (_channel_plans(torch, C_WIDE, B, L, fs=FS_SPLIT) if B == B_MAIN
+             else _channel_plans(torch, C, B, L).repeat(1, C_WIDE // C, 1))
+        kern = lambda: mixer.mix_blocks_fmt_channels(x, p)  # noqa: E731
+        k_ms = min(_median_ms(torch, kern, runs=10), _median_ms(torch, kern, runs=10))
+        if B == B_MAIN:
+            plain = lambda: mixer.mix_blocks_fmt_channels_plain(x, p)  # noqa: E731
+            pl_ms = _median_ms(torch, plain, runs=1, warmup=0)
+        else:
+            pl_ms = None
+        dev_us = _device_us(torch, kern, "mixer_kernel")
+        bound_ms, by = _bound(C_WIDE, B, L, ())
+        n = C_WIDE * B * L
+        print(f"timing: mixer_channels i16->i16 C={C_WIDE} B={B} ({n} channel-samples): "
+              f"kernel {k_ms!r} ms, plain {'not run' if pl_ms is None else repr(pl_ms) + ' ms'}; "
+              f"{_device_text(dev_us, bound_ms)}; G={build.load().doppler_mixer_group(C_WIDE, B, L)}; "
+              f"bound {bound_ms!r} ms ({by}) [{card}]")
+        res[("mixer_channels_256", B)] = (k_ms, pl_ms, bound_ms, by, dev_us)
+        del x, p
+    torch.cuda.empty_cache()
     # the config-5 front at its own width: C = 256, B = 256, float32 planes
     x = _data(torch, "i16", B_MAIN, L, gen)
     p5 = _channel_plans(torch, C_WIDE, B_MAIN, L, fs=FS_SPLIT)
@@ -1643,6 +1784,7 @@ def phase_timing(torch, gen, card):
     from doppler_tpu_torch.ops import nco
     from doppler_tpu_torch.ops.cuda.cascade import mix_cascade_plain, mix_cascade_stream
     from doppler_tpu_torch.ops.cuda.chain import (
+        launch_fast_part,
         mix_resample_chain_plain,
         mix_resample_chain_stream,
     )
@@ -1729,13 +1871,23 @@ def phase_timing(torch, gen, card):
                   f"{n / k_ms / 1e6!r} GS/s, {n * bpi / k_ms / 1e6!r} GB/s; "
                   f"bound {bound_ms!r} ms ({by}) [{card}]")
             res[(name, B)] = (k_ms, pl_ms, bound_ms, by)
+        # the split kernel's halves alone: the dot cut, then the mix cut
+        parts = {part: _device_us(torch, lambda part=part: launch_fast_part(
+                     x, p, bank, carry, P=3, Q=64, T=rs.T, part=part), "chain_fast_kernel")
+                 for part in ("mix", "dot")}
+        whole = _device_us(torch, pairs["chain_fast"][0], "chain_fast_kernel")
+        res[("chain_fast split", B)] = (whole, parts["mix"], parts["dot"])
+        print(f"timing: chain_fast split B={B}: device whole {whole!r} us, mix only "
+              f"(the dot cut) {parts['mix']!r} us, dot only (the mix cut: a span of "
+              f"zeros) {parts['dot']!r} us [{card}]")
     return res
 
 
-def _bound_probe(n, bytes_moved, flop_per_sample):
-    """:func:`_bound`'s rule for a probe over n samples."""
+def _bound_probe(n, bytes_moved, ops_per_sample):
+    """:func:`_bound`'s rule for a probe over n samples (its operations are
+    the mix's and the codec's, none of them an FMA)."""
     t_b = bytes_moved / HBM_BYTES_PER_S
-    t_f = n * flop_per_sample / F32_FLOP_PER_S
+    t_f = n * ops_per_sample / F32_OPS_PER_S
     return max(t_b, t_f) * 1e3, "bytes" if t_b >= t_f else "operations"
 
 
@@ -1804,8 +1956,9 @@ def phase_timing_probes(torch, gen, card):
             lib_ms = None if library is None else min(
                 _median_ms(torch, library), _median_ms(torch, library))
             dev_us = _device_us(torch, kern, trace_name)
+            lib_us = None if library is None else _device_us(torch, library, None)
             k_ms, pl_ms = min(k_a, k_b), min(pl_a, pl_b)
-            lib = "none" if lib_ms is None else f"{lib_ms!r} ms"
+            lib = "none" if lib_ms is None else f"{lib_ms!r} ms (device {lib_us!r} us)"
             print(f"timing: {name} B={B} ({n} samples): kernel {k_a!r}/{k_b!r} ms, "
                   f"plain {pl_a!r}/{pl_b!r} ms, library call {lib}; "
                   f"{_device_text(dev_us, bound_ms)}; bound {bound_ms!r} ms ({by}) "

@@ -3,16 +3,23 @@
 //
 // One stage computes, for output j = P·i + p (window i, phase p,
 // off_p = ⌊p·Q/P⌋, bank row (p·Q) mod P, as in fir.cuh), the banded
-// (Toeplitz) product
-//     Y[i, p] = Σ_k A[i, k]·G[k, p],   A[i, k] = x[Q·i − (T−1) − lead + k],
-//     G[k, p] = t[p, T−1 + lead + off_p − k] where that tap exists, else 0,
-// k < K = 16·ks, ks = ⌈(T + lead + off_{P−1})/16⌉, lead = (1 − T) mod 4 (so
-// that span entry 0 is 4-aligned): row i of A is a window of a span of x
-// held in shared memory as four bf16 planes I_h, I_l, Q_h, Q_l
-// (x_h = bf16(x), x_l = bf16(x − x_h), ops/precision.py), and G is the TPU
-// kernels' banded taps matrix with its per-128-row slices joined, laid out
-// as the mma's B fragments.  A warp owns 16 windows × 8 phases; a k-step is
-// one ldmatrix.x4 a plane (16-bit or 32-bit loads where Q < 8) and, for
+// (Toeplitz) product of D neighbouring windows a row:
+//     Y[r, (d, p)] = Σ_k A[r, k]·G[k, (d, p)],  window i = D·r + d,
+//     A[r, k] = x[S·r − (T−1) − lead + k],  S = D·Q,
+//     G[k, (d, p)] = t[p, T−1 + lead + off_p + Q·d − k] where that tap
+//     exists, else 0,
+// k < K = 16·ks, ks = ⌈(T + lead + off_{P−1} + Q·(D−1))/16⌉, lead =
+// (1 − T) mod 4 (so that span entry 0 is 4-aligned): row r of A is a
+// stretch of a span of x held in shared memory as bf16 planes — I_h, I_l,
+// Q_h, Q_l, or I_h, Q_h alone where the dot takes one pass and is laid out
+// compact — (x_h = bf16(x), x_l = bf16(x − x_h), ops/precision.py), and G
+// is the TPU kernels' banded taps matrix with its per-128-row slices
+// joined, its D·P ≤ 8 columns (d, p) at d·P + p, laid out as the mma's B
+// fragments.  D = 1 is the TPU's own layout, a window a row (the cascade);
+// the chain takes D = ⌊8/P⌋ rounded to a power of two (ops/cuda/geometry.py
+// fast_columns), which fills D·P of the mma's 8 columns where one window
+// fills P, for a band (D − 1)·Q wider.  A warp owns 16 rows × 8 columns; a
+// k-step is one ldmatrix.x4 a plane (16-bit or 32-bit loads where S < 8) and, for
 // kPasses = 3 (dot_precision 'split3'), three mma.sync.m16n8k16.bf16
 // (float32 accumulation) a plane, hh, hl and lh, each into a fresh
 // accumulator, added as (hh + hl) + lh to the output's running sum with
@@ -22,18 +29,19 @@
 // low planes.
 //
 // Bytes.  An output's k-steps run in one order (k ascending), its row in
-// its mma is i mod 16 (the callers start every tile at a multiple of 16
-// windows) and its column p mod 8; there is no split-K and no atomic.  So
-// its bytes depend on its band of x alone, not on which CTA or warp
-// computes it.  They are not the plain version's: a tensor core does not
-// add as IEEE float32 does.
+// its mma is ⌊i/D⌋ mod 16 (the callers start every tile at a multiple of
+// 16·D windows) and its column (i mod D)·P + p; there is no split-K and no
+// atomic.  So its bytes depend on its band of x alone, not on which CTA or
+// warp computes it.  They are not the plain version's: a tensor core does
+// not add as IEEE float32 does.
 //
-// NaN.  G's zeros multiply real x: a NaN or ±∞ at x[n] reaches all P
-// outputs of every window whose band, x[Q·i − (T−1) − lead] and the K − 1
+// NaN.  G's zeros multiply real x: a NaN or ±∞ at x[n] reaches all D·P
+// outputs of every row whose band, x[S·r − (T−1) − lead] and the K − 1
 // samples after it, holds n: wider than the exact kernels' T-window (as the
-// TPU kernels' zero-padded taps matrices are, chain.py:87-119); ±∞ splits
-// into x_l = NaN.  So every span entry a band reads must be written (zeros
-// where there is no sample): the callers fill the whole span.
+// TPU kernels' zero-padded taps matrices are, chain.py:87-119), and at
+// D > 1 (D − 1)·Q wider again; ±∞ splits into x_l = NaN.  So every span
+// entry a band reads must be written (zeros where there is no sample): the
+// callers fill the whole span.
 #pragma once
 
 #include "fir.cuh"
@@ -67,35 +75,46 @@ __device__ __forceinline__ unsigned pack2(uint16_t lo, uint16_t hi) {
 // lays out the shared memory; fast_derive the rest).
 struct FastDot {
     int P, Q, T;
-    int lq;                 // log2 Q
-    int pad;                // bf16 entries after every Q entries of a plane
+    int D;                  // windows a row of A
+    int S, ls;              // a row's step through the span, D·Q, and log2 S
+    int pad;                // bf16 entries after every S entries of a plane
     int lead;               // (1 − T) mod 4: band columns below the taps
-    int ks, nt;             // k-steps of 16, N-tiles of 8 phases
+    int ks, nt;             // k-steps of 16, N-tiles of 8 columns
+    int bw;                 // words of B fragments a lane and k-step: 4, or
+                            // 2 where the layout is compact (t_h alone)
+    int planes;             // 4 (I_h, I_l, Q_h, Q_l), or 2 compact (I_h, Q_h)
     int plane;              // bf16 entries a plane: a multiple of 8
     int g_off, x_off;       // word offsets of the B fragments and the planes
-    const uint16_t* bank_h; // (P, T) bf16
+    const uint16_t* bank_h; // (P, T) bf16 (fast_load_taps only)
     const uint16_t* bank_l;
 };
 
-// The derived fields of a stage; false unless P, Q, T > 0 and Q is a power
-// of two (the planes' pads and indices shift by log2 Q).
-__host__ __device__ inline bool fast_derive(FastDot& d, int P, int Q, int T) {
-    if (P <= 0 || Q <= 0 || T <= 0 || (Q & (Q - 1))) return false;
+// The derived fields of a stage; false unless P, Q, T > 0 and Q and D are
+// powers of two (the planes' pads and indices shift by log2 S).  `compact`:
+// one pass, two planes and no t_l in the B fragments.
+__host__ __device__ inline bool fast_derive(FastDot& d, int P, int Q, int T,
+                                            int D = 1, bool compact = false) {
+    if (P <= 0 || Q <= 0 || T <= 0 || D <= 0 || (Q & (Q - 1)) || (D & (D - 1)))
+        return false;
     d.P = P;
     d.Q = Q;
     d.T = T;
-    d.lq = 0;
-    while ((1 << d.lq) < Q) ++d.lq;
-    d.pad = Q >= 16 ? 8 : 0;
+    d.D = D;
+    d.S = D * Q;
+    d.ls = 0;
+    while ((1 << d.ls) < d.S) ++d.ls;
+    d.pad = d.S >= 16 ? 8 : 0;
     d.lead = (4 - (T - 1) % 4) % 4;
-    d.ks = (T + d.lead + ((P - 1) * Q) / P + 15) / 16;
-    d.nt = (P + 7) / 8;
+    d.ks = (T + d.lead + ((P - 1) * Q) / P + Q * (D - 1) + 15) / 16;
+    d.nt = (D * P + 7) / 8;
+    d.bw = compact ? 2 : 4;
+    d.planes = compact ? 2 : 4;
     return true;
 }
 
 // Padded plane index of span entry k.
 __host__ __device__ __forceinline__ int fast_pidx(const FastDot& g, int k) {
-    return k + g.pad * (k >> g.lq);
+    return k + g.pad * (k >> g.ls);
 }
 
 // Whether a span of `len` entries fits the planes, and the fragments and
@@ -105,8 +124,8 @@ __host__ __device__ inline bool fast_fits(const FastDot& g, long long len,
     if (len < 1 || g.plane <= 0 || g.plane % 8 || g.g_off < 0 || g.g_off % 4 ||
         g.x_off < 0 || g.x_off % 4 || len > 0x7FFFFFFFLL)
         return false;
-    const long long g_end = g.g_off + 128LL * g.ks * g.nt;
-    const long long x_end = g.x_off + 2LL * g.plane;
+    const long long g_end = g.g_off + 32LL * g.bw * g.ks * g.nt;
+    const long long x_end = g.x_off + (long long)g.planes * g.plane / 2;
     return fast_pidx(g, (int)(len - 1)) < g.plane &&
            (g_end <= g.x_off || x_end <= g.g_off) &&
            4 * (g_end > x_end ? g_end : x_end) <= smem;
@@ -125,7 +144,9 @@ __device__ __forceinline__ unsigned fast_taps2(const uint16_t* __restrict__ row,
 // (g = lane/4, q = lane%4) the words {t_h(k0, k0+1), t_h(k0+8, k0+9),
 // t_l(k0, k0+1), t_l(k0+8, k0+9)} of column p = 8n + g, k0 = 16s + 2q: one
 // 16-byte load a lane and k-step.  nthreads is a multiple of 32, so a
-// thread keeps its lane, and its column.
+// thread keeps its lane, and its column.  Built in every CTA from the two
+// bf16 banks, D = 1 and four words a lane only: the cascade's layout.  The
+// chain's fragments come laid out once per bank (fast_copy_taps).
 __device__ __forceinline__ void fast_load_taps(unsigned* __restrict__ smem,
                                                const FastDot& g, int tid,
                                                int nthreads) {
@@ -150,13 +171,48 @@ __device__ __forceinline__ void fast_load_taps(unsigned* __restrict__ smem,
     }
 }
 
-// The store of a span: one sample split into the four planes, or a group
-// of four (span entries k .. k+3, k ≡ 0 mod 4, never across a pad) as one
+// The chain's B fragments, laid out once per bank by the wrapper
+// (ops/cuda/geometry.py fast_taps_index: the words above, of column
+// (d, p) = d·P + p, and without t_l where the layout is compact), copied
+// into smem + g_off with 16-byte cp.async; fast_copy_wait before the
+// barrier that ends the phase.
+__device__ __forceinline__ void fast_copy_taps(unsigned* __restrict__ smem,
+                                               const FastDot& g,
+                                               const unsigned* __restrict__ taps,
+                                               int tid, int nthreads) {
+    const int n16 = g.bw * g.ks * g.nt * 8;      // 16-byte pieces
+    uint4* dst = reinterpret_cast<uint4*>(smem + g.g_off);
+    const uint4* src = reinterpret_cast<const uint4*>(taps);
+    for (int i = tid; i < n16; i += nthreads) {
+#ifdef __CUDACC__
+        const unsigned a = (unsigned)__cvta_generic_to_shared(dst + i);
+        asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(a), "l"(src + i));
+#else
+        dst[i] = src[i];
+#endif
+    }
+}
+
+__device__ __forceinline__ void fast_copy_wait() {
+#ifdef __CUDACC__
+    asm volatile("cp.async.wait_all;\n" ::);
+#endif
+}
+
+// Plane of component c (0: I, 1: Q) and half h (0: x_h, 1: x_l): four
+// planes I_h, I_l, Q_h, Q_l, or compact I_h, Q_h.
+template <bool kCompact>
+__host__ __device__ __forceinline__ constexpr int fast_plane_of(int c, int h) {
+    return kCompact ? c : 2 * c + h;
+}
+
+// The store of a span: one sample split into the planes, or a group of
+// four (span entries k .. k+3, k ≡ 0 mod 4, never across a pad) as one
 // 8-byte store a plane.  One pass reads no low plane and stores none: its
-// planes keep split3's places, so its shared memory is split3's.
-template <int kPasses>
+// planes keep split3's places unless the layout is compact.
+template <int kPasses, bool kCompact = false>
 struct SplitStore {
-    uint16_t* xs;           // I_h; I_l, Q_h, Q_l `plane` entries apart
+    uint16_t* xs;           // plane 0; the others `plane` entries apart
     const FastDot* g;
     long long origin;       // x index of span entry 0, ≡ 0 (mod 4)
     __device__ __forceinline__ void operator()(long long n, float vi,
@@ -166,9 +222,10 @@ struct SplitStore {
 #pragma unroll
         for (int c = 0; c < 2; ++c) {
             const uint16_t h = bf16_rn(v[c]);
-            xs[(2 * c) * g->plane + k] = h;
+            xs[fast_plane_of<kCompact>(c, 0) * g->plane + k] = h;
             if (kPasses == 3)
-                xs[(2 * c + 1) * g->plane + k] = bf16_rn(__fsub_rn(v[c], bf16_float(h)));
+                xs[fast_plane_of<kCompact>(c, 1) * g->plane + k] =
+                    bf16_rn(__fsub_rn(v[c], bf16_float(h)));
         }
     }
     __device__ __forceinline__ void group(long long n, const float* vi,
@@ -176,73 +233,93 @@ struct SplitStore {
         const int k = fast_pidx(*g, (int)(n - origin));
 #pragma unroll
         for (int c = 0; c < 2; ++c) {
-            uint16_t h[4], l[4];
+            const float* v = c ? vq : vi;
+            unsigned h[2], l[2];
 #pragma unroll
-            for (int i = 0; i < 4; ++i) {
-                const float v = c ? vq[i] : vi[i];
-                h[i] = bf16_rn(v);
-                l[i] = bf16_rn(__fsub_rn(v, bf16_float(h[i])));
-            }
-            put4(xs + (2 * c) * g->plane + k, h);
-            if (kPasses == 3) put4(xs + (2 * c + 1) * g->plane + k, l);
+            for (int i = 0; i < 2; ++i) split2(v[2 * i], v[2 * i + 1], h[i], l[i]);
+            put4(xs + fast_plane_of<kCompact>(c, 0) * g->plane + k, h);
+            if (kPasses == 3) put4(xs + fast_plane_of<kCompact>(c, 1) * g->plane + k, l);
         }
     }
-    __device__ __forceinline__ static void put4(uint16_t* p, const uint16_t* v) {
+    // The halves of two neighbouring samples as two words (the first in the
+    // low half): on the card with the paired conversion, one instruction
+    // for both roundings, the same bits as bf16_rn of each.
+    __device__ __forceinline__ static void split2(float a, float b, unsigned& h,
+                                                  unsigned& l) {
 #ifdef __CUDACC__
-        *reinterpret_cast<uint2*>(p) = make_uint2(pack2(v[0], v[1]), pack2(v[2], v[3]));
+        const __nv_bfloat162 hb = __floats2bfloat162_rn(a, b);
+        const __nv_bfloat162 lb = __floats2bfloat162_rn(
+            __fsub_rn(a, __low2float(hb)), __fsub_rn(b, __high2float(hb)));
+        h = *reinterpret_cast<const unsigned*>(&hb);
+        l = *reinterpret_cast<const unsigned*>(&lb);
 #else
-        for (int i = 0; i < 4; ++i) p[i] = v[i];
+        const uint16_t ha = bf16_rn(a), hb = bf16_rn(b);
+        h = pack2(ha, hb);
+        l = pack2(bf16_rn(__fsub_rn(a, bf16_float(ha))),
+                  bf16_rn(__fsub_rn(b, bf16_float(hb))));
+#endif
+    }
+    __device__ __forceinline__ static void put4(uint16_t* p, const unsigned* w) {
+#ifdef __CUDACC__
+        *reinterpret_cast<uint2*>(p) = make_uint2(w[0], w[1]);
+#else
+        for (int i = 0; i < 2; ++i) {
+            p[2 * i] = (uint16_t)(w[i] & 0xFFFFu);
+            p[2 * i + 1] = (uint16_t)(w[i] >> 16);
+        }
 #endif
     }
 };
 
 // Entries idx, idx+1 of a plane as one word (the lower k in the low half):
-// one 4-byte load where Q is even (idx is then even), else two.
-template <bool kOddQ>
+// one 4-byte load where S is even (idx is then even), else two.
+template <bool kOddS>
 __device__ __forceinline__ unsigned fast_pair(const uint16_t* __restrict__ plane,
                                               int idx) {
 #ifdef __CUDACC__
-    if (!kOddQ) return *reinterpret_cast<const unsigned*>(plane + idx);
+    if (!kOddS) return *reinterpret_cast<const unsigned*>(plane + idx);
 #endif
     return pack2(plane[idx], plane[idx + 1]);
 }
 
 // The A fragments of the planes for rows r0, r0 + 8 of the tile and
-// columns k, k + 1, k + 8, k + 9: a[plane][reg] in the PTX layout
-// (reg 0: row r0, k; 1: row r0 + 8, k; 2: row r0, k + 8; 3: row r0 + 8,
-// k + 8); one pass reads the high planes only.  A pair never straddles a
-// pad: pads follow an even count of entries wherever there are any.
-template <int kPasses, bool kOddQ>
+// columns k, k + 1, k + 8, k + 9: a[2c + h][reg] for component c, half h,
+// in the PTX layout (reg 0: row r0, k; 1: row r0 + 8, k; 2: row r0, k + 8;
+// 3: row r0 + 8, k + 8); one pass reads the high planes only.  A pair never
+// straddles a pad: pads follow an even count of entries wherever there are
+// any.
+template <int kPasses, bool kOddS, bool kCompact = false>
 __device__ __forceinline__ void fast_a(const FastDot& g,
                                        const uint16_t* __restrict__ xs, int r0,
                                        int k, unsigned (&a)[4][4]) {
-    const int k00 = g.Q * r0 + k, k10 = k00 + 8 * g.Q;
+    const int k00 = g.S * r0 + k, k10 = k00 + 8 * g.S;
     const int idx[4] = {fast_pidx(g, k00), fast_pidx(g, k10),
                         fast_pidx(g, k00 + 8), fast_pidx(g, k10 + 8)};
 #pragma unroll
     for (int c = 0; c < 4; ++c) {
         if (kPasses == 1 && (c & 1)) continue;
+        const uint16_t* plane = xs + fast_plane_of<kCompact>(c >> 1, c & 1) * g.plane;
 #pragma unroll
-        for (int r = 0; r < 4; ++r) a[c][r] = fast_pair<kOddQ>(xs + c * g.plane, idx[r]);
+        for (int r = 0; r < 4; ++r) a[c][r] = fast_pair<kOddS>(plane, idx[r]);
     }
 }
 
 #ifdef __CUDACC__
-// fast_a for even Q ≥ 8 as one ldmatrix.x4 a plane: lane L gives the row
+// fast_a for even S ≥ 8 as one ldmatrix.x4 a plane: lane L gives the row
 // (L & 7) + 8·((L >> 3) & 1) of the tile and the columns k + 8·(L >> 4),
-// 16 bytes aligned (Q·row, k and the pads are multiples of 8 entries).
-template <int kPasses>
+// 16 bytes aligned (S·row, k and the pads are multiples of 8 entries).
+template <int kPasses, bool kCompact = false>
 __device__ __forceinline__ void fast_a_ldm(const FastDot& g,
                                            const uint16_t* __restrict__ xs,
                                            int mt, int s, int lane,
                                            unsigned (&a)[4][4]) {
     const int row = 16 * mt + (lane & 7) + 8 * ((lane >> 3) & 1);
-    const int idx = fast_pidx(g, g.Q * row + 16 * s + 8 * (lane >> 4));
+    const int idx = fast_pidx(g, g.S * row + 16 * s + 8 * (lane >> 4));
 #pragma unroll
     for (int c = 0; c < 4; ++c) {
         if (kPasses == 1 && (c & 1)) continue;
-        const unsigned addr =
-            (unsigned)__cvta_generic_to_shared(xs + c * g.plane + idx);
+        const unsigned addr = (unsigned)__cvta_generic_to_shared(
+            xs + fast_plane_of<kCompact>(c >> 1, c & 1) * g.plane + idx);
         asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
                      : "=r"(a[c][0]), "=r"(a[c][1]), "=r"(a[c][2]), "=r"(a[c][3])
                      : "r"(addr));
@@ -250,23 +327,33 @@ __device__ __forceinline__ void fast_a_ldm(const FastDot& g,
 }
 #endif
 
+// A lane's B fragments of k-step s, N-tile n: {t_h, t_h, t_l, t_l} words,
+// or {t_h, t_h, 0, 0} where the layout is compact.
+template <bool kCompact = false>
 __device__ __forceinline__ uint4 fast_b(const unsigned* __restrict__ gf,
                                         const FastDot& g, int s, int n, int lane) {
+    if (kCompact) {
+        const uint2 w = reinterpret_cast<const uint2*>(gf)[(s * g.nt + n) * 32 + lane];
+        return make_uint4(w.x, w.y, 0u, 0u);
+    }
     return reinterpret_cast<const uint4*>(gf)[(s * g.nt + n) * 32 + lane];
 }
 
-// A lane's four results (rows r0, r0 + 8; phases p, p + 1) to the sink,
-// output j = (i0 + row)·P + p for the rows under n_rows.
+// A lane's four results (rows r0, r0 + 8; columns col, col + 1) to the
+// sink: column (d, p) of row r is phase p of window i = D·r + d, output
+// j = (i0 + i)·P + p, for the windows under n_win.
 template <class Sink>
 __device__ __forceinline__ void fast_put(const FastDot& g, long long i0,
-                                         int n_rows, int mt, int n, int lane,
+                                         int n_win, int mt, int n, int lane,
                                          const float* ci, const float* cq,
                                          Sink& sink) {
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
         const int r = 16 * mt + (lane >> 2) + 8 * (e >> 1);
-        const int p = 8 * n + 2 * (lane & 3) + (e & 1);
-        if (r < n_rows && p < g.P) sink.put((i0 + r) * g.P + p, ci[e], cq[e]);
+        const int col = 8 * n + 2 * (lane & 3) + (e & 1);
+        const int d = col / g.P, p = col - d * g.P;
+        const int i = g.D * r + d;
+        if (d < g.D && i < n_win) sink.put((i0 + i) * g.P + p, ci[e], cq[e]);
     }
 }
 
@@ -284,10 +371,10 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4],
 // One warp item: 16 windows (M-tile mt of the span's windows, the first at
 // i0) × 8 phases (N-tile n).  A k-step's passes go into fresh accumulators
 // (independent mma), added as (hh + hl) + lh to the running sum.
-template <int kPasses, bool kOddQ, class Sink>
+template <int kPasses, bool kOddS, bool kCompact, class Sink>
 __device__ __forceinline__ void fast_item(const FastDot& g,
                                           const unsigned* __restrict__ smem,
-                                          long long i0, int n_rows, int mt, int n,
+                                          long long i0, int n_win, int mt, int n,
                                           int lane, Sink& sink) {
     const unsigned* gf = smem + g.g_off;
     const uint16_t* xs = reinterpret_cast<const uint16_t*>(smem + g.x_off);
@@ -295,12 +382,12 @@ __device__ __forceinline__ void fast_item(const FastDot& g,
     float acc[2][4] = {{0.0f, 0.0f, 0.0f, 0.0f}, {0.0f, 0.0f, 0.0f, 0.0f}};
     for (int s = 0; s < g.ks; ++s) {
         unsigned a[4][4];
-        if (!kOddQ && g.Q >= 8) {
-            fast_a_ldm<kPasses>(g, xs, mt, s, lane, a);
+        if (!kOddS && g.S >= 8) {
+            fast_a_ldm<kPasses, kCompact>(g, xs, mt, s, lane, a);
         } else {
-            fast_a<kPasses, kOddQ>(g, xs, r0, 16 * s + 2 * (lane & 3), a);
+            fast_a<kPasses, kOddS, kCompact>(g, xs, r0, 16 * s + 2 * (lane & 3), a);
         }
-        const uint4 b = fast_b(gf, g, s, n, lane);
+        const uint4 b = fast_b<kCompact>(gf, g, s, n, lane);
 #pragma unroll
         for (int c = 0; c < 2; ++c) {               // I, then Q
             float hh[4] = {0.0f, 0.0f, 0.0f, 0.0f};
@@ -318,7 +405,7 @@ __device__ __forceinline__ void fast_item(const FastDot& g,
                 acc[c][e] = __fadd_rn(acc[c][e], __fadd_rn(__fadd_rn(hh[e], hl[e]), lh[e]));
         }
     }
-    fast_put(g, i0, n_rows, mt, n, lane, acc[0], acc[1], sink);
+    fast_put(g, i0, n_win, mt, n, lane, acc[0], acc[1], sink);
 }
 
 #else  // a host compiler: a warp's 32 lanes at once
@@ -345,9 +432,9 @@ inline void mma_bf16_warp(float (*d)[4], const unsigned (*a)[4],
     }
 }
 
-template <int kPasses, bool kOddQ, class Sink>
+template <int kPasses, bool kOddS, bool kCompact, class Sink>
 void fast_item_warp(const FastDot& g, const unsigned* smem, long long i0,
-                    int n_rows, int mt, int n, Sink& sink) {
+                    int n_win, int mt, int n, Sink& sink) {
     const unsigned* gf = smem + g.g_off;
     const uint16_t* xs = reinterpret_cast<const uint16_t*>(smem + g.x_off);
     float acc[2][32][4] = {};
@@ -355,10 +442,11 @@ void fast_item_warp(const FastDot& g, const unsigned* smem, long long i0,
         unsigned a[4][32][4] = {}, bh[32][2], bl[32][2];
         for (int lane = 0; lane < 32; ++lane) {
             unsigned al[4][4] = {};
-            fast_a<kPasses, kOddQ>(g, xs, 16 * mt + (lane >> 2), 16 * s + 2 * (lane & 3), al);
+            fast_a<kPasses, kOddS, kCompact>(g, xs, 16 * mt + (lane >> 2),
+                                             16 * s + 2 * (lane & 3), al);
             for (int c = 0; c < 4; ++c)
                 for (int r = 0; r < 4; ++r) a[c][lane][r] = al[c][r];
-            const uint4 b = fast_b(gf, g, s, n, lane);
+            const uint4 b = fast_b<kCompact>(gf, g, s, n, lane);
             bh[lane][0] = b.x;
             bh[lane][1] = b.y;
             bl[lane][0] = b.z;
@@ -381,25 +469,27 @@ void fast_item_warp(const FastDot& g, const unsigned* smem, long long i0,
         }
     }
     for (int lane = 0; lane < 32; ++lane)
-        fast_put(g, i0, n_rows, mt, n, lane, acc[0][lane], acc[1][lane], sink);
+        fast_put(g, i0, n_win, mt, n, lane, acc[0][lane], acc[1][lane], sink);
 }
 
 #endif  // __CUDACC__
 
-// Every warp item of a span's windows i0 .. i0 + n_rows − 1 (the span's
-// first window i0 a multiple of 16), shared out over the CTA's warps.
-template <int kPasses, bool kOddQ, class Sink>
+// Every warp item of a span's windows i0 .. i0 + n_win − 1 (the span's
+// first window i0 a multiple of 16·D), shared out over the CTA's warps.
+template <int kPasses, bool kOddS, bool kCompact = false, class Sink>
 __device__ __forceinline__ void fast_items(const FastDot& g,
                                            const unsigned* __restrict__ smem,
-                                           long long i0, int n_rows, int tid,
+                                           long long i0, int n_win, int tid,
                                            int nthreads, Sink& sink) {
-    const int n_items = (n_rows + 15) / 16 * g.nt;
+    const int rows = (n_win + g.D - 1) / g.D;
+    const int n_items = (rows + 15) / 16 * g.nt;
     for (int item = tid >> 5; item < n_items; item += nthreads >> 5) {
         const int mt = item / g.nt, n = item - mt * g.nt;
 #ifdef __CUDACC__
-        fast_item<kPasses, kOddQ>(g, smem, i0, n_rows, mt, n, tid & 31, sink);
+        fast_item<kPasses, kOddS, kCompact>(g, smem, i0, n_win, mt, n, tid & 31, sink);
 #else
-        if ((tid & 31) == 0) fast_item_warp<kPasses, kOddQ>(g, smem, i0, n_rows, mt, n, sink);
+        if ((tid & 31) == 0)
+            fast_item_warp<kPasses, kOddS, kCompact>(g, smem, i0, n_win, mt, n, sink);
 #endif
     }
 }

@@ -10,7 +10,9 @@
 // the 32 lanes' fragments in the PTX layout.  Its bytes are its own (a
 // tensor core does not add as IEEE float32 does), so its reference is the
 // plain torch version, within a tolerance, and itself across geometries;
-// so is the cascade's (cascade_fast.cu), on the same stand-in.
+// so is the cascade's (cascade_fast.cu), on the same stand-in.  The mixer
+// (mixer.cu) runs its CTAs' threads one after the other; its reference is
+// the plain torch version, bitwise.
 //
 //   g++ -O1 -ffp-contract=off -shared -fPIC -std=c++17 \
 //       -I doppler_tpu_torch/csrc -o emu.so \
@@ -24,6 +26,7 @@
 #include "cascade_fast.cu"
 #include "chain.cu"
 #include "chain_fast.cu"
+#include "mixer.cu"
 
 using namespace doppler;
 
@@ -126,7 +129,7 @@ void run_chain(const void* in, void* out, const uint32_t* plans,
     }
 }
 
-template <bool kInF32, bool kOddQ, int kPasses>
+template <bool kInF32, bool kOddS, int kPasses>
 void run_chain_fast(const void* in, void* out, const uint32_t* plans,
                     const FastArgs& g, int threads, long long smem) {
     std::vector<float4> shared((smem + 15) / 16);
@@ -138,7 +141,7 @@ void run_chain_fast(const void* in, void* out, const uint32_t* plans,
         for (int ph = 0;; ++ph) {
             bool more = false;
             for (int tid = 0; tid < threads; ++tid)
-                more = chain_fast_phase<kInF32, kOddQ, kPasses>(
+                more = chain_fast_phase<kInF32, kOddS, kPasses>(
                     in, out, plans, g, ch, unit, tid, threads, ph,
                     reinterpret_cast<unsigned*>(shared.data()));
             if (!more) break;
@@ -165,7 +168,32 @@ void run_cascade_fast(const void* in, void* out, const uint32_t* plans,
     }
 }
 
+template <bool kInF32, bool kOutF32, bool kVec4>
+void run_mixer(const void* in, void* out, const uint32_t* plans, const MixerArgs& a,
+               long long ctas) {
+    for (long long block = 0; block < ctas; ++block)
+        for (int tid = 0; tid < kMixerThreads; ++tid)
+            mixer_cta<kInF32, kOutF32, kVec4>(in, out, plans, a, (unsigned)block, tid);
+}
+
 }  // namespace
+
+// doppler_mix_blocks's arguments (csrc/mixer.cu), all pointers to host
+// memory; returns 2 where the launch takes the 16-byte path, 1 where it
+// takes one sample a step, 0 where the arguments are refused.
+extern "C" int emu_mixer(const void* in, void* out, const uint32_t* plans, int C,
+                         int B, int L, int in_f32, int out_f32, int G) {
+    const bool vec4 = mixer_vec4(in, out, L);
+    MixerArgs a;
+    long long ctas;
+    if (!make_mixer_args(a, C, B, L, G, vec4, ctas)) return 0;
+    auto run = vec4 ? (in_f32 ? (out_f32 ? run_mixer<true, true, true> : run_mixer<true, false, true>)
+                              : (out_f32 ? run_mixer<false, true, true> : run_mixer<false, false, true>))
+                    : (in_f32 ? (out_f32 ? run_mixer<true, true, false> : run_mixer<true, false, false>)
+                              : (out_f32 ? run_mixer<false, true, false> : run_mixer<false, false, false>));
+    run(in, out, plans, a, ctas);
+    return vec4 ? 2 : 1;
+}
 
 // doppler_cascade's arguments (csrc/cascade.cu), all pointers to host memory.
 extern "C" int emu_cascade(const void* in, void* out, const uint32_t* plans,
@@ -232,24 +260,24 @@ extern "C" int ref_cascade(const void* in, void* out, const uint32_t* plans,
 }
 
 // doppler_chain_fast's arguments (csrc/chain_fast.cu), all pointers to host
-// memory; passes 3 (split3) or 1 (default).
+// memory; passes 3 (split3) or 1 (default, the compact layout).
 extern "C" int emu_chain_fast(const void* in, void* out, const uint32_t* plans,
-                              const uint16_t* bank_h, const uint16_t* bank_l,
-                              const float* carry_in, float* carry_out, int C,
-                              int B, int L, int P, int Q, int T, int wt,
-                              int threads, int plane, int g_off, int x_off,
-                              long long smem, int in_f32, int out_f32,
-                              int passes) {
+                              const unsigned* taps, const float* carry_in,
+                              float* carry_out, int C, int B, int L, int P, int Q,
+                              int T, int D, int wt, int threads, int plane,
+                              int g_off, int x_off, long long smem, int in_f32,
+                              int out_f32, int passes) {
     FastArgs g;
     if (threads % 32 || (passes != 1 && passes != 3) ||
-        !make_fast_args(g, in, bank_h, bank_l, carry_in, carry_out, C, B, L, P, Q,
-                        T, wt, plane, g_off, x_off, out_f32, smem))
+        !make_fast_args(g, in, taps, carry_in, carry_out, C, B, L, P, Q, T, D,
+                        passes == 1, wt, plane, g_off, x_off, out_f32, smem))
         return 1;
+    const bool odd = g.S & 1;
     auto run = passes == 1
-        ? (in_f32 ? (Q & 1 ? run_chain_fast<true, true, 1> : run_chain_fast<true, false, 1>)
-                  : (Q & 1 ? run_chain_fast<false, true, 1> : run_chain_fast<false, false, 1>))
-        : (in_f32 ? (Q & 1 ? run_chain_fast<true, true, 3> : run_chain_fast<true, false, 3>)
-                  : (Q & 1 ? run_chain_fast<false, true, 3> : run_chain_fast<false, false, 3>));
+        ? (in_f32 ? (odd ? run_chain_fast<true, true, 1> : run_chain_fast<true, false, 1>)
+                  : (odd ? run_chain_fast<false, true, 1> : run_chain_fast<false, false, 1>))
+        : (in_f32 ? (odd ? run_chain_fast<true, true, 3> : run_chain_fast<true, false, 3>)
+                  : (odd ? run_chain_fast<false, true, 3> : run_chain_fast<false, false, 3>));
     run(in, out, plans, g, threads, smem);
     return 0;
 }

@@ -25,6 +25,10 @@ struct alignas(16) uint4 { unsigned x, y, z, w; };
 struct alignas(8) uint2 { unsigned x, y; };
 
 inline float2 make_float2(float x, float y) { return float2{x, y}; }
+inline float4 make_float4(float x, float y, float z, float w) {
+    return float4{x, y, z, w};
+}
+inline int4 make_int4(int x, int y, int z, int w) { return int4{x, y, z, w}; }
 inline uint4 make_uint4(unsigned x, unsigned y, unsigned z, unsigned w) {
     return uint4{x, y, z, w};
 }

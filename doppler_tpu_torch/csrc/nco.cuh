@@ -212,11 +212,45 @@ __device__ __forceinline__ void walker_advance(Walker& w, uint32_t step,
     w.step_d = (uint64_t)step * w.p.d;
 }
 
+// The walker at sample j of block b, without a division: for a caller
+// that knows the block (the mixer's CTAs each lie inside one).
+__device__ __forceinline__ void walker_start(Walker& w, int b, uint32_t j,
+                                             uint32_t step,
+                                             const uint32_t* __restrict__ plans,
+                                             size_t stride) {
+    w.b = b;
+    w.j = j;
+    w.p = load_plan(plans, stride, b);
+    w.prod = (uint64_t)j * w.p.d;
+    w.step_d = (uint64_t)step * w.p.d;
+}
+
 // phase_q24 of the sample i places after the walker's (same block).
 __device__ __forceinline__ int walker_q24(const Walker& w, uint32_t i,
                                           uint64_t prod_i) {
     const uint64_t c = w.j + i < w.p.t ? w.p.c1 : w.p.c2;
     return (int)((prod_i + c) >> 40);
+}
+
+// phase_q24 of the walker's sample and the three after it (same block):
+// adds only.  Where all four lie on one side of the switch at t, as nearly
+// every group does, C joins the running sum once, not once a sample.
+__device__ __forceinline__ void walker_q24x4(const Walker& w, int (&q24)[4]) {
+    if (w.j + 3u < w.p.t || w.j >= w.p.t) {
+        uint64_t sum = w.prod + (w.j < w.p.t ? w.p.c1 : w.p.c2);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+            q24[i] = (int)(sum >> 40);
+            sum += w.p.d;
+        }
+    } else {
+        uint64_t prod = w.prod;
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+            q24[i] = walker_q24(w, (uint32_t)i, prod);
+            prod += w.p.d;
+        }
+    }
 }
 
 // Whether a store takes a whole group of four samples at once:
@@ -268,23 +302,7 @@ __device__ __forceinline__ void mix_span(long long first, long long last,
             // the four phases first, then the four tones and rotations as
             // one straight line: four independent chains for the scheduler
             int q24[4];
-            if (w.j + 3u < w.p.t || w.j >= w.p.t) {
-                // all four on one side of the switch at t, as nearly every
-                // group is: C joins the running sum once, not once a sample
-                uint64_t sum = w.prod + (w.j < w.p.t ? w.p.c1 : w.p.c2);
-#pragma unroll
-                for (int i = 0; i < 4; ++i) {
-                    q24[i] = (int)(sum >> 40);
-                    sum += w.p.d;
-                }
-            } else {
-                uint64_t prod = w.prod;
-#pragma unroll
-                for (int i = 0; i < 4; ++i) {
-                    q24[i] = walker_q24(w, (uint32_t)i, prod);
-                    prod += w.p.d;
-                }
-            }
+            walker_q24x4(w, q24);
             float oi[4], oq[4];
 #pragma unroll
             for (int i = 0; i < 4; ++i)
@@ -327,12 +345,19 @@ __device__ __forceinline__ void mix_span(long long first, long long last,
     }
 }
 
-// ×32767, truncate toward zero, NaN → 0, saturate (main.rs:76-84).
+// ×32767, truncate toward zero, NaN → 0, saturate (main.rs:76-84).  On the
+// card one conversion does the first three: cvt.rzi.s32.f32 truncates,
+// takes NaN to 0 and clamps to the int32 range, so the integer clamp after
+// it gives the float clamp's value for every input, ±∞ included.
 __device__ __forceinline__ int encode_i16(float v) {
+#ifdef __CUDACC__
+    return min(max(__float2int_rz(__fmul_rn(v, 32767.0f)), -32768), 32767);
+#else
     v = truncf(__fmul_rn(v, 32767.0f));
     if (isnan(v)) v = 0.0f;
     v = fminf(fmaxf(v, -32768.0f), 32767.0f);
     return (int)v;
+#endif
 }
 
 __device__ __forceinline__ int pack_i16(float i, float q) {

@@ -120,8 +120,11 @@ def load() -> ctypes.CDLL:
     """The kernel library, built on first call; C signatures declared."""
     lib = ctypes.CDLL(build_info()["path"])
     lib.doppler_mix_blocks.restype = _i
-    # in, out, plans, C, B, L, in_f32, out_f32, stream
-    lib.doppler_mix_blocks.argtypes = [_vp, _vp, _vp, _i, _i, _i, _i, _i, _vp]
+    # in, out, plans, C, B, L, in_f32, out_f32, G, stream
+    lib.doppler_mix_blocks.argtypes = [_vp, _vp, _vp, _i, _i, _i, _i, _i, _i, _vp]
+    lib.doppler_mixer_group.restype = _i
+    # C, B, L
+    lib.doppler_mixer_group.argtypes = [_i, _i, _i]
     lib.doppler_mix_blocks_q15.restype = _i
     # in, out, plans, B, L, stream
     lib.doppler_mix_blocks_q15.argtypes = [_vp, _vp, _vp, _i, _i, _vp]
@@ -140,12 +143,19 @@ def load() -> ctypes.CDLL:
                                   _i, _i, _i, _i, _i, _i, _i, _i,
                                   ctypes.c_longlong, _i, _i, _vp]
     lib.doppler_chain_fast.restype = _i
-    # in, out, plans, bank_h, bank_l, carry_in, carry_out, C, B, L, P, Q, T,
+    # in, out, plans, taps, carry_in, carry_out, C, B, L, P, Q, T, D,
     # windows, threads, plane, g_off, x_off, smem, in_f32, out_f32, passes,
     # stream
-    lib.doppler_chain_fast.argtypes = [_vp, _vp, _vp, _vp, _vp, _vp, _vp, _i, _i,
+    lib.doppler_chain_fast.argtypes = [_vp, _vp, _vp, _vp, _vp, _vp, _i, _i, _i,
                                        _i, _i, _i, _i, _i, _i, _i, _i, _i,
                                        ctypes.c_longlong, _i, _i, _i, _vp]
+    lib.doppler_chain_fast_part.restype = _i
+    # doppler_chain_fast's arguments but in_f32, out_f32 and passes; part,
+    # side, stream
+    lib.doppler_chain_fast_part.argtypes = [_vp, _vp, _vp, _vp, _vp, _vp, _i,
+                                            _i, _i, _i, _i, _i, _i, _i, _i, _i,
+                                            _i, _i, ctypes.c_longlong, _i, _vp,
+                                            _vp]
     lib.doppler_cascade.restype = _i
     # in, out, plans, banks, carry_in, carry_out, layout, S, C, B, L, tile,
     # threads, smem, in_f32, out_f32, stream

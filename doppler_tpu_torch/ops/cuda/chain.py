@@ -19,7 +19,11 @@ launches ``csrc/chain_fast.cu``, a bf16 tensor-core kernel (three passes or
 one), and counts it in ``.launches_fast`` (the one-pass launches also in
 ``.launches_default``); a CPU tensor runs the plain version with
 ``window_dot(dot=dot_precision)``.  The carry is the mixed history either
-way, bitwise the exact path's.
+way, bitwise the exact path's.  The kernel's D windows a row
+(``geometry.fast_columns``) follow from the stage and the block length L,
+so that every chunk of whole blocks holds a multiple of 16·D windows: its
+tiles then fall on the stream's own grid, and its bytes do not depend on
+the chunk cut.
 
 The carry is the flat ``(2, T−1)`` float32 history — the last T−1 mixed
 samples, exactly ``RationalResampler._hist_i/_hist_q`` — not the TPU's
@@ -166,21 +170,48 @@ def _launch(data, plans, bank, carries, C, B, L, P, Q, T, intype, outtype,
     return out, carries_out
 
 
-def plan_launch_fast(dev: torch.device, P: int, Q: int, T: int,
-                     geom=None) -> geometry.FastLayout:
-    """The fast kernel's windows a CTA, threads and shared-memory layout:
+def plan_launch_fast(dev: torch.device, P: int, Q: int, T: int, L: int,
+                     geom=None, passes: int = 3) -> geometry.FastLayout:
+    """The fast kernel's windows a CTA, threads and shared-memory layout
+    for ``passes`` bf16 passes over blocks of L samples:
     :func:`geometry.pick_chain_fast` for the card, or ``geom`` =
-    ``(windows, threads)`` as given (the card tests walk several)."""
+    ``(windows, threads)`` as given (the card tests and the sweep walk
+    several)."""
     limit = build.shared_memory_limit(dev.index)
     if geom is None:
-        return geometry.pick_chain_fast(P, Q, T, limit)
-    lay = geometry.fast_layout(P, Q, T, *geom)
+        return geometry.pick_chain_fast(P, Q, T, L, limit, passes)
+    lay = geometry.fast_layout(P, Q, T, L, *geom, passes)
     if lay.smem_bytes > limit:
         raise ValueError(
             f"fast chain geometry P={P} Q={Q} T={T} with {geom[0]} windows "
             f"needs {lay.smem_bytes} bytes of shared memory per CTA; the card "
             f"allows {limit}")
     return lay
+
+
+_TAPS = {}
+
+
+def fast_taps(bank: torch.Tensor, P: int, Q: int, T: int, D: int,
+              passes: int = 3) -> torch.Tensor:
+    """The fast kernel's B fragments of ``bank`` at D windows a row
+    (:func:`geometry.fast_taps_index`), int16 on the bank's device, laid out
+    once per bank, D and pass count: the entry holds the bank, so its
+    storage is not reused while cached, and an in-place change of the bank
+    (its version) lays them out anew.  Each CTA copies them into its shared
+    memory."""
+    key = (bank.data_ptr(), bank._version, bank.device, P, Q, T, D, passes)
+    hit = _TAPS.get(key)
+    if hit is None or hit[0] is not bank:
+        if len(_TAPS) >= 16:
+            _TAPS.clear()
+        t_h, t_l = bank_halves(bank)
+        flat = torch.cat([t_h.reshape(-1).view(torch.int16),
+                          t_l.reshape(-1).view(torch.int16),
+                          torch.zeros(1, dtype=torch.int16, device=bank.device)])
+        idx = torch.from_numpy(geometry.fast_taps_index(P, Q, T, D, passes))
+        hit = _TAPS[key] = (bank, flat[idx.to(bank.device)].contiguous())
+    return hit[1]
 
 
 def _launch_fast(data, plans, bank, carries, C, B, L, P, Q, T, intype,
@@ -190,18 +221,43 @@ def _launch_fast(data, plans, bank, carries, C, B, L, P, Q, T, intype,
     Raises where Q is not a power of two (the chain route's gate admits only
     Q | 128)."""
     dev = data.device
-    lay = plan_launch_fast(dev, P, Q, T, geom)
+    lay = plan_launch_fast(dev, P, Q, T, L, geom, passes)
     data, plans, carries = data.contiguous(), plans.contiguous(), carries.contiguous()
-    t_h, t_l = bank_halves(bank)
+    taps = fast_taps(bank, P, Q, T, lay.D, passes)
     out, carries_out = _outputs(dev, C, B, L, P, Q, T, outtype)
     rc = build.load().doppler_chain_fast(
-        data.data_ptr(), out.data_ptr(), plans.data_ptr(), t_h.data_ptr(),
-        t_l.data_ptr(), carries.data_ptr(), carries_out.data_ptr(), C, B, L,
-        P, Q, T, lay.windows, lay.threads, lay.plane, lay.g_off, lay.x_off,
+        data.data_ptr(), out.data_ptr(), plans.data_ptr(), taps.data_ptr(),
+        carries.data_ptr(), carries_out.data_ptr(), C, B, L, P, Q, T, lay.D,
+        lay.windows, lay.threads, lay.plane, lay.g_off, lay.x_off,
         lay.smem_bytes, int(intype == "f32"), int(outtype == "f32"), passes,
         torch.cuda.current_stream(dev).cuda_stream)
     build.check(rc, "fast chain")
     return out, carries_out
+
+
+def launch_fast_part(data, plans, bank, carry, *, P: int, Q: int, T: int,
+                     part: str):
+    """One half of the split3 kernel alone, for timing (``chip_smoke.py``):
+    ``part="mix"`` cuts the dot (each warp XORs the span's words into a side
+    word, which keeps the mix alive), ``part="dot"`` cuts the mix (the span
+    holds zeros).  i16 words ``(B, L)`` in, one stream;
+    returns ``(out, side)``.  Not a function of the pipeline: no plain
+    version, no launch count."""
+    dev = data.device
+    B, L = _check(data, plans, bank, carry, "i16", "i16", P, Q, T)
+    lay = plan_launch_fast(dev, P, Q, T, L)
+    taps = fast_taps(bank, P, Q, T, lay.D)
+    out, carries_out = _outputs(dev, 1, B, L, P, Q, T, "i16")
+    n_ctas = B * L // Q // lay.windows + 2
+    side = torch.zeros(n_ctas * lay.threads // 32, dtype=torch.int32, device=dev)
+    rc = build.load().doppler_chain_fast_part(
+        data.data_ptr(), out.data_ptr(), plans.data_ptr(), taps.data_ptr(),
+        carry.data_ptr(), carries_out.data_ptr(), 1, B, L, P, Q, T, lay.D,
+        lay.windows, lay.threads, lay.plane, lay.g_off, lay.x_off,
+        lay.smem_bytes, {"mix": 1, "dot": 2}[part], side.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream)
+    build.check(rc, f"fast chain ({part} only)")
+    return out, side
 
 
 def mix_resample_chain_stream(data, plans, bank, carry, *, P: int, Q: int,

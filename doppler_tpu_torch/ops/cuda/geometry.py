@@ -23,7 +23,8 @@ import functools
 __all__ = ["SLACK", "MAX_THREADS", "r_choices", "tap_stride", "span_words",
            "span_back", "Layout", "layout", "cta_units", "cta_spans",
            "ctas_per_sm", "pick_cascade", "pick_chain", "FastLayout",
-           "fast_layout", "pick_chain_fast", "CascadeFastLayout",
+           "fast_columns", "fast_layout", "pick_chain_fast", "fast_taps_index",
+           "CascadeFastLayout",
            "cascade_fast_spans", "cascade_fast_layout", "pick_cascade_fast",
            "check_cascade_fast_chunk", "fast_cta_units", "fast_cta_spans"]
 
@@ -230,27 +231,47 @@ FAST_WINDOWS = (128, 96, 64, 48, 32, 16)
 FAST_MAX_THREADS = 256      # csrc/chain_fast.cu's __launch_bounds__(256, 3)
 
 
+def fast_columns(P: int, Q: int, L: int) -> int:
+    """D, the neighbouring windows a row of the chain's dot holds
+    (``csrc/fast_dot.cuh``): the largest power of two with D·P ≤ 8, so that
+    D·P of the mma's 8 columns hold outputs, and 16·D·Q dividing the block
+    length L, so that every chunk of whole blocks holds a multiple of 16·D
+    windows and the kernel's tiles fall on the stream's own grid of 16·D
+    windows whatever the chunk cut; 1 where P > 4.  A function of the stage
+    and the stream's block length, never of the chunk."""
+    D = 1
+    while 2 * D * P <= 8 and L % (32 * D * Q) == 0:
+        D *= 2
+    return D
+
+
 @dataclasses.dataclass(frozen=True)
 class FastLayout:
     """One launch of ``csrc/chain_fast.cu``: ``windows`` a CTA (a multiple of
-    16), ``threads``, its k-steps ``ks`` and N-tiles ``nt``, the bf16 entries
-    of each of its four span planes, and the word offsets of the B fragments
-    and of the planes in its ``smem_bytes`` of shared memory."""
+    16·D), ``threads``, D windows a row of A, the k-steps ``ks`` and N-tiles
+    ``nt``, the words ``bw`` a lane's B fragments take a k-step (4, or 2 for
+    one pass), the bf16 entries of each of its ``planes`` span planes (4, or
+    2 for one pass), and the word offsets of the B fragments and of the
+    planes in its ``smem_bytes`` of shared memory."""
     windows: int
     threads: int
+    D: int
     ks: int
     nt: int
+    bw: int
+    planes: int
     plane: int
     g_off: int
     x_off: int
     smem_bytes: int
 
 
-def fast_pad(Q: int) -> int:
-    """bf16 entries after every Q entries of a plane: 8 (four words) where
-    Q ≥ 16, so that the row stride is 4 mod 8 words and the 8 rows of a
-    fragment load meet 8 different 16-byte bank groups; else none."""
-    return 8 if Q >= 16 else 0
+def fast_pad(S: int) -> int:
+    """bf16 entries after every S entries of a plane (S: a row's step, D·Q):
+    8 (four words) where S ≥ 16, so that the row stride is 4 mod 8 words and
+    the 8 rows of a fragment load meet 8 different 16-byte bank groups; else
+    none."""
+    return 8 if S >= 16 else 0
 
 
 def fast_lead(T: int) -> int:
@@ -260,45 +281,61 @@ def fast_lead(T: int) -> int:
     return (1 - T) % 4
 
 
-def fast_dims(P: int, Q: int, T: int) -> tuple:
+def fast_dims(P: int, Q: int, T: int, D: int = 1) -> tuple:
     """A stage's k-steps ``ks`` (K = 16·ks band columns) and N-tiles ``nt``
-    (``csrc/fast_dot.cuh fast_derive``); Q must be a power of two."""
+    at D windows a row (``csrc/fast_dot.cuh fast_derive``); Q must be a
+    power of two."""
     if Q & (Q - 1) or Q < 1:
         raise ValueError(f"the fast kernels need Q a power of two (Q={Q})")
-    return -(-(T + fast_lead(T) + (P - 1) * Q // P) // 16), -(-P // 8)
+    width = T + fast_lead(T) + (P - 1) * Q // P + Q * (D - 1)
+    return -(-width // 16), -(-D * P // 8)
 
 
-def fast_plane(span: int, Q: int) -> int:
-    """bf16 entries of a plane that holds a span of ``span`` entries with its
-    pads: a multiple of 8."""
+def fast_plane(span: int, S: int) -> int:
+    """bf16 entries of a plane that holds a span of ``span`` entries with the
+    pads of a row step S: a multiple of 8."""
     last = span - 1
-    return -(-(last + fast_pad(Q) * (last // Q) + 1) // 8) * 8
+    return -(-(last + fast_pad(S) * (last // S) + 1) // 8) * 8
 
 
-def fast_layout(P: int, Q: int, T: int, windows: int, threads: int) -> FastLayout:
-    """Shared-memory layout of a CTA of ``windows`` windows: the B fragments
-    (``ks·nt·32`` lanes of 16 bytes) first, then the planes I_h, I_l, Q_h,
-    Q_l, each holding ``Q·(windows−1) + 16·ks`` span entries with their pads."""
-    ks, nt = fast_dims(P, Q, T)
-    if windows < 16 or windows % 16:
-        raise ValueError(f"windows {windows} must be a positive multiple of 16")
+def fast_layout(P: int, Q: int, T: int, L: int, windows: int, threads: int,
+                passes: int = 3) -> FastLayout:
+    """Shared-memory layout of a CTA of ``windows`` windows over blocks of L
+    samples: the B fragments (``ks·nt·32`` lanes of 4·bw bytes) first, then
+    the planes (I_h, I_l, Q_h, Q_l; with one pass I_h, Q_h alone), each
+    holding ``Q·(windows − D) + 16·ks`` span entries with their pads."""
+    D = fast_columns(P, Q, L)
+    ks, nt = fast_dims(P, Q, T, D)
+    if windows < 16 * D or windows % (16 * D):
+        raise ValueError(f"windows {windows} must be a positive multiple of "
+                         f"16·D = {16 * D}")
     if threads % 32 or not 32 <= threads <= FAST_MAX_THREADS:
         raise ValueError(f"threads {threads} must be a multiple of 32 up to "
                          f"{FAST_MAX_THREADS}")
-    plane = fast_plane(Q * (windows - 1) + 16 * ks, Q)
-    g_words = 128 * ks * nt
-    return FastLayout(windows, threads, ks, nt, plane, 0, g_words,
-                      4 * (g_words + 2 * plane))
+    if passes not in (1, 3):
+        raise ValueError(f"passes must be 1 or 3, got {passes}")
+    bw, planes = (4, 4) if passes == 3 else (2, 2)
+    plane = fast_plane(Q * (windows - D) + 16 * ks, D * Q)
+    g_words = 32 * bw * ks * nt
+    return FastLayout(windows, threads, D, ks, nt, bw, planes, plane, 0, g_words,
+                      4 * (g_words + planes * plane // 2))
 
 
-def pick_chain_fast(P: int, Q: int, T: int, limit: int) -> FastLayout:
-    """One warp for every 16 windows, and the most windows that leave three
-    CTAs on an SM (the exact chain's rule, :func:`pick_cascade`); where none
-    does, the most that fit."""
+@functools.lru_cache(maxsize=None)
+def pick_chain_fast(P: int, Q: int, T: int, L: int, limit: int,
+                    passes: int = 3) -> FastLayout:
+    """256 threads for three passes and 192 for one (the mix wants many
+    warps an SM; the CTA of one pass is half the size), and the most windows
+    of :data:`FAST_WINDOWS` that leave three CTAs on an SM (the exact
+    chain's rule, :func:`pick_cascade`); where none does, the most that fit.
+    ``tools/kernel_sweep.py --kernels fast,fast-default`` times the others."""
+    D = fast_columns(P, Q, L)
+    threads = FAST_MAX_THREADS if passes == 3 else 192
     fallback = None
     for windows in FAST_WINDOWS:
-        threads = min(FAST_MAX_THREADS, 2 * windows)
-        lay = fast_layout(P, Q, T, windows, threads)
+        if windows % (16 * D):
+            continue
+        lay = fast_layout(P, Q, T, L, windows, threads, passes)
         if lay.smem_bytes > limit:
             continue
         if ctas_per_sm(lay.smem_bytes, threads) >= 3:
@@ -308,6 +345,33 @@ def pick_chain_fast(P: int, Q: int, T: int, limit: int) -> FastLayout:
         raise ValueError(f"the fast chain at P/Q/T = {P}/{Q}/{T} needs more "
                          f"than {limit} bytes of shared memory a CTA")
     return fallback
+
+
+@functools.lru_cache(maxsize=None)
+def fast_taps_index(P: int, Q: int, T: int, D: int, passes: int = 3):
+    """Where each bf16 entry of the chain's B fragments at D windows a row
+    comes from: an int64 index of ``ks·nt·32·bw·2`` entries into
+    ``[t_h.flat, t_l.flat, 0]`` (the ``(P, T)`` bank's bf16 halves, then one
+    zero).  Lane ``(g, q) = (lane/4, lane%4)`` of k-step s and N-tile n
+    holds, as bw words of two entries each (the lower k in the low half),
+    ``t_h(k0, k0+1), t_h(k0+8, k0+9)`` and, for three passes, ``t_l(k0,
+    k0+1), t_l(k0+8, k0+9)``, k0 = 16s + 2q, of column c = 8n + g: phase
+    p = c mod P of the window d = ⌊c/P⌋ after the row's first, G[k, (d, p)] =
+    t[(p·Q) mod P, T−1 + lead + ⌊p·Q/P⌋ + Q·d − k] where that tap exists
+    (``csrc/fast_dot.cuh``)."""
+    import numpy as np
+
+    ks, nt = fast_dims(P, Q, T, D)
+    bw = 4 if passes == 3 else 2
+    s, n, lane, w, h = np.meshgrid(np.arange(ks), np.arange(nt), np.arange(32),
+                                   np.arange(bw), np.arange(2), indexing="ij")
+    k = 16 * s + 2 * (lane % 4) + 8 * (w % 2) + h
+    col = 8 * n + lane // 4
+    d, p = col // P, col % P
+    tap = T - 1 + fast_lead(T) + p * Q // P + Q * d - k
+    ok = (col < D * P) & (tap >= 0) & (tap < T)
+    idx = (w // 2) * P * T + (p * Q % P) * T + np.clip(tap, 0, T - 1)
+    return np.where(ok, idx, 2 * P * T).reshape(-1)
 
 
 # -- the cascade kernel of the bf16 dots (csrc/cascade_fast.cu) ---------------

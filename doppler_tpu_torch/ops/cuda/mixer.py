@@ -6,8 +6,10 @@ and runs :func:`mix_blocks_fmt_plain` on a CPU tensor.
 :func:`mix_blocks_fmt_channels` is the same kernel with a channel axis: C
 channels mix one shared chunk, each with its own plan words (what
 ``doppler_tpu/runtime/channels.py:64`` ``_channels_mix_kernel`` computes).
-The kernel is bound by HBM bytes (8 B/sample i16→i16); see the source for
-its design.  :func:`mix_blocks_q15` launches ``csrc/mixer_q15.cu`` (the port
+One stream is bound by HBM bytes (8 B/sample i16→i16); many channels by
+the mix's instructions as much as by their stores.  A CTA mixes G channels
+(the kernel's ``mixer_group``) from one decode of its samples; see the
+source for the design.  :func:`mix_blocks_q15` launches ``csrc/mixer_q15.cu`` (the port
 of ``doppler_tpu/ops/pallas/mixer.py:357`` ``mix_blocks_pallas_q15``): the
 same plan words and tone with the sample path in int32, timed beside the
 mixer by ``tools/roofline.py``; :func:`mix_blocks_q15_plain` is its plain
@@ -108,9 +110,10 @@ def mix_blocks_fmt_channels_plain(data: torch.Tensor, plans: torch.Tensor, *,
 
 
 def _launch(data, plans, C: int, B: int, L: int, intype: str,
-            outtype: str) -> torch.Tensor:
+            outtype: str, G: int = 0) -> torch.Tensor:
     """Launch the kernel over ``(7, C, B)`` plan words; returns ``(C, B, L)``
-    words or ``(2, C, B, L)`` planes."""
+    words or ``(2, C, B, L)`` planes.  ``G``: channels a CTA, 0 for the
+    kernel's own pick (``chip_smoke.py`` times the others)."""
     data = data.contiguous()
     plans = plans.contiguous()
     if outtype == "i16":
@@ -120,6 +123,7 @@ def _launch(data, plans, C: int, B: int, L: int, intype: str,
     rc = build.load().doppler_mix_blocks(
         data.data_ptr(), out.data_ptr(), plans.data_ptr(), C, B, L,
         int(intype == "f32"), int(outtype == "f32"),
+        G,
         torch.cuda.current_stream(data.device).cuda_stream)
     build.check(rc, "mixer")
     return out

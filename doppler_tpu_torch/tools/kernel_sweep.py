@@ -6,12 +6,16 @@ tool runs each of the four cases — the chain at 3/64/370, the cascade at
 the config-3 stages, the 100 Msps split front, and the channel-batched
 variants with ``--channels`` — over a grid of ``(tile, threads, R per
 stage)`` and prints one line a geometry, fastest first, with the geometry
-that ``ops/cuda/geometry.py`` picks on its own marked ``*``.  K dispatches
-between two CUDA events (``runtime/timing.py``), best of ``--iters``.  It
-measures a card and fails without one.
+that ``ops/cuda/geometry.py`` picks on its own marked ``*``.  The kernel of
+``--precision fast`` at 3/64/370 (``fast``: split3, ``fast-default``: one
+pass) sweeps ``(windows, threads)`` the same way (``--kernels
+fast,fast-default``), up to 256 windows where the pick stops at 128.  K
+dispatches between two CUDA events (``runtime/timing.py``), best of
+``--iters``.  It measures a card and fails without one.
 
     python -m doppler_tpu_torch.tools.kernel_sweep --blocks 16384
     python -m doppler_tpu_torch.tools.kernel_sweep --blocks 256 --channels 16
+    python -m doppler_tpu_torch.tools.kernel_sweep --kernels fast,fast-default
 """
 
 from __future__ import annotations
@@ -31,10 +35,24 @@ TILES = {"chain": (128, 192, 256, 384, 512, 768),
          "cascade": (128, 192, 256, 384, 512),
          "front": (16, 32, 48, 64)}
 THREADS = (128, 256, 384, 512)
+FAST_THREADS = (64, 128, 192, 256)
+FAST_WINDOWS = (256, 192) + geometry.FAST_WINDOWS
+FAST = {"fast": 3, "fast-default": 1}       # sweep name -> bf16 passes
 
 
 def _grid(kernel, stages, limit):
     """Every geometry of the sweep that fits ``limit`` bytes a CTA."""
+    if kernel in FAST:
+        (P, Q, T), = stages
+        for windows, threads in itertools.product(FAST_WINDOWS, FAST_THREADS):
+            try:
+                lay = geometry.fast_layout(P, Q, T, kernel_digests.L, windows,
+                                           threads, FAST[kernel])
+            except ValueError:
+                continue
+            if lay.smem_bytes <= limit:
+                yield windows, threads, ()
+        return
     choices = [geometry.r_choices(P) for P, _, _ in stages]
     for tile, threads in itertools.product(TILES[kernel], THREADS):
         for regs in itertools.product(*choices):
@@ -48,7 +66,7 @@ def _grid(kernel, stages, limit):
 
 def sweep(kernel: str, B: int, C: int, iters: int, K: int, device) -> list:
     """``[(ms, tile, threads, regs, picked)]`` for one kernel, fastest first."""
-    stages, banks = kernel_digests.geometry(kernel)
+    stages, banks = kernel_digests.geometry("chain" if kernel in FAST else kernel)
     data, plans = kernel_digests.seeded_inputs(B, "i16", C)
     data = torch.from_numpy(data).to(device)
     plans = torch.from_numpy(plans).to(device)
@@ -63,6 +81,12 @@ def sweep(kernel: str, B: int, C: int, iters: int, K: int, device) -> list:
     limit = torch.cuda.get_device_properties(device).shared_memory_per_block_optin
 
     def step(geom):
+        if kernel in FAST:
+            (P, Q, T), = stages
+            g = None if geom is None else geom[:2]
+            return lambda: chain._launch_fast(data, plans, banks[0], carries[0], C,
+                                              B, L, P, Q, T, "i16", outtype, geom=g,
+                                              passes=FAST[kernel])
         if kernel == "chain":
             (P, Q, T), = stages
             g = None if geom is None else (geom[0], geom[1], geom[2][0])
@@ -71,8 +95,13 @@ def sweep(kernel: str, B: int, C: int, iters: int, K: int, device) -> list:
         return lambda: cascade._launch(data, plans, banks, carries, C, B, L,
                                        stages, n_out, "i16", outtype, geom=geom)
 
-    picked = geometry.pick_cascade(stages, limit)
-    picked = (picked.tile, picked.threads, picked.regs)
+    if kernel in FAST:
+        picked = geometry.pick_chain_fast(*stages[0], kernel_digests.L, limit,
+                                          FAST[kernel])
+        picked = (picked.windows, picked.threads, ())
+    else:
+        picked = geometry.pick_cascade(stages, limit)
+        picked = (picked.tile, picked.threads, picked.regs)
     geoms = list(dict.fromkeys([picked, *_grid(kernel, stages, limit)]))
     best = {g: float("inf") for g in geoms}
     for g in geoms:

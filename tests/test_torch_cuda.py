@@ -729,7 +729,8 @@ def test_chain_indices_beyond_32_bits(card):
 # across launch geometries, chunk cuts and channels.  Its carry is the exact
 # kernel's, bitwise.
 
-FAST_GEOMS = [(16, 32), (64, 128), (96, 192), (128, 256), (48, 64)]
+# (windows, threads): windows a multiple of 16·D = 32 at 3/64, L = 2048 (D = 2)
+FAST_GEOMS = [(32, 32), (64, 128), (96, 192), (128, 256), (192, 64)]
 
 
 def _close_fast(got, want, outtype):
@@ -874,6 +875,32 @@ def test_fast_pipeline_on_card(card):
              torch.frombuffer(bytearray(cpu), dtype=torch.int32))
     assert int(d.max()) <= 1 and float((d > 0).float().mean()) < 0.01
     assert run("cuda", "fast", "auto") == run("cuda", "exact", "auto")
+
+
+@pytest.mark.cuda
+def test_fast_pipeline_f32_odd_chunk_on_card(card):
+    """f32 input (1024-sample blocks, so D = 1 at 3/64) at an odd
+    ``chunk_blocks``: every full chunk launches the fast kernel, ≤ 1 LSB of
+    the CPU run."""
+    rng = np.random.default_rng(85)
+    data = (rng.standard_normal(2 * (1024 * 21 + 300)) * 0.3).astype("<f4").tobytes()
+
+    def run(device):
+        pipe = Pipeline(FS, "f32", "i16", ConstScheduler(-15000.0), chunk_blocks=7,
+                        precision="fast", device=device)
+        attach_resampler(pipe, 48000, stages="single")
+        out = io.BytesIO()
+        pipe.run(io.BytesIO(data), out)
+        return out.getvalue()
+
+    fast0 = mix_resample_chain_stream.launches_fast
+    gpu = run("cuda")
+    assert mix_resample_chain_stream.launches_fast - fast0 == 3
+    cpu = run("cpu")
+    assert len(gpu) == len(cpu) > 0
+    d = _lsb(torch.frombuffer(bytearray(gpu), dtype=torch.int32),
+             torch.frombuffer(bytearray(cpu), dtype=torch.int32))
+    assert int(d.max()) <= 1 and float((d > 0).float().mean()) < 0.01
 
 
 @pytest.mark.cuda

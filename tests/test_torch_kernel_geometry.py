@@ -30,7 +30,12 @@ What runs here without a card:
   and carries for every tile and thread count and across a chunk cut,
   stage-0 carries bitwise the exact kernel's, within the same tolerance of
   its plain version (carries too), in CTAs whose shared memory starts as
-  NaN, so every band entry a fragment reads is written.
+  NaN, so every band entry a fragment reads is written;
+- the mixer (``csrc/mixer.cu``) the same way, a CTA's threads one after the
+  other: bitwise the plain torch version at C = 1, 3 and 16 in the four
+  wire formats, for every channel group G (one that does not divide C too),
+  on the 16-byte path and on the one-sample path (an odd L, a misaligned
+  input).
 """
 
 import ctypes
@@ -45,7 +50,7 @@ import torch
 
 from doppler_tpu.ops.pallas import mixer as jax_mixer
 from doppler_tpu_torch.ops import nco
-from doppler_tpu_torch.ops.cuda import cascade, chain, geometry
+from doppler_tpu_torch.ops.cuda import cascade, chain, geometry, mixer
 from doppler_tpu_torch.ops.multistage import MultiStageResampler
 from doppler_tpu_torch.ops.precision import split3_bank
 from doppler_tpu_torch.ops.resample import RationalResampler
@@ -421,68 +426,142 @@ def test_emulated_kernel_short_chunk_takes_carries_through(emu):
 
 # -- (e) the kernel of --precision fast ---------------------------------------
 
+# (stage, chunk blocks, block length L); D = 2 at config 3 (L = 2048), 1 at
+# its f32 blocks (L = 1024, odd chunks) and at its short chunk, 4 at "Q = 1"
 FAST_STAGES = {
     "config3": ((3, 64, 370), 5, 2048),
+    "config3 f32 blocks": ((3, 64, 370), 3, 1024),
     "short chunk": ((3, 64, 370), 1, 128),
     "two N-tiles": ((11, 32, 45), 3, 512),
     "Q = 8, no pad": ((5, 8, 30), 3, 256),
-    "Q = 1": ((2, 1, 23), 2, 96),
+    "Q = 1": ((2, 1, 23), 2, 128),
+    "Q = 1, odd row step": ((5, 1, 23), 2, 64),
 }
-FAST_GEOMS = [(96, 192), (16, 32), (64, 96), (48, 128)]
+# (M-tiles of 16·D windows, threads)
+FAST_GEOMS = [(6, 192), (1, 32), (4, 96), (3, 128)]
 
 
-@pytest.mark.parametrize("stage", [v[0] for v in FAST_STAGES.values()],
+def _fast_geoms(P, Q, L):
+    D = geometry.fast_columns(P, Q, L)
+    return [(16 * D * m, t) for m, t in FAST_GEOMS]
+
+
+def test_fast_columns_follow_the_block_length():
+    """D: the largest power of two with D·P ≤ 8 and 16·D·Q | L, so every
+    chunk of whole blocks tiles; the stage's f32 blocks take D = 1."""
+    for (P, Q, _), _, L in FAST_STAGES.values():
+        D = geometry.fast_columns(P, Q, L)
+        assert D & (D - 1) == 0 and (D * P <= 8 or D == 1)
+        assert D == 1 or L % (16 * D * Q) == 0
+        assert 2 * D * P > 8 or L % (32 * D * Q) != 0
+    assert [geometry.fast_columns(*s[0][:2], s[2]) for s in FAST_STAGES.values()] \
+        == [2, 1, 1, 1, 1, 4, 1]
+    assert geometry.fast_columns(3, 64, 2048) == 2 and geometry.fast_columns(3, 128, 2048) == 1
+
+
+@pytest.mark.parametrize("stage,L", [(v[0], v[2]) for v in FAST_STAGES.values()],
                          ids=list(FAST_STAGES))
-def test_fast_layout_fits_and_holds_every_fragment(stage):
+def test_fast_layout_fits_and_holds_every_fragment(stage, L):
     P, Q, T = stage
-    lay = geometry.pick_chain_fast(P, Q, T, H100_SMEM)
-    assert lay.smem_bytes <= H100_SMEM and lay.threads == min(256, 2 * lay.windows)
-    for windows, threads in FAST_GEOMS + [(lay.windows, lay.threads)]:
-        lay = geometry.fast_layout(P, Q, T, windows, threads)
-        # every tap of every phase lies in the k-steps; the last entry a
-        # fragment reads lies in its plane; fragments and planes apart
-        assert 16 * lay.ks >= T + geometry.fast_lead(T) + (P - 1) * Q // P
-        assert lay.nt * 8 >= P and (T - 1 + geometry.fast_lead(T)) % 4 == 0
-        last = Q * (windows - 1) + 16 * lay.ks - 1
-        assert last + geometry.fast_pad(Q) * (last // Q) < lay.plane
-        assert lay.plane % 8 == 0 and lay.x_off == 128 * lay.ks * lay.nt
-        assert lay.smem_bytes == 4 * (lay.x_off + 2 * lay.plane)
+    D = geometry.fast_columns(P, Q, L)
+    for passes in (3, 1):
+        lay = geometry.pick_chain_fast(P, Q, T, L, H100_SMEM, passes)
+        assert lay.smem_bytes <= H100_SMEM and lay.threads % 32 == 0
+        for windows, threads in _fast_geoms(P, Q, L) + [(lay.windows, lay.threads)]:
+            lay = geometry.fast_layout(P, Q, T, L, windows, threads, passes)
+            # every tap of every column lies in the k-steps; the last entry a
+            # fragment reads lies in its plane; fragments and planes apart
+            assert lay.D == D and windows % (16 * D) == 0
+            assert 16 * lay.ks >= T + geometry.fast_lead(T) + (P - 1) * Q // P + Q * (D - 1)
+            assert lay.nt * 8 >= D * P and (T - 1 + geometry.fast_lead(T)) % 4 == 0
+            last = Q * (windows - D) + 16 * lay.ks - 1
+            assert last + geometry.fast_pad(D * Q) * (last // (D * Q)) < lay.plane
+            assert (lay.bw, lay.planes) == ((4, 4) if passes == 3 else (2, 2))
+            assert lay.plane % 8 == 0 and lay.x_off == 32 * lay.bw * lay.ks * lay.nt
+            assert lay.smem_bytes == 4 * (lay.x_off + lay.planes * lay.plane // 2)
     with pytest.raises(ValueError, match="power of two"):
-        geometry.fast_layout(3, 48, 100, 16, 32)
+        geometry.fast_layout(3, 48, 100, 3072, 16, 32)
+    with pytest.raises(ValueError, match="16·D"):
+        geometry.fast_layout(P, Q, T, L, 16 * D + 16, 32) if D > 1 else \
+            geometry.fast_layout(P, Q, T, L, 24, 32)
+
+
+@pytest.mark.parametrize("stage,L", [(v[0], v[2]) for v in FAST_STAGES.values()],
+                         ids=list(FAST_STAGES))
+def test_fast_taps_columns_are_neighbouring_windows(stage, L):
+    """The B fragments as dense G (K × 8 per N-tile): row r of the banded
+    product with A[r, k] = x[S·r − (T−1) − lead + k] gives, in column
+    (d, p) = d·P + p, phase p of window D·r + d exactly (float64), and
+    nothing in the columns past D·P."""
+    P, Q, T = stage
+    rng = np.random.default_rng(11)
+    bank = rng.standard_normal((P, T))
+    D = geometry.fast_columns(P, Q, L)
+    ks, nt = geometry.fast_dims(P, Q, T, D)
+    for passes in (3, 1):
+        idx = geometry.fast_taps_index(P, Q, T, D, passes).reshape(ks, nt, 32, -1, 2)
+        src = np.concatenate([bank.reshape(-1), 10 * bank.reshape(-1), [0.0]])
+        G = np.zeros((16 * ks, 8 * nt))
+        for s in range(ks):
+            for n in range(nt):
+                for lane in range(32):
+                    for w in range(2):          # the t_h words
+                        for h in range(2):
+                            k = 16 * s + 2 * (lane % 4) + 8 * w + h
+                            G[k, 8 * n + lane // 4] = src[idx[s, n, lane, w, h]]
+        if passes == 3:                         # the t_l words: the same taps
+            assert np.array_equal(idx[..., 2:, :],
+                                  np.where(idx[..., :2, :] == 2 * P * T, 2 * P * T,
+                                           idx[..., :2, :] + P * T))
+        lead, S, rows = geometry.fast_lead(T), D * Q, 5
+        x = rng.standard_normal(S * rows + 16 * ks + T)
+        org = T - 1 + lead                       # window 0 sits this far into x
+        A = np.stack([x[S * r:S * r + 16 * ks] for r in range(rows)])
+        Y = A @ G
+        for r in range(rows):
+            for c in range(8 * nt):
+                d, p = divmod(c, P)
+                if d >= D:
+                    assert Y[r, c] == 0.0
+                    continue
+                i = D * r + d
+                want = sum(bank[p * Q % P, l] * x[org + Q * i + p * Q // P - l]
+                           for l in range(T))
+                assert abs(Y[r, c] - want) <= 1e-9 * (1 + abs(want))
 
 
 def _emulate_chain_fast(emu, case, stage, C, B, L, fmt, lay, passes=3):
+    """``emu_chain_fast`` at ``lay``: ``(out, carries_out)``, or 0 where its
+    checks refuse the arguments."""
     data, plans, banks, carries = case
     out, c_out = _outputs((stage,), C, B, L, fmt)
-    t_h, t_l = (h.to(torch.bfloat16).view(torch.int16).numpy().copy()
-                for h in split3_bank(torch.from_numpy(banks[0])))
     P, Q, T = stage
+    taps = chain.fast_taps(torch.from_numpy(banks[0]), P, Q, T, lay.D, passes).numpy()
     rc = emu.emu_chain_fast(
         ctypes.c_void_p(data.ctypes.data), ctypes.c_void_p(out.ctypes.data),
-        ctypes.c_void_p(plans.ctypes.data), ctypes.c_void_p(t_h.ctypes.data),
-        ctypes.c_void_p(t_l.ctypes.data), ctypes.c_void_p(carries[0].ctypes.data),
-        ctypes.c_void_p(c_out[0].ctypes.data), C, B, L, P, Q, T, lay.windows,
-        lay.threads, lay.plane, lay.g_off, lay.x_off,
+        ctypes.c_void_p(plans.ctypes.data), ctypes.c_void_p(taps.ctypes.data),
+        ctypes.c_void_p(carries[0].ctypes.data),
+        ctypes.c_void_p(c_out[0].ctypes.data), C, B, L, P, Q, T, lay.D,
+        lay.windows, lay.threads, lay.plane, lay.g_off, lay.x_off,
         ctypes.c_longlong(lay.smem_bytes), int(fmt == "f32"), int(fmt == "f32"),
         passes)
-    assert rc == 0, "the entry point's checks refuse these arguments"
-    return out, c_out
+    return 0 if rc else (out, c_out)
 
 
 @pytest.mark.parametrize("passes", [3, 1])
 @pytest.mark.parametrize("fmt", ["i16", "f32"])
 @pytest.mark.parametrize("name", list(FAST_STAGES))
 def test_emulated_fast_chain_kernel(emu, name, fmt, passes):
-    """Three passes (split3) or one (default) against the plain version of
-    that dot precision."""
+    """Three passes (split3) or one (default, the compact layout) against the
+    plain version of that dot precision, the same bytes for every geometry."""
     stage, B, L = FAST_STAGES[name]
     P, Q, T = stage
     C = 2
     case = _case(5, (stage,), C, B, L, fmt)
     outs = [_emulate_chain_fast(emu, case, stage, C, B, L, fmt,
-                                geometry.fast_layout(P, Q, T, w, t), passes)
-            for w, t in FAST_GEOMS]
-    assert all(_same(o, outs[0]) for o in outs[1:])
+                                geometry.fast_layout(P, Q, T, L, *g, passes), passes)
+            for g in _fast_geoms(P, Q, L)]
+    assert all(o != 0 and _same(o, outs[0]) for o in outs)
     out, c_out = outs[0]
     # the carry is the exact kernel's: the mixed history
     assert _same((out[:0], c_out), (out[:0], _reference(emu, case, (stage,), C, B,
@@ -502,6 +581,39 @@ def test_emulated_fast_chain_kernel(emu, name, fmt, passes):
         else:
             w = want.numpy().reshape(2, -1)
             assert np.abs(out[:, c] - w).max() <= 1e-5 * np.abs(w).max()
+
+
+@pytest.mark.parametrize("passes", [3, 1])
+@pytest.mark.parametrize("stage,L", [((3, 64, 370), 2048), ((2, 1, 23), 64)],
+                         ids=["config3", "Q = 1"])
+def test_emulated_fast_chain_bytes_do_not_depend_on_the_chunk_cut(emu, stage, L,
+                                                                  passes):
+    """Four blocks in one chunk against four chunks of one block (16·D
+    windows each: D follows L), from the carries each leaves: window i's
+    bytes do not depend on the CTA tile or the chunk it falls in.  The
+    kernel refuses a D whose 16·D·Q does not divide L."""
+    P, Q, T = stage
+    D = geometry.fast_columns(P, Q, L)
+    blocks, B = 1, 4
+    assert D > 1 and L // Q == 16 * D
+    case = _case(8, (stage,), 1, B, L, "i16")
+    lay = geometry.fast_layout(P, Q, T, L, 64 * D, 64, passes)
+    half = (np.ascontiguousarray(case[0][:, :L // 2]),
+            np.ascontiguousarray(case[1]), *case[2:])
+    assert _emulate_chain_fast(emu, half, stage, 1, B, L // 2, "i16", lay,
+                               passes) == 0
+    whole, c_whole = _emulate_chain_fast(emu, case, stage, 1, B, L, "i16", lay, passes)
+    data, plans, banks, carries = case
+    parts = []
+    for b in range(0, B, blocks):
+        part = (np.ascontiguousarray(data[b:b + blocks]),
+                np.ascontiguousarray(plans[:, :, b:b + blocks]), banks, carries)
+        o, c_out = _emulate_chain_fast(emu, part, stage, 1, blocks, L, "i16", lay,
+                                       passes)
+        parts.append(o)
+        carries = c_out
+    assert np.concatenate(parts, axis=1).tobytes() == whole.tobytes()
+    assert c_out[0].tobytes() == c_whole[0].tobytes()
 
 
 # -- (f) the cascade kernel of the bf16 dots ----------------------------------
@@ -690,3 +802,80 @@ def test_emulated_fast_cascade_bytes_do_not_depend_on_the_chunk_cut(emu):
         carries = [c[None] for c in c_out]
     assert np.concatenate(parts, axis=1).tobytes() == whole.tobytes()
     assert all(a.tobytes() == b.tobytes() for a, b in zip(c_out, c_whole))
+
+
+# -- (g) the mixer -------------------------------------------------------------
+
+MIXER_FORMATS = [("i16", "i16"), ("i16", "f32"), ("f32", "i16"), ("f32", "f32")]
+
+
+def _mixer_case(seed, C, B, L, intype, outtype, misalign=False):
+    rng = np.random.default_rng(seed)
+    if intype == "i16":
+        raw = rng.integers(-(1 << 31), 1 << 31, size=B * L + 1,
+                           dtype=np.int64).astype(np.int32)
+    else:
+        raw = (rng.standard_normal(2 * B * L + 1) * 0.5).astype(np.float32)
+        if outtype == "i16":        # the encode's NaN → 0 and saturation
+            raw[rng.integers(0, raw.size, 8)] = np.nan
+            raw[rng.integers(0, raw.size, 8)] = np.inf
+            raw[rng.integers(0, raw.size, 8)] = 3.0
+    data = raw[1:] if misalign else raw[:-1]
+    data = data.reshape((B, L) if intype == "i16" else (2, B, L))
+    plans = np.stack([_random_plans(rng, B, L) for _ in range(C)], axis=1)
+    return data, np.ascontiguousarray(plans)
+
+
+def _emulate_mixer(emu, data, plans, C, B, L, intype, outtype, G):
+    out = (np.zeros((C, B, L), dtype=np.int32) if outtype == "i16"
+           else np.zeros((2, C, B, L), dtype=np.float32))
+    path = emu.emu_mixer(ctypes.c_void_p(data.ctypes.data),
+                         ctypes.c_void_p(out.ctypes.data),
+                         ctypes.c_void_p(plans.ctypes.data), C, B, L,
+                         int(intype == "f32"), int(outtype == "f32"), G)
+    assert path in (1, 2), "the entry point's checks refuse these arguments"
+    return out, path
+
+
+def _mixer_plain(data, plans, intype, outtype):
+    return mixer.mix_blocks_fmt_channels_plain(
+        torch.from_numpy(data.copy()), torch.from_numpy(plans.view(np.int32)),
+        intype=intype, outtype=outtype).numpy()
+
+
+@pytest.mark.parametrize("intype,outtype", MIXER_FORMATS)
+@pytest.mark.parametrize("C", [1, 3, 16])
+def test_emulated_mixer_bitwise_plain(emu, C, intype, outtype):
+    """The 16-byte path: plan words that switch segment inside a block, every
+    G (and 0, the kernel's own pick) bitwise the plain version."""
+    B, L = 3, 2048 if C < 16 else 1024
+    data, plans = _mixer_case(20 + C, C, B, L, intype, outtype)
+    want = _mixer_plain(data, plans, intype, outtype)
+    for G in (0, 1, 2, 4, 16):
+        got, path = _emulate_mixer(emu, data, plans, C, B, L, intype, outtype, G)
+        assert path == 2 and got.tobytes() == want.tobytes(), G
+
+
+@pytest.mark.parametrize("misalign,L", [(True, 2048), (False, 98)],
+                         ids=["misaligned", "odd L"])
+def test_emulated_mixer_one_sample_path(emu, misalign, L):
+    """Where the 16-byte path cannot run, one sample a step: the same bits."""
+    C, B = 3, 2
+    for intype, outtype in MIXER_FORMATS:
+        data, plans = _mixer_case(30, C, B, L, intype, outtype, misalign=misalign)
+        want = _mixer_plain(data, plans, intype, outtype)
+        got, path = _emulate_mixer(emu, data, plans, C, B, L, intype, outtype, 2)
+        assert path == 1 and got.tobytes() == want.tobytes(), (intype, outtype)
+
+
+def test_mixer_group_pick(emu):
+    """The kernel's own pick (``csrc/mixer.cu mixer_group``): G divides no
+    C in particular; the pick keeps a wave of CTAs."""
+    pick = emu.doppler_mixer_group
+    assert pick(1, 16384, 2048) == 1
+    assert pick(16, 16384, 2048) == 16
+    assert pick(16, 256, 2048) == 2
+    assert pick(3, 4096, 2048) == 2
+    for C, B in ((256, 3), (5, 1), (7, 100000)):
+        G = pick(C, B, 2048)
+        assert G in (16, 8, 4, 2, 1) and G <= C

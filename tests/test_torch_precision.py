@@ -333,6 +333,54 @@ def test_pipeline_fast_on_the_cascade_route_is_exact():
     assert _run(_port("fast", "auto"), DATA) == _run(_port("exact", "auto"), DATA)
 
 
+def _stream_f32(n, seed):
+    rng = np.random.default_rng(seed)
+    x = (rng.standard_normal(2 * n) * 0.3).astype("<f4")
+    return x.tobytes()
+
+
+# f32 input: 8192-byte blocks of 1024 samples, 3 a chunk (48 windows of
+# Q = 64, not a multiple of 32); two full chunks and an EOF chunk
+DATA_F32 = _stream_f32(1024 * 3 * 2 + 555, 9)
+
+
+@pytest.mark.parametrize("kind", ["stream", "channels"])
+def test_fast_route_takes_f32_chunks_of_an_odd_block_count(monkeypatch, kind):
+    """f32 input at an odd ``chunk_blocks`` (``--chunk-blocks``, or the
+    realtime chunk): every full chunk takes the fused split3 chain, as the
+    JAX pipeline's route does, and the stream's bytes are the JAX
+    pipeline's within 1 LSB."""
+    from doppler_tpu_torch.ops.cuda import chain
+
+    name = f"mix_resample_chain_{kind}"
+    real, calls = getattr(chain, name), []
+
+    def spy(*args, **kw):
+        calls.append(kw["dot_precision"])
+        return real(*args, **kw)
+
+    monkeypatch.setattr(chain, name, spy)
+    if kind == "stream":
+        pipe = Pipeline(FS, "f32", "i16", ConstScheduler(-9000.0), chunk_blocks=3,
+                        precision="fast", device="cpu")
+        attach_resampler(pipe, 48000, stages="single")
+        got = _run(pipe, DATA_F32)
+        jpipe = JPipeline(FS, "f32", "i16", JConstScheduler(-9000.0), chunk_blocks=3,
+                          impl="pallas", pallas_interpret=True, precision="fast")
+        jpipe.set_resampler(JRationalResampler(FS, 48000))
+        want = _run(jpipe, DATA_F32)
+        assert len(got) == len(want) > 0
+        _assert_lsb_frac(np.frombuffer(got, "<i4"), np.frombuffer(want, "<i4"))
+    else:
+        specs = [ChannelSpec(f"c{k}", ConstScheduler(s), center_offset_hz=c)
+                 for k, (s, c) in enumerate(CHANNELS)]
+        mp = MultiChannelPipeline(FS, "f32", "i16", specs, out_rate=48000,
+                                  chunk_blocks=3, resample_stages="single",
+                                  precision="fast", device="cpu")
+        assert all(len(o) > 0 for o in _run_channels(mp, DATA_F32))
+    assert calls == ["split3", "split3"]
+
+
 CHANNELS = ((-9000.0, 0.0), (4000.0, -20000.0), (-1500.5, 30000.0))
 
 
