@@ -56,8 +56,9 @@ Phases (each prints one line or a few; any failure exits non-zero):
              1 LSB, float32 1e-5 of the largest output, in under 0.1% of
              samples) and the exact kernel (split3 ≤ 1 LSB, > 80 dB;
              default ≥ 45 dB); stage-0 carries bitwise the exact kernel's;
-             bytes and carries across three launch geometries and the 256
-             against 4 × 64 block split; the 100 Msps split front; then
+             bytes and carries across three launch geometries and two
+             block splits of 256 (4 × 64, 8 × 32); the 100 Msps split
+             front; then
              ``csrc/chain_fast.cu`` with one pass (kernels 2 and 4 in
              ``default``) at C = 1 and 16 against its plain version.
 5. slices  — synthetic captures through the CLI entry point
@@ -95,9 +96,12 @@ Phases (each prints one line or a few; any failure exits non-zero):
              split; the Q15 mixer and the probes likewise, with the
              library's ``copy_`` beside the two copies (events and device
              time); the bf16-dot branches (chain and cascade, split3 and
-             default) likewise; the split3 chain's mix and dot each alone
-             (the other cut); the channel mixer by channels a CTA at C = 16
-             and at C = 256.
+             default) likewise; the split3 chain's and the split3
+             cascade's mix and dots each alone (the other cut); the
+             elementwise probe's four variants and the library's ``copy_``
+             by one timer (16 calls between two events, best of 10, into a
+             buffer the caller owns); the channel mixer by channels a CTA
+             at C = 16 and at C = 256.
 6b. roofline — the launch counts set to 0, then
              ``doppler_tpu_torch.tools.roofline.main`` (all variants),
              ``…probe_chain_precision.main`` (its ``def`` variant included),
@@ -112,7 +116,8 @@ from slice (i), the chain's from slice (iii), the channel cascade's from
 (v-fast), and the Q15 mixer's, the probes', the one-pass chain's and the
 fast cascade's (split3 and default, which no CLI path reaches) from
 phase 6b; the Q15 mixer's and the probes' times are at B = 16384, the
-tools' shape.  The line before the last is that
+tools' shape (the elementwise probe's and its ``library_ms`` by phase 6's
+one timer of 16 calls).  The line before the last is that
 record; the last line is ``{"ok": true, "device": {...}}``.  Without a CUDA
 device, or without the package beside it, the script fails before printing
 either.
@@ -811,7 +816,8 @@ def _default_vs(torch, got, want, outtype, what):
                  f"the bound {off!r} of samples, {snr!r} dB")
 
 
-CASCADE_FAST_GEOMS = ((16, 32), (32, 128), (64, 256))
+# (windows, threads[, slab]): multiples of 16·D = 32 and 128 windows at config 3
+CASCADE_FAST_GEOMS = ((32, 64), (64, 128, 1024), (96, 256, 128))
 DOTS = ("split3", "default")
 DEFAULT_VS_EXACT_DB = 45.0         # one bf16 pass against the float32 dots
 
@@ -888,18 +894,19 @@ def phase_cascade_fast(torch, gen):
                 check(geoms, f"{what}: bytes depend on the launch geometry")
                 worst[dot] = max(worst[dot], err)
                 if (B, intype, outtype) == (B_MAIN, "i16", "i16"):
-                    c, parts = carry, []
-                    for k in range(0, B, 64):
-                        o, c = cascade.mix_cascade_stream(
-                            x1[k:k + 64].contiguous(), p1[:, k:k + 64].contiguous(),
-                            banks, c, stages=stages, dot_precision=dot)
-                        parts.append(o)
-                    torch.cuda.synchronize()
-                    split_ok = (torch.equal(torch.cat(parts), got)
-                                and all(torch.equal(a, b) for a, b in zip(c, c_got)))
-                    print(f"cascade_fast: {dot} 256 blocks vs 4x64 blocks "
-                          f"bitwise={split_ok}")
-                    check(split_ok, f"{what}: bytes depend on the chunk split")
+                    for n in (64, 32):          # two cuts: 4 × 64 and 8 × 32
+                        c, parts = carry, []
+                        for k in range(0, B, n):
+                            o, c = cascade.mix_cascade_stream(
+                                x1[k:k + n].contiguous(), p1[:, k:k + n].contiguous(),
+                                banks, c, stages=stages, dot_precision=dot)
+                            parts.append(o)
+                        torch.cuda.synchronize()
+                        split_ok = (torch.equal(torch.cat(parts), got)
+                                    and all(torch.equal(a, b) for a, b in zip(c, c_got)))
+                        print(f"cascade_fast: {dot} 256 blocks vs {B // n}x{n} blocks "
+                              f"bitwise={split_ok}")
+                        check(split_ok, f"{what}: bytes depend on the chunk split")
 
     # the split front at the 100 Msps stages: float32 planes out
     _, stages5, banks5 = _cascade(torch, FS_SPLIT)
@@ -910,7 +917,7 @@ def phase_cascade_fast(torch, gen):
     kw = dict(stages=stages5, outtype="f32", final_dense=True)
     _, carry = cascade.mix_cascade_stream(x0, p0, banks5, zero5, **kw)
     exact, c_exact = cascade.mix_cascade_stream(x1, p1, banks5, carry, **kw)
-    lay = cascade.plan_launch_fast(torch.device("cuda"), stages5)
+    lay = cascade.plan_launch_fast(torch.device("cuda"), stages5, L, 3)
     for dot in DOTS:
         got, c_got = cascade.mix_cascade_stream(x1, p1, banks5, carry,
                                                 dot_precision=dot, **kw)
@@ -929,9 +936,9 @@ def phase_cascade_fast(torch, gen):
         check(torch.equal(c_got[0], c_want[0]) and torch.equal(c_got[0], c_exact[0]),
               f"{what}: stage-0 carry differs")
         print(f"cascade_fast: {dot} split front {stages5} B={B_MAIN}: {text}; "
-              f"{text_x}; {lay.windows} windows, {lay.threads} threads, "
-              f"{lay.smem_bytes} B of shared memory a CTA; stage-0 carry bitwise "
-              f"the exact kernel's")
+              f"{text_x}; {lay.windows} windows, {lay.threads} threads, slabs of "
+              f"{lay.slab}, {lay.smem_bytes} B of shared memory a CTA; stage-0 carry "
+              f"bitwise the exact kernel's")
         worst[dot] = max(worst[dot], err)
 
     # kernels 2 and 4 in default: chain_fast.cu with one pass
@@ -1575,11 +1582,20 @@ def _median_ms(torch, fn, runs=20, warmup=3):
     return statistics.median(times)
 
 
-def _device_us(torch, fn, kernel_name, runs=10):
+def _device_us(torch, fn, kernel_name, runs=10, tries=3):
     """Mean device time of the kernel whose name holds ``kernel_name`` over
-    ``runs`` calls of ``fn``, from ``torch.profiler``; None when the trace
-    holds no such kernel.  ``kernel_name`` None: every device event of a
-    call (kernels and copies), summed."""
+    ``runs`` calls of ``fn``, from ``torch.profiler``; None when none of
+    ``tries`` sessions holds such a kernel (a session can record none).
+    ``kernel_name`` None: every device event of a call (kernels and
+    copies), summed."""
+    for _ in range(tries):
+        us = _device_us_once(torch, fn, kernel_name, runs)
+        if us is not None:
+            return us
+    return None
+
+
+def _device_us_once(torch, fn, kernel_name, runs):
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -1782,7 +1798,11 @@ def phase_timing_channels(torch, gen, card):
 
 def phase_timing(torch, gen, card):
     from doppler_tpu_torch.ops import nco
-    from doppler_tpu_torch.ops.cuda.cascade import mix_cascade_plain, mix_cascade_stream
+    from doppler_tpu_torch.ops.cuda.cascade import (
+        launch_fast_part as cascade_part,
+        mix_cascade_plain,
+        mix_cascade_stream,
+    )
     from doppler_tpu_torch.ops.cuda.chain import (
         launch_fast_part,
         mix_resample_chain_plain,
@@ -1880,6 +1900,15 @@ def phase_timing(torch, gen, card):
         print(f"timing: chain_fast split B={B}: device whole {whole!r} us, mix only "
               f"(the dot cut) {parts['mix']!r} us, dot only (the mix cut: a span of "
               f"zeros) {parts['dot']!r} us [{card}]")
+        # the same for the split3 cascade: the dots cut, then the mix cut
+        parts = {part: _device_us(torch, lambda part=part: cascade_part(
+                     x, p, b3, z3, stages=c3, part=part), "cascade_fast_kernel")
+                 for part in ("mix", "dot")}
+        whole = _device_us(torch, pairs["cascade_fast"][0], "cascade_fast_kernel")
+        res[("cascade_fast split", B)] = (whole, parts["mix"], parts["dot"])
+        print(f"timing: cascade_fast split B={B}: device whole {whole!r} us, mix only "
+              f"(the dots cut) {parts['mix']!r} us, dots only (the mix cut: a stage-0 "
+              f"span of zeros) {parts['dot']!r} us [{card}]")
     return res
 
 
@@ -1889,6 +1918,22 @@ def _bound_probe(n, bytes_moved, ops_per_sample):
     t_b = bytes_moved / HBM_BYTES_PER_S
     t_f = n * ops_per_sample / F32_OPS_PER_S
     return max(t_b, t_f) * 1e3, "bytes" if t_b >= t_f else "operations"
+
+
+def _dispatch_ms(torch, steps, K=16, iters=5):
+    """Best ms a call of each of ``steps`` (name -> callable) over ``iters``
+    rounds of K back-to-back calls between two CUDA events
+    (``runtime/timing.py``), the steps in turns within each round."""
+    from doppler_tpu_torch.runtime.timing import timed_dispatches
+
+    for step in steps.values():
+        step()
+    torch.cuda.synchronize()
+    best = dict.fromkeys(steps, float("inf"))
+    for _ in range(iters):
+        for name, step in steps.items():
+            best[name] = min(best[name], timed_dispatches(step, K) / K * 1e3)
+    return best
 
 
 def phase_timing_probes(torch, gen, card):
@@ -1964,6 +2009,20 @@ def phase_timing_probes(torch, gen, card):
                   f"{_device_text(dev_us, bound_ms)}; bound {bound_ms!r} ms ({by}) "
                   f"[{card}]")
             res[(name, B)] = (k_ms, pl_ms, bound_ms, by, lib_ms)
+        # the elementwise probe and the library's copy by one timer: K calls
+        # back to back into a buffer the caller owns, in turns
+        steps = {"torch-copy": lambda: flat_out.copy_(x)}
+        for name, body, vec in (("copy", "copy", 1), ("copy-v4", "copy", 4),
+                                ("codec", "codec", 1), ("codec-v4", "codec", 4)):
+            steps[name] = (lambda body=body, vec=vec: probes.probe_elementwise(
+                x, body=body, vec=vec, out=flat_out))
+        disp = _dispatch_ms(torch, steps, iters=10)
+        bound_ms = _bound_probe(n, 8 * n, 0)[0]
+        print(f"timing: dispatch B={B} ({n} words, 16 calls between two events, "
+              f"best of 10): " + ", ".join(
+                  f"{name} {ms!r} ms ({bound_ms / ms!r} of the byte bound)"
+                  for name, ms in disp.items()) + f" [{card}]")
+        res[("dispatch", B)] = disp
     return res
 
 
@@ -2112,6 +2171,7 @@ def main() -> int:
                     **{key: probe_times[(v, B_BIG)][0] for key, v in others.items()})
 
     default, config4 = slices["default"]["launches"], slices["config4"]["launches"]
+    dispatch = probe_times[("dispatch", B_BIG)]
     kernels = [
         entry("mixer", "mixer.cu", "doppler_tpu/ops/pallas/mixer.py:227",
               default["mixer"], mix_err,
@@ -2149,9 +2209,12 @@ def main() -> int:
               branch="dot_precision='default'"),
         probe_entry("mixer_q15", "mixer_q15.cu",
                     "doppler_tpu/ops/pallas/mixer.py:357", "mixer_q15"),
-        probe_entry("probe_elementwise", "probes.cu", "tools/roofline.py:130",
-                    "copy", ms_copy_v4="copy-v4", ms_codec="codec",
-                    ms_codec_v4="codec-v4"),
+        # its times and the library's copy by one timer (phase_timing_probes)
+        dict(probe_entry("probe_elementwise", "probes.cu", "tools/roofline.py:130",
+                         "copy"),
+             ms=dispatch["copy"], library_ms=dispatch["torch-copy"],
+             ms_copy_v4=dispatch["copy-v4"], ms_codec=dispatch["codec"],
+             ms_codec_v4=dispatch["codec-v4"]),
         probe_entry("chain_shape", "probes.cu", "tools/roofline.py:262",
                     "chain-copy", ms_chain_mix="chain-mix"),
         probe_entry("mix_shape", "probes.cu",

@@ -72,15 +72,6 @@ struct FastArgs : FastDot {
     float* carry_out;       // (C, 2, T−1)
 };
 
-// What a launch runs: the whole kernel, or one of its two halves alone, so
-// that a timing can tell how much of the whole each costs (chip_smoke.py
-// phase 6).  kMixOnly: the dot is cut; each warp XORs the span's words into
-// a side word, which keeps every mixed sample alive.  kDotOnly: the mix is
-// cut; 16-byte stores fill the span with zeros (a tensor core takes as long
-// over zeros), and the dot's outputs are stored as the whole kernel stores
-// them.
-enum FastPart { kWhole = 0, kMixOnly = 1, kDotOnly = 2 };
-
 // The span of tile `unit` of channel `ch` into the planes, by thread `tid` of `nthreads`: the mix of chain.cuh chain_fill, split as
 // it is stored, and zeros before the carry and past the chunk (which only
 // zero taps multiply); kDotOnly stores zeros alone.
@@ -157,14 +148,8 @@ __device__ __forceinline__ bool chain_fast_phase(
         return true;
     }
     if constexpr (kPart == kMixOnly) {
-        const unsigned* words = smem + g.x_off;
-        unsigned x = 0u;
-        for (int w = tid; w < g.planes * g.plane / 2; w += nthreads) x ^= words[w];
-#ifdef __CUDACC__
-        for (int o = 16; o > 0; o >>= 1) x ^= __shfl_xor_sync(0xFFFFFFFFu, x, o);
-#endif
-        if ((tid & 31) == 0)
-            side[((size_t)unit * g.C + ch) * (nthreads / 32) + tid / 32] = x;
+        fast_xor_words(smem + g.x_off, g.planes * g.plane / 2, tid, nthreads,
+                       side + ((size_t)unit * g.C + ch) * (nthreads / 32));
         return false;
     }
     chain_fast_dot<kOddS, kPasses>(out, g, ch, unit, tid, nthreads, smem);

@@ -15,11 +15,12 @@
 // compact — (x_h = bf16(x), x_l = bf16(x − x_h), ops/precision.py), and G
 // is the TPU kernels' banded taps matrix with its per-128-row slices
 // joined, its D·P ≤ 8 columns (d, p) at d·P + p, laid out as the mma's B
-// fragments.  D = 1 is the TPU's own layout, a window a row (the cascade);
-// the chain takes D = ⌊8/P⌋ rounded to a power of two (ops/cuda/geometry.py
-// fast_columns), which fills D·P of the mma's 8 columns where one window
-// fills P, for a band (D − 1)·Q wider.  A warp owns 16 rows × 8 columns; a
-// k-step is one ldmatrix.x4 a plane (16-bit or 32-bit loads where S < 8) and, for
+// fragments.  D = 1 is the TPU's own layout, a window a row; the kernels
+// take the largest power of two with D·P ≤ 8 that tiles every block
+// (ops/cuda/geometry.py fast_columns; the cascade per stage), which fills
+// D·P of the mma's 8 columns where one window fills P, for a band (D − 1)·Q
+// wider.  A warp owns 16 rows × 8 columns; a k-step is one ldmatrix.x4 a
+// plane (16-bit or 32-bit loads where S < 8) and, for
 // kPasses = 3 (dot_precision 'split3'), three mma.sync.m16n8k16.bf16
 // (float32 accumulation) a plane, hh, hl and lh, each into a fresh
 // accumulator, added as (hh + hl) + lh to the output's running sum with
@@ -71,6 +72,15 @@ __device__ __forceinline__ unsigned pack2(uint16_t lo, uint16_t hi) {
     return (unsigned)lo | ((unsigned)hi << 16);
 }
 
+// What a launch of a fast kernel runs: the whole kernel, or one of its two
+// halves alone, so that a timing can tell how much of the whole each costs
+// (chip_smoke.py phase 6).  kMixOnly: the dot is cut; each warp XORs the
+// span's words into a side word, which keeps every mixed sample alive.
+// kDotOnly: the mix is cut; 16-byte stores fill the span with zeros (a
+// tensor core takes as long over zeros), and the dot's outputs are stored
+// as the whole kernel stores them.
+enum FastPart { kWhole = 0, kMixOnly = 1, kDotOnly = 2 };
+
 // One stage's dot as the kernels see it (ops/cuda/geometry.py fast_layout
 // lays out the shared memory; fast_derive the rest).
 struct FastDot {
@@ -85,8 +95,6 @@ struct FastDot {
     int planes;             // 4 (I_h, I_l, Q_h, Q_l), or 2 compact (I_h, Q_h)
     int plane;              // bf16 entries a plane: a multiple of 8
     int g_off, x_off;       // word offsets of the B fragments and the planes
-    const uint16_t* bank_h; // (P, T) bf16 (fast_load_taps only)
-    const uint16_t* bank_l;
 };
 
 // The derived fields of a stage; false unless P, Q, T > 0 and Q and D are
@@ -131,51 +139,14 @@ __host__ __device__ inline bool fast_fits(const FastDot& g, long long len,
            4 * (g_end > x_end ? g_end : x_end) <= smem;
 }
 
-// Two neighbouring entries k, k + 1 of G's column for a phase whose bank
-// row is `row` and whose tap l sits at k = top − l, top = T−1 + lead + off_p.
-__device__ __forceinline__ unsigned fast_taps2(const uint16_t* __restrict__ row,
-                                               int top, int T, int k) {
-    const int l0 = top - k, l1 = l0 - 1;
-    return pack2((l0 >= 0 && l0 < T) ? row[l0] : (uint16_t)0,
-                 (l1 >= 0 && l1 < T) ? row[l1] : (uint16_t)0);
-}
-
-// G as B fragments at smem + g_off: for k-step s, N-tile n and lane
+// G as B fragments at smem + g_off, laid out once per bank by the wrapper
+// (ops/cuda/geometry.py fast_taps_index): for k-step s, N-tile n and lane
 // (g = lane/4, q = lane%4) the words {t_h(k0, k0+1), t_h(k0+8, k0+9),
-// t_l(k0, k0+1), t_l(k0+8, k0+9)} of column p = 8n + g, k0 = 16s + 2q: one
-// 16-byte load a lane and k-step.  nthreads is a multiple of 32, so a
-// thread keeps its lane, and its column.  Built in every CTA from the two
-// bf16 banks, D = 1 and four words a lane only: the cascade's layout.  The
-// chain's fragments come laid out once per bank (fast_copy_taps).
-__device__ __forceinline__ void fast_load_taps(unsigned* __restrict__ smem,
-                                               const FastDot& g, int tid,
-                                               int nthreads) {
-    unsigned* gf = smem + g.g_off;
-    const int lane = tid & 31;
-    for (int n = 0; n < g.nt; ++n) {
-        const int p = 8 * n + (lane >> 2);
-        const int top = g.T - 1 + g.lead + (p * g.Q) / g.P;
-        const int row = ((p * g.Q) % g.P) * g.T;
-        const uint16_t* rh = g.bank_h + row;
-        const uint16_t* rl = g.bank_l + row;
-        for (int s = tid >> 5; s < g.ks; s += nthreads >> 5) {
-            const int k0 = 16 * s + 2 * (lane & 3);
-            uint4 w = make_uint4(0u, 0u, 0u, 0u);
-            if (p < g.P)
-                w = make_uint4(fast_taps2(rh, top, g.T, k0),
-                               fast_taps2(rh, top, g.T, k0 + 8),
-                               fast_taps2(rl, top, g.T, k0),
-                               fast_taps2(rl, top, g.T, k0 + 8));
-            reinterpret_cast<uint4*>(gf)[(s * g.nt + n) * 32 + lane] = w;
-        }
-    }
-}
-
-// The chain's B fragments, laid out once per bank by the wrapper
-// (ops/cuda/geometry.py fast_taps_index: the words above, of column
-// (d, p) = d·P + p, and without t_l where the layout is compact), copied
-// into smem + g_off with 16-byte cp.async; fast_copy_wait before the
-// barrier that ends the phase.
+// t_l(k0, k0+1), t_l(k0+8, k0+9)} of column (d, p) = d·P + p = 8n + g, k0 =
+// 16s + 2q (without the t_l words where the layout is compact): one load a
+// lane and k-step.  nthreads is a multiple of 32, so a thread keeps its
+// lane, and its column.  Copied into smem + g_off with 16-byte cp.async;
+// fast_copy_wait before the barrier that ends the phase.
 __device__ __forceinline__ void fast_copy_taps(unsigned* __restrict__ smem,
                                                const FastDot& g,
                                                const unsigned* __restrict__ taps,
@@ -197,6 +168,20 @@ __device__ __forceinline__ void fast_copy_wait() {
 #ifdef __CUDACC__
     asm volatile("cp.async.wait_all;\n" ::);
 #endif
+}
+
+// kMixOnly's side words: the XOR of `n` words of the planes by each warp of
+// the CTA into side[warp], or XORed onto it where `accumulate`.
+__device__ __forceinline__ void fast_xor_words(const unsigned* __restrict__ words,
+                                               int n, int tid, int nthreads,
+                                               unsigned* __restrict__ side,
+                                               bool accumulate = false) {
+    unsigned x = 0u;
+    for (int w = tid; w < n; w += nthreads) x ^= words[w];
+#ifdef __CUDACC__
+    for (int o = 16; o > 0; o >>= 1) x ^= __shfl_xor_sync(0xFFFFFFFFu, x, o);
+#endif
+    if ((tid & 31) == 0) side[tid / 32] = accumulate ? side[tid / 32] ^ x : x;
 }
 
 // Plane of component c (0: I, 1: Q) and half h (0: x_h, 1: x_l): four

@@ -285,15 +285,13 @@ extern "C" int emu_chain_fast(const void* in, void* out, const uint32_t* plans,
 // doppler_cascade_fast's arguments (csrc/cascade_fast.cu), all pointers to
 // host memory.
 extern "C" int emu_cascade_fast(const void* in, void* out, const uint32_t* plans,
-                                const void* const* banks_h, const void* const* banks_l,
-                                const void* const* carry_in, void* const* carry_out,
-                                const int* layout, int S, int B, int L, int wt,
-                                int threads, long long smem, int in_f32, int out_f32,
-                                int passes) {
+                                const void* const* taps, const void* const* carry_in,
+                                void* const* carry_out, const int* layout, int S, int B,
+                                int L, int wt, int slab, int threads, long long smem,
+                                int in_f32, int out_f32, int passes) {
     FastCascade g;
-    if (threads % 32 || (passes != 1 && passes != 3) ||
-        !make_fast_cascade(g, in, banks_h, banks_l, carry_in, carry_out, layout, S,
-                           B, L, wt, out_f32, smem))
+    if (threads % 32 || !make_fast_cascade(g, in, taps, carry_in, carry_out, layout, S,
+                                           B, L, wt, slab, out_f32, passes, smem))
         return 1;
     auto run = passes == 1 ? (in_f32 ? run_cascade_fast<true, 1> : run_cascade_fast<false, 1>)
                            : (in_f32 ? run_cascade_fast<true, 3> : run_cascade_fast<false, 3>);
@@ -302,15 +300,16 @@ extern "C" int emu_cascade_fast(const void* in, void* out, const uint32_t* plans
 }
 
 // fast_cascade_plan of every CTA of a launch (doppler_cascade_fast's layout,
-// S, B, L, wt and smem; no data): 3 + 6·S values a CTA, t, a, c, then per
-// stage s < S ja, jb, w0, rows, org, len (zeros above t).  Returns the CTA
-// count, or −1 where the arguments are refused.
+// S, B, L, wt, slab, passes and smem; no data): 3 + 6·S values a CTA, t, a,
+// c, then per stage s < S ja, jb, w0, rows, org, len (zeros above t).
+// Returns the CTA count, or −1 where the arguments are refused.
 extern "C" int emu_fast_cascade_plans(const int* layout, int S, int B, int L, int wt,
-                                      long long smem, long long* out) {
+                                      int slab, int passes, long long smem,
+                                      long long* out) {
     const void* none[kFastStages] = {};
     FastCascade g;
-    if (!make_fast_cascade(g, nullptr, none, none, none, const_cast<void* const*>(none),
-                           layout, S, B, L, wt, 0, smem))
+    if (!make_fast_cascade(g, nullptr, none, none, const_cast<void* const*>(none),
+                           layout, S, B, L, wt, slab, 0, passes, smem))
         return -1;
     for (int block = 0; block < g.units; ++block) {
         FastCtaPlan p;

@@ -281,23 +281,36 @@ __device__ __forceinline__ void mix_span(long long first, long long last,
         long long g = (first & ~3LL) + 4LL * tid;
         if (g > last) return;
         const uint32_t step = 4u * (uint32_t)nthreads;
+        // the next group's words are loaded before this group is mixed, so
+        // that the load's latency hides behind the mix (a thread of a
+        // cascade_fast.cu slab mixes only a few groups between barriers)
+        const int4* words = static_cast<const int4*>(in);
+        const float4* planes = static_cast<const float4*>(in);
+        int4 v;
+        float4 vi, vq;
+        if (kInF32) {
+            vi = planes[g >> 2];
+            vq = planes[(n_in + g) >> 2];
+        } else {
+            v = words[g >> 2];
+        }
         walker_seek(w, g, step, plans, stride, L);
         for (;;) {
             float fi[4], fq[4];
+            const long long gn = g + step;
             if (kInF32) {
-                const float4 vi = *reinterpret_cast<const float4*>(
-                    static_cast<const float*>(in) + g);
-                const float4 vq = *reinterpret_cast<const float4*>(
-                    static_cast<const float*>(in) + n_in + g);
                 fi[0] = vi.x; fi[1] = vi.y; fi[2] = vi.z; fi[3] = vi.w;
                 fq[0] = vq.x; fq[1] = vq.y; fq[2] = vq.z; fq[3] = vq.w;
+                if (gn <= last) {
+                    vi = planes[gn >> 2];
+                    vq = planes[(n_in + gn) >> 2];
+                }
             } else {
-                const int4 v = *reinterpret_cast<const int4*>(
-                    static_cast<const int*>(in) + g);
                 decode_i16(v.x, fi[0], fq[0]);
                 decode_i16(v.y, fi[1], fq[1]);
                 decode_i16(v.z, fi[2], fq[2]);
                 decode_i16(v.w, fi[3], fq[3]);
+                if (gn <= last) v = words[gn >> 2];
             }
             // the four phases first, then the four tones and rotations as
             // one straight line: four independent chains for the scheduler

@@ -17,12 +17,20 @@
 // 4 + 4·P/Q B/sample.
 //
 // Elementwise probe (`doppler_probe_elementwise`).  out = body(in) over n
-// int32 words, mixer.cu's launch shape (256 threads, 2048 words a CTA).
-// body: identity, or the codec — decode ×1/32768, encode ×32767 truncating,
-// clip, pack — without encode_i16's NaN guard, as the TPU body has it (a
-// decoded i16 is never NaN).  vec: int32 words per access, 1 or 4 (4- or
-// 16-byte loads and stores); the TPU tool swept DMA tile sizes where this
-// sweeps the access width.
+// int32 words.  body: identity, or the codec — decode ×1/32768, encode
+// ×32767 truncating, clip, pack — without encode_i16's NaN guard, as the
+// TPU body has it (a decoded i16 is never NaN).  vec: int32 words per
+// access, 1 or 4 (4- or 16-byte loads and stores); the TPU tool swept DMA
+// tile sizes where this sweeps the access width.  It is the yardstick the
+// tools read the card's HBM by, so it streams: every thread moves 16 bytes,
+// one 16-byte access or four 4-byte ones, all its loads issued into
+// registers before its first store, the tail masked rather than broken out
+// of, with streaming cache hints (__ldcs / __stcs: every word is touched
+// once), in as many short 256-thread CTAs as the words need (eight
+// resident an SM keep 32 KB in flight there).  A grid-stride form sized
+// from the SM count (four waves of eight CTAs, eight accesses a thread in
+// flight) read slower, at 16-byte accesses, than both the library's copy
+// and the kernel before it; PERF.md §6 has the times, by one timer.
 //
 // Chain-shaped probe (`doppler_chain_shape`).  The chunk is cut into tiles
 // of `tile` input samples; CTA t reads its tile and writes the tile's first
@@ -47,8 +55,6 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kPerThread = 8;
-constexpr int kTile = kThreads * kPerThread;
 constexpr int kShapeThreads = 128;      // threads of a chain-shaped CTA
 
 // ×32767, truncate toward zero, saturate: encode_i16 without its NaN guard.
@@ -67,38 +73,44 @@ __device__ __forceinline__ int body(int w) {
                  ((unsigned)encode_unguarded(fq) << 16));
 }
 
+template <bool kCodec>
+__device__ __forceinline__ int4 body(int4 v) {
+    return make_int4(body<kCodec>(v.x), body<kCodec>(v.y), body<kCodec>(v.z),
+                     body<kCodec>(v.w));
+}
+
+template <int kVec> struct Access { using T = int; };
+template <> struct Access<4> { using T = int4; };
+
+// n words as n / kVec accesses of kVec words (n % kVec == 0), 16 bytes a
+// thread: kPer = 4 / kVec accesses.
 template <bool kCodec, int kVec>
 __global__ void __launch_bounds__(kThreads)
 elementwise_kernel(const int* __restrict__ in, int* __restrict__ out,
                    long long n) {
-    const long long base = (long long)blockIdx.x * kTile;
-    if (kVec == 4) {
-        const int4* in4 = reinterpret_cast<const int4*>(in);
-        int4* out4 = reinterpret_cast<int4*>(out);
+    using V = typename Access<kVec>::T;
+    constexpr int kPer = 4 / kVec;
+    const V* src = reinterpret_cast<const V*>(in);
+    V* dst = reinterpret_cast<V*>(out);
+    const long long count = n / kVec;
+    const long long base = (long long)blockIdx.x * kThreads * kPer + threadIdx.x;
+    V v[kPer];
 #pragma unroll
-        for (int k = 0; k < kPerThread / 4; ++k) {
-            const long long a = base / 4 + k * kThreads + threadIdx.x;
-            if (a * 4 >= n) break;
-            int4 v = in4[a];
-            v.x = body<kCodec>(v.x);
-            v.y = body<kCodec>(v.y);
-            v.z = body<kCodec>(v.z);
-            v.w = body<kCodec>(v.w);
-            out4[a] = v;
-        }
-    } else {
+    for (int u = 0; u < kPer; ++u) {
+        const long long a = base + u * kThreads;
+        if (a < count) v[u] = __ldcs(src + a);
+    }
 #pragma unroll
-        for (int k = 0; k < kPerThread; ++k) {
-            const long long g = base + k * kThreads + threadIdx.x;
-            if (g >= n) break;
-            out[g] = body<kCodec>(in[g]);
-        }
+    for (int u = 0; u < kPer; ++u) {
+        const long long a = base + u * kThreads;
+        if (a < count) __stcs(dst + a, body<kCodec>(v[u]));
     }
 }
 
 template <bool kCodec, int kVec>
 int launch_elementwise(const int* in, int* out, long long n, cudaStream_t s) {
-    const long long grid = (n + kTile - 1) / kTile;
+    constexpr int kTile = kThreads * (4 / kVec);      // accesses a CTA
+    const long long grid = (n / kVec + kTile - 1) / kTile;
     if (grid > 0x7FFFFFFFLL) return (int)cudaErrorInvalidValue;
     elementwise_kernel<kCodec, kVec><<<(unsigned)grid, kThreads, 0, s>>>(in, out, n);
     return (int)cudaGetLastError();

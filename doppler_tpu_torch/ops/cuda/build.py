@@ -24,7 +24,8 @@ import tempfile
 import time
 from pathlib import Path
 
-__all__ = ["NVCC_FLAGS", "load", "check", "build_info", "shared_memory_limit"]
+__all__ = ["NVCC_FLAGS", "load", "check", "build_info", "shared_memory_limit",
+           "sm_count"]
 
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
@@ -163,11 +164,17 @@ def load() -> ctypes.CDLL:
                                     _i, _i, _i, _i, _i, ctypes.c_longlong, _i,
                                     _i, _vp]
     lib.doppler_cascade_fast.restype = _i
-    # in, out, plans, banks_h, banks_l, carry_in, carry_out, layout, S, B, L,
-    # windows, threads, smem, in_f32, out_f32, passes, stream
-    lib.doppler_cascade_fast.argtypes = [_vp, _vp, _vp, _vpp, _vpp, _vpp, _vpp,
-                                         _ip, _i, _i, _i, _i, _i,
+    # in, out, plans, taps, carry_in, carry_out, layout, S, B, L, windows,
+    # slab, threads, smem, in_f32, out_f32, passes, stream
+    lib.doppler_cascade_fast.argtypes = [_vp, _vp, _vp, _vpp, _vpp, _vpp, _ip,
+                                         _i, _i, _i, _i, _i, _i,
                                          ctypes.c_longlong, _i, _i, _i, _vp]
+    lib.doppler_cascade_fast_part.restype = _i
+    # doppler_cascade_fast's arguments up to smem; out_f32, part, side,
+    # stream
+    lib.doppler_cascade_fast_part.argtypes = [_vp, _vp, _vp, _vpp, _vpp, _vpp,
+                                              _ip, _i, _i, _i, _i, _i, _i,
+                                              ctypes.c_longlong, _i, _i, _vp, _vp]
     lib.doppler_error_string.restype = ctypes.c_char_p
     lib.doppler_error_string.argtypes = [_i]
     return lib
@@ -180,6 +187,15 @@ def shared_memory_limit(index: int | None) -> int:
     import torch
 
     return torch.cuda.get_device_properties(index).shared_memory_per_block_optin
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int | None) -> int:
+    """Streaming multiprocessors of CUDA device ``index`` (None: the
+    current device)."""
+    import torch
+
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def check(rc: int, what: str) -> None:

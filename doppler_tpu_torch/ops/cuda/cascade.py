@@ -28,10 +28,17 @@ bf16 tensor-core kernel, counted in ``.launches_fast`` (the one-pass
 launches also in ``.launches_default``); a CPU tensor runs the plain
 version with ``window_dot(dot=dot_precision)``.  Both take a chunk only
 where every stage's window count (chunk input count / Q) is a multiple of
-16 (``geometry.check_cascade_fast_chunk``).  The stage-0 carry is the mixed
-history, bitwise the exact path's; a later stage's carry holds that
-function's own x_s.  The channel-batched cascade has no ``dot_precision``,
-as in JAX (``chain.py:1078``).
+16 (``geometry.check_cascade_fast_chunk``).  The kernel's stage s holds
+D_s neighbouring windows a row of its dot (``geometry.
+cascade_fast_columns``: the largest power of two with D_s·P_s ≤ 8 and
+16·D_s·Q_s dividing the stage's input count a block, else 1; 8 and 2 at
+config 3) and starts its tiles at multiples of 16·D_s windows; a block
+then holds whole tiles wherever D_s > 1, so the rule of 16 windows a chunk
+is all a chunk must meet.  Each stage's B fragments are laid out once per
+bank (``chain.fast_taps``).  The stage-0 carry is the mixed history,
+bitwise the exact path's; a later stage's carry holds that function's own
+x_s.  The channel-batched cascade has no ``dot_precision``, as in JAX
+(``chain.py:1078``).
 
 :func:`split_point` is the JAX package's rule for how many leading stages
 fuse; a split cascade runs the ÷2^k front here with ``final_dense=True``
@@ -47,13 +54,14 @@ import torch
 
 from doppler_tpu_torch.ops import codec
 from doppler_tpu_torch.ops.cuda import build, geometry
+from doppler_tpu_torch.ops.cuda.chain import fast_taps
 from doppler_tpu_torch.ops.cuda.mixer import (
     check_fmt,
     check_fmt_channels,
     mix_blocks_fmt_plain,
     stack_channels,
 )
-from doppler_tpu_torch.ops.precision import PASSES, bank_halves, check_precision
+from doppler_tpu_torch.ops.precision import PASSES, check_precision
 from doppler_tpu_torch.ops.resample import window_dot
 
 __all__ = ["mix_cascade_stream", "mix_cascade_plain", "mix_cascade_channels",
@@ -232,21 +240,53 @@ def _launch(data, plans, banks, carries, C, B, L, stages, n_out, intype,
     return out, carries_out
 
 
-def plan_launch_fast(dev: torch.device, stages,
-                     geom=None) -> geometry.CascadeFastLayout:
+def plan_launch_fast(dev: torch.device, stages, L: int, passes: int,
+                     geom=None, windows: int | None = None
+                     ) -> geometry.CascadeFastLayout:
     """The fast kernel's windows a tile CTA, threads and shared-memory
-    layout: :func:`geometry.pick_cascade_fast` for the card, or ``geom`` =
-    ``(windows, threads)`` as given (the card tests walk several)."""
+    layout for ``passes`` bf16 passes over blocks of L samples:
+    :func:`geometry.pick_cascade_fast` for the card (a chunk of ``windows``
+    last-stage windows gets at most a third of them an SM a tile), or
+    ``geom`` = ``(windows, threads)`` as given (the card tests and the
+    sweep walk several; a third entry, the slab, optional)."""
     limit = build.shared_memory_limit(dev.index)
     if geom is None:
-        return geometry.pick_cascade_fast(stages, limit)
-    lay = geometry.cascade_fast_layout(stages, *geom)
+        cap = None if windows is None else windows // (3 * build.sm_count(dev.index))
+        return geometry.pick_cascade_fast(tuple(stages), L, limit, passes, cap)
+    lay = geometry.cascade_fast_layout(stages, L, *geom[:2], passes, *geom[2:])
     if lay.smem_bytes > limit:
         raise ValueError(
             f"fast cascade stages (P, Q, T) = {stages} with {geom[0]} windows "
             f"need {lay.smem_bytes} bytes of shared memory per CTA; the card "
             f"allows {limit}")
     return lay
+
+
+def _fast_args(data, plans, banks, carries, B, L, stages, n_out, outtype,
+               passes, geom):
+    """What both fast entry points take: the layout, the inputs made
+    contiguous, each stage's B fragments (laid out once per bank,
+    :func:`chain.fast_taps`), the outputs, and the pointer arrays."""
+    dev = data.device
+    S = len(stages)
+    lay = plan_launch_fast(dev, stages, L, passes, geom, n_out // stages[-1][0])
+    data, plans = data.contiguous(), plans.contiguous()
+    taps = [fast_taps(bank, P, Q, T, D, passes)
+            for bank, (P, Q, T), D in zip(banks, stages, lay.columns)]
+    carries = [c.contiguous() for c in carries]
+    if outtype == "i16":
+        out = torch.empty((n_out,), dtype=torch.int32, device=dev)
+    else:
+        out = torch.empty((2, n_out), dtype=torch.float32, device=dev)
+    carries_out = tuple(torch.empty((2, T - 1), dtype=torch.float32, device=dev)
+                        for _, _, T in stages)
+    ptrs = lambda ts: (ctypes.c_void_p * S)(*(t.data_ptr() for t in ts))  # noqa: E731
+    args = (data.data_ptr(), out.data_ptr(), plans.data_ptr(), ptrs(taps),
+            ptrs(carries), ptrs(carries_out),
+            (ctypes.c_int * (7 * S))(*(v for row in lay.rows for v in row)), S, B,
+            L, lay.windows, lay.slab, lay.threads, lay.smem_bytes)
+    # the tensors stay referenced until the launch is enqueued
+    return lay, args, out, carries_out, (data, plans, taps, carries)
 
 
 def _launch_fast(data, plans, banks, carries, B, L, stages, n_out, intype,
@@ -256,27 +296,35 @@ def _launch_fast(data, plans, banks, carries, B, L, stages, n_out, intype,
     carries; returns ``(n_out,)`` words or ``(2, n_out)`` planes and the
     per-stage carries.  ``geom`` as in :func:`plan_launch_fast`."""
     dev = data.device
-    S = len(stages)
-    lay = plan_launch_fast(dev, stages, geom)
-    data, plans = data.contiguous(), plans.contiguous()
-    halves = [bank_halves(b) for b in banks]
-    carries = [c.contiguous() for c in carries]
-    if outtype == "i16":
-        out = torch.empty((n_out,), dtype=torch.int32, device=dev)
-    else:
-        out = torch.empty((2, n_out), dtype=torch.float32, device=dev)
-    carries_out = tuple(torch.empty((2, T - 1), dtype=torch.float32, device=dev)
-                        for _, _, T in stages)
-    ptrs = lambda ts: (ctypes.c_void_p * S)(*(t.data_ptr() for t in ts))  # noqa: E731
+    _, args, out, carries_out, _keep = _fast_args(
+        data, plans, banks, carries, B, L, stages, n_out, outtype, passes, geom)
     rc = build.load().doppler_cascade_fast(
-        data.data_ptr(), out.data_ptr(), plans.data_ptr(),
-        ptrs(h for h, _ in halves), ptrs(l for _, l in halves), ptrs(carries),
-        ptrs(carries_out),
-        (ctypes.c_int * (6 * S))(*(v for row in lay.rows for v in row)), S, B,
-        L, lay.windows, lay.threads, lay.smem_bytes, int(intype == "f32"),
-        int(outtype == "f32"), passes, torch.cuda.current_stream(dev).cuda_stream)
+        *args, int(intype == "f32"), int(outtype == "f32"), passes,
+        torch.cuda.current_stream(dev).cuda_stream)
     build.check(rc, "fast cascade")
     return out, carries_out
+
+
+def launch_fast_part(data, plans, banks, carries, *, stages, part: str,
+                     outtype: str = "i16"):
+    """One half of the split3 cascade alone, for timing (``chip_smoke.py``):
+    ``part="mix"`` cuts the dots (each warp XORs x_0's span into a side
+    word, which keeps the mix alive), ``part="dot"`` cuts the mix (x_0's
+    span holds zeros).  i16 words ``(B, L)`` in, one stream; returns
+    ``(out, side)``.  Not a function of the pipeline: no plain version, no
+    launch count."""
+    dev = data.device
+    _, B, L, stages, n_out = _check(data, plans, banks, carries, stages, "i16",
+                                    outtype, False, dot_precision="split3")
+    lay, args, out, _, _keep = _fast_args(data, plans, banks, carries, B, L,
+                                          stages, n_out, outtype, 3, None)
+    n_ctas = len(geometry.fast_cta_units(stages, B * L, lay.windows))
+    side = torch.zeros(n_ctas * lay.threads // 32, dtype=torch.int32, device=dev)
+    rc = build.load().doppler_cascade_fast_part(
+        *args, int(outtype == "f32"), {"mix": 1, "dot": 2}[part], side.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream)
+    build.check(rc, f"fast cascade ({part} only)")
+    return out, side
 
 
 def mix_cascade_stream(data, plans, banks, carries, *, stages,

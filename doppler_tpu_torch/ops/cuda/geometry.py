@@ -24,9 +24,10 @@ __all__ = ["SLACK", "MAX_THREADS", "r_choices", "tap_stride", "span_words",
            "span_back", "Layout", "layout", "cta_units", "cta_spans",
            "ctas_per_sm", "pick_cascade", "pick_chain", "FastLayout",
            "fast_columns", "fast_layout", "pick_chain_fast", "fast_taps_index",
-           "CascadeFastLayout",
+           "CascadeFastLayout", "cascade_fast_columns", "cascade_fast_slab",
            "cascade_fast_spans", "cascade_fast_layout", "pick_cascade_fast",
-           "check_cascade_fast_chunk", "fast_cta_units", "fast_cta_spans"]
+           "check_cascade_fast_chunk", "fast_cta_units", "fast_cta_spans",
+           "cascade_fast_nan_reach"]
 
 SLACK = 3             # csrc/fir.cuh kSlack
 MAX_THREADS = 512     # the kernels' __launch_bounds__
@@ -376,31 +377,71 @@ def fast_taps_index(P: int, Q: int, T: int, D: int, passes: int = 3):
 
 # -- the cascade kernel of the bf16 dots (csrc/cascade_fast.cu) ---------------
 
-CASCADE_FAST_WINDOWS = (256, 192, 160, 128, 112, 96, 80, 64, 48, 32, 16)
+CASCADE_FAST_WINDOWS = (512, 384, 256, 192, 160, 128, 112, 96, 80, 64, 48, 32, 16)
+
+
+def cascade_fast_columns(stages, L: int) -> tuple:
+    """D_s of each stage of the fast cascade (``csrc/cascade_fast.cu``):
+    :func:`fast_columns` at the stage's input count a block, ``L·∏P/∏Q`` of
+    the stages before it, where that is a whole number; else 1.  So D_s > 1
+    only where every block holds a multiple of 16·D_s windows of the stage,
+    and every chunk of whole blocks starts on the stream's own grid of
+    16·D_s windows whatever its cut; a function of the stages and the block
+    length, never of the chunk.  Config 3 at L = 2048: (8, 2); its f32
+    blocks (L = 1024): (8, 1); the 100 Msps front: (8, 1)."""
+    Ds, num, den = [], int(L), 1
+    for P, Q, _ in stages:
+        Ds.append(fast_columns(P, Q, num // den) if num % den == 0 else 1)
+        num, den = num * P, den * Q
+    return tuple(Ds)
+
+
+# x_0 samples a slab holds by default, by bf16 passes: 32 KB of planes at 8
+# bytes a sample (split3) or 4 (one pass, compact)
+CASCADE_FAST_SLAB_SAMPLES = {3: 4096, 1: 8192}
+
+
+def cascade_fast_slab(stages, L: int, passes: int = 3) -> int:
+    """The stage-0 windows of a slab by default: the most whole M-tiles of
+    16·D_0 windows whose inputs are at most
+    :data:`CASCADE_FAST_SLAB_SAMPLES` (at least one M-tile).  512 windows at
+    config 3 (1024 for one pass), 256 at the 100 Msps front."""
+    (_, Q, _), m = stages[0], 16 * cascade_fast_columns(stages, L)[0]
+    return max(m, CASCADE_FAST_SLAB_SAMPLES[passes] // Q // m * m)
 
 
 @dataclasses.dataclass(frozen=True)
 class CascadeFastLayout:
     """One launch of ``csrc/cascade_fast.cu``: ``windows`` of the last stage
-    a tile CTA (a multiple of 16), ``threads``, and per stage ``rows`` of 6
-    ints as the C entry point takes them, ``P, Q, T, plane, g_off, x_off``
-    (the bf16 entries of each of its four span planes, the word offsets of
-    its B fragments and of its planes), ``spans`` the most entries of x_s a
-    CTA's span holds, in ``smem_bytes`` of shared memory."""
+    a tile CTA (a multiple of 16·D of that stage), ``threads``, ``passes``
+    (3: split3, four planes; 1: default, the compact two), ``slab`` the
+    stage-0 windows a CTA mixes and filters at a time (a multiple of 16·D_0),
+    and per stage ``rows`` of 7 ints as the C entry point takes them, ``P,
+    Q, T, D, plane, g_off, x_off`` (D windows a row of A, the bf16 entries
+    of each of its span planes, the word offsets of its B fragments and of
+    its planes), ``spans`` the most entries of x_s a CTA's planes hold (of
+    x_0: a slab's), in ``smem_bytes`` of shared memory."""
     windows: int
     threads: int
+    passes: int
+    slab: int
     rows: tuple
     spans: tuple
     smem_bytes: int
 
+    @property
+    def columns(self) -> tuple:
+        return tuple(row[3] for row in self.rows)
 
-def cascade_fast_spans(stages, windows: int) -> tuple:
-    """The most entries of each x_s any CTA's span holds
-    (``csrc/cascade_fast.cu fast_span_bound``): a tile CTA's last stage is
-    ``windows`` windows; below it, and below a carry CTA's up to ``windows``
-    entries of x_t, a run of c needed outputs lies in ⌈(c−1)/P⌉ + 1 windows,
-    15 more where its first rounds down to a multiple of 16, in whole
-    M-tiles of 16; their span is Q·(rows − 1) + 16·ks entries."""
+
+def cascade_fast_spans(stages, Ds, windows: int, slab: int) -> tuple:
+    """The most entries of each x_s any CTA's planes hold
+    (``csrc/cascade_fast.cu fast_span_bound``) at D_s windows a row: a tile
+    CTA's last stage is ``windows`` windows; below it, and below a carry
+    CTA's up to ``windows`` entries of x_t, a run of c needed outputs lies
+    in ⌈(c−1)/P⌉ + 1 windows, 16·D − 1 more where its first rounds down to a
+    multiple of 16·D, in whole M-tiles of 16·D; their span is Q·(rows − D) +
+    16·ks entries.  x_0's planes hold a slab of at most ``slab`` windows."""
     S = len(stages)
     need = [0] * S
     for t in range(1, S + 1):
@@ -408,47 +449,78 @@ def cascade_fast_spans(stages, windows: int) -> tuple:
         if c <= 0:
             continue
         for s in range(t - 1, -1, -1):
-            P, Q, T = stages[s]
+            (P, Q, T), D = stages[s], Ds[s]
+            m = 16 * D
             w = -(-(c - 1) // P) + 1
-            rows = windows if (t == S and s == t - 1) else (w + 30) // 16 * 16
-            c = Q * (rows - 1) + 16 * fast_dims(P, Q, T)[0]
+            rows = windows if (t == S and s == t - 1) else (w + 2 * m - 2) // m * m
+            c = Q * (rows - D) + 16 * fast_dims(P, Q, T, D)[0]
             need[s] = max(need[s], c)
+    (P, Q, T), D = stages[0], Ds[0]
+    need[0] = min(need[0], Q * (slab - D) + 16 * fast_dims(P, Q, T, D)[0])
     return tuple(need)
 
 
-def cascade_fast_layout(stages, windows: int, threads: int) -> CascadeFastLayout:
+def cascade_fast_layout(stages, L: int, windows: int, threads: int,
+                        passes: int = 3, slab: int | None = None) -> CascadeFastLayout:
     """Shared-memory layout for tiles of ``windows`` last-stage windows over
-    ``stages`` = ``(P, Q, T)`` each: per stage its B fragments, then its four
-    planes."""
-    return _cascade_fast_layout(tuple(tuple(int(v) for v in st) for st in stages),
-                                int(windows), int(threads))
+    ``stages`` = ``(P, Q, T)`` each and blocks of L samples, stage 0 in
+    slabs of ``slab`` windows (default :func:`cascade_fast_slab`): per stage
+    its B fragments (``ks·nt·32`` lanes of 16 bytes, 8 for one pass), then
+    its planes (four, two for one pass)."""
+    stages = tuple(tuple(int(v) for v in st) for st in stages)
+    if slab is None:
+        slab = cascade_fast_slab(stages, L, passes)
+    return _cascade_fast_layout(stages, int(L), int(windows), int(threads),
+                                int(passes), int(slab))
 
 
 @functools.lru_cache(maxsize=None)
-def _cascade_fast_layout(stages, windows, threads) -> CascadeFastLayout:
+def _cascade_fast_layout(stages, L, windows, threads, passes, slab) -> CascadeFastLayout:
     if not 1 <= len(stages) <= MAX_STAGES:
         raise ValueError(f"1 to {MAX_STAGES} stages")
-    if windows < 16 or windows % 16:
-        raise ValueError(f"windows {windows} must be a positive multiple of 16")
+    Ds = cascade_fast_columns(stages, L)
+    if windows < 16 * Ds[-1] or windows % (16 * Ds[-1]):
+        raise ValueError(f"windows {windows} must be a positive multiple of "
+                         f"16·D = {16 * Ds[-1]}")
+    if slab < 16 * Ds[0] or slab % (16 * Ds[0]):
+        raise ValueError(f"slab {slab} must be a positive multiple of 16·D_0 = "
+                         f"{16 * Ds[0]}")
     if threads % 32 or not 32 <= threads <= FAST_MAX_THREADS:
         raise ValueError(f"threads {threads} must be a multiple of 32 up to "
                          f"{FAST_MAX_THREADS}")
-    spans = cascade_fast_spans(stages, windows)
+    if passes not in (1, 3):
+        raise ValueError(f"passes must be 1 or 3, got {passes}")
+    bw, planes = (4, 4) if passes == 3 else (2, 2)
+    spans = cascade_fast_spans(stages, Ds, windows, slab)
     rows, off = [], 0
-    for (P, Q, T), span in zip(stages, spans):
-        ks, nt = fast_dims(P, Q, T)
-        plane = fast_plane(span, Q)
-        rows.append((P, Q, T, plane, off, off + 128 * ks * nt))
-        off += 128 * ks * nt + 2 * plane
-    return CascadeFastLayout(windows, threads, tuple(rows), spans, 4 * off)
+    for (P, Q, T), D, span in zip(stages, Ds, spans):
+        ks, nt = fast_dims(P, Q, T, D)
+        plane = fast_plane(span, D * Q)
+        g_words = 32 * bw * ks * nt
+        rows.append((P, Q, T, D, plane, off, off + g_words))
+        off += g_words + planes * plane // 2
+    return CascadeFastLayout(windows, threads, passes, slab, tuple(rows), spans,
+                             4 * off)
 
 
 @functools.lru_cache(maxsize=None)
-def pick_cascade_fast(stages, limit: int) -> CascadeFastLayout:
-    """256 threads, and the most windows that leave three CTAs on an SM by
-    their shared memory, else two, else the most that fit."""
-    lays = [cascade_fast_layout(stages, w, FAST_MAX_THREADS)
-            for w in CASCADE_FAST_WINDOWS]
+def pick_cascade_fast(stages, L: int, limit: int, passes: int = 3,
+                      max_windows: int | None = None) -> CascadeFastLayout:
+    """256 threads, the default slab (:func:`cascade_fast_slab`), and the
+    most windows of :data:`CASCADE_FAST_WINDOWS` (those that are multiples
+    of 16·D of the last stage, and at most ``max_windows`` where that is
+    given, but at least the smallest) that leave three CTAs on an SM by
+    their shared memory, else two, else the most that fit: 256 windows at
+    config 3, 512 for one pass, on a large chunk.  The wrapper caps the
+    tile so that a chunk gives the card three tiles an SM (a chunk of 256
+    blocks at config 3: 32 windows).  ``tools/kernel_sweep.py --kernels
+    cascade-fast,cascade-fast-default`` times the others."""
+    D = cascade_fast_columns(stages, L)[-1]
+    sizes = [w for w in CASCADE_FAST_WINDOWS if w % (16 * D) == 0]
+    if max_windows is not None:
+        sizes = [w for w in sizes if w <= max_windows] or sizes[-1:]
+    lays = [cascade_fast_layout(stages, L, w, FAST_MAX_THREADS, passes)
+            for w in sizes]
     for want in (3, 2, 1):
         for lay in lays:
             if (lay.smem_bytes <= limit
@@ -461,10 +533,13 @@ def pick_cascade_fast(stages, limit: int) -> CascadeFastLayout:
 def check_cascade_fast_chunk(stages, B: int, L: int) -> None:
     """Raise unless every stage's window count in a ``(B, L)`` chunk (its
     chunk input count / Q) is a multiple of 16: the fast cascade's M-tiles
-    start at multiples of 16 windows of each stage's chunk-local grid, which
-    is then the stream's absolute grid mod 16 in any cut of the stream into
-    such chunks, so an output sits in the same row of its mma whatever the
-    cut (``csrc/cascade_fast.cu``, "Bytes")."""
+    start at multiples of 16·D_s windows of each stage's chunk-local grid,
+    which is then the stream's absolute grid mod 16·D_s in any cut of the
+    stream into such chunks, so an output sits in the same row and column of
+    its mma whatever the cut (``csrc/cascade_fast.cu``, "Bytes").  Where
+    D_s > 1 (:func:`cascade_fast_columns`) every block already holds a
+    multiple of 16·D_s windows; where D_s = 1 this is the whole rule, the
+    one the kernel had before D_s, so no chunk it took is refused."""
     n = B * L
     for s, (P, Q, _) in enumerate(stages):
         if n % (16 * Q):
@@ -493,25 +568,48 @@ def fast_cta_units(stages, n0: int, windows: int):
     return units
 
 
-def fast_cta_spans(stages, n0: int, t: int, a: int, c: int):
+def fast_cta_spans(stages, Ds, n0: int, t: int, a: int, c: int):
     """What the CTA with target ``(t, a, c)`` computes of each stage
-    ``s < t`` (``fast_cascade_plan``): ``(ja, jb, w0, rows, org, len)`` —
-    it keeps outputs ``ja .. jb`` of stage s, computes ``rows`` windows from
-    ``w0`` and reads ``len`` entries of x_s from index ``org``."""
+    ``s < t`` at D_s windows a row (``fast_cascade_plan``): ``(ja, jb, w0,
+    rows, org, len)`` — it keeps outputs ``ja .. jb`` of stage s, computes
+    ``rows`` windows from ``w0`` (both multiples of 16·D_s) and reads ``len``
+    entries of x_s from index ``org``."""
     n_in = [n0]
     for P, Q, _ in stages:
         n_in.append(n_in[-1] // Q * P)
     spans = {}
     ja, jb = max(a, 0), a + c - 1
     for s in range(t - 1, -1, -1):
-        P, Q, T = stages[s]
+        (P, Q, T), D = stages[s], Ds[s]
         if jb < ja:
             spans[s] = (ja, jb, 0, 0, 0, 0)
             continue
-        w0 = ja // P // 16 * 16
-        rows = (jb // P - w0 + 16) // 16 * 16
+        m = 16 * D
+        w0 = ja // P // m * m
+        rows = (jb // P - w0 + m) // m * m
         org = w0 * Q - (T - 1) - fast_lead(T)
-        length = Q * (rows - 1) + 16 * fast_dims(P, Q, T)[0]
+        length = Q * (rows - D) + 16 * fast_dims(P, Q, T, D)[0]
         spans[s] = (ja, jb, w0, rows, org, length)
         ja, jb = max(org, 0), min(org + length, n_in[s]) - 1
     return spans
+
+
+def cascade_fast_nan_reach(stages, Ds, n0: int, nan_at) -> set:
+    """The outputs of the fast cascade that a NaN at chunk input indices
+    ``nan_at`` may reach, by ``csrc/cascade_fast.cu``'s statement ("NaN"):
+    at every stage, all D·P outputs of each row whose band of K entries,
+    x[Q·D·r − (T−1) − lead + k], holds one.  The indices of the last
+    stage's outputs (of ``n0`` inputs), as a set."""
+    import numpy as np
+
+    bad = np.zeros(n0, dtype=bool)
+    bad[list(nan_at)] = True
+    for (P, Q, T), D in zip(stages, Ds):
+        K = 16 * fast_dims(P, Q, T, D)[0]
+        lo = T - 1 + fast_lead(T)
+        rows = np.zeros(len(bad) // (Q * D), dtype=bool)
+        for n in np.flatnonzero(bad):
+            # rows r with Q·D·r − lo ≤ n ≤ Q·D·r − lo + K − 1
+            rows[max(0, -(-(n + lo - K + 1) // (Q * D))):(n + lo) // (Q * D) + 1] = True
+        bad = np.repeat(rows, D * P)
+    return set(np.flatnonzero(bad).tolist())

@@ -93,19 +93,29 @@ def probe_elementwise_plain(words: torch.Tensor, *, body: str = "copy",
 
 
 def probe_elementwise(words: torch.Tensor, *, body: str = "copy",
-                      vec: int = 1) -> torch.Tensor:
+                      vec: int = 1, out: torch.Tensor | None = None) -> torch.Tensor:
     """``out = body(words)`` over int32 words of any shape.
 
-    A CPU tensor runs the plain version; a CUDA tensor launches the kernel
-    or raises.
+    ``out``: where to write, a contiguous int32 tensor of the words' shape on
+    their device that the caller owns (so that a timing compares the kernel
+    with ``out.copy_(words)`` and not with an allocation as well); None: a
+    new tensor.  A CPU tensor runs the plain version; a CUDA tensor launches
+    the kernel or raises.
     """
+    if out is not None and (out.dtype != torch.int32 or out.shape != words.shape
+                            or out.device != words.device
+                            or not out.is_contiguous()):
+        raise ValueError("out must be a contiguous int32 tensor of the words' "
+                         "shape on their device")
     if words.device.type == "cpu":
-        return probe_elementwise_plain(words, body=body, vec=vec)
+        res = probe_elementwise_plain(words, body=body, vec=vec)
+        return res if out is None else out.copy_(res)
     if words.device.type != "cuda":
         raise ValueError(f"no probe for device {words.device}")
     _check_words(words, body, vec)
     words = words.contiguous()
-    out = torch.empty_like(words)
+    if out is None:
+        out = torch.empty_like(words)
     if vec == 4 and (words.data_ptr() % 16 or out.data_ptr() % 16):
         raise ValueError("vec=4 needs 16-byte aligned tensors")
     rc = build.load().doppler_probe_elementwise(

@@ -4,7 +4,10 @@ Counterpart of ``doppler_tpu/runtime/timing.py``.  Each timed iteration
 issues K back-to-back launches on the current CUDA stream between two CUDA
 events and synchronizes ONCE, so the host's enqueue of launch k + 1 hides
 behind the device's run of launch k, as it does in the production pipeline,
-and the events read device time on the stream's own clock.  The JAX file
+and the events read device time on the stream's own clock.  One launch more
+goes before the first event, so that the first timed launch's enqueue hides
+behind it too: otherwise 1/K of one wrapper's host time counts as device
+time, and a wrapper heavier than another reads slower.  The JAX file
 adds a value-dependent scalar readback after the K dispatches because its
 rig's completion signal could not be trusted; CUDA events need no such
 readback, so it has no counterpart here.
@@ -38,6 +41,7 @@ def timed_dispatches(step, K: int, device="cuda") -> float:
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     with torch.cuda.device(device):
+        step()                  # untimed: the device is busy when start fires
         start.record()
         for _ in range(K):
             step()

@@ -9,13 +9,18 @@ stage)`` and prints one line a geometry, fastest first, with the geometry
 that ``ops/cuda/geometry.py`` picks on its own marked ``*``.  The kernel of
 ``--precision fast`` at 3/64/370 (``fast``: split3, ``fast-default``: one
 pass) sweeps ``(windows, threads)`` the same way (``--kernels
-fast,fast-default``), up to 256 windows where the pick stops at 128.  K
-dispatches between two CUDA events (``runtime/timing.py``), best of
-``--iters``.  It measures a card and fails without one.
+fast,fast-default``), up to 256 windows where the pick stops at 128, and
+so does the cascade of the bf16 dots at the config-3 stages (``--kernels
+cascade-fast,cascade-fast-default``: one stream, windows in multiples of
+16·D of the last stage, and the stage-0 slab, printed as ``slab=``).  K
+dispatches between two CUDA events
+(``runtime/timing.py``), best of ``--iters``.  It measures a card and fails
+without one.
 
     python -m doppler_tpu_torch.tools.kernel_sweep --blocks 16384
     python -m doppler_tpu_torch.tools.kernel_sweep --blocks 256 --channels 16
     python -m doppler_tpu_torch.tools.kernel_sweep --kernels fast,fast-default
+    python -m doppler_tpu_torch.tools.kernel_sweep --kernels cascade-fast,cascade-fast-default
 """
 
 from __future__ import annotations
@@ -38,10 +43,25 @@ THREADS = (128, 256, 384, 512)
 FAST_THREADS = (64, 128, 192, 256)
 FAST_WINDOWS = (256, 192) + geometry.FAST_WINDOWS
 FAST = {"fast": 3, "fast-default": 1}       # sweep name -> bf16 passes
+CASCADE_FAST = {"cascade-fast": 3, "cascade-fast-default": 1}
+CASCADE_FAST_SLABS = (2, 4, 8)                # M-tiles of stage 0 a slab
 
 
 def _grid(kernel, stages, limit):
     """Every geometry of the sweep that fits ``limit`` bytes a CTA."""
+    if kernel in CASCADE_FAST:
+        m0 = 16 * geometry.cascade_fast_columns(stages, kernel_digests.L)[0]
+        for windows, threads, k in itertools.product(
+                geometry.CASCADE_FAST_WINDOWS, FAST_THREADS, CASCADE_FAST_SLABS):
+            try:
+                lay = geometry.cascade_fast_layout(stages, kernel_digests.L, windows,
+                                                   threads, CASCADE_FAST[kernel],
+                                                   k * m0)
+            except ValueError:
+                continue
+            if lay.smem_bytes <= limit:
+                yield windows, threads, (k * m0,)
+        return
     if kernel in FAST:
         (P, Q, T), = stages
         for windows, threads in itertools.product(FAST_WINDOWS, FAST_THREADS):
@@ -66,7 +86,8 @@ def _grid(kernel, stages, limit):
 
 def sweep(kernel: str, B: int, C: int, iters: int, K: int, device) -> list:
     """``[(ms, tile, threads, regs, picked)]`` for one kernel, fastest first."""
-    stages, banks = kernel_digests.geometry("chain" if kernel in FAST else kernel)
+    stages, banks = kernel_digests.geometry(
+        "chain" if kernel in FAST else "cascade" if kernel in CASCADE_FAST else kernel)
     data, plans = kernel_digests.seeded_inputs(B, "i16", C)
     data = torch.from_numpy(data).to(device)
     plans = torch.from_numpy(plans).to(device)
@@ -81,6 +102,12 @@ def sweep(kernel: str, B: int, C: int, iters: int, K: int, device) -> list:
     limit = torch.cuda.get_device_properties(device).shared_memory_per_block_optin
 
     def step(geom):
+        if kernel in CASCADE_FAST:
+            g = None if geom is None else (*geom[:2], *geom[2])
+            p0, c0 = plans[:, 0].contiguous(), [c[0].contiguous() for c in carries]
+            return lambda: cascade._launch_fast(data, p0, banks, c0, B, L, stages,
+                                                n_out, "i16", outtype,
+                                                CASCADE_FAST[kernel], geom=g)
         if kernel in FAST:
             (P, Q, T), = stages
             g = None if geom is None else geom[:2]
@@ -95,7 +122,11 @@ def sweep(kernel: str, B: int, C: int, iters: int, K: int, device) -> list:
         return lambda: cascade._launch(data, plans, banks, carries, C, B, L,
                                        stages, n_out, "i16", outtype, geom=geom)
 
-    if kernel in FAST:
+    if kernel in CASCADE_FAST:
+        picked = cascade.plan_launch_fast(device, stages, L, CASCADE_FAST[kernel],
+                                          windows=n_out // stages[-1][0])
+        picked = (picked.windows, picked.threads, (picked.slab,))
+    elif kernel in FAST:
         picked = geometry.pick_chain_fast(*stages[0], kernel_digests.L, limit,
                                           FAST[kernel])
         picked = (picked.windows, picked.threads, ())
@@ -141,8 +172,9 @@ def main(argv=None) -> int:
                      args.dispatches, device)
         shown = rows[:args.top] + [r for r in rows[args.top:] if r[-1]]
         for ms, tile, threads, regs, picked in shown:
+            knob = "slab" if kernel in CASCADE_FAST else "R"
             print(f"{kernel:8s} B={args.blocks} C={args.channels} tile={tile:4d} "
-                  f"threads={threads:4d} R={regs} {ms:9.4f} ms/dispatch"
+                  f"threads={threads:4d} {knob}={regs} {ms:9.4f} ms/dispatch"
                   f"{' *' if picked else ''} [{label}]", file=sys.stderr)
         print(f"{kernel:8s} slowest of {len(rows)}: {rows[-1][0]:.4f} ms "
               f"{rows[-1][1:4]} [{label}]", file=sys.stderr)

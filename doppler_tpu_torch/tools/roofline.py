@@ -8,7 +8,8 @@ int32 words in, int32 words out):
 
   torch-xor   ``torch.bitwise_xor(x, 1)`` — the library's elementwise floor
   torch-copy  ``out.copy_(x)`` — the library's copy
-  copy        hand-written copy kernel, 4-byte accesses
+  copy        hand-written copy kernel, 4-byte accesses, into the same ``out``
+              (so it is timed as ``torch-copy`` is, with no allocation)
   copy-v4     the same with 16-byte accesses
   codec       + decode and encode (the i16↔f32 casts and scalings)
   mixer       the product mixer kernel
@@ -73,9 +74,10 @@ def build_steps(variants: set, words, plans, device) -> dict:
     steps = {
         "torch-xor": (lambda: torch.bitwise_xor(words, 1), 8.0),
         "torch-copy": (lambda: out.copy_(words), 8.0),
-        "copy": (lambda: probes.probe_elementwise(words), 8.0),
-        "copy-v4": (lambda: probes.probe_elementwise(words, vec=4), 8.0),
-        "codec": (lambda: probes.probe_elementwise(words, body="codec"), 8.0),
+        "copy": (lambda: probes.probe_elementwise(words, out=out), 8.0),
+        "copy-v4": (lambda: probes.probe_elementwise(words, vec=4, out=out), 8.0),
+        "codec": (lambda: probes.probe_elementwise(words, body="codec", out=out),
+                  8.0),
         "mixer": (lambda: mixer.mix_blocks_fmt(words, plans), 8.0),
         "mixer-q15": (lambda: mixer.mix_blocks_q15(words, plans), 8.0),
         "chain-copy": (lambda: probes.chain_shape_run(

@@ -62,7 +62,7 @@ from doppler_tpu_torch.ops.cuda.mixer import (
 )
 from doppler_tpu_torch.ops.cuda import cascade as cascade_mod
 from doppler_tpu_torch.ops.cuda import chain as chain_mod
-from doppler_tpu_torch.ops.cuda import probes
+from doppler_tpu_torch.ops.cuda import geometry, probes
 from doppler_tpu_torch.ops.filters import design_polyphase_bank
 from doppler_tpu_torch.ops.multistage import MultiStageResampler
 from doppler_tpu_torch.ops.phase_plan import NCOState, plan_blocks
@@ -483,10 +483,17 @@ def test_elementwise_probe_bitwise_vs_plain(card, body, vec):
     torch.cuda.synchronize()
     assert probes.probe_elementwise.launches == launches + 1
     assert torch.equal(got, probes.probe_elementwise_plain(x, body=body))
-    # a ragged length: the last CTA's tail
-    tail = x.reshape(-1)[:2048 * 3 + 4 * 37]
-    assert torch.equal(probes.probe_elementwise(tail, body=body, vec=vec),
-                       probes.probe_elementwise_plain(tail, body=body))
+    # ragged lengths, none a multiple of a CTA's 1024 words (256 threads × 16
+    # bytes): the last CTA's tail at a few CTAs and at some 8000
+    big = torch.randint(-(1 << 31), 1 << 31, (1024 * 8191 + 4 * 37,),
+                        dtype=torch.int64, device=card).to(torch.int32)
+    for words in (x.reshape(-1)[:2048 * 3 + 4 * 37], big):
+        want = probes.probe_elementwise_plain(words, body=body)
+        assert torch.equal(probes.probe_elementwise(words, body=body, vec=vec), want)
+        # into a buffer the caller owns
+        out = torch.full_like(words, 7)
+        assert probes.probe_elementwise(words, body=body, vec=vec, out=out) is out
+        assert torch.equal(out, want)
 
 
 @pytest.mark.cuda
@@ -957,7 +964,9 @@ def test_default_chain_kernels_vs_plain(card, intype, outtype):
 # of each operand; 50 dB measured on the CPU).  Stage-0 carries bitwise the
 # exact kernel's; bitwise against itself across geometries and chunk cuts.
 
-CASCADE_FAST_GEOMS = [(16, 32), (32, 128), (64, 256)]
+# (windows, threads[, slab]): windows multiples of 16·D = 32 at config 3's
+# last stage, slabs of 16·D_0 = 128 windows of its first
+CASCADE_FAST_GEOMS = [(32, 64), (64, 128, 1024), (96, 256, 128)]
 
 
 def _snr_db(fast, exact):
@@ -1047,8 +1056,8 @@ def test_cascade_fast_split_front(card, dot):
 @pytest.mark.parametrize("dot", ["split3", "default"])
 @pytest.mark.parametrize("fmt", ["i16", "f32"])
 def test_cascade_fast_bytes_do_not_depend_on_geometry_or_chunk_cut(card, fmt, dot):
-    """Every (windows, threads) of CASCADE_FAST_GEOMS through
-    ``_launch_fast``'s ``geom``, and 256 blocks against 4 × 64, from
+    """Every (windows, threads, slab) of CASCADE_FAST_GEOMS through
+    ``_launch_fast``'s ``geom``, and 256 blocks against 4 × 64 and 8 × 32, from
     non-zero carries."""
     from doppler_tpu_torch.ops.precision import PASSES
 
@@ -1070,14 +1079,43 @@ def test_cascade_fast_bytes_do_not_depend_on_geometry_or_chunk_cut(card, fmt, do
         assert torch.equal(got[0], want[0]), geom
         assert all(torch.equal(a, b) for a, b in zip(got[1], want[1])), geom
     kw = dict(stages=stages, intype=fmt, outtype=fmt, dot_precision=dot)
-    blocks = (lambda b: x[b:b + 64]) if fmt == "i16" else (lambda b: x[:, b:b + 64])
     whole, c_whole = mix_cascade_stream(x, p, banks, carries, **kw)
-    c, parts = carries, []
-    for b in range(0, B, 64):
-        o, c = mix_cascade_stream(blocks(b).contiguous(), p[:, b:b + 64].contiguous(),
-                                  banks, c, **kw)
-        parts.append(o)
-    torch.cuda.synchronize()
-    assert torch.equal(torch.cat(parts, dim=-2), whole)
-    assert all(torch.equal(a, b) for a, b in zip(c, c_whole))
+    for n in (64, 32):          # two cuts: 4 × 64 and 8 × 32 blocks
+        blocks = (lambda b: x[b:b + n]) if fmt == "i16" else (lambda b: x[:, b:b + n])
+        c, parts = carries, []
+        for b in range(0, B, n):
+            o, c = mix_cascade_stream(blocks(b).contiguous(),
+                                      p[:, b:b + n].contiguous(), banks, c, **kw)
+            parts.append(o)
+        torch.cuda.synchronize()
+        assert torch.equal(torch.cat(parts, dim=-2), whole), n
+        assert all(torch.equal(a, b) for a, b in zip(c, c_whole)), n
     assert torch.equal(whole.reshape(-1), want[0].reshape(-1))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dot", ["split3", "default"])
+def test_cascade_fast_nan_reach(card, dot):
+    """A NaN input sample (float32 in and out) reaches no output outside
+    the band ``csrc/cascade_fast.cu`` states (``geometry.
+    cascade_fast_nan_reach``: all D·P outputs of every row whose K-entry
+    band holds it, stage by stage), and every output the plain version's
+    taps reach."""
+    stages, banks = _cascade_args(MultiStageResampler(FS, 48000), card)
+    B, L = 32, 2048
+    data, plan = _chunk(B, L, "f32", np.random.default_rng(90), NCOState())
+    at = (5 * L + 700, 17 * L + 1999)
+    for n in at:
+        data[0, n // L, n % L] = np.nan
+    x = torch.from_numpy(data).to(card)
+    p = nco.plan_tensor(plan, device=card)
+    carries = tuple(torch.zeros(2, T_ - 1, device=card) for _, _, T_ in stages)
+    kw = dict(stages=stages, intype="f32", outtype="f32", dot_precision=dot)
+    got, _ = mix_cascade_stream(x, p, banks, carries, **kw)
+    want, _ = mix_cascade_plain(x, p, banks, carries, **kw)
+    torch.cuda.synchronize()
+    lay = cascade_mod.plan_launch_fast(card, stages, L, 3 if dot == "split3" else 1)
+    nan = lambda y: set(torch.nonzero(torch.isnan(y.reshape(2, -1)).any(0))  # noqa: E731
+                        .flatten().tolist())
+    band = geometry.cascade_fast_nan_reach(stages, lay.columns, B * L, at)
+    assert nan(want) and nan(want) <= nan(got) <= band

@@ -486,8 +486,15 @@ def test_fast_layout_fits_and_holds_every_fragment(stage, L):
             geometry.fast_layout(P, Q, T, L, 24, 32)
 
 
-@pytest.mark.parametrize("stage,L", [(v[0], v[2]) for v in FAST_STAGES.values()],
-                         ids=list(FAST_STAGES))
+# the fast cascade's stages at their input count a block: D = 8, 2 and 8
+CASCADE_TAPS = {"÷8 T=65": ((1, 8, 65), 2048), "3/8 T=51": ((3, 8, 51), 256),
+                "÷16 T=85": ((1, 16, 85), 2048)}
+
+
+@pytest.mark.parametrize("stage,L",
+                         [(v[0], v[2]) for v in FAST_STAGES.values()]
+                         + list(CASCADE_TAPS.values()),
+                         ids=list(FAST_STAGES) + list(CASCADE_TAPS))
 def test_fast_taps_columns_are_neighbouring_windows(stage, L):
     """The B fragments as dense G (K × 8 per N-tile): row r of the banded
     product with A[r, k] = x[S·r − (T−1) − lead + k] gives, in column
@@ -618,27 +625,96 @@ def test_emulated_fast_chain_bytes_do_not_depend_on_the_chunk_cut(emu, stage, L,
 
 # -- (f) the cascade kernel of the bf16 dots ----------------------------------
 
+# (stages, chunk blocks, block length L); D per stage in the comment
 FAST_CASCADES = {
-    "config3": (_stages(1_024_000), 2, 2048),
-    "front100M": (_stages(100_000_000), 2, 2048),
-    "three": (_stages(2_048_000), 1, 2048),
+    "config3": (_stages(1_024_000), 2, 2048),               # (8, 2)
+    "config3 f32 blocks": (_stages(1_024_000), 2, 1024),    # (8, 1)
+    "front100M": (_stages(100_000_000), 2, 2048),           # (8, 1)
+    "three": (_stages(2_048_000), 1, 2048),                 # (8, 8, 1)
+    "one stage": (_stages(250_000), 2, 512),                # (8,)
 }
-CASCADE_FAST_GEOMS = [(16, 32), (32, 64), (48, 128)]
+# (M-tiles of 16·D of the last stage, threads, M-tiles of stage 0 a slab)
+CASCADE_FAST_GEOMS = [(1, 32, 1), (2, 64, 4), (3, 128, 2)]
+
+
+def _cascade_fast_geoms(stages, L):
+    """``(windows, threads, slab)`` of CASCADE_FAST_GEOMS for the stages."""
+    Ds = geometry.cascade_fast_columns(stages, L)
+    return [(16 * Ds[-1] * m, t, 16 * Ds[0] * k) for m, t, k in CASCADE_FAST_GEOMS]
+
+
+def test_cascade_fast_columns_per_stage():
+    """D_s: the largest power of two with D_s·P_s ≤ 8 and 16·D_s·Q_s
+    dividing the stage's input count a block (else 1); config 3 takes 8 and
+    2, its f32 blocks and the 100 Msps front 8 and 1."""
+    cols = geometry.cascade_fast_columns
+    assert cols(_stages(1_024_000), 2048) == (8, 2)
+    assert cols(_stages(1_024_000), 1024) == (8, 1)
+    assert cols(_stages(100_000_000), 2048) == (8, 1)
+    assert cols(_stages(2_048_000), 2048) == (8, 8, 1)
+    for fs in (1_024_000, 100_000_000, 2_048_000, 250_000):
+        stages = _stages(fs)
+        for L in (4096, 2048, 1024, 512, 256):
+            blk = L
+            for (P, Q, _), D in zip(stages, cols(stages, L)):
+                assert D & (D - 1) == 0 and (D == 1 or D * P <= 8)
+                assert D == 1 or blk % (16 * D * Q) == 0
+                # the largest such D
+                assert 2 * D * P > 8 or blk % (32 * D * Q) != 0
+                blk = blk * P // Q if blk % Q == 0 else 0.5
+
+
+def test_cascade_fast_takes_every_chunk_the_old_rule_took(emu):
+    """Every chunk in which each stage's window count is a multiple of 16
+    (the rule of the one-window-a-row kernel, still
+    ``geometry.check_cascade_fast_chunk``) holds whole M-tiles of 16·D_s
+    windows at every stage, and the kernel's own checks take it; those
+    that fail the old rule stay refused."""
+    for fs in (1_024_000, 100_000_000, 2_048_000):
+        stages = _stages(fs)
+        S = len(stages)
+        for L in (2048, 1024, 512):
+            windows, threads, slab = _cascade_fast_geoms(stages, L)[0]
+            lay = geometry.cascade_fast_layout(stages, L, windows, threads, 3, slab)
+            layout = _ints([v for row in lay.rows for v in row])
+            for B in range(1, 9):
+                try:
+                    geometry.check_cascade_fast_chunk(stages, B, L)
+                    old = True
+                except ValueError:
+                    old = False
+                units = len(geometry.fast_cta_units(stages, B * L, lay.windows))
+                out = np.zeros((units, 3 + 6 * S), dtype=np.int64)
+                n = emu.emu_fast_cascade_plans(layout, S, B, L, lay.windows, lay.slab,
+                                               3, ctypes.c_longlong(lay.smem_bytes),
+                                               ctypes.c_void_p(out.ctypes.data))
+                assert n == (units if old else -1), (fs, L, B)
+                k = B * L
+                for (P, Q, _), D in zip(stages, lay.columns):
+                    assert not old or (k // Q) % (16 * D) == 0
+                    k = k // Q * P
 
 
 @pytest.mark.parametrize("name", ["config 3 cascade", "config 5 / split front",
                                   "2.048 Msps, three stages", "config 3 chain"])
-@pytest.mark.parametrize("windows", [None, 16, 48])
-def test_cascade_fast_geometry_fits_and_covers(name, windows):
+@pytest.mark.parametrize("tiles", [None, 1, 3])
+@pytest.mark.parametrize("passes", [3, 1])
+def test_cascade_fast_geometry_fits_and_covers(name, tiles, passes):
     """Every output and carry entry is one CTA's target; every window a CTA
-    computes starts its M-tile at a multiple of 16; its span lies inside the
-    layout's planes; stage s−1 keeps exactly the entries of x_s the span
+    computes starts its M-tile at a multiple of 16·D_s; its span lies inside
+    the layout's planes (x_0's a slab at a time, every slab starting at a
+    multiple of 16·D_0); stage s−1 keeps exactly the entries of x_s the span
     reads from the chunk."""
     stages, n0 = PICKED[name]
-    lay = (geometry.pick_cascade_fast(stages, H100_SMEM) if windows is None
-           else geometry.cascade_fast_layout(stages, windows, 256))
-    assert 0 < lay.smem_bytes <= H100_SMEM or windows is not None
-    geometry.check_cascade_fast_chunk(stages, n0 // 2048, 2048)
+    L = 2048
+    Ds = geometry.cascade_fast_columns(stages, L)
+    lay = (geometry.pick_cascade_fast(stages, L, H100_SMEM, passes) if tiles is None
+           else geometry.cascade_fast_layout(stages, L, 16 * Ds[-1] * tiles, 256,
+                                             passes, 16 * Ds[0] * tiles))
+    assert lay.slab % (16 * Ds[0]) == 0
+    assert 0 < lay.smem_bytes <= H100_SMEM or tiles is not None
+    assert lay.columns == Ds and lay.windows % (16 * Ds[-1]) == 0
+    geometry.check_cascade_fast_chunk(stages, n0 // L, L)
     n_in = [n0]
     for P, Q, _ in stages:
         n_in.append(n_in[-1] // Q * P)
@@ -651,81 +727,114 @@ def test_cascade_fast_geometry_fits_and_covers(name, windows):
         else:
             first = n_in[t] - (stages[t][2] - 1)
             seen[1 + t][a - first:a - first + c] += 1
-        spans = geometry.fast_cta_spans(stages, n0, t, a, c)
+        spans = geometry.fast_cta_spans(stages, Ds, n0, t, a, c)
         want = (max(a, 0), a + c - 1)
         for s in range(t - 1, -1, -1):
-            P, Q, T = stages[s]
+            (P, Q, T), D = stages[s], Ds[s]
             ja, jb, w0, rows, org, length = spans[s]
             assert (ja, jb) == want
             if jb < ja:
                 break
-            assert w0 % 16 == 0 and rows % 16 == 0
+            assert w0 % (16 * D) == 0 and rows % (16 * D) == 0
             assert w0 <= ja // P and jb // P < w0 + rows
-            assert length <= lay.spans[s]
+            K = length - Q * (rows - D)
+            # x_0 a slab at a time: each slab's span inside the planes
+            part = rows if s else min(rows, lay.slab)
+            assert Q * (part - D) + K <= lay.spans[s]
             want = (max(org, 0), min(org + length, n_in[s]) - 1)
     assert all((v == 1).all() for v in seen)
     # the regions of the stages lie apart, inside the CTA
     end = 0
-    for (P, Q, T, plane, g_off, x_off), span in zip(lay.rows, lay.spans):
-        ks, nt = geometry.fast_dims(P, Q, T)
-        assert g_off == end and x_off == g_off + 128 * ks * nt
+    bw, planes = (4, 4) if passes == 3 else (2, 2)
+    for (P, Q, T, D, plane, g_off, x_off), span in zip(lay.rows, lay.spans):
+        ks, nt = geometry.fast_dims(P, Q, T, D)
+        assert g_off == end and x_off == g_off + 32 * bw * ks * nt
         last = span - 1
-        assert last + geometry.fast_pad(Q) * (last // Q) < plane and plane % 8 == 0
-        end = x_off + 2 * plane
+        assert last + geometry.fast_pad(D * Q) * (last // (D * Q)) < plane
+        assert plane % 8 == 0
+        end = x_off + planes * plane // 2
     assert 4 * end == lay.smem_bytes
     with pytest.raises(ValueError, match="16·Q"):
         geometry.check_cascade_fast_chunk(_stages(100_000_000), 3, 2048)
+    with pytest.raises(ValueError, match="16·D"):
+        geometry.cascade_fast_layout(_stages(1_024_000), 2048, 48, 256)
+
+
+def test_cascade_fast_pick_gives_a_chunk_three_tiles_an_sm():
+    """The tile is capped so that a chunk gives every SM of the card (132 on
+    an H100) three tiles: 32 windows for the CLI's 256 blocks at config 3,
+    the largest that leave three CTAs an SM on a large chunk."""
+    stages, L = _stages(1_024_000), 2048
+    for B, want in ((256, (32, 32)), (1024, (64, 64)), (16384, (256, 512))):
+        windows = B * L // 64
+        for passes, w in zip((3, 1), want):
+            lay = geometry.pick_cascade_fast(stages, L, H100_SMEM, passes,
+                                             windows // (3 * 132))
+            assert lay.windows == w
+            assert lay.windows == 32 or windows // lay.windows >= 3 * 132
+    assert geometry.pick_cascade_fast(stages, L, H100_SMEM, 3, 5).windows == 32
 
 
 @pytest.mark.parametrize("name", list(FAST_CASCADES))
 def test_emulated_fast_cascade_plan_is_the_geometry_walk(emu, name):
     """``csrc/cascade_fast.cu fast_cascade_plan`` of every CTA equals
     ``geometry.fast_cta_units`` / ``fast_cta_spans``, which the test above
-    holds to the rules (tiles at multiples of 16 windows, spans inside the
+    holds to the rules (tiles at multiples of 16·D windows, spans inside the
     planes, every target once)."""
     stages, B, L = FAST_CASCADES[name]
     B *= 8
-    for windows in (16, 48):
-        lay = geometry.cascade_fast_layout(stages, windows, 256)
+    S = len(stages)
+    for windows, _, slab in _cascade_fast_geoms(stages, L)[::2]:
+        lay = geometry.cascade_fast_layout(stages, L, windows, 256, 3, slab)
         units = geometry.fast_cta_units(stages, B * L, windows)
-        S = len(stages)
         out = np.zeros((len(units), 3 + 6 * S), dtype=np.int64)
         n = emu.emu_fast_cascade_plans(
-            _ints([v for row in lay.rows for v in row]), S, B, L, windows,
+            _ints([v for row in lay.rows for v in row]), S, B, L, windows, slab, 3,
             ctypes.c_longlong(lay.smem_bytes), ctypes.c_void_p(out.ctypes.data))
         assert n == len(units)
         for row, (t, a, c) in zip(out, units):
             want = [t, a, c] + [0] * (6 * S)
-            for s, span in geometry.fast_cta_spans(stages, B * L, t, a, c).items():
+            for s, span in geometry.fast_cta_spans(stages, lay.columns, B * L, t, a,
+                                                   c).items():
                 want[3 + 6 * s:9 + 6 * s] = span
             assert row.tolist() == want
-    lay = geometry.cascade_fast_layout(stages, 16, 256)
-    small = list(lay.rows[0])
-    small[3] = 8                                     # planes too small: refused
+    windows, _, slab = _cascade_fast_geoms(stages, L)[0]
+    lay = geometry.cascade_fast_layout(stages, L, windows, 256, 3, slab)
+    rows = [list(row) for row in lay.rows]
+    refused = []
+    small = [r[:] for r in rows]
+    small[0][4] = 8                                  # planes too small
+    refused.append(small)
+    if lay.columns[0] > 1:                           # a D the blocks do not tile
+        wide = [r[:] for r in rows]
+        wide[0][3] *= 2
+        refused.append(wide)
+    for bad in refused:
+        assert emu.emu_fast_cascade_plans(
+            _ints([v for row in bad for v in row]), S, B, L, windows, slab, 3,
+            ctypes.c_longlong(10 * lay.smem_bytes), None) == -1
+    # a slab that is not whole M-tiles of stage 0
     assert emu.emu_fast_cascade_plans(
-        _ints(small + [v for row in lay.rows[1:] for v in row]), len(stages), B,
-        L, 16, ctypes.c_longlong(lay.smem_bytes), None) == -1
+        _ints([v for row in rows for v in row]), S, B, L, windows, slab + 8, 3,
+        ctypes.c_longlong(10 * lay.smem_bytes), None) == -1
 
 
-def _halves(bank):
-    return [h.to(torch.bfloat16).view(torch.int16).numpy().copy()
-            for h in split3_bank(torch.from_numpy(bank))]
-
-
-def _emulate_cascade_fast(emu, case, stages, B, L, fmt, outtype, lay, passes):
-    """Channel 0 of ``case`` through ``emu_cascade_fast``."""
+def _emulate_cascade_fast(emu, case, stages, B, L, fmt, outtype, lay):
+    """Channel 0 of ``case`` through ``emu_cascade_fast``, its B fragments
+    laid out by ``chain.fast_taps`` as the wrapper lays them out."""
     data, plans, banks, carries = case
     out, c_out = _outputs(stages, 1, B, L, outtype)
-    halves = [_halves(b) for b in banks]
+    taps = [chain.fast_taps(torch.from_numpy(b), P, Q, T, D, lay.passes).numpy()
+            for b, (P, Q, T), D in zip(banks, stages, lay.columns)]
     c_in = [np.ascontiguousarray(c[0]) for c in carries]
     c_out = [c[0] for c in c_out]
     rc = emu.emu_cascade_fast(
         ctypes.c_void_p(data.ctypes.data), ctypes.c_void_p(out.ctypes.data),
         ctypes.c_void_p(np.ascontiguousarray(plans[:, 0]).ctypes.data),
-        _ptrs([h for h, _ in halves]), _ptrs([l for _, l in halves]), _ptrs(c_in),
-        _ptrs(c_out), _ints([v for row in lay.rows for v in row]), len(stages), B,
-        L, lay.windows, lay.threads, ctypes.c_longlong(lay.smem_bytes),
-        int(fmt == "f32"), int(outtype == "f32"), passes)
+        _ptrs(taps), _ptrs(c_in), _ptrs(c_out),
+        _ints([v for row in lay.rows for v in row]), len(stages), B, L,
+        lay.windows, lay.slab, lay.threads, ctypes.c_longlong(lay.smem_bytes),
+        int(fmt == "f32"), int(outtype == "f32"), lay.passes)
     assert rc == 0, "the entry point's checks refuse these arguments"
     return out, c_out
 
@@ -757,16 +866,17 @@ def _fast_close(got, want, outtype, passes):
 def test_emulated_fast_cascade_kernel(emu, name, fmt, passes):
     """The same bytes and carries for every tile and thread count, in a CTA
     whose shared memory starts as NaN (every band entry a fragment reads is
-    written); the stage-0 carry bitwise the exact kernel's; within the card
-    tests' tolerance of the plain version of its dot precision, the later
-    carries included."""
+    written), at D_s > 1 and, for one pass, in the compact layout; the
+    stage-0 carry bitwise the exact kernel's; within the card tests'
+    tolerance of the plain version of its dot precision, the later carries
+    included."""
     stages, B, L = FAST_CASCADES[name]
     dense = all(Q % P == 0 for P, Q, _ in stages)
     outtype = "f32" if dense else fmt
     case = _case(6, stages, 1, B, L, fmt)
     outs = [_emulate_cascade_fast(emu, case, stages, B, L, fmt, outtype,
-                                  geometry.cascade_fast_layout(stages, w, t), passes)
-            for w, t in CASCADE_FAST_GEOMS]
+                                  geometry.cascade_fast_layout(stages, L, w, t, passes, k))
+            for w, t, k in _cascade_fast_geoms(stages, L)]
     assert all(_same(o, outs[0]) for o in outs[1:])
     out, c_out = outs[0]
     exact = _reference(emu, case, stages, 1, B, L, fmt, outtype)
@@ -784,24 +894,49 @@ def test_emulated_fast_cascade_kernel(emu, name, fmt, passes):
 
 
 def test_emulated_fast_cascade_bytes_do_not_depend_on_the_chunk_cut(emu):
-    """Config 3: 4 blocks in one chunk against 4 chunks of one block, from
-    the carries each leaves."""
+    """Config 3 at D = (8, 2), split3 and the compact one pass: 4 blocks in
+    one chunk against 4 chunks of one block and 2 chunks of two, from the
+    carries each leaves."""
     stages, B, L = _stages(1_024_000), 4, 2048
     case = _case(7, stages, 1, B, L, "i16")
-    lay = geometry.cascade_fast_layout(stages, 32, 64)
-    whole, c_whole = _emulate_cascade_fast(emu, case, stages, B, L, "i16", "i16",
-                                           lay, 3)
+    data, plans, banks, _ = case
+    for passes in (3, 1):
+        lay = geometry.cascade_fast_layout(stages, L, 32, 64, passes, 256)
+        assert lay.columns == (8, 2)
+        whole, c_whole = _emulate_cascade_fast(emu, case, stages, B, L, "i16", "i16",
+                                               lay)
+        for blocks in (1, 2):
+            carries, parts = case[3], []
+            for b in range(0, B, blocks):
+                part = (np.ascontiguousarray(data[b:b + blocks]),
+                        np.ascontiguousarray(plans[:, :, b:b + blocks]), banks, carries)
+                o, c_out = _emulate_cascade_fast(emu, part, stages, blocks, L, "i16",
+                                                 "i16", lay)
+                parts.append(o)
+                carries = [c[None] for c in c_out]
+            assert np.concatenate(parts, axis=1).tobytes() == whole.tobytes()
+            assert all(a.tobytes() == b.tobytes() for a, b in zip(c_out, c_whole))
+
+
+@pytest.mark.parametrize("passes", [3, 1])
+def test_emulated_fast_cascade_nan_reach(emu, passes):
+    """A NaN input sample reaches no output outside the band the kernel's
+    header states, and every output the plain version's taps reach."""
+    stages, B, L = _stages(1_024_000), 2, 2048
+    case = _case(9, stages, 1, B, L, "f32")
+    case[0][0, 0, 1500] = np.nan
+    lay = geometry.cascade_fast_layout(stages, L, 32, 64, passes, 128)
+    out, _ = _emulate_cascade_fast(emu, case, stages, B, L, "f32", "f32", lay)
+    got = set(np.flatnonzero(np.isnan(out[:, 0]).any(axis=0)).tolist())
     data, plans, banks, carries = case
-    parts = []
-    for b in range(B):
-        part = (np.ascontiguousarray(data[b:b + 1]),
-                np.ascontiguousarray(plans[:, :, b:b + 1]), banks, carries)
-        o, c_out = _emulate_cascade_fast(emu, part, stages, 1, L, "i16", "i16",
-                                         lay, 3)
-        parts.append(o)
-        carries = [c[None] for c in c_out]
-    assert np.concatenate(parts, axis=1).tobytes() == whole.tobytes()
-    assert all(a.tobytes() == b.tobytes() for a, b in zip(c_out, c_whole))
+    t = torch.from_numpy
+    want, _ = cascade.mix_cascade_plain(
+        t(data.copy()), t(plans[:, 0].copy().view(np.int32)), [t(b) for b in banks],
+        [t(c[0]) for c in carries], stages=stages, intype="f32", outtype="f32",
+        dot_precision="split3" if passes == 3 else "default")
+    plain = set(np.flatnonzero(np.isnan(want.numpy().reshape(2, -1)).any(axis=0)).tolist())
+    band = geometry.cascade_fast_nan_reach(stages, lay.columns, B * L, [1500])
+    assert plain and plain <= got <= band
 
 
 # -- (g) the mixer -------------------------------------------------------------

@@ -147,6 +147,18 @@ def test_elementwise_codec_matches_jax_codec_bitwise(vec):
     assert np.array_equal(got, want)
 
 
+@pytest.mark.parametrize("body", ["copy", "codec"])
+def test_elementwise_writes_into_the_callers_buffer(body):
+    words, _ = _case(4, 1024, 33)
+    x = torch.from_numpy(words)
+    out = torch.full_like(x, 7)
+    assert probes.probe_elementwise(x, body=body, vec=4, out=out) is out
+    assert torch.equal(out, probes.probe_elementwise_plain(x, body=body))
+    for bad in (out.float(), out[:, :-4], out.t()):
+        with pytest.raises(ValueError, match="out must be"):
+            probes.probe_elementwise(x, body=body, out=bad)
+
+
 def test_elementwise_rejects_bad_arguments():
     x = torch.zeros(6, dtype=torch.int32)
     with pytest.raises(ValueError, match="body"):
