@@ -7,7 +7,10 @@ Phases (each prints one line or a few; any failure exits non-zero):
 
 1. device  — ``nvidia-smi`` name and power limit, torch's CUDA version.
 2. build   — compiles ``doppler_tpu_torch/csrc`` with nvcc (sm_90a); the
-             mixer's SASS instructions a channel-sample (``cuobjdump``).
+             mixer's SASS instructions a channel-sample (``cuobjdump``); the
+             chain-shaped mix probe's (modes 1 and 2, the instance the
+             tools' shape launches): its loop's static SASS a sample, its
+             registers and its occupancy (``--dump-resource-usage``).
 3. mixer   — the mixer kernel against its plain torch version on the card,
              all four wire formats, at the pipeline's chunk (B = 256), on
              its 16-byte path and its one-sample path (an L that is not a
@@ -101,7 +104,10 @@ Phases (each prints one line or a few; any failure exits non-zero):
              elementwise probe's four variants and the library's ``copy_``
              by one timer (16 calls between two events, best of 10, into a
              buffer the caller owns); the channel mixer by channels a CTA
-             at C = 16 and at C = 256.
+             at C = 16 and at C = 256; beside the chain-shaped mixes at
+             B = 16384 phase 2's loop SASS a sample, registers, occupancy
+             and issue floor (that count over the SMs × 128 instructions a
+             clock at the card's highest SM clock).
 6b. roofline — the launch counts set to 0, then
              ``doppler_tpu_torch.tools.roofline.main`` (all variants),
              ``…probe_chain_precision.main`` (its ``def`` variant included),
@@ -202,7 +208,9 @@ def phase_device(torch):
 
 
 def phase_build():
-    from doppler_tpu_torch.ops.cuda import build
+    """Build the library; returns the chain-shaped mix's SASS count
+    (:func:`_probe_sass`) for phase 6."""
+    from doppler_tpu_torch.ops.cuda import build, probes
 
     t0 = time.perf_counter()
     info = build.build_info()
@@ -214,7 +222,17 @@ def phase_build():
         if "Used" in line or "spill" in line:
             print(f"build: ptxas {line.split('ptxas info    :')[-1].strip()}")
     _print_sass_counts(info["path"])
-    return secs
+    g = probes.shape_geometry(B_BIG, 2048, build.sm_count(None))
+    return _probe_sass(info["path"], 32 * g.warps, g.depth)
+
+
+def _clock_max_hz():
+    """The card's highest SM clock (``nvidia-smi clocks.max.sm``), in Hz."""
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"], capture_output=True,
+                         text=True, timeout=60)
+    check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr.strip()}")
+    return float(smi.stdout.strip().splitlines()[0]) * 1e6
 
 
 # The mixer's instance whose SASS is counted (i16 -> i16, the 16-byte path)
@@ -270,6 +288,79 @@ def _print_sass_counts(path):
     print(f"sass: mixer i16->i16 ({name}): {len(ins)} instructions, {in_loop} of them "
           f"in the channel loop ({per_trip} channel-samples a trip); at C={C_MAIN} "
           f"B={B_BIG} (G={G}): {per!r} a channel-sample")
+
+
+# the chain-shaped probe's mix instances whose loop is counted: mode 1 (the
+# fold tone: chain-mix, mix-fold) and mode 2 (the select tone: mix-select)
+SHAPE_MODES = {1: ("chain-mix", "mix-fold"), 2: ("mix-select",)}
+SM_WARPS, SM_CTAS, SM_REGS = 64, 32, 65536   # an H100 SM's limits
+
+
+def _resource_usage(path):
+    """Registers and static shared bytes of every kernel in the library at
+    ``path`` (``cuobjdump --dump-resource-usage``): name -> (regs, shared)."""
+    from doppler_tpu_torch.ops.cuda import build
+
+    tool = os.path.join(os.path.dirname(build._nvcc()), "cuobjdump")
+    res = subprocess.run([tool, "--dump-resource-usage", path], capture_output=True,
+                         text=True, timeout=300)
+    check(res.returncode == 0, f"cuobjdump failed: {res.stderr.strip()[:400]}")
+    # "Function <name>:" and, on its line or the next, "REG:n ... SHARED:n"
+    return {m.group(1): (int(m.group(2)), int(m.group(3))) for m in re.finditer(
+        r"Function (\S+?):?\s+REG:(\d+)\b[^\n]*?SHARED:(\d+)", res.stdout)}
+
+
+def _occupancy(regs, threads, shared):
+    """Resident warps an SM over its 64, from a kernel's registers (allocated
+    256 a warp), its CTA's threads and its static shared bytes."""
+    warps = -(-threads // 32)
+    per_warp = -(-regs * 32 // 256) * 256
+    ctas = min(SM_CTAS, SM_WARPS // warps, SM_REGS // per_warp // warps,
+               232448 // (shared + 1024) if shared else SM_CTAS)
+    return ctas * warps / SM_WARPS
+
+
+def _probe_sass(path, threads, depth=None):
+    """The chain-shaped probe's mix loop in the library at ``path``, a mode
+    at a time: the instance the tools' shape launches (``chain_shape_kernel
+    <mode, depth, true>``, the warp's own loop; where the library has one
+    instance a mode, that one), the static SASS instructions of its
+    innermost loop that loads 16 bytes, over the samples a trip (four a
+    16-byte load in the loop; branches not taken count too), its registers
+    and its occupancy at ``threads`` threads a CTA."""
+    funcs, usage = _sass_instructions(path), _resource_usage(path)
+    res = {}
+    for mode in SHAPE_MODES:
+        found = [n for n in funcs if f"chain_shape_kernelILi{mode}E" in n]
+        if len(found) > 1:
+            found = [n for n in found if f"ILi{mode}ELi{depth}ELb1E" in n]
+        check(len(found) == 1, f"sass: {len(found)} chain_shape_kernel instances "
+                               f"of mode {mode}")
+        name = found[0]
+        ins = funcs[name]
+        # the innermost loop (backward branch) that holds a 16-byte load
+        loops = []
+        for addr, text in ins:
+            m = re.search(r"\bBRA\b[^;]*?(0x[0-9a-f]+)", text)
+            if m and int(m.group(1), 16) < addr:
+                body = [t for a, t in ins if int(m.group(1), 16) <= a <= addr]
+                loads = sum(1 for t in body if re.search(r"\bLDG\S*\.128\b", t))
+                if loads:
+                    loops.append((len(body), loads, body))
+        check(loops, f"sass: no loop with a 16-byte load in {name}")
+        _, loads, body = min(loops, key=lambda x: x[0])
+        check(name in usage, f"sass: no resource usage for {name}")
+        regs, shared = usage[name]
+        res[mode] = dict(name=name, instructions=len(ins), loop=len(body),
+                         samples=4 * loads, per_sample=len(body) / (4 * loads),
+                         regs=regs, shared=shared, threads=threads,
+                         occupancy=_occupancy(regs, threads, shared))
+        print(f"sass: chain-shaped mix, mode {mode} ({name}): {len(ins)} instructions, "
+              f"{len(body)} in its loop of {4 * loads} samples a trip: "
+              f"{res[mode]['per_sample']!r} a sample; {regs} registers, {shared} B "
+              f"static shared; {threads} threads a CTA: occupancy "
+              f"{res[mode]['occupancy']!r} of the SM's warps")
+    return res
 
 
 def _plan(B, L, samplenum=40000, fs=FS):
@@ -1936,15 +2027,21 @@ def _dispatch_ms(torch, steps, K=16, iters=5):
     return best
 
 
-def phase_timing_probes(torch, gen, card):
+def phase_timing_probes(torch, gen, card, sass=None):
     """The Q15 mixer and the probes: events (plain, kernel, kernel, plain),
     the profiler's device time, the bound, and the library's ``copy_`` beside
-    the two copy probes (timed here, used nowhere in the package)."""
+    the two copy probes (timed here, used nowhere in the package); beside
+    the chain-shaped mixes, ``sass`` (phase 2's count, by mode)."""
     from doppler_tpu_torch.ops import nco
-    from doppler_tpu_torch.ops.cuda import mixer, probes
+    from doppler_tpu_torch.ops.cuda import build, mixer, probes
 
     P, Q, L = 3, 64, 2048
     res = {}
+    # thread instructions an SM issues a second at most: four schedulers,
+    # one warp instruction each a clock
+    issue_rate = build.sm_count(None) * 4 * 32 * _clock_max_hz()
+    loops = {name: sass[mode] for mode, names in SHAPE_MODES.items()
+             for name in names if sass and mode in sass}
     for B in (B_MAIN, B_BIG):
         n = B * L
         x = _data(torch, "i16", B, L, gen)
@@ -2004,10 +2101,19 @@ def phase_timing_probes(torch, gen, card):
             lib_us = None if library is None else _device_us(torch, library, None)
             k_ms, pl_ms = min(k_a, k_b), min(pl_a, pl_b)
             lib = "none" if lib_ms is None else f"{lib_ms!r} ms (device {lib_us!r} us)"
+            loop = ""
+            if name in loops and B == B_BIG:
+                # the launched instance's static SASS a sample (phase 2) over
+                # the card's issue rate
+                c = loops[name]
+                loop = (f"; loop {c['per_sample']!r} SASS instructions a sample, "
+                        f"{c['regs']} registers, occupancy {c['occupancy']!r} at "
+                        f"{c['threads']} threads: issue floor "
+                        f"{c['per_sample'] * n / issue_rate * 1e3!r} ms")
             print(f"timing: {name} B={B} ({n} samples): kernel {k_a!r}/{k_b!r} ms, "
                   f"plain {pl_a!r}/{pl_b!r} ms, library call {lib}; "
-                  f"{_device_text(dev_us, bound_ms)}; bound {bound_ms!r} ms ({by}) "
-                  f"[{card}]")
+                  f"{_device_text(dev_us, bound_ms)}; bound {bound_ms!r} ms ({by})"
+                  f"{loop} [{card}]")
             res[(name, B)] = (k_ms, pl_ms, bound_ms, by, lib_ms)
         # the elementwise probe and the library's copy by one timer: K calls
         # back to back into a buffer the caller owns, in turns
@@ -2123,7 +2229,7 @@ def main() -> int:
 
     try:
         card = phase_device(torch)
-        timed(phase_build)
+        sass = timed(phase_build)
         gen = torch.Generator(device="cuda").manual_seed(0)
         mix_err = timed(phase_mixer, torch, gen)
         chain_err = timed(phase_chain, torch, gen)
@@ -2137,7 +2243,7 @@ def main() -> int:
         timed(phase_conformance)
         times = timed(phase_timing, torch, gen, card)
         times.update(timed(phase_timing_channels, torch, gen, card))
-        probe_times = timed(phase_timing_probes, torch, gen, card)
+        probe_times = timed(phase_timing_probes, torch, gen, card, sass)
         _, tool_launches = timed(phase_roofline, card)
         if "jax" in sys.modules:
             raise Failed("jax was imported")

@@ -12,7 +12,10 @@
 // plain torch version, within a tolerance, and itself across geometries;
 // so is the cascade's (cascade_fast.cu), on the same stand-in.  The mixer
 // (mixer.cu) runs its CTAs' threads one after the other; its reference is
-// the plain torch version, bitwise.
+// the plain torch version, bitwise.  So does the chain-shaped mix probe
+// (probes.cu): a warp's lanes one after the other, each loading the plan
+// words the device broadcasts by shuffles, the tile's side word an XOR fold
+// on the host where the device shuffles.
 //
 //   g++ -O1 -ffp-contract=off -shared -fPIC -std=c++17 \
 //       -I doppler_tpu_torch/csrc -o emu.so \
@@ -27,6 +30,7 @@
 #include "chain.cu"
 #include "chain_fast.cu"
 #include "mixer.cu"
+#include "probes.cu"
 
 using namespace doppler;
 
@@ -176,7 +180,56 @@ void run_mixer(const void* in, void* out, const uint32_t* plans, const MixerArgs
             mixer_cta<kInF32, kOutF32, kVec4>(in, out, plans, a, (unsigned)block, tid);
 }
 
+// the chain-shaped probe's stand-ins for the warp's shuffles
+struct HostPlan {
+    const uint32_t* plans;
+    size_t stride;
+    Plan operator()(int b) const { return load_plan(plans, stride, b); }
+};
+
+struct HostSide {
+    int* side;
+    void operator()(long long t, int acc) { side[t] ^= acc; }
+};
+
+template <bool kSelect, int kDepth, bool kFast>
+void run_shape(const int* in, int* out, int* side, const uint32_t* plans,
+               const ShapeArgs& a, long long ctas) {
+    HostPlan get_plan{plans, (size_t)a.B};
+    HostSide put_side{side};
+    for (long long block = 0; block < ctas; ++block)
+        for (int warp = 0; warp < a.warps; ++warp)
+            for (int lane = 0; lane < 32; ++lane)
+                shape_cta<kSelect, kDepth, kFast>(in, out, plans, a, (unsigned)block, warp,
+                                                  lane, get_plan, put_side);
+}
+
 }  // namespace
+
+// doppler_chain_shape's arguments (csrc/probes.cu) for the mix (mode 1: the
+// fold tone, 2: the select chain), all pointers to host memory.  Returns 0
+// where the arguments are refused, else 2 on the warp's own loop (the fast
+// path) and 1 on mix_span's, plus 4 where a kept group is one 16-byte
+// store.
+extern "C" int emu_chain_shape(const void* in, void* out, void* side,
+                               const uint32_t* plans, int B, int L, int tile, int keep,
+                               int mode, int warps, int split, int depth) {
+    ShapeArgs a;
+    long long ctas;
+    if ((mode != 1 && mode != 2) ||
+        !make_shape_args(a, in, out, B, L, tile, keep, warps, split, depth, ctas))
+        return 0;
+    const int* i = static_cast<const int*>(in);
+    int* o = static_cast<int*>(out);
+    int* sd = static_cast<int*>(side);
+    std::memset(sd, 0, (size_t)a.n_tiles * sizeof(int));
+    const bool select = mode == 2;
+    auto run = !a.fast ? (select ? run_shape<true, 1, false> : run_shape<false, 1, false>)
+               : a.depth == 2 ? (select ? run_shape<true, 2, true> : run_shape<false, 2, true>)
+                            : (select ? run_shape<true, 1, true> : run_shape<false, 1, true>);
+    run(i, o, sd, plans, a, ctas);
+    return (a.fast ? 2 : 1) + (a.rows16 ? 4 : 0);
+}
 
 // doppler_mix_blocks's arguments (csrc/mixer.cu), all pointers to host
 // memory; returns 2 where the launch takes the 16-byte path, 1 where it

@@ -85,15 +85,20 @@ __device__ __forceinline__ void quarter_poly(int q24, float& sp, float& cp) {
     cp = __fadd_rn(1.0f, __fmul_rn(x2, cp));
 }
 
-// (cos θ, sin θ) for θ = −2π·q24·2⁻²⁴: the polynomial pair and a quadrant
-// fold by swap-select plus sign-bit XOR.
+// (cos θ, sin θ) for θ = −2π·q24·2⁻²⁴, 0 ≤ q24 < 2²⁴: the polynomial pair
+// and a quadrant fold by swap-select plus sign-bit XOR.  The quadrant (bits
+// 23, 22 of q24) is read at the top of a word, u = q24·2⁸: the pair swaps
+// in odd quadrants (bit 30); cos is negated in quadrants 1 and 2, where bit
+// 31 of u + 2³⁰ (the quadrant plus one) is set; sin in quadrants 0 and 1,
+// where bit 31 of u is clear.  The same bits as the fold of
+// ops/sincos.py, in fewer integer operations.
 __device__ __forceinline__ void sincos_q24_neg(int q24, float& c, float& s) {
-    const int quad = q24 >> 22;
+    const unsigned u = (unsigned)q24 << 8;
     float sp, cp;
     quarter_poly(q24, sp, cp);
-    const bool swap = quad & 1;
-    const unsigned signc = (unsigned)((quad + 1) & 2) << 30;
-    const unsigned signs = (unsigned)((quad & 2) ^ 2) << 30;
+    const bool swap = (u & 0x40000000u) != 0;
+    const unsigned signc = (u + 0x40000000u) & 0x80000000u;
+    const unsigned signs = ~u & 0x80000000u;
     c = __uint_as_float(__float_as_uint(swap ? sp : cp) ^ signc);
     s = __uint_as_float(__float_as_uint(swap ? cp : sp) ^ signs);
 }
@@ -358,24 +363,31 @@ __device__ __forceinline__ void mix_span(long long first, long long last,
     }
 }
 
-// ×32767, truncate toward zero, NaN → 0, saturate (main.rs:76-84).  On the
-// card one conversion does the first three: cvt.rzi.s32.f32 truncates,
-// takes NaN to 0 and clamps to the int32 range, so the integer clamp after
-// it gives the float clamp's value for every input, ±∞ included.
+// ×32767, truncate toward zero, NaN → 0, saturate (main.rs:76-84), written
+// out for the host build.
 __device__ __forceinline__ int encode_i16(float v) {
-#ifdef __CUDACC__
-    return min(max(__float2int_rz(__fmul_rn(v, 32767.0f)), -32768), 32767);
-#else
     v = truncf(__fmul_rn(v, 32767.0f));
     if (isnan(v)) v = 0.0f;
     v = fminf(fmaxf(v, -32768.0f), 32767.0f);
     return (int)v;
-#endif
 }
 
+// Two encoded values as one LE IQ pair word.  On the card each value is one
+// conversion: cvt.rzi.s16.f32 truncates, takes NaN to 0 and saturates to the
+// int16 range, which is encode_i16 for every float, ±∞ included, and the two
+// halves are packed as they come.
 __device__ __forceinline__ int pack_i16(float i, float q) {
+#ifdef __CUDACC__
+    short si, sq;
+    asm("cvt.rzi.s16.f32 %0, %1;" : "=h"(si) : "f"(__fmul_rn(i, 32767.0f)));
+    asm("cvt.rzi.s16.f32 %0, %1;" : "=h"(sq) : "f"(__fmul_rn(q, 32767.0f)));
+    unsigned r;
+    asm("mov.b32 %0, {%1, %2};" : "=r"(r) : "h"(si), "h"(sq));
+    return (int)r;
+#else
     return (int)(((unsigned)encode_i16(i) & 0xFFFFu) |
                  ((unsigned)encode_i16(q) << 16));
+#endif
 }
 
 }  // namespace doppler

@@ -134,9 +134,10 @@ def load() -> ctypes.CDLL:
     lib.doppler_probe_elementwise.argtypes = [_vp, _vp, ctypes.c_longlong, _i,
                                               _i, _vp]
     lib.doppler_chain_shape.restype = _i
-    # in, out, side, plans, B, L, tile, keep, mode, stream
+    # in, out, side, plans, B, L, tile, keep, mode, warps, split, depth,
+    # stream
     lib.doppler_chain_shape.argtypes = [_vp, _vp, _vp, _vp, _i, _i, _i, _i, _i,
-                                        _vp]
+                                        _i, _i, _i, _vp]
     lib.doppler_chain.restype = _i
     # in, out, plans, bank, carry_in, carry_out, C, B, L, P, Q, T, tile,
     # threads, R, tap_stride, tap_off, buf_off, smem, in_f32, out_f32, stream

@@ -33,12 +33,18 @@ kernel did all of the tile's work.
 
 The TPU tiling of the originals (``W``, ``S``, 128 lanes, ``Wc``, ``A``,
 ``G``) is not carried over: :func:`chain_tile` takes a tile of about
-``128·Q/P`` inputs, what 128 outputs of the chain span.  The mix is the
-product kernels' own front, ``csrc/nco.cuh``'s ``mix_span`` (the strided
-walker over 16-byte loads), so ``chain-mix`` times what the chain pays.
+``128·Q/P`` inputs, what 128 outputs of the chain span.  The mix's samples
+cost what the product kernels pay a sample (``csrc/nco.cuh``'s decode,
+walker, tone and encode), under a schedule of the probe's own: one warp a
+tile (or ``split`` warps a tile), its groups of four from 16-byte loads
+kept ``depth`` ahead, whole-group stores, the side word from shuffles.
+:func:`shape_geometry` picks that launch from the tile count and the
+card's SM count (``csrc/probes.cu`` says why).
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 
@@ -49,12 +55,14 @@ from doppler_tpu_torch.ops.sincos import sincos_q24_neg, sincos_q24_neg_select
 
 __all__ = ["probe_elementwise", "probe_elementwise_plain", "chain_shape_run",
            "chain_shape_run_plain", "mix_shape_run", "mix_shape_run_plain",
-           "chain_tile"]
+           "chain_tile", "ShapeGeometry", "shape_geometry"]
 
 _BODIES = ("copy", "codec")
 _TILE_M = 128     # a chain-shaped tile holds about this many kept words
 _TONES = {"fold": sincos_q24_neg, "select": sincos_q24_neg_select}
 _MODE = {None: 0, "fold": 1, "select": 2}     # csrc/probes.cu kMode
+SHAPE_MAX_WARPS = 8       # csrc/probes.cu kShapeMaxWarps
+SHAPE_WARPS_PER_SM = 8    # a chunk splits its tiles until this many warps an SM
 
 
 def chain_tile(n: int, P: int, Q: int) -> int:
@@ -64,6 +72,33 @@ def chain_tile(n: int, P: int, Q: int) -> int:
         if n % tile == 0:
             return tile
     raise ValueError(f"no multiple of Q={Q} divides the chunk of {n} samples")
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeGeometry:
+    """A chain-shaped mix launch (``csrc/probes.cu``): ``warps`` a CTA,
+    ``split`` warps a tile, ``depth`` groups of four a lane keeps loaded
+    ahead."""
+    warps: int
+    split: int
+    depth: int
+
+
+def shape_geometry(n_tiles: int, tile: int, sm_count: int) -> ShapeGeometry:
+    """The mix's launch for ``n_tiles`` tiles of ``tile`` samples on a card
+    of ``sm_count`` SMs.  One warp a tile where the tiles alone put
+    ``SHAPE_WARPS_PER_SM`` warps on every SM; else the tile is split over
+    2 or 4 warps (while each still takes whole groups of four a lane).  A
+    CTA holds ``SHAPE_MAX_WARPS`` warps.  A lane with eight or more groups a
+    tile keeps two loaded ahead, else one."""
+    groups = tile // 4
+    split = 1
+    while (split < 4 and n_tiles * split < SHAPE_WARPS_PER_SM * sm_count
+           and groups % (64 * split) == 0):
+        split *= 2
+    per = groups // (32 * split)          # groups a lane a tile
+    depth = 2 if per >= 8 and per % 2 == 0 else 1
+    return ShapeGeometry(warps=SHAPE_MAX_WARPS, split=split, depth=depth)
 
 
 def _check_words(words: torch.Tensor, body: str, vec: int) -> None:
@@ -158,15 +193,19 @@ def _shape_plain(words, plans, P, Q, tile, tone):
     return tiles[:, :keep].contiguous(), side
 
 
-def _shape_launch(words, plans, P, Q, tile, tone):
+def _shape_launch(words, plans, P, Q, tile, tone, geom=None):
+    """Launch the probe; ``geom``: a :class:`ShapeGeometry` in place of
+    :func:`shape_geometry`'s (the tests and ``tools/kernel_sweep.py``)."""
     B, L, tile, keep = _shape_geometry(words, plans, P, Q, tile)
     words, plans = words.contiguous(), plans.contiguous()
     n_tiles = B * L // tile
+    if geom is None:
+        geom = shape_geometry(n_tiles, tile, build.sm_count(words.device.index))
     out = torch.empty((n_tiles, keep), dtype=torch.int32, device=words.device)
     side = torch.empty((n_tiles,), dtype=torch.int32, device=words.device)
     rc = build.load().doppler_chain_shape(
         words.data_ptr(), out.data_ptr(), side.data_ptr(), plans.data_ptr(),
-        B, L, tile, keep, _MODE[tone],
+        B, L, tile, keep, _MODE[tone], geom.warps, geom.split, geom.depth,
         torch.cuda.current_stream(words.device).cuda_stream)
     build.check(rc, "chain-shape probe")
     return out, side

@@ -12,8 +12,15 @@ pass) sweeps ``(windows, threads)`` the same way (``--kernels
 fast,fast-default``), up to 256 windows where the pick stops at 128, and
 so does the cascade of the bf16 dots at the config-3 stages (``--kernels
 cascade-fast,cascade-fast-default``: one stream, windows in multiples of
-16·D of the last stage, and the stage-0 slab, printed as ``slab=``).  K
-dispatches between two CUDA events
+16·D of the last stage, and the stage-0 slab, printed as ``slab=``).  The
+chain-shaped mix probe (``--kernels chain-shape``: ``csrc/probes.cu``, the
+fold tone, at the chain's tile on the tools' data) sweeps warps a CTA ×
+warps a tile (split) × groups loaded ahead (depth), printed as ``warps=
+split= depth=``; each of its dispatches is a CUDA graph
+of ``SHAPE_GRAPH`` launches and its time is a launch's, since at the CLI's
+B = 256 the wrapper's host time is ten times the kernel's, printed beside
+each launch's device time from ``torch.profiler``.  K dispatches
+between two CUDA events
 (``runtime/timing.py``), best of ``--iters``.  It measures a card and fails
 without one.
 
@@ -21,20 +28,22 @@ without one.
     python -m doppler_tpu_torch.tools.kernel_sweep --blocks 256 --channels 16
     python -m doppler_tpu_torch.tools.kernel_sweep --kernels fast,fast-default
     python -m doppler_tpu_torch.tools.kernel_sweep --kernels cascade-fast,cascade-fast-default
+    python -m doppler_tpu_torch.tools.kernel_sweep --kernels chain-shape --blocks 256
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import itertools
 import json
 import sys
 
 import torch
 
-from doppler_tpu_torch.ops.cuda import cascade, chain, geometry
+from doppler_tpu_torch.ops.cuda import build, cascade, chain, geometry, probes
 from doppler_tpu_torch.runtime.timing import card_label, timed_dispatches
-from doppler_tpu_torch.tools import kernel_digests
+from doppler_tpu_torch.tools import common, kernel_digests
 
 TILES = {"chain": (128, 192, 256, 384, 512, 768),
          "cascade": (128, 192, 256, 384, 512),
@@ -45,6 +54,64 @@ FAST_WINDOWS = (256, 192) + geometry.FAST_WINDOWS
 FAST = {"fast": 3, "fast-default": 1}       # sweep name -> bf16 passes
 CASCADE_FAST = {"cascade-fast": 3, "cascade-fast-default": 1}
 CASCADE_FAST_SLABS = (2, 4, 8)                # M-tiles of stage 0 a slab
+SHAPE = "chain-shape"
+SHAPE_P, SHAPE_Q = 3, 64                      # the chain's ratio (its tile)
+SHAPE_GRAPH = 16                              # launches a graph (a dispatch)
+
+
+def _shape_grid():
+    """Every launch of the chain-shaped mix: (warps, split, depth)."""
+    for warps, split, depth in itertools.product((1, 2, 4, 8), (1, 2, 4), (1, 2)):
+        if warps % split == 0:
+            yield probes.ShapeGeometry(warps, split, depth)
+
+
+def _device_us(step, launches: int) -> float | None:
+    """Mean device µs of the chain-shaped kernel over ``step()``'s
+    ``launches`` launches, from ``torch.profiler``; None where the session
+    recorded none."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        step()
+        torch.cuda.synchronize()
+    total, count = 0.0, 0
+    for ev in prof.key_averages():
+        if "chain_shape_kernel" in ev.key:
+            total += getattr(ev, "device_time_total", None) or ev.cuda_time_total
+            count += ev.count
+    return total / count if count == launches and total > 0 else None
+
+
+def sweep_shape(B: int, iters: int, K: int, device) -> list:
+    """``[(ms, geometry, picked, device µs or None)]`` for the chain-shaped
+    mix, fastest first; the device µs from one profiled graph a geometry."""
+    words, plans, _ = common.bench_inputs(B * common.L, device)
+    n = words.numel()
+    tile = probes.chain_tile(n, SHAPE_P, SHAPE_Q)
+    picked = probes.shape_geometry(n // tile, tile, build.sm_count(device.index))
+    geoms = list(dict.fromkeys([picked, *_shape_grid()]))
+
+    def graph(g):
+        def launch():
+            probes._shape_launch(words, plans, SHAPE_P, SHAPE_Q, tile, "fold", g)
+
+        launch()
+        torch.cuda.synchronize(device)
+        cuda_graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(cuda_graph):
+            for _ in range(SHAPE_GRAPH):
+                launch()
+        return cuda_graph.replay
+
+    steps = {g: graph(g) for g in geoms}
+    best = {g: float("inf") for g in geoms}
+    for _ in range(iters):
+        for g in geoms:
+            best[g] = min(best[g], timed_dispatches(steps[g], K, device))
+    dev = {g: _device_us(steps[g], SHAPE_GRAPH) for g in geoms}
+    return sorted(((best[g] / (K * SHAPE_GRAPH) * 1e3, g, g == picked, dev[g])
+                   for g in geoms), key=lambda r: r[0])
 
 
 def _grid(kernel, stages, limit):
@@ -161,6 +228,20 @@ def main(argv=None) -> int:
     label = card_label(device)
     result = {}
     for kernel in args.kernels.split(","):
+        if kernel == SHAPE:
+            rows = sweep_shape(args.blocks, args.iters, args.dispatches, device)
+            for ms, g, picked, us in rows[:args.top] + [r for r in rows[args.top:]
+                                                        if r[2]]:
+                dev = "" if us is None else f", device {us:8.3f} us"
+                print(f"{kernel} B={args.blocks} warps={g.warps} split={g.split} "
+                      f"depth={g.depth} {ms:9.5f} ms a launch{dev}"
+                      f"{' *' if picked else ''} [{label}]", file=sys.stderr)
+            print(f"{kernel} slowest of {len(rows)}: {rows[-1][0]:.4f} ms "
+                  f"{rows[-1][1]} [{label}]", file=sys.stderr)
+            result[kernel] = [dict(ms=ms, picked=picked, device_us=us,
+                                   **dataclasses.asdict(g))
+                              for ms, g, picked, us in rows]
+            continue
         # what the wrapper itself costs: the same call on 8 blocks, where the
         # kernel is over long before the next launch is enqueued
         host = sweep(kernel, 8, args.channels, args.iters, args.dispatches,

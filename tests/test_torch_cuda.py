@@ -496,12 +496,23 @@ def test_elementwise_probe_bitwise_vs_plain(card, body, vec):
         assert torch.equal(out, want)
 
 
+# launches of the chain-shaped mix beside the one the wrapper picks: a tile
+# split over four warps (the CLI chunk's pick) or two, two groups a lane
+# loaded ahead, CTAs of 8, 4 and 2 warps
+SHAPE_GEOMS = [probes.ShapeGeometry(8, 1, 1), probes.ShapeGeometry(4, 1, 2),
+               probes.ShapeGeometry(8, 4, 1), probes.ShapeGeometry(2, 2, 2)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("tile", [None, 512, 2688])
+@pytest.mark.parametrize("tile", [None, 512, 2688, 384])
 def test_chain_shaped_probes_bitwise_vs_plain(card, tile):
     """Copy, mix, and both tones: the kept words and the XOR of the rest.
-    A tile of 2688 samples straddles the 2048-sample blocks."""
-    x, p = _probe_case(card, B=63 if tile == 2688 else 64)
+    A tile of 2688 samples straddles the 2048-sample blocks; a tile of 384 in
+    blocks of 768 keeps 18 words, so a group is ragged and the rows are not
+    16-byte aligned (kept groups stored a word at a time).  Both tones also
+    under the launches of SHAPE_GEOMS."""
+    B, L = (63, 2048) if tile == 2688 else (64, 768) if tile == 384 else (64, 2048)
+    x, p = _probe_case(card, B=B, L=L)
     kw = dict(P=P, Q=Q, tile=tile)
     launches = probes.chain_shape_run.launches, probes.mix_shape_run.launches
     copy = probes.chain_shape_run(x, p, do_mix=False, **kw)
@@ -521,6 +532,28 @@ def test_chain_shaped_probes_bitwise_vs_plain(card, tile):
     # the mix probe's words are the mixer kernel's, sliced the same way
     t = tile or probes.chain_tile(x.numel(), P, Q)
     assert torch.equal(mix[0], mix_blocks_fmt(x, p).reshape(-1, t)[:, :t * P // Q])
+    for geom in SHAPE_GEOMS:
+        for tone, want in (("fold", fold), ("select", select)):
+            got = probes._shape_launch(x, p, P, Q, tile, tone, geom)
+            assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), geom
+
+
+@pytest.mark.cuda
+def test_chain_shaped_mix_on_a_misaligned_input(card):
+    """An input that is not 16-byte aligned takes mix_span one sample a
+    step: the same words and side words, both tones, both launch shapes."""
+    x, p = _probe_case(card, B=16)
+    flat = torch.zeros(x.numel() + 4, dtype=torch.int32, device=card)
+    flat[1:1 + x.numel()] = x.reshape(-1)
+    xm = flat[1:1 + x.numel()].view(x.shape)
+    assert xm.data_ptr() % 16
+    for tone in ("fold", "select"):
+        want = probes.mix_shape_run_plain(x, p, P=P, Q=Q, tone=tone)
+        got = probes.mix_shape_run(xm, p, P=P, Q=Q, tone=tone)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        for geom in SHAPE_GEOMS[2:]:
+            got = probes._shape_launch(xm, p, P, Q, None, tone, geom)
+            assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), geom
 
 
 @pytest.mark.cuda

@@ -35,7 +35,15 @@ What runs here without a card:
   other: bitwise the plain torch version at C = 1, 3 and 16 in the four
   wire formats, for every channel group G (one that does not divide C too),
   on the 16-byte path and on the one-sample path (an odd L, a misaligned
-  input).
+  input);
+- the chain-shaped mix probe (``csrc/probes.cu``) the same way, a warp's
+  lanes one after the other, the side word folded on the host: ``(out,
+  side)`` bitwise the plain versions of both tones for a tile of L, L/2 and
+  1.5·L (across blocks), an odd B, keep % 4 ≠ 0 (the ragged group), kept
+  words over several trips of a lane, a
+  segment switch inside a group, a misaligned input and a misaligned row,
+  over launch geometries (warps, split, depth); and the launch the
+  wrapper picks at B = 256 and 16384.
 """
 
 import ctypes
@@ -50,7 +58,7 @@ import torch
 
 from doppler_tpu.ops.pallas import mixer as jax_mixer
 from doppler_tpu_torch.ops import nco
-from doppler_tpu_torch.ops.cuda import cascade, chain, geometry, mixer
+from doppler_tpu_torch.ops.cuda import cascade, chain, geometry, mixer, probes
 from doppler_tpu_torch.ops.multistage import MultiStageResampler
 from doppler_tpu_torch.ops.precision import split3_bank
 from doppler_tpu_torch.ops.resample import RationalResampler
@@ -1014,3 +1022,119 @@ def test_mixer_group_pick(emu):
     for C, B in ((256, 3), (5, 1), (7, 100000)):
         G = pick(C, B, 2048)
         assert G in (16, 8, 4, 2, 1) and G <= C
+
+
+# -- (h) the chain-shaped mix probe ----------------------------------------------
+
+# name -> (B, L, tile, P, Q)
+SHAPE_CASES = {
+    "tile=L, odd B": (3, 2048, 2048, 3, 64),
+    "tile=L/2": (2, 2048, 1024, 3, 64),
+    "tile=1.5L": (3, 2048, 3072, 3, 64),
+    "keep%4=2": (2, 768, 384, 3, 64),
+    "keep=384": (2, 2048, 2048, 3, 16),     # kept words over three trips a lane
+}
+SHAPE_GEOMS = [(8, 1, 1), (4, 1, 2), (1, 1, 1), (8, 4, 1), (2, 2, 2)]
+
+
+def _shape_case(seed, B, L, misalign=False):
+    rng = np.random.default_rng(seed)
+    raw = rng.integers(-(1 << 31), 1 << 31, size=B * L + 1,
+                       dtype=np.int64).astype(np.int32)
+    data = (raw[1:] if misalign else raw[:-1]).reshape(B, L)
+    plans = _random_plans(rng, B, L)
+    plans[6, 0] = 4 * (L // 8) + 2        # a segment switch inside a group
+    return data, np.ascontiguousarray(plans)
+
+
+def _shape_path(L, tile, keep, split, depth, vec4=True, rows_aligned=True):
+    """The path emu_chain_shape reports: 2 the warp's own loop (16-byte
+    loads, tiles inside blocks, whole trips of ``depth`` groups for every
+    lane), 1 mix_span's; + 4 where a kept group is one 16-byte store."""
+    fast = (vec4 and tile % 4 == 0 and L % tile == 0
+            and (tile // 4) % (32 * split * depth) == 0)
+    rows16 = rows_aligned and tile % 4 == 0 and keep % 4 == 0
+    return (2 if fast else 1) + (4 if rows16 else 0)
+
+
+def _emulate_shape(emu, data, plans, B, L, tile, keep, tone, geom, row_off=0):
+    n_tiles = B * L // tile
+    buf = np.full(n_tiles * keep + 4, 7, dtype=np.int32)
+    out = buf[row_off:row_off + n_tiles * keep]
+    side = np.full(n_tiles, 7, dtype=np.int32)
+    path = emu.emu_chain_shape(ctypes.c_void_p(data.ctypes.data),
+                               ctypes.c_void_p(out.ctypes.data),
+                               ctypes.c_void_p(side.ctypes.data),
+                               ctypes.c_void_p(plans.ctypes.data), B, L, tile, keep,
+                               1 if tone == "fold" else 2, *geom)
+    return out.reshape(n_tiles, keep), side, path
+
+
+@pytest.mark.parametrize("tone", ["fold", "select"])
+@pytest.mark.parametrize("name", list(SHAPE_CASES))
+def test_emulated_chain_shape_bitwise_plain(emu, name, tone):
+    """Every launch geometry gives the plain version's words and side words;
+    the path taken is the one the geometry calls for."""
+    B, L, tile, P, Q = SHAPE_CASES[name]
+    data, plans = _shape_case(60, B, L)
+    want = probes.mix_shape_run_plain(torch.from_numpy(data.copy()),
+                                      torch.from_numpy(plans.view(np.int32)),
+                                      P=P, Q=Q, tone=tone, tile=tile)
+    keep = tile // Q * P
+    for geom in SHAPE_GEOMS:
+        out, side, path = _emulate_shape(emu, data, plans, B, L, tile, keep, tone, geom)
+        assert path == _shape_path(L, tile, keep, geom[1], geom[2]), geom
+        assert np.array_equal(out, want[0].numpy()), geom
+        assert np.array_equal(side, want[1].numpy()), geom
+
+
+@pytest.mark.parametrize("misalign,row_off", [(True, 0), (False, 1)],
+                         ids=["misaligned input", "misaligned rows"])
+def test_emulated_chain_shape_scalar_paths(emu, misalign, row_off):
+    """A misaligned input takes mix_span one sample a step; misaligned rows
+    store a kept group as four words: the same bits."""
+    B, L, tile, P, Q = 3, 2048, 2048, 3, 64
+    data, plans = _shape_case(61, B, L, misalign=misalign)
+    keep = tile // Q * P
+    for tone in ("fold", "select"):
+        want = probes.mix_shape_run_plain(torch.from_numpy(data.copy()),
+                                          torch.from_numpy(plans.view(np.int32)),
+                                          P=P, Q=Q, tone=tone)
+        for geom in ((8, 1, 1), (8, 4, 1)):
+            out, side, path = _emulate_shape(emu, data, plans, B, L, tile, keep, tone,
+                                             geom, row_off)
+            assert path == _shape_path(L, tile, keep, geom[1], geom[2], vec4=not misalign,
+                                       rows_aligned=not row_off), geom
+            assert np.array_equal(out, want[0].numpy()), (tone, geom)
+            assert np.array_equal(side, want[1].numpy()), (tone, geom)
+
+
+def test_emulated_chain_shape_refuses_bad_geometry(emu):
+    data, plans = _shape_case(62, 2, 2048)
+    for geom in ((9, 1, 1), (0, 1, 1), (4, 3, 1), (2, 4, 1), (8, 8, 1), (4, 1, 3)):
+        assert _emulate_shape(emu, data, plans, 2, 2048, 2048, 96, "fold", geom)[2] == 0
+
+
+@pytest.mark.parametrize("B", [256, 16384])
+def test_chain_shape_geometry_pick(emu, B):
+    """At the tools' tile (2048 = L): one warp a tile in 8-warp CTAs at B =
+    16384, two groups a lane loaded ahead; at the CLI's B = 256 four warps
+    a tile, two tiles a CTA, so that the 256 tiles still give every SM of
+    132 nearly eight warps.  Either way each lane takes whole groups of
+    four (the warp's own loop) and the kernel takes the launch."""
+    sm = 132
+    tile = probes.chain_tile(B * 2048, 3, 64)
+    g = probes.shape_geometry(B * 2048 // tile, tile, sm)
+    n_tiles = B * 2048 // tile
+    assert tile == 2048 and g.warps == probes.SHAPE_MAX_WARPS
+    # 16 groups a lane keep two loaded ahead; 4 (a tile over four warps) one
+    assert g == (probes.ShapeGeometry(8, 1, 2) if B == 16384
+                 else probes.ShapeGeometry(8, 4, 1))
+    # the least split that gives every SM its warps, at most four warps a tile
+    want = probes.SHAPE_WARPS_PER_SM * sm
+    assert g.split == 4 or n_tiles * g.split >= want
+    assert g.split == 1 or n_tiles * g.split // 2 < want
+    assert (tile // 4) % (32 * g.split) == 0
+    data, plans = _shape_case(63, 2, 2048)
+    geom = (g.warps, g.split, g.depth)
+    assert _emulate_shape(emu, data, plans, 2, 2048, 2048, 96, "fold", geom)[2] == 6
