@@ -89,6 +89,21 @@ Phases (each prints one line or a few; any failure exits non-zero):
              kernel, against (iii)'s golden and within 1 LSB of (iii)'s
              bytes; (v-fast) the first 5 s of (v) through the fast channel
              kernel, against (v)'s goldens and within 1 LSB of (v)'s bytes.
+5c. distributed — the host split: in process, each route's seek at the
+             CLI's chunk (the config-3 captures of slices (i), (iii),
+             (iii-fast), the split route's of (ii), and the mixer route at
+             8000-byte blocks, where nothing fuses), with the launch counts
+             set to 0 before the seek and before the seeked run: the replay
+             launches one kernel of its route (a 1-block chain, a
+             zero-prepadded cascade, the mixer), its FIR state is bitwise the
+             state the stream holds at the seek point, and the two halves'
+             bytes are the whole run's.  Then ``python -m doppler_tpu_torch
+             … --distributed coordinator=127.0.0.1:PORT,num_processes=2,
+             process_id=K`` on this card: (i), (iii) and (ii) split by byte
+             range, config 4's first 5 s split by channel; the concatenated
+             parts (the channel files) against the one-process bytes, the
+             walls of both and of (i) in one fresh process;
+             ``--prefetch-chunks 2`` against (i)'s bytes.
 5b. conformance — ``doppler_tpu_torch.tools.conformance --device cuda``:
              the five BASELINE configs through ``python -m doppler_tpu_torch``
              subprocesses on the card against the golden model, > 60 dB each.
@@ -117,7 +132,9 @@ Phases (each prints one line or a few; any failure exits non-zero):
              counts are read.
 
 The kernels' JSON record takes the mixer's and the cascade's launch counts
-from slice (i), the chain's from slice (iii), the channel cascade's from
+from slice (i) (their seek replays' as ``launches_seek``, with the
+chain's and the fast chain's, from phase 5c), the chain's from slice
+(iii), the channel cascade's from
 (iv), the channel chain's from (v), the fast kernel's from (iii-fast) and
 (v-fast), and the Q15 mixer's, the probes', the one-pass chain's and the
 fast cascade's (split3 and default, which no CLI path reaches) from
@@ -137,6 +154,7 @@ import json
 import logging
 import os
 import re
+import socket
 import statistics
 import subprocess
 import sys
@@ -2132,6 +2150,227 @@ def phase_timing_probes(torch, gen, card, sass=None):
     return res
 
 
+# -- the host split: seek and --distributed ---------------------------------
+
+N_DIST_CH = 5_120_000 + 1000     # the channels split: config 4's first 5 s
+
+
+def _seek_route(torch, name, raw, make, card):
+    """One route's seek on the card, at the CLI's chunk: the whole capture,
+    its first half (a chunk boundary) and a pipeline seeked there with the
+    history before it; the seek and the seeked run with every launch count
+    set to 0 just before and read just after each.  Checks the replay's
+    state bitwise against the first half's and the halves' bytes against
+    the whole run's; returns (replay launches, seeked-run launches)."""
+    whole_p = make()
+    bb, cb = whole_p.block_bytes, whole_p.chunk_blocks
+    k = (len(raw) // bb // cb // 2) * cb
+    n_hist = whole_p.seek_history_blocks()
+    whole, prefix = _Sink(), _Sink()
+    whole_p.run(io.BytesIO(raw), whole)
+    prefix_p = make()
+    prefix_p.run(io.BytesIO(raw[:k * bb]), prefix)
+    seeked = make()
+    _zero_counts(_counters())
+    t0 = time.perf_counter()
+    seeked.seek_to_block(k, history=raw[(k - n_hist) * bb:k * bb])
+    torch.cuda.synchronize()
+    seek_s = time.perf_counter() - t0
+    replay = _read_counts(_counters())
+    rs_a, rs_b = seeked.resampler, prefix_p.resampler
+    for a, b in zip(getattr(rs_a, "stages", [rs_a]), getattr(rs_b, "stages", [rs_b]),
+                    strict=True):
+        check((a.m_next, a.in_consumed) == (b.m_next, b.in_consumed)
+              and torch.equal(a._hist_i, b._hist_i)
+              and torch.equal(a._hist_q, b._hist_q),
+              f"seek {name}: the replay's state is not the stream's at block {k}")
+    suffix = _Sink()
+    _zero_counts(_counters())
+    seeked.run(io.BytesIO(raw[k * bb:]), suffix)
+    run_counts = _read_counts(_counters())
+    same = b"".join(prefix.parts + suffix.parts) == b"".join(whole.parts)
+    print(f"distributed: seek {name}: block {k} with {n_hist} history blocks "
+          f"in {seek_s!r} s; replay launches {replay}; seeked run launches "
+          f"{run_counts}; state bitwise, bytes equal to the whole run's={same} "
+          f"[{card}]")
+    check(same and whole.parts, f"seek {name}: the seeked bytes differ")
+    return replay, run_counts
+
+
+def _spawn_hosts(argv, tmp, n=2):
+    """``python -m doppler_tpu_torch`` once per host of a ``--distributed``
+    run on this card (``n = 1``: one process, no group).  Returns the wall
+    from the first start to the last exit and a line of each host's times
+    from its log: start (spawn to the card's name, which the CLI logs once
+    the pipeline is on the card: the interpreter, torch, the rendezvous,
+    the CUDA context) and run (that line to 'done': the seek and the
+    stream), and the Msps in of its 'done' line.  Kills what is left on a
+    failure."""
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    root = os.path.dirname(os.path.abspath(__file__))
+    procs, logs = [], []
+    t0, spawned = time.perf_counter(), time.time()
+    try:
+        for pid in range(n):
+            logs.append(open(os.path.join(tmp, f"host{pid}.log"), "w+"))
+            procs.append(subprocess.Popen(
+                [sys.executable, "-m", "doppler_tpu_torch"] + argv
+                + ["--device", "cuda", "--log-format", "json", "--distributed",
+                   f"coordinator=127.0.0.1:{port},num_processes={n},process_id={pid}"],
+                stdout=subprocess.DEVNULL, stderr=logs[-1], cwd=root))
+        for p in procs:
+            p.wait(timeout=300)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.perf_counter() - t0
+    times = []
+    for pid, (p, f) in enumerate(zip(procs, logs)):
+        f.seek(0)
+        lines = f.read().splitlines()
+        f.close()
+        check(p.returncode == 0, f"host {pid} rc {p.returncode}: {lines[-5:]}")
+        recs = [json.loads(ln) for ln in lines if ln.startswith("{")]
+        dev = [r["ts"] for r in recs if r["msg"].startswith("device ")]
+        done = [r for r in recs if r["msg"].startswith("done:")]
+        check(dev and done, f"host {pid} logged no device or 'done' line")
+        msps = re.search(r"\(([0-9.]+) Msps in\)", done[-1]["msg"]).group(1)
+        times.append(f"host {pid} start {dev[0] - spawned:.3f} s, run "
+                     f"{done[-1]['ts'] - dev[0]:.3f} s, {msps} Msps in")
+    return wall, "; ".join(times)
+
+
+def phase_distributed(torch, card):
+    """The host split on the card.  In process, at the CLI's chunk: each
+    route's seek (a 1-block chain launch, exact and fast; a zero-prepadded
+    cascade launch on config 3's default route and on the 100 Msps split
+    route, whose front's planes then run the tail; the mixer where nothing
+    fuses, at 8000-byte blocks) with its state bitwise the stream's and its
+    bytes the whole run's.  Then ``--distributed`` over two processes on
+    this card (gloo rendezvous, nothing sent between them): config 3's
+    20 s track capture on the default route and with ``--resample-stages
+    single``, the 0.5 s 100 Msps split route, and config 4's first 5 s split
+    by channel; the concatenated parts (the channel files) against the one
+    process's bytes, and (i) in one fresh process for its own times; and
+    ``--prefetch-chunks 2`` against depth 0."""
+    from doppler_tpu_torch.ops.resample import attach_resampler
+    from doppler_tpu_torch.runtime.pipeline import ConstScheduler, Pipeline
+
+    raw = _capture(torch, N_SLICE, seed=3)
+    raw5 = _capture(torch, N_SPLIT, seed=5, fs=FS_SPLIT)
+    raw4 = raw[:N_DIST_CH * 4]
+
+    def make(fs, stages, precision="exact", block_bytes=8192):
+        def build():
+            sched = (_track_scheduler() if fs == FS else ConstScheduler(OFFSET))
+            p = Pipeline(fs, "i16", "i16", sched, block_bytes=block_bytes,
+                         precision=precision, device="cuda")
+            attach_resampler(p, OUT_RATE, stages=stages)
+            return p
+        return build
+
+    seek = {}
+    for name, data, build, kernel in (
+            ("default", raw, make(FS, "auto"), "cascade"),
+            ("chain", raw, make(FS, "single"), "chain"),
+            ("chain-fast", raw, make(FS, "single", "fast"), "chain_fast"),
+            ("split", raw5, make(FS_SPLIT, "auto"), "cascade"),
+            ("mixer", raw, make(FS, "single", block_bytes=8000), "mixer")):
+        replay, run_counts = _seek_route(torch, name, data, build, card)
+        check(replay[kernel] == 1 and sum(replay.values()) == 1,
+              f"seek {name}: the replay launched {replay}, want one {kernel}")
+        check(run_counts[kernel] >= 1, f"seek {name}: the seeked run launched {run_counts}")
+        seek[name] = replay
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tle_path = os.path.join(tmp, "sat.txt")
+        with open(tle_path, "w") as f:
+            f.write("TEST SAT\n" + "\n".join(_tle_lines()) + "\n")
+        start = time.strftime("%Y-%m-%dT%H:%M:%S", time.gmtime(START_UNIX))
+        track = ["track", "-s", str(FS), "-i", "i16", "--tlefile", tle_path,
+                 "--tlename", "TEST SAT", "--location", LOCATION,
+                 "--frequency", str(int(FREQ)), "--offset", str(int(OFFSET)),
+                 "--time", start, "--resample-to", str(OUT_RATE)]
+        const5 = ["const", "-s", str(FS_SPLIT), "-i", "i16", "--shift",
+                  str(OFFSET), "--resample-to", str(OUT_RATE)]
+        paths = {}
+        for key, data in (("c3", raw), ("c5", raw5), ("c4", raw4)):
+            paths[key] = os.path.join(tmp, f"{key}.iq")
+            with open(paths[key], "wb") as f:
+                f.write(data)
+
+        # the one-process runs in process (launches counted) and through
+        # --prefetch-chunks 2
+        one = {}
+        for name, argv, data in (("default", track, raw),
+                                 ("chain", track + ["--resample-stages", "single"], raw),
+                                 ("split", const5, raw5)):
+            out, launches, _, split = _run_slice(f"one-process {name}", argv,
+                                                 data, card)
+            one[name] = (out, split["wall_s"])
+        out, _, _, _ = _run_slice("prefetch", track + ["--prefetch-chunks", "2"],
+                                  raw, card)
+        print(f"distributed: --prefetch-chunks 2 bytes equal to depth 0's="
+              f"{out == one['default'][0]}")
+        check(out == one["default"][0], "--prefetch-chunks 2 changed the bytes")
+
+        for name, argv, key in (("default", track, "c3"),
+                                ("chain", track + ["--resample-stages", "single"], "c3"),
+                                ("split", const5, "c5")):
+            out_path = os.path.join(tmp, f"{name}.iq")
+            io_paths = ["--input", paths[key], "--output", out_path]
+            if name == "default":
+                # one fresh process of the same run, for the hosts' times
+                wall, times = _spawn_hosts(argv + io_paths, tmp, n=1)
+                with open(out_path, "rb") as f:
+                    same = f.read() == one[name][0]
+                print(f"distributed: {name}: one fresh process, wall {wall!r} s; "
+                      f"{times}; bytes equal to the in-process run's={same} "
+                      f"[{card}]")
+                check(same, f"distributed {name}: one fresh process differs")
+            wall, times = _spawn_hosts(argv + io_paths, tmp)
+            parts = b""
+            for pid in range(2):
+                with open(f"{out_path}.part{pid}", "rb") as f:
+                    parts += f.read()
+            same = parts == one[name][0]
+            print(f"distributed: {name}: two processes on one card, wall "
+                  f"{wall!r} s; {times}; one process in process "
+                  f"{one[name][1]!r} s; parts equal to the one-process "
+                  f"bytes={same} [{card}]")
+            check(same, f"distributed {name}: the parts differ from one process")
+
+        # config 4's 16 track channels, split by channel
+        cfg = dict(tlefile=tle_path, location=LOCATION, time=start,
+                   channels=_config4_channels())
+        cfg_path = os.path.join(tmp, "config4.json")
+        with open(cfg_path, "w") as f:
+            json.dump(cfg, f)
+        ch_args = ["-s", str(FS), "-i", "i16", "--resample-to", str(OUT_RATE)]
+        one_outs, launches, split = _run_channels_slice(
+            "one-process config4", tmp, cfg["channels"], ch_args, raw4, card,
+            {k: cfg[k] for k in ("tlefile", "location", "time")})
+        check(launches["cascade_channels"] == N_DIST_CH // (B_MAIN * 2048),
+              f"one-process config4: launches {launches}")
+        out_dir = os.path.join(tmp, "config4-dist")
+        wall, times = _spawn_hosts(
+            ["channels", "--config", cfg_path, "--output-dir", out_dir,
+             "--input", paths["c4"]] + ch_args, tmp)
+        same = True
+        for ch, want in zip(cfg["channels"], one_outs):
+            with open(os.path.join(out_dir, ch["name"] + ".iq"), "rb") as f:
+                same = same and f.read() == want
+        print(f"distributed: config4 channels: two processes of 8 channels "
+              f"each, wall {wall!r} s; {times}; one process in process "
+              f"{split['wall_s']!r} s; channel files equal={same} [{card}]")
+        check(same, "distributed config4: a channel file differs")
+    return seek
+
+
 def phase_conformance():
     """The five BASELINE configs through ``python -m doppler_tpu_torch
     --device cuda`` subprocesses against the golden model."""
@@ -2240,6 +2479,7 @@ def main() -> int:
         timed(phase_probes, torch, gen)
         slices = timed(phase_slices, torch, card)
         slices.update(timed(phase_channel_slices, torch, card))
+        seek = timed(phase_distributed, torch, card)
         timed(phase_conformance)
         times = timed(phase_timing, torch, gen, card)
         times.update(timed(phase_timing_channels, torch, gen, card))
@@ -2281,17 +2521,21 @@ def main() -> int:
     kernels = [
         entry("mixer", "mixer.cu", "doppler_tpu/ops/pallas/mixer.py:227",
               default["mixer"], mix_err,
-              launches_channels=slices["config4-mix"]["launches"]["mixer_channels"]),
+              launches_channels=slices["config4-mix"]["launches"]["mixer_channels"],
+              launches_seek=seek["mixer"]["mixer"]),
         entry("chain", "chain.cu", "doppler_tpu/ops/pallas/chain.py:404",
-              slices["chain"]["launches"]["chain"], chain_err),
+              slices["chain"]["launches"]["chain"], chain_err,
+              launches_seek=seek["chain"]["chain"]),
         entry("cascade", "cascade.cu", "doppler_tpu/ops/pallas/chain.py:960",
-              default["cascade"], cascade_err),
+              default["cascade"], cascade_err,
+              launches_seek=seek["default"]["cascade"] + seek["split"]["cascade"]),
         entry("chain_channels", "chain.cu", "doppler_tpu/ops/pallas/chain.py:556",
               slices["config4-chain"]["launches"]["chain_channels"],
               channel_err["chain"]),
         entry("chain_fast", "chain_fast.cu", "doppler_tpu/ops/pallas/chain.py:404",
               slices["chain-fast"]["launches"]["chain_fast"], fast_err["stream"],
-              branch="dot_precision='split3'"),
+              branch="dot_precision='split3'",
+              launches_seek=seek["chain-fast"]["chain_fast"]),
         entry("chain_channels_fast", "chain_fast.cu",
               "doppler_tpu/ops/pallas/chain.py:556",
               slices["config4-chain-fast"]["launches"]["chain_channels_fast"],

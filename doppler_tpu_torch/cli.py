@@ -17,15 +17,20 @@ Flag-compatible with ``doppler_tpu/cli.py`` for what this package runs:
   ``--log-level``, ``--input``, ``--output``, ``--save-state`` /
   ``--load-state`` (a resumable checkpoint in the JAX package's format;
   a resumed run seeks ``--input`` and appends to its output),
+  ``--prefetch-chunks DEPTH`` (a reader thread stages chunks ahead; channels
+  mode accepts and ignores it, as the JAX CLI does),
+  ``--distributed SPEC`` and ``--host-channels HC`` (processes split the
+  capture by chunk-aligned byte range, or channels mode by channel, with no
+  traffic between them: each seeks to its range; host k writes
+  ``FILE.partK`` and checkpoints ``PATH.hK``),
   ``--precision {exact,fast}`` (default ``exact``; ``fast`` runs the
   single-stage chain's FIR dot, stream and channel-batched, on bf16 tensor
   cores as three exact products a tap, within 1 LSB of ``exact``; cascades
   and the EOF chunk stay exact), and ``--device {cuda,cpu}`` (default
   ``cuda``; no silent CPU fallback).
 
-The JAX package's ``--mesh``, ``--distributed``, ``--host-channels``,
-``--impl``, ``--prefetch-chunks`` and ``--resample-impl`` are not ported;
-their flags do not exist here.
+The JAX package's ``--mesh``, ``--impl`` and ``--resample-impl`` are not
+ported; their flags do not exist here.
 
 IQ bytes flow stdin → stdout; telemetry goes to stderr only (main.rs:212-233).
 """
@@ -103,6 +108,9 @@ def _add_io_args(p: argparse.ArgumentParser) -> None:
                    help="blocks per device dispatch (int), or 'auto' to "
                         "target ~64 ms of stream per dispatch (default: "
                         "'auto' in realtime track mode, 256 elsewhere)")
+    p.add_argument("--prefetch-chunks", type=int, default=0, metavar="DEPTH",
+                   help="stage up to DEPTH input chunks on a reader thread "
+                        "(overlaps stdin I/O with device compute; 0 = off)")
     p.add_argument("--resample-to", type=float, default=None, metavar="RATE",
                    help="polyphase-resample output to RATE sps after mixing")
     p.add_argument("--resample-stages", choices=["single", "auto", "multi"],
@@ -129,16 +137,36 @@ def _add_io_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--log-level", default="info",
                    choices=["debug", "info", "warning", "error"])
     p.add_argument("--input", metavar="FILE", default=None,
-                   help="read IQ from a file instead of stdin")
+                   help="read IQ from a seekable file instead of stdin "
+                        "(required with --distributed)")
     p.add_argument("--output", metavar="FILE", default=None,
-                   help="write IQ to a file instead of stdout")
+                   help="write IQ to a file instead of stdout; under "
+                        "--distributed host k writes FILE.partK and "
+                        "concatenating the parts reproduces the "
+                        "single-process stream bitwise")
+    p.add_argument("--distributed", metavar="SPEC", default=None,
+                   help="join a multi-host run: coordinator=HOST:PORT,"
+                        "num_processes=N,process_id=K.  Hosts split the "
+                        "capture by chunk-aligned byte ranges (channels "
+                        "mode: by channel) with zero cross-host traffic — "
+                        "state at each boundary is seeded exactly from "
+                        "absolute stream position (resume = seek)")
+    p.add_argument("--host-channels", type=int, default=None, metavar="HC",
+                   help="channels mode: channel-parallel host count; must "
+                        "equal num_processes (channels mode splits by "
+                        "channel only — a time split of the channels grid "
+                        "is not implemented).  Default: all hosts split "
+                        "the channel axis")
     p.add_argument("--save-state", metavar="PATH", default=None,
                    help="write a resumable checkpoint (.npz) at EOF or on "
-                        "SIGTERM/SIGINT")
+                        "SIGTERM/SIGINT; under --distributed host k writes "
+                        "PATH.hK (state is host-local)")
     p.add_argument("--load-state", metavar="PATH", default=None,
                    help="resume from a checkpoint written by --save-state: "
                         "seeks --input to the saved offset (a pipe must be "
-                        "fed from there) and appends to the output")
+                        "fed from there) and appends to the output; under "
+                        "--distributed host k restores PATH.hK and appends "
+                        "to its own part file")
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
                    help="'cuda' (default) runs the hand-written kernels on "
                         "the GPU and fails without one; 'cpu' runs their "
@@ -303,9 +331,135 @@ def _stop_on_signal(enabled: bool):
             signal.signal(sig, handler)
 
 
-def _main_channels(args, log, outtype: str, chunk_blocks: int, stdin) -> int:
+def _host_path(path: str, host, suffix: str) -> str:
+    """A per-host file under ``--distributed``: ``PATH`` + ``suffix`` + k."""
+    pid, nproc = host
+    return path if nproc == 1 else f"{path}{suffix}{pid}"
+
+
+def _join(args, log):
+    """``--distributed``: parse the spec, check the arguments a split run
+    needs, then join the group.  Returns ``((pid, nproc), None)``, or
+    ``(None, rc)`` after logging the error.  The checks come before the
+    rendezvous, so a host with a bad configuration fails at once instead
+    of waiting for its peers."""
+    from doppler_tpu_torch.parallel import distributed
+
+    try:
+        spec = distributed.resolve_spec(
+            **distributed.parse_distributed_spec(args.distributed))
+    except ValueError as e:
+        log.error("%s", e)
+        return None, 1
+    pid, nproc = spec["process_id"], spec["num_processes"]
+    if nproc > 1:
+        if not args.input:
+            log.error("--distributed needs --input FILE (hosts seek to "
+                      "their own byte ranges; a pipe cannot be split)")
+            return None, 1
+        if args.mode == "channels":
+            if args.host_channels is not None and args.host_channels != nproc:
+                # the channels arm splits the channel axis only: hosts
+                # sharing a channel slice would reprocess the whole capture
+                # and race on the same output files
+                log.error(
+                    "--host-channels %d != num_processes %d: channels mode "
+                    "splits by channel only (the time axis of the host grid "
+                    "is not implemented here); drop --host-channels or set "
+                    "it to num_processes", args.host_channels, nproc)
+                return None, 1
+        elif not args.output:
+            log.error("--distributed needs --output FILE "
+                      "(per-host part files)")
+            return None, 1
+        elif args.mode == "track" and args.time is None:
+            log.error("--distributed track mode needs --time "
+                      "(wall-clock schedules are not host-splittable)")
+            return None, 1
+    distributed.init(**spec)
+    log.info("distributed: process %d of %d", pid, nproc)
+    return (pid, nproc), None
+
+
+def _host_range(args, log, pipe, fin, host, chunk_blocks: int, bps: int):
+    """``--distributed``, one stream: this host's chunk-aligned byte range
+    of ``--input`` as a reader, its state seeded by a seek to the range's
+    first block (history read from just before it), or restored from its
+    own checkpoint ``PATH.hK``.  Returns ``(reader, None)``, or
+    ``(None, rc)`` when there is nothing to run."""
+    from doppler_tpu_torch.parallel.distributed import host_slice
+    from doppler_tpu_torch.runtime import checkpoint
+    from doppler_tpu_torch.runtime.stream import ByteRangeReader
+
+    pid, nproc = host
+    size = os.stat(args.input).st_size
+    chunk_bytes = args.block_bytes * chunk_blocks
+    n_chunks = max(1, -(-size // chunk_bytes))
+    shard = host_slice(1, n_chunks, process_index=pid, process_count=nproc)
+    lo = shard.block_lo * chunk_bytes
+    hi = min(size, shard.block_hi * chunk_bytes)
+    if args.load_state:
+        # elastic restart: the host's own checkpoint carries its absolute
+        # stream position and FIR state, and replaces the seek
+        try:
+            meta = checkpoint.restore(_host_path(args.load_state, host, ".h"),
+                                      pipe)
+        except (ValueError, OSError) as e:
+            log.error("%s", e)
+            return None, 1
+        resume_lo = meta["sample_offset"] * bps
+        if (not (lo <= resume_lo <= hi)
+                or (resume_lo % chunk_bytes and resume_lo != hi)):
+            log.error(
+                "checkpoint at byte %d is outside this host's range "
+                "[%d, %d) or not chunk-aligned", resume_lo, lo, hi)
+            return None, 1
+        if meta.get("drained"):
+            # the host finished and flushed its FIR tail: running again
+            # would append the tail a second time; a capture that grew since
+            # cannot continue a part stream the tail already ended
+            if resume_lo >= hi:
+                log.info("host %d checkpoint is complete (drained); "
+                         "nothing to do", pid)
+                return None, 0
+            log.error(
+                "host %d checkpoint was written after an EOF drain but "
+                "the capture has grown since; the flushed FIR tail "
+                "already ended the part stream — reprocess the full "
+                "capture instead", pid)
+            return None, 1
+        lo = resume_lo
+        log.info("host %d resumed at input sample %d", pid,
+                 meta["sample_offset"])
+    else:
+        history = None
+        n_hist = pipe.seek_history_blocks()
+        if lo > 0 and n_hist:
+            hist_bytes = n_hist * args.block_bytes
+            if hist_bytes > lo:
+                log.error(
+                    "host %d needs %d history blocks before byte %d "
+                    "but the capture is shorter there", pid, n_hist, lo)
+                return None, 1
+            fin.seek(lo - hist_bytes)
+            history = fin.read(hist_bytes)
+        try:
+            pipe.seek_to_block(shard.block_lo * chunk_blocks, history=history)
+        except ValueError as e:
+            log.error("%s", e)
+            return None, 1
+    if pid != nproc - 1:
+        pipe.drain_on_eof = False   # only the stream's last host drains
+    log.info("host %d owns chunks [%d, %d) = bytes [%d, %d)",
+             pid, shard.block_lo, shard.block_hi, lo, hi)
+    return ByteRangeReader(fin, lo, hi), None
+
+
+def _main_channels(args, log, outtype: str, chunk_blocks: int, stdin,
+                   host) -> int:
     """The ``channels`` arm: N channels of one wideband capture into
-    ``--output-dir/<name>.iq``."""
+    ``--output-dir/<name>.iq``; under ``--distributed`` each host takes its
+    slice of the channels."""
     from doppler_tpu_torch.orbit import RealtimeTrackScheduler
     from doppler_tpu_torch.orbit.sgp4 import SGP4Error
     from doppler_tpu_torch.runtime import checkpoint
@@ -320,6 +474,18 @@ def _main_channels(args, log, outtype: str, chunk_blocks: int, stdin) -> int:
     except (OSError, KeyError, ValueError) as e:
         log.error("bad channel config: %s", e)
         return 1
+    pid, nproc = host
+    if nproc > 1:
+        from doppler_tpu_torch.parallel.distributed import host_slice
+
+        shard = host_slice(len(specs), 1, process_index=pid,
+                           process_count=nproc, channel_parallel_hosts=nproc)
+        specs = specs[shard.channel_lo:shard.channel_hi]
+        log.info("host %d owns channels [%d, %d)", pid, shard.channel_lo,
+                 shard.channel_hi)
+        if not specs:
+            log.info("host %d: no channels to process", pid)
+            return 0
     log.info("multi-channel mode: %d channels", len(specs))
     for s in specs:
         log.info("\tchannel %-16s center offset %+.0f Hz",
@@ -358,7 +524,8 @@ def _main_channels(args, log, outtype: str, chunk_blocks: int, stdin) -> int:
             return 1
         if args.load_state:
             try:
-                meta = checkpoint.restore_channels(args.load_state, mpipe)
+                meta = checkpoint.restore_channels(
+                    _host_path(args.load_state, host, ".h"), mpipe)
             except (ValueError, OSError) as e:
                 log.error("%s", e)
                 return 1
@@ -390,8 +557,9 @@ def _main_channels(args, log, outtype: str, chunk_blocks: int, stdin) -> int:
                 return 1
 
     if args.save_state:
-        checkpoint.save_channels(args.save_state, mpipe)
-        log.info("checkpoint written to %s", args.save_state)
+        state_path = _host_path(args.save_state, host, ".h")
+        checkpoint.save_channels(state_path, mpipe)
+        log.info("checkpoint written to %s", state_path)
     if stop["stop"]:
         log.warning("stopped by signal after a consistent chunk boundary")
         return 130
@@ -406,9 +574,102 @@ def _main_channels(args, log, outtype: str, chunk_blocks: int, stdin) -> int:
     return 0
 
 
+def _main_stream(args, log, outtype: str, chunk_blocks: int, stdin, stdout,
+                 host) -> int:
+    """The ``const`` and ``track`` arms: one stream; under
+    ``--distributed`` each host takes its byte range of ``--input``."""
+    bps = stream_bps(args.intype)
+    scheduler = _make_scheduler(args, log, outtype)
+    if scheduler is None:
+        return 1
+
+    from doppler_tpu_torch.ops.resample import attach_resampler
+    from doppler_tpu_torch.orbit.sgp4 import SGP4Error
+    from doppler_tpu_torch.runtime import checkpoint
+    from doppler_tpu_torch.runtime.pipeline import Pipeline
+
+    try:
+        pipe = Pipeline(
+            args.samplerate, args.intype, outtype, scheduler,
+            block_bytes=args.block_bytes,
+            chunk_blocks=chunk_blocks,
+            quantize_ratio_f32=not args.exact_ratio,
+            drain_on_eof=args.drain,
+            prefetch_chunks=args.prefetch_chunks,
+            precision=args.precision,
+            device=args.device,
+        )
+        if args.resample_to is not None:
+            attach_resampler(pipe, args.resample_to,
+                             stages=args.resample_stages)
+    except (ValueError, RuntimeError) as e:
+        log.error("%s", e)
+        return 1
+    _log_device(log, pipe.device)
+
+    with contextlib.ExitStack() as files:
+        try:
+            fin = (files.enter_context(open(args.input, "rb")) if args.input
+                   else stdin or sys.stdin.buffer)
+            # resume appends: the bytes written before the cut are exactly
+            # consistent with the checkpoint, so the resumed run completes
+            # the file the uninterrupted run would have written
+            fout = (files.enter_context(
+                        open(_host_path(args.output, host, ".part"),
+                             "ab" if args.load_state else "wb"))
+                    if args.output else stdout or sys.stdout.buffer)
+        except OSError as e:
+            log.error("%s", e)
+            return 1
+        if host[1] > 1:
+            fin, rc = _host_range(args, log, pipe, fin, host, chunk_blocks,
+                                  bps)
+            if rc is not None:
+                return rc
+        elif args.load_state:
+            try:
+                meta = checkpoint.restore(args.load_state, pipe)
+            except (ValueError, OSError) as e:
+                log.error("%s", e)
+                return 1
+            resume_byte, rc = _resume_byte(args, log, meta, "sample_offset", bps)
+            if rc is not None:
+                return rc
+            if args.input:
+                fin.seek(resume_byte)
+        with _stop_on_signal(bool(args.save_state)) as stop:
+            try:
+                counters = pipe.run(fin, fout, should_stop=lambda: stop["stop"])
+            except SGP4Error as e:
+                log.error("orbit propagation failed: %s (supply a current "
+                          "TLE, or --time near the TLE epoch)", e)
+                return 1
+
+    if args.save_state:
+        state_path = _host_path(args.save_state, host, ".h")
+        checkpoint.save(state_path, pipe)
+        log.info("checkpoint written to %s", state_path)
+    if stop["stop"]:
+        log.warning("stopped by signal after a consistent chunk boundary")
+        return 130
+
+    # report the INPUT rate (the reference's realtime contract is on the
+    # capture rate; with a resampler the output count is P/Q of it)
+    n_in = counters.bytes_in // bps
+    dt = counters.elapsed()
+    log.info(
+        "done: %d samples in, %d out in %.6f s (%.6f Msps in); host plan+"
+        "stage %.6f s, device span %.6f s",
+        n_in, counters.samples, dt, (n_in / dt if dt > 0 else 0.0) / 1e6,
+        pipe.host_s, pipe.device_s,
+    )
+    return 0
+
+
 def main(argv=None, stdin=None, stdout=None) -> int:
     import logging
 
+    from doppler_tpu_torch.parallel import distributed
     from doppler_tpu_torch.runtime.telemetry import setup_logger
 
     ap = build_parser()
@@ -435,87 +696,18 @@ def main(argv=None, stdin=None, stdout=None) -> int:
     except ValueError as e:
         log.error("%s", e)
         return 1
-
-    if args.mode == "channels":
-        return _main_channels(args, log, outtype, chunk_blocks, stdin)
-
-    scheduler = _make_scheduler(args, log, outtype)
-    if scheduler is None:
-        return 1
-
-    from doppler_tpu_torch.ops.resample import attach_resampler
-    from doppler_tpu_torch.orbit.sgp4 import SGP4Error
-    from doppler_tpu_torch.runtime import checkpoint
-    from doppler_tpu_torch.runtime.pipeline import Pipeline
-
+    host = (0, 1)
+    if args.distributed:
+        host, rc = _join(args, log)
+        if rc is not None:
+            return rc
     try:
-        pipe = Pipeline(
-            args.samplerate, args.intype, outtype, scheduler,
-            block_bytes=args.block_bytes,
-            chunk_blocks=chunk_blocks,
-            quantize_ratio_f32=not args.exact_ratio,
-            drain_on_eof=args.drain,
-            precision=args.precision,
-            device=args.device,
-        )
-        if args.resample_to is not None:
-            attach_resampler(pipe, args.resample_to,
-                             stages=args.resample_stages)
-    except (ValueError, RuntimeError) as e:
-        log.error("%s", e)
-        return 1
-    _log_device(log, pipe.device)
-
-    with contextlib.ExitStack() as files:
-        try:
-            fin = (files.enter_context(open(args.input, "rb")) if args.input
-                   else stdin or sys.stdin.buffer)
-            # resume appends: the bytes written before the cut are exactly
-            # consistent with the checkpoint, so the resumed run completes
-            # the file the uninterrupted run would have written
-            fout = (files.enter_context(
-                        open(args.output, "ab" if args.load_state else "wb"))
-                    if args.output else stdout or sys.stdout.buffer)
-        except OSError as e:
-            log.error("%s", e)
-            return 1
-        if args.load_state:
-            try:
-                meta = checkpoint.restore(args.load_state, pipe)
-            except (ValueError, OSError) as e:
-                log.error("%s", e)
-                return 1
-            resume_byte, rc = _resume_byte(args, log, meta, "sample_offset", bps)
-            if rc is not None:
-                return rc
-            if args.input:
-                fin.seek(resume_byte)
-        with _stop_on_signal(bool(args.save_state)) as stop:
-            try:
-                counters = pipe.run(fin, fout, should_stop=lambda: stop["stop"])
-            except SGP4Error as e:
-                log.error("orbit propagation failed: %s (supply a current "
-                          "TLE, or --time near the TLE epoch)", e)
-                return 1
-
-    if args.save_state:
-        checkpoint.save(args.save_state, pipe)
-        log.info("checkpoint written to %s", args.save_state)
-    if stop["stop"]:
-        log.warning("stopped by signal after a consistent chunk boundary")
-        return 130
-
-    # report the INPUT rate (the reference's realtime contract is on the
-    # capture rate; with a resampler the output count is P/Q of it)
-    n_in = counters.bytes_in // bps
-    dt = counters.elapsed()
-    log.info(
-        "done: %d samples in, %d out in %.6f s (%.6f Msps in); host plan+"
-        "stage %.6f s, device span %.6f s",
-        n_in, counters.samples, dt, (n_in / dt if dt > 0 else 0.0) / 1e6,
-        pipe.host_s, pipe.device_s,
-    )
-    return 0
+        if args.mode == "channels":
+            return _main_channels(args, log, outtype, chunk_blocks, stdin, host)
+        return _main_stream(args, log, outtype, chunk_blocks, stdin, stdout,
+                            host)
+    finally:
+        distributed.shutdown()
 
 
 if __name__ == "__main__":

@@ -17,6 +17,14 @@ the device runs one kernel per *chunk* of ``chunk_blocks`` reference blocks:
   kernel to float32 planes, then the resampler's ``process``;
 - no resampler → the mixer kernel alone.
 
+:meth:`Pipeline.seek_to_block` starts a fresh pipeline at a block of the
+stream without processing the blocks before it (the host split of
+``parallel.distributed``): it replays the scheduler and the plan words over
+the skipped blocks on the host, and rebuilds the FIR history from the raw
+history blocks before the seek point through the kernel the stream runs —
+a 1-block chain launch, a zero-prepadded cascade launch, or the mixer —
+so the carry is bitwise the one the uninterrupted run holds there.
+
 Dispatch never synchronises: the chunk is staged into pinned host memory,
 copied to the card with ``non_blocking=True``, the kernel launches, the
 device→host copy starts and an event is recorded.  :meth:`Pipeline._finalize`
@@ -37,7 +45,7 @@ import torch
 
 from doppler_tpu_torch.ops import codec
 from doppler_tpu_torch.ops.cuda import cascade, chain, mixer
-from doppler_tpu_torch.ops.nco import plan_tensor
+from doppler_tpu_torch.ops.nco import PLAN_FIELDS, plan_tensor
 from doppler_tpu_torch.ops.phase_plan import NCOState, plan_blocks
 from doppler_tpu_torch.runtime import stream as streaming
 from doppler_tpu_torch.runtime.telemetry import Counters
@@ -122,6 +130,8 @@ class Pipeline:
     IQ dtypes, and a :class:`Scheduler` supplying per-block shifts.
     ``block_bytes`` defaults to the reference's 8192 so track-mode schedules
     match the reference; ``chunk_blocks`` blocks form one device dispatch.
+    ``prefetch_chunks``: chunks a reader thread stages ahead of the
+    dispatch (``streaming.ChunkPrefetcher``; 0 = read in the loop).
     ``precision``: ``'exact'`` or ``'fast'``, as in the JAX package: 'fast'
     runs the fused single-stage chain's dot as ``split3``
     (``ops.cuda.chain``); the cascade, the mixer + resampler route of the
@@ -148,6 +158,7 @@ class Pipeline:
         chunk_blocks: int = 256,
         quantize_ratio_f32: bool = True,
         drain_on_eof: bool = False,
+        prefetch_chunks: int = 0,
         precision: str = "exact",
         device="cuda",
     ):
@@ -167,6 +178,7 @@ class Pipeline:
         self.quantize_ratio_f32 = quantize_ratio_f32
         self.drain_on_eof = drain_on_eof  # flush the FIR tail with zeros at EOF
         self._drained = False  # did THIS run reach EOF and flush the tail?
+        self.prefetch_chunks = int(prefetch_chunks)  # staged-read queue depth
         self.nco_state = NCOState()   # the stream's entire resumable DSP state
 
         self._bps_in = streaming.bytes_per_sample(intype)
@@ -301,6 +313,233 @@ class Pipeline:
             n_in = n_out
         self._sample_offset += total
         return n_in
+
+    # -- multi-host seek -----------------------------------------------------
+
+    def seek_history_blocks(self) -> int:
+        """Raw capture blocks :meth:`seek_to_block` needs as ``history``
+        (read them from just before the seek point).  1 for single-stage
+        resamplers; for cascades, enough blocks to cover the replay's
+        corrupt head + carry cone (heavy rates — e.g. config 5's
+        100 Msps → 48 ksps — need several reference blocks).
+
+        The count is the JAX package's, whose fused carries are whole
+        128-sample rows (:func:`carry_rows`); the port's flat ``(2, T−1)``
+        carries need fewer samples, but both packages then read the same
+        history bytes before a host's range."""
+        rs = self.resampler
+        if rs is None or rs.T <= 1:
+            return 0
+        if getattr(rs, "bank", None) is not None:
+            return 1
+        L = self.block_samples
+        if self._cascade_eligible(self.chunk_blocks * L):
+            return -(-(2 * (rs.T - 1) + self._cascade_cone()) // L)
+        return -(-(2 * (rs.T - 1)) // L)
+
+    def _cascade_cone(self) -> int:
+        """Input-referred samples of the longest stage carry: whole
+        128-sample rows for the fused stages, T−1 for the tail's."""
+        rs = self.resampler
+        return max(
+            (carry_rows(st.T) * 128 if i < self._cascade_k else st.T - 1)
+            * (self.samplerate // st.in_rate)
+            for i, st in enumerate(rs.stages)
+        )
+
+    def _stage_history(self, history: bytes, n_blocks: int, tail) -> tuple:
+        """The last ``tail.shape[1]`` history blocks, zero-prepadded to
+        ``n_blocks`` blocks, on the device: ``(data, plans)`` with the
+        padding blocks' plan words zero (they mix to zeros)."""
+        k_h = tail.shape[1]
+        pad = b"\0" * ((n_blocks - k_h) * self.block_bytes)
+        data = stage_chunk(pad + history[len(history) - k_h * self.block_bytes:],
+                           self.intype, n_blocks, self.block_samples,
+                           self.device)
+        fields = np.zeros((7, n_blocks), dtype=np.uint32)
+        fields[:, n_blocks - k_h:] = tail
+        return (data.to(self.device),
+                plan_tensor(list(fields), device=self.device))
+
+    def seek_to_block(self, n_blocks: int, history: bytes | None = None) -> None:
+        """Fast-forward a FRESH pipeline to block ``n_blocks`` without
+        processing the prefix — the multi-host "distribute = seek"
+        primitive (``parallel.distributed``).
+
+        Replays the scheduler and the exact NCO-counter emulation over the
+        skipped prefix (host work only), seeds the resampler's stream
+        counters from absolute-index arithmetic, and rebuilds its FIR
+        history by mixing ``history`` — the raw bytes of the
+        :meth:`seek_history_blocks` blocks ending at ``n_blocks``, read
+        straight from the shared capture — through the kernel the stream
+        runs.  A pipeline seeked this way emits exactly the bytes the
+        uninterrupted run emits from that block on.
+        """
+        if n_blocks < 0:
+            raise ValueError("n_blocks must be >= 0")
+        if self._sample_offset:
+            raise ValueError("seek_to_block needs a fresh pipeline")
+        L = self.block_samples
+        k_h = 0 if history is None else len(history) // self.block_bytes
+        # rolling per-block plan tail for the history replay (each history
+        # block needs its OWN plan words)
+        tail_fields = None
+        done = 0
+        while done < n_blocks:
+            n = min(self.chunk_blocks, n_blocks - done)
+            counts = [L] * n
+            shifts = list(self.scheduler.shifts(counts))
+            plan = plan_blocks(
+                shifts, counts, self.samplerate, self.nco_state, L,
+                quantize_f32=self.quantize_ratio_f32,
+            )
+            if k_h:
+                fields = np.stack([np.asarray(getattr(plan, f), dtype=np.uint32)
+                                   for f in PLAN_FIELDS])
+                tail_fields = (
+                    fields if tail_fields is None
+                    else np.concatenate([tail_fields, fields], axis=1)
+                )[:, -k_h:]
+            done += n
+        self._sample_offset = n_blocks * L
+        rs = self.resampler
+        if rs is None:
+            return
+        if getattr(rs, "bank", None) is None:
+            self._seek_cascade(n_blocks, history, tail_fields)
+            return
+        s_lo = n_blocks * L
+        rs.in_consumed = s_lo
+        rs.m_next = -(-s_lo * rs.P // rs.Q)
+        if rs.T <= 1 or n_blocks == 0:
+            return
+        h = rs.T - 1
+        if history is None or len(history) < self.block_bytes:
+            raise ValueError(
+                "seek with a resampler needs the raw bytes of the "
+                "preceding full block as history"
+            )
+        if h > L:
+            raise ValueError(
+                f"history of one block ({L} samples) is shorter than the "
+                f"resampler's {h}-sample FIR history")
+        # the single-stage path needs exactly one block — the last
+        data, plans = self._stage_history(history, 1, tail_fields[:, -1:])
+        if self._chain_eligible(self.chunk_blocks * L):
+            # replay through a 1-block call of the chain kernel with the
+            # stream's dot: its carry is the mixed history, bitwise the
+            # stream's
+            self._ensure_chain_state()
+            _, carry = chain.mix_resample_chain_stream(
+                data, plans, self._chain_bank, torch.zeros_like(self._chain_carry),
+                P=rs.P, Q=rs.Q, T=rs.T, intype=self.intype, outtype=self.outtype,
+                dot_precision=self._chain_dot,
+            )
+            self._chain_carry = carry
+            rs._hist_i, rs._hist_q = carry[0], carry[1]
+            return
+        # the mixer route: the kernel the stream's mixer + resampler chunks
+        # run, bitwise whatever the chunk width
+        mixed = mixer.mix_blocks_fmt(data, plans, intype=self.intype,
+                                     outtype="f32").reshape(2, L)
+        rs._hist_i, rs._hist_q = mixed[0, L - h:], mixed[1, L - h:]
+
+    def _seek_cascade(self, n_blocks: int, history: bytes | None,
+                      tail_fields) -> None:
+        """Cascade arm of :meth:`seek_to_block`: rebuild every stage's FIR
+        history from the raw history blocks (``tail_fields`` holds their
+        plan words, ``(7, k_h)``).
+
+        The replay starts each stage with zero history, so its first
+        ``rs.T − 1`` input-referred samples are corrupt; each stage's carry
+        depends only on the span's tail (its cone), so the history suffices
+        whenever the cone and the corrupt head do not overlap (checked).
+        The replay runs the program the stream runs: the fused cascade
+        kernel (its carries are bitwise whatever the chunk width), or the
+        mixer and the cascade's own ``process``.
+        """
+        rs = self.resampler
+        L = self.block_samples
+        n_in = n_blocks * L
+        counters = []
+        for st in rs.stages:
+            n_out = -(-n_in * st.P // st.Q)
+            counters.append((n_in, n_out))
+            n_in = n_out
+
+        def pin(stages, counts):
+            for st, (c_in, c_out) in zip(stages, counts):
+                st.in_consumed = c_in
+                st.m_next = c_out
+
+        if rs.T <= 1 or n_blocks == 0:
+            pin(rs.stages, counters)
+            return
+        if (history is None or len(history) < self.block_bytes
+                or len(history) % self.block_bytes):
+            raise ValueError(
+                "seek with a resampler needs whole raw capture blocks as "
+                "history (see seek_history_blocks)"
+            )
+        k_h = min(len(history) // self.block_bytes, tail_fields.shape[1])
+        tail = tail_fields[:, -k_h:]
+        if self._cascade_eligible(self.chunk_blocks * L):
+            # the zero-history corrupt head plus every stage's carry cone
+            # must fit inside the replayed real blocks
+            need = 2 * (rs.T - 1) + self._cascade_cone()
+            if k_h * L < need:
+                raise ValueError(
+                    f"history ({k_h} blocks = {k_h * L} samples) too short "
+                    f"to reconstruct the cascade's state (needs ≥ "
+                    f"{need}; see seek_history_blocks)"
+                )
+            self._ensure_cascade_state()
+            # zero-prepad to the fewest blocks the kernel takes, the real
+            # blocks last: zero blocks with zero plan words mix to zeros, so
+            # each carry (inside the real span by the cone bound) is bitwise
+            # what the stream held entering block n_blocks
+            stages = self._cascade_stages
+            B_r = k_h
+            while cascade.chunk_out_count(stages, B_r, L) is None:
+                B_r += 1
+            data, plans = self._stage_history(history, B_r, tail)
+            k = self._cascade_k
+            split = k < len(rs.stages)
+            out, carries = cascade.mix_cascade_stream(
+                data, plans, self._cascade_banks,
+                tuple(torch.zeros_like(c) for c in self._cascade_carries),
+                stages=stages, intype=self.intype,
+                outtype="f32" if split else self.outtype, final_dense=split,
+            )
+            self._cascade_carries = carries
+            for st, carry in zip(rs.stages, carries):
+                st._hist_i, st._hist_q = carry[0], carry[1]
+            pin(rs.stages[:k], counters)
+            if split:
+                # the tail stages: the real blocks' front planes through the
+                # stream's own ``process`` leave each tail stage holding the
+                # stream's FIR history; then pin the absolute counters
+                planes = out.reshape(2, B_r, -1)[:, B_r - k_h:]
+                yi, yq = planes[0].reshape(-1), planes[1].reshape(-1)
+                n_val = int(yi.shape[-1])
+                for st in rs.stages[k:]:
+                    yi, yq, n_val = st.process(
+                        yi, yq, n_val, M=st.max_out_for(int(yi.shape[-1])))
+                pin(rs.stages[k:], counters[k:])
+            return
+        # unfused: each stage only needs its T−1 input-referred history
+        # past the corrupt head — no 128-row carry padding
+        if k_h * L < 2 * (rs.T - 1):
+            raise ValueError(
+                f"history ({k_h} blocks = {k_h * L} samples) too short to "
+                f"reconstruct the cascade's state (needs ≥ "
+                f"{2 * (rs.T - 1)}; see seek_history_blocks)"
+            )
+        data, plans = self._stage_history(history, k_h, tail)
+        mixed = mixer.mix_blocks_fmt(data, plans, intype=self.intype,
+                                     outtype="f32").reshape(2, -1)
+        rs.process(mixed[0], mixed[1], k_h * L)
+        pin(rs.stages, counters)
 
     # -- staging ------------------------------------------------------------
 
@@ -437,6 +676,9 @@ class Pipeline:
         later ``run`` on the rest of the stream continues it exactly.
         """
         reader = streaming.BlockReader(fin, self.block_bytes)
+        if self.prefetch_chunks > 0:
+            reader = streaming.ChunkPrefetcher(
+                reader, self.chunk_blocks, depth=self.prefetch_chunks)
         counters = Counters()
 
         def emit(pending, bytes_in, blocks):

@@ -473,12 +473,18 @@ def test_cli_bad_config_is_rc_1(tmp_path, body):
 
 def test_cli_channels_rejects_unported_flags(tmp_path):
     (tmp_path / "c.json").write_text('{"channels": [{"name": "x", "shift": 1}]}')
-    for extra in (["--mesh", "channel=2"], ["--host-channels", "2"],
-                  ["--impl", "pallas"], ["--prefetch-chunks", "2"],
-                  ["--distributed", "coordinator=h:1,num_processes=2,process_id=0"]):
-        assert cli.main(["channels", "-s", str(FS), "-i", "i16", "--config",
-                         str(tmp_path / "c.json"), "--device", "cpu"] + extra,
-                        stdin=io.BytesIO(b"")) == 2
+    base = ["channels", "-s", str(FS), "-i", "i16", "--config",
+            str(tmp_path / "c.json"), "--device", "cpu"]
+    for extra in (["--mesh", "channel=2"], ["--impl", "pallas"]):
+        assert cli.main(base + extra, stdin=io.BytesIO(b"")) == 2
+    # the host split's flags are ported (tests/test_torch_distributed.py);
+    # a split run needs --input, checked before joining the group
+    args = cli.build_parser().parse_args(
+        base + ["--host-channels", "2", "--prefetch-chunks", "2"])
+    assert (args.host_channels, args.prefetch_chunks) == (2, 2)
+    assert cli.main(base + ["--distributed",
+                            "coordinator=h:1,num_processes=2,process_id=0"],
+                    stdin=io.BytesIO(b"")) == 1
     assert cli.main(["channels", "-s", str(FS), "-i", "i16", "--device", "cpu"],
                     stdin=io.BytesIO(b"")) == 2          # --config is required
 

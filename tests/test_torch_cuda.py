@@ -1152,3 +1152,60 @@ def test_cascade_fast_nan_reach(card, dot):
                         .flatten().tolist())
     band = geometry.cascade_fast_nan_reach(stages, lay.columns, B * L, at)
     assert nan(want) and nan(want) <= nan(got) <= band
+
+
+# -- seek: the host split's replay ------------------------------------------
+
+SEEK_ROUTES = {   # fs, stages, precision, chunk_blocks, block_bytes, wrapper, count
+    "chain": (FS, "single", "exact", 16, 8192, mix_resample_chain_stream, "launches"),
+    "chain-fast": (FS, "single", "fast", 16, 8192, mix_resample_chain_stream,
+                   "launches_fast"),
+    "cascade": (FS, "multi", "exact", 16, 8192, mix_cascade_stream, "launches"),
+    "split": (100_000_000, "multi", "exact", 32, 8192, mix_cascade_stream,
+              "launches"),
+    "mixer": (FS, "single", "exact", 16, 8000, mix_blocks_fmt, "launches"),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", list(SEEK_ROUTES))
+def test_seek_on_card_is_bitwise_the_uninterrupted_run(card, route):
+    """A pipeline seeked to block k on the card: its replay launches the
+    stream's kernel once (a 1-block chain, a zero-prepadded cascade, the
+    mixer where nothing fuses), its FIR state is bitwise the state the
+    stream holds at block k, and its bytes from k on are the uninterrupted
+    run's."""
+    fs, stages, precision, cb, bb, wrapper, count = SEEK_ROUTES[route]
+
+    def make():
+        p = Pipeline(fs, "i16", "i16", ConstScheduler(1e6 if fs > FS else -15000.0),
+                     chunk_blocks=cb, block_bytes=bb, precision=precision,
+                     device="cuda")
+        attach_resampler(p, 48000, stages=stages)
+        return p
+
+    def run(p, raw):
+        out = io.BytesIO()
+        p.run(io.BytesIO(raw), out)
+        return out.getvalue()
+
+    rng = np.random.default_rng(91)
+    k = 2 * cb
+    raw = rng.integers(-9000, 9000, size=2 * (bb // 4) * (3 * cb) + 400,
+                       dtype=np.int16).tobytes()
+    whole_p = make()
+    n_hist = whole_p.seek_history_blocks()
+    whole = run(whole_p, raw)
+    prefix_p = make()
+    prefix = run(prefix_p, raw[:k * bb])
+    seeked = make()
+    before = getattr(wrapper, count)
+    seeked.seek_to_block(k, history=raw[(k - n_hist) * bb:k * bb])
+    assert getattr(wrapper, count) == before + 1
+    rs_a, rs_b = seeked.resampler, prefix_p.resampler
+    for a, b in zip(getattr(rs_a, "stages", [rs_a]), getattr(rs_b, "stages", [rs_b]),
+                    strict=True):
+        assert (a.m_next, a.in_consumed) == (b.m_next, b.in_consumed)
+        assert torch.equal(a._hist_i, b._hist_i) and torch.equal(a._hist_q, b._hist_q)
+    suffix = run(seeked, raw[k * bb:])
+    assert prefix + suffix == whole and suffix

@@ -262,20 +262,26 @@ def test_cuda_device_raises_without_card(monkeypatch):
 
 
 def test_cli_rejects_unported_flags():
-    for extra in (["--mesh", "time=2"],
-                  ["--prefetch-chunks", "2"], ["--resample-impl", "conv"],
-                  ["--impl", "pallas"], ["--host-channels", "2"],
-                  ["--distributed", "coordinator=h:1,num_processes=2,process_id=0"]):
+    for extra in (["--mesh", "time=2"], ["--resample-impl", "conv"],
+                  ["--impl", "pallas"]):
         assert cli.main(["const", "-s", "256000", "-i", "i16", "--shift", "1",
                          "--device", "cpu"] + extra,
                         stdin=io.BytesIO(b""), stdout=io.BytesIO()) == 2
+    # the host split's flags are ported (tests/test_torch_distributed.py)
+    args = cli.build_parser().parse_args(
+        ["const", "-s", "256000", "-i", "i16", "--shift", "1",
+         "--prefetch-chunks", "2", "--host-channels", "2", "--distributed",
+         "coordinator=h:1,num_processes=2,process_id=0"])
+    assert (args.prefetch_chunks, args.host_channels, args.distributed) == (
+        2, 2, "coordinator=h:1,num_processes=2,process_id=0")
 
 
 def test_port_imports_no_jax():
     code = ("import sys, doppler_tpu_torch.cli, doppler_tpu_torch.runtime.pipeline, "
             "doppler_tpu_torch.convert, doppler_tpu_torch.ops.cuda.chain, "
             "doppler_tpu_torch.ops.cuda.cascade, doppler_tpu_torch.ops.multistage, "
-            "doppler_tpu_torch.runtime.channels, doppler_tpu_torch.runtime.checkpoint; "
+            "doppler_tpu_torch.runtime.channels, doppler_tpu_torch.runtime.checkpoint, "
+            "doppler_tpu_torch.parallel.distributed; "
             "assert 'jax' not in sys.modules and 'doppler_tpu' not in sys.modules")
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True,
                    timeout=120)
