@@ -104,6 +104,21 @@ Phases (each prints one line or a few; any failure exits non-zero):
              parts (the channel files) against the one-process bytes, the
              walls of both and of (i) in one fresh process;
              ``--prefetch-chunks 2`` against (i)'s bytes.
+5d. mesh  — ``--mesh`` on this card, every shard on cuda:0
+             (``make_mesh(devices=[cuda:0] × n)``), the pipelines built as
+             the CLI builds them, in process: config 3's default route
+             (cascade) and ``--resample-stages single`` (chain) at time=4,
+             config 1 (f32 → i16, mix only) at time=4, the 100 Msps split
+             route at time=2, config 4 (16 track channels) and config 5's
+             rate × 256 channels at time=2 × channel=2, on the captures of
+             phase 5; each against the unsharded bytes (phase 5's CLI run
+             where there is one, and an unsharded in-process run, whose
+             wall is printed beside the mesh's), and each full chunk's
+             launches: one a shard plus one replay for every time shard
+             k > 0 (chain, cascade), one a shard (mixer).  Then the CLI
+             with ``--mesh time=1`` (slice (i)'s bytes) and with one shard
+             more than the machine has cards (exit 1, "need N devices,
+             have M").
 5b. conformance — ``doppler_tpu_torch.tools.conformance --device cuda``:
              the five BASELINE configs through ``python -m doppler_tpu_torch``
              subprocesses on the card against the golden model, > 60 dB each.
@@ -133,7 +148,9 @@ Phases (each prints one line or a few; any failure exits non-zero):
 
 The kernels' JSON record takes the mixer's and the cascade's launch counts
 from slice (i) (their seek replays' as ``launches_seek``, with the
-chain's and the fast chain's, from phase 5c), the chain's from slice
+chain's and the fast chain's, from phase 5c; the mesh runs' of phase 5d
+as ``launches_mesh``, with the chain's and the channel cascade's), the
+chain's from slice
 (iii), the channel cascade's from
 (iv), the channel chain's from (v), the fast kernel's from (iii-fast) and
 (v-fast), and the Q15 mixer's, the probes', the one-pass chain's and the
@@ -1399,7 +1416,8 @@ def phase_slices(torch, card):
         ms = MultiStageResampler(FS, OUT_RATE)
         snr = _check_slice("default", out, N_SLICE, ms.out_count_for(N_SLICE),
                            launches, "cascade", _golden(mixed, ms.stages))
-        res["default"] = dict(split, launches=launches, snr_db=snr)
+        res["default"] = dict(split, launches=launches, snr_db=snr, raw=raw,
+                              out=out)
         # --precision fast leaves the cascade exact: the same bytes
         out_fast, launches, _, split = _run_slice(
             "default-fast", track + ["--precision", "fast"], raw, card)
@@ -1417,7 +1435,8 @@ def phase_slices(torch, card):
         ms5 = MultiStageResampler(FS_SPLIT, OUT_RATE)
         snr = _check_slice("split", out, N_SPLIT, ms5.out_count_for(N_SPLIT),
                            launches, "cascade", _golden(mixed5, ms5.stages))
-        res["split"] = dict(split, launches=launches, snr_db=snr)
+        res["split"] = dict(split, launches=launches, snr_db=snr, raw=raw5,
+                            out=out)
 
         # (iii) the single-stage chain, on the capture of (i)
         out, launches, _, split = _run_slice(
@@ -1426,7 +1445,7 @@ def phase_slices(torch, card):
         golden = _golden(mixed, [rs])
         snr = _check_slice("chain", out, N_SLICE, -(-N_SLICE * 3 // 64),
                            launches, "chain", golden)
-        res["chain"] = dict(split, launches=launches, snr_db=snr)
+        res["chain"] = dict(split, launches=launches, snr_db=snr, out=out)
 
         # (iii-fast) the same with --precision fast: the fast kernel, held
         # to (iii)'s golden and within 1 LSB of (iii)'s bytes
@@ -1613,7 +1632,8 @@ def phase_channel_slices(torch, card):
             _launches(cascade_channels=full(N_SLICE), mixer_channels=1),
             [(c, "plan-word", _golden(mixed4[c], ms.stages)) for c in checked]
             + [(mid, "sequential", _golden(seq["config 4", mid], ms.stages))])
-        res["config4"] = dict(split, launches=launches, snr_db=snr)
+        res["config4"] = dict(split, launches=launches, snr_db=snr, raw=raw4,
+                              outs=outs)
 
         # (v) its first 10 s through the single-stage chain
         rs = RationalResampler(FS, OUT_RATE)
@@ -1671,7 +1691,8 @@ def phase_channel_slices(torch, card):
             _launches(cascade_channels=full(N_WIDE), mixer_channels=1),
             [(c, "plan-word", _golden(mixed5[c], ms5.stages)) for c in checked5]
             + [(mid5, "sequential", _golden(seq["config 5", mid5], ms5.stages))])
-        res["config5"] = dict(split, launches=launches, snr_db=snr)
+        res["config5"] = dict(split, launches=launches, snr_db=snr, raw=raw5,
+                              outs=outs)
     return res
 
 
@@ -2371,6 +2392,180 @@ def phase_distributed(torch, card):
     return seek
 
 
+N_MESH_C1 = 1_280_000 + 300       # config 1 under the mesh: 5 s at 256 ksps f32
+FS_C1 = 256000
+
+
+def _mesh_run(torch, name, make, feed, mesh, card):
+    """One in-process run of the pipeline ``make(mesh)`` builds over
+    ``feed(pipe)``, with every launch count set to 0 just before and read
+    just after; returns (bytes or per-channel bytes, launches, wall s)."""
+    pipe = make(mesh)
+    _zero_counts(_counters())
+    t0 = time.perf_counter()
+    out = feed(pipe)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: v for k, v in _read_counts(_counters()).items() if v}
+    what = "unsharded" if mesh is None else f"mesh {mesh.shape}"
+    print(f"mesh: {name} {what}: wall {wall!r} s, device span "
+          f"{pipe.device_s!r} s, launches {launches} [{card}]")
+    return out, launches, wall
+
+
+def phase_mesh(torch, card, slices):
+    """``--mesh`` on this card: every shard of a mesh on cuda:0
+    (``make_mesh(devices=[cuda:0] × n)``), the pipelines built as the CLI
+    builds them, on the captures of the slice phases: config 3's
+    default route (cascade) and ``--resample-stages single`` (chain) at
+    time=4, config 1 (f32 → i16 at 256 ksps, mix only) at time=4, the
+    100 Msps split route at time=2, config 4 (16 track channels, channel
+    cascade) and config 5's rate × 256 channels at time=2 × channel=2.
+    Each run's bytes against the unsharded bytes (the CLI's of phase 5 where
+    it ran the route, and an unsharded in-process run timed beside it), and
+    each full chunk's launches: one a shard plus one replay for every time
+    shard k > 0 (chain, cascade), one a shard (mixer).  Then the CLI with
+    ``--mesh time=1`` (the bytes of slice (i)) and with one shard more than
+    the machine has cards (exit 1, the JAX message)."""
+    import numpy as np
+
+    from doppler_tpu_torch import cli
+    from doppler_tpu_torch.ops.resample import attach_resampler
+    from doppler_tpu_torch.orbit import make_track_scheduler
+    from doppler_tpu_torch.parallel.mesh import make_mesh
+    from doppler_tpu_torch.runtime.channels import (
+        MultiChannelPipeline,
+        load_channel_config,
+    )
+    from doppler_tpu_torch.runtime.pipeline import ConstScheduler, Pipeline
+
+    on_card = lambda n: make_mesh(time=n, devices=["cuda:0"] * n)      # noqa: E731
+    grid = make_mesh(time=2, channel=2, devices=["cuda:0"] * 4)
+    raw, raw5 = slices["default"]["raw"], slices["split"]["raw"]
+    rng = np.random.default_rng(12)
+    raw1 = (0.3 * rng.standard_normal(2 * N_MESH_C1)).astype("<f4").tobytes()
+    launches_mesh, walls = {}, {}
+
+    def stream(fs, sched, stages=None, intype="i16"):
+        def make(mesh):
+            p = Pipeline(fs, intype, "i16", sched(), device="cuda", mesh=mesh)
+            if stages:
+                attach_resampler(p, OUT_RATE, stages=stages)
+            return p
+        return make
+
+    def feed_stream(data):
+        def feed(pipe):
+            sink = _Sink()
+            pipe.run(io.BytesIO(data), sink)
+            return b"".join(sink.parts)
+        return feed
+
+    def check_run(name, make, feed, mesh, want, kernel, per_chunk, n_full, extra):
+        plain, _, wall_plain = _mesh_run(torch, name, make, feed, None, card)
+        got, launches, wall = _mesh_run(torch, name, make, feed, mesh, card)
+        same = got == plain and (want is None or got == want)
+        print(f"mesh: {name}: bytes equal to the unsharded run's={same}; wall "
+              f"{wall!r} s against {wall_plain!r} s unsharded [{card}]")
+        check(same and len(plain) > 0, f"mesh {name}: the bytes differ")
+        want_launches = dict({kernel: per_chunk * n_full}, **extra)
+        check(launches == want_launches,
+              f"mesh {name}: launches {launches}, want {want_launches}")
+        for k, v in launches.items():
+            launches_mesh[k] = launches_mesh.get(k, 0) + v
+        walls[name] = (wall, wall_plain)
+
+    full = lambda n, L=2048: n // (B_MAIN * L)          # noqa: E731
+    with tempfile.TemporaryDirectory() as tmp:
+        tle_path = os.path.join(tmp, "sat.txt")
+        with open(tle_path, "w") as f:
+            f.write("TEST SAT\n" + "\n".join(_tle_lines()) + "\n")
+        lat, lon, alt = cli.parse_location(LOCATION)
+
+        def track():
+            return make_track_scheduler(
+                tlefile=tle_path, tlename="TEST SAT", lat=lat, lon=lon, alt=alt,
+                frequency_hz=FREQ, offset_hz=OFFSET, samplerate=FS,
+                start_time=START_UNIX)
+
+        check_run("config 3 default route (cascade), time=4",
+                  stream(FS, track, "auto"), feed_stream(raw), on_card(4),
+                  slices["default"]["out"], "cascade", 4 + 3, full(N_SLICE),
+                  {"mixer": 1})
+        check_run("config 3 single-stage (chain), time=4",
+                  stream(FS, track, "single"), feed_stream(raw), on_card(4),
+                  slices["chain"]["out"], "chain", 4 + 3, full(N_SLICE),
+                  {"mixer": 1})
+        n_chunks1 = -(-N_MESH_C1 // (B_MAIN * 1024))
+        check_run("config 1 mix only (f32 -> i16), time=4",
+                  stream(FS_C1, lambda: ConstScheduler(-15000.0), intype="f32"),
+                  feed_stream(raw1), on_card(4), None, "mixer", 4, n_chunks1, {})
+        check_run("100 Msps split route, time=2",
+                  stream(FS_SPLIT, lambda: ConstScheduler(OFFSET), "auto"),
+                  feed_stream(raw5), on_card(2), slices["split"]["out"],
+                  "cascade", 2 + 1, full(N_SPLIT), {"mixer": 1})
+
+        def channels(fs, cfg):
+            cfg_path = os.path.join(tmp, f"mesh{len(cfg['channels'])}.json")
+            with open(cfg_path, "w") as f:
+                json.dump(cfg, f)
+
+            def make(mesh):
+                specs, _ = load_channel_config(cfg_path, fs)
+                return MultiChannelPipeline(fs, "i16", "i16", specs,
+                                            out_rate=OUT_RATE,
+                                            chunk_blocks=B_MAIN,
+                                            resample_stages="auto",
+                                            device="cuda", mesh=mesh)
+            return make
+
+        def feed_channels(data):
+            def feed(mp):
+                sinks = [_Sink() for _ in mp.channels]
+                mp.run(io.BytesIO(data), sinks)
+                return [b"".join(s.parts) for s in sinks]
+            return feed
+
+        start = time.strftime("%Y-%m-%dT%H:%M:%S", time.gmtime(START_UNIX))
+        cfg4 = dict(tlefile=tle_path, location=LOCATION, time=start,
+                    channels=_config4_channels())
+        check_run("config 4, 16 channels (channel cascade), time=2 x channel=2",
+                  channels(FS, cfg4), feed_channels(slices["config4"]["raw"]),
+                  grid, slices["config4"]["outs"], "cascade_channels", 4 + 2,
+                  full(N_SLICE), {"mixer_channels": 1})
+        check_run("config 5 rate x 256 channels, time=2 x channel=2",
+                  channels(FS_SPLIT, dict(channels=_config5_channels())),
+                  feed_channels(slices["config5"]["raw"]), grid,
+                  slices["config5"]["outs"], "cascade_channels", 4 + 2,
+                  full(N_WIDE), {"mixer_channels": 1})
+
+        # the CLI: --mesh time=1 on the card is slice (i); one shard more
+        # than the machine's cards exits 1 with the JAX package's message
+        argv = ["track", "-s", str(FS), "-i", "i16", "--tlefile", tle_path,
+                "--tlename", "TEST SAT", "--location", LOCATION,
+                "--frequency", str(int(FREQ)), "--offset", str(int(OFFSET)),
+                "--time", start, "--resample-to", str(OUT_RATE)]
+        out, launches, msgs, _ = _run_slice("mesh-cli", argv + ["--mesh", "time=1"],
+                                            raw, card)
+        check(out == slices["default"]["out"]
+              and any(m == "device mesh: time=1 channel=1" for m in msgs),
+              "mesh-cli: --mesh time=1 is not slice (i)")
+        n = torch.cuda.device_count()
+        logger = logging.getLogger("doppler_tpu_torch")
+        for h in list(logger.handlers):
+            logger.removeHandler(h)
+        log = io.StringIO()
+        with contextlib.redirect_stderr(log):
+            rc = cli.main(argv + ["--mesh", f"time={n + 1}", "--device", "cuda"],
+                          stdin=io.BytesIO(b""), stdout=_Sink())
+        want_msg = f"need {n + 1} devices, have {n}"
+        print(f"mesh: the CLI with --mesh time={n + 1} on {n} card(s): rc {rc}, "
+              f"{want_msg!r} logged={want_msg in log.getvalue()}")
+        check(rc == 1 and want_msg in log.getvalue(),
+              f"--mesh time={n + 1}: rc {rc}, log {log.getvalue()[-300:]!r}")
+    return launches_mesh, walls
+
+
 def phase_conformance():
     """The five BASELINE configs through ``python -m doppler_tpu_torch
     --device cuda`` subprocesses against the golden model."""
@@ -2480,6 +2675,7 @@ def main() -> int:
         slices = timed(phase_slices, torch, card)
         slices.update(timed(phase_channel_slices, torch, card))
         seek = timed(phase_distributed, torch, card)
+        mesh_launches, _ = timed(phase_mesh, torch, card, slices)
         timed(phase_conformance)
         times = timed(phase_timing, torch, gen, card)
         times.update(timed(phase_timing_channels, torch, gen, card))
@@ -2522,13 +2718,16 @@ def main() -> int:
         entry("mixer", "mixer.cu", "doppler_tpu/ops/pallas/mixer.py:227",
               default["mixer"], mix_err,
               launches_channels=slices["config4-mix"]["launches"]["mixer_channels"],
-              launches_seek=seek["mixer"]["mixer"]),
+              launches_seek=seek["mixer"]["mixer"],
+              launches_mesh=mesh_launches["mixer"]),
         entry("chain", "chain.cu", "doppler_tpu/ops/pallas/chain.py:404",
               slices["chain"]["launches"]["chain"], chain_err,
-              launches_seek=seek["chain"]["chain"]),
+              launches_seek=seek["chain"]["chain"],
+              launches_mesh=mesh_launches["chain"]),
         entry("cascade", "cascade.cu", "doppler_tpu/ops/pallas/chain.py:960",
               default["cascade"], cascade_err,
-              launches_seek=seek["default"]["cascade"] + seek["split"]["cascade"]),
+              launches_seek=seek["default"]["cascade"] + seek["split"]["cascade"],
+              launches_mesh=mesh_launches["cascade"]),
         entry("chain_channels", "chain.cu", "doppler_tpu/ops/pallas/chain.py:556",
               slices["config4-chain"]["launches"]["chain_channels"],
               channel_err["chain"]),
@@ -2542,7 +2741,8 @@ def main() -> int:
               fast_err["channels"], branch="dot_precision='split3'"),
         entry("cascade_channels", "cascade.cu",
               "doppler_tpu/ops/pallas/chain.py:1078",
-              config4["cascade_channels"], channel_err["cascade"]),
+              config4["cascade_channels"], channel_err["cascade"],
+              launches_mesh=mesh_launches["cascade_channels"]),
         # the branches no CLI path reaches (the JAX CLI's cascades pass
         # 'highest'): their launches are the tools' path's, phase 6b
         entry("chain_fast_default", "chain_fast.cu",

@@ -25,12 +25,15 @@ Flag-compatible with ``doppler_tpu/cli.py`` for what this package runs:
   ``FILE.partK`` and checkpoints ``PATH.hK``),
   ``--precision {exact,fast}`` (default ``exact``; ``fast`` runs the
   single-stage chain's FIR dot, stream and channel-batched, on bf16 tensor
-  cores as three exact products a tap, within 1 LSB of ``exact``; cascades
-  and the EOF chunk stay exact), and ``--device {cuda,cpu}`` (default
-  ``cuda``; no silent CPU fallback).
+  cores as three exact products a tap, within 1 LSB of ``exact``; cascades,
+  the EOF chunk and ``--mesh`` stay exact), ``--mesh SPEC`` (``time=T`` or
+  ``time=T,channel=C``, channel > 1 only in channels mode: each chunk is
+  sharded over a grid of the local cards, ``parallel.mesh``; the bytes are
+  the unsharded run's) and ``--device {cuda,cpu}`` (default ``cuda``; no
+  silent CPU fallback; with ``cpu`` every shard of a mesh is the CPU).
 
-The JAX package's ``--mesh``, ``--impl`` and ``--resample-impl`` are not
-ported; their flags do not exist here.
+The JAX package's ``--impl`` and ``--resample-impl`` are not ported; their
+flags do not exist here.
 
 IQ bytes flow stdin → stdout; telemetry goes to stderr only (main.rs:212-233).
 """
@@ -45,7 +48,7 @@ import signal
 import sys
 import time as _time
 
-__all__ = ["main", "build_parser", "parse_location"]
+__all__ = ["main", "build_parser", "parse_location", "parse_mesh"]
 
 
 def stream_bps(dtype: str) -> int:
@@ -81,6 +84,26 @@ def parse_location(text: str):
             "[use as: lat=58.64560,lon=23.15163,alt=8]"
         )
     return vals["lat"], vals["lon"], vals["alt"]
+
+
+def parse_mesh(text: str) -> tuple[int, int]:
+    """``time=2,channel=4`` → (time, channel); either key may be omitted."""
+    vals = {"time": 1, "channel": 1}
+    for part in text.split(","):
+        key, _, raw = part.partition("=")
+        key = key.strip()
+        if key not in vals:
+            raise ValueError(
+                f"{text!r} isn't a valid value for --mesh "
+                "[use as: time=2,channel=4]"
+            )
+        try:
+            vals[key] = int(raw)
+        except ValueError:
+            raise ValueError(f"--mesh {key} must be an integer") from None
+    if vals["time"] < 1 or vals["channel"] < 1:
+        raise ValueError("--mesh axes must be >= 1")
+    return vals["time"], vals["channel"]
 
 
 def parse_time_utc(text: str) -> float:
@@ -136,6 +159,11 @@ def _add_io_args(p: argparse.ArgumentParser) -> None:
                    help="stderr telemetry format")
     p.add_argument("--log-level", default="info",
                    choices=["debug", "info", "warning", "error"])
+    p.add_argument("--mesh", default=None, metavar="SPEC",
+                   help="shard every chunk over a device mesh of the local "
+                        "cards, e.g. 'time=4' or 'time=2,channel=4' "
+                        "(channel>1 only in channels mode); emitted bytes "
+                        "are identical to the unsharded run")
     p.add_argument("--input", metavar="FILE", default=None,
                    help="read IQ from a seekable file instead of stdin "
                         "(required with --distributed)")
@@ -455,8 +483,30 @@ def _host_range(args, log, pipe, fin, host, chunk_blocks: int, bps: int):
     return ByteRangeReader(fin, lo, hi), None
 
 
+def _make_mesh(args, log):
+    """``--mesh``: the ``(ok, mesh)`` of the spec on ``--device``'s local
+    devices; ``ok`` is False after logging the error."""
+    if not args.mesh:
+        return True, None
+    from doppler_tpu_torch.parallel.mesh import make_mesh
+
+    try:
+        mesh_time, mesh_channel = parse_mesh(args.mesh)
+        if mesh_channel > 1 and args.mode != "channels":
+            raise ValueError(
+                "--mesh channel>1 needs channels mode "
+                "(a single stream has one channel)")
+        mesh = make_mesh(time=mesh_time, channel=mesh_channel,
+                         device=args.device)
+    except ValueError as e:
+        log.error("%s", e)
+        return False, None
+    log.info("device mesh: time=%d channel=%d", mesh_time, mesh_channel)
+    return True, mesh
+
+
 def _main_channels(args, log, outtype: str, chunk_blocks: int, stdin,
-                   host) -> int:
+                   host, mesh) -> int:
     """The ``channels`` arm: N channels of one wideband capture into
     ``--output-dir/<name>.iq``; under ``--distributed`` each host takes its
     slice of the channels."""
@@ -509,6 +559,7 @@ def _main_channels(args, log, outtype: str, chunk_blocks: int, stdin,
             resample_stages=args.resample_stages,
             precision=args.precision,
             device=args.device,
+            mesh=mesh,
         )
     except (ValueError, RuntimeError) as e:
         log.error("%s", e)
@@ -575,7 +626,7 @@ def _main_channels(args, log, outtype: str, chunk_blocks: int, stdin,
 
 
 def _main_stream(args, log, outtype: str, chunk_blocks: int, stdin, stdout,
-                 host) -> int:
+                 host, mesh) -> int:
     """The ``const`` and ``track`` arms: one stream; under
     ``--distributed`` each host takes its byte range of ``--input``."""
     bps = stream_bps(args.intype)
@@ -598,6 +649,7 @@ def _main_stream(args, log, outtype: str, chunk_blocks: int, stdin, stdout,
             prefetch_chunks=args.prefetch_chunks,
             precision=args.precision,
             device=args.device,
+            mesh=mesh,
         )
         if args.resample_to is not None:
             attach_resampler(pipe, args.resample_to,
@@ -696,6 +748,11 @@ def main(argv=None, stdin=None, stdout=None) -> int:
     except ValueError as e:
         log.error("%s", e)
         return 1
+    # the mesh is process-local (each host shards its own range over its
+    # own cards) and is checked before a --distributed rendezvous
+    ok, mesh = _make_mesh(args, log)
+    if not ok:
+        return 1
     host = (0, 1)
     if args.distributed:
         host, rc = _join(args, log)
@@ -703,9 +760,10 @@ def main(argv=None, stdin=None, stdout=None) -> int:
             return rc
     try:
         if args.mode == "channels":
-            return _main_channels(args, log, outtype, chunk_blocks, stdin, host)
+            return _main_channels(args, log, outtype, chunk_blocks, stdin,
+                                  host, mesh)
         return _main_stream(args, log, outtype, chunk_blocks, stdin, stdout,
-                            host)
+                            host, mesh)
     finally:
         distributed.shutdown()
 

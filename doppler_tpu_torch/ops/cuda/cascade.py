@@ -65,7 +65,8 @@ from doppler_tpu_torch.ops.precision import PASSES, check_precision
 from doppler_tpu_torch.ops.resample import window_dot
 
 __all__ = ["mix_cascade_stream", "mix_cascade_plain", "mix_cascade_channels",
-           "mix_cascade_channels_plain", "split_point", "chunk_out_count"]
+           "mix_cascade_channels_plain", "split_point", "chunk_out_count",
+           "carry_rows", "cascade_replay_need", "widen_replay_span"]
 
 _MAX_STAGES = geometry.MAX_STAGES    # the kernel's per-stage argument slots
 
@@ -101,6 +102,47 @@ def chunk_out_count(stages, B: int, L: int) -> int | None:
             return None
         n = n // Q * P
     return n if n % B == 0 else None
+
+
+def carry_rows(T: int) -> int:
+    """Whole 128-sample rows of the TPU chain's FIR history."""
+    return -(-max(T - 1, 1) // 128)
+
+
+def cascade_replay_need(stages, in_rate: int, fused: int | None = None) -> int:
+    """Input-referred samples a replay from zero carries needs to rebuild
+    every stage's FIR history of ``stages`` bitwise
+    (``doppler_tpu/ops/pallas/chain.py:927``): the zero-history corrupt
+    head, ``2·(T−1)`` with T the input-referred span of ``stages``, plus
+    the deepest stage's cone, in whole 128-sample rows
+    (:func:`carry_rows`) for the first ``fused`` stages (all by default)
+    and ``T_s − 1`` for the rest.
+
+    The mesh replays the fused stages (``fused`` = all of ``stages[:k]``,
+    the JAX function); the seek replays the whole cascade with its tail
+    (``fused = k``), which is ``Pipeline.seek_history_blocks``' count.
+    The rows are the TPU's carry geometry: the port's carries are flat
+    ``(2, T−1)``, but both packages then replay the same blocks."""
+    fused = len(stages) if fused is None else fused
+    t = 1 + sum((st.T - 1) * (in_rate // st.in_rate) for st in stages)
+    cone = max(
+        (carry_rows(st.T) * 128 if i < fused else st.T - 1)
+        * (in_rate // st.in_rate)
+        for i, st in enumerate(stages))
+    return 2 * (t - 1) + cone
+
+
+def widen_replay_span(need: int, L: int, b_loc: int, stages) -> int:
+    """Replay span in whole blocks (``doppler_tpu/ops/pallas/chain.py:940``):
+    ``⌈need/L⌉``, widened until the fused ``stages`` (``(P, Q, T)`` each)
+    take a chunk of that many blocks (:func:`chunk_out_count`).  Extra
+    real blocks only add correct history, so the carries stay bitwise.
+    Returns ``b_loc + 1`` or more when no span of at most ``b_loc`` blocks
+    fits: the caller does not shard then."""
+    r_h = -(-need // L)
+    while r_h <= b_loc and chunk_out_count(stages, r_h, L) is None:
+        r_h += 1
+    return r_h
 
 
 def _check(data, plans, banks, carries, stages, intype, outtype, final_dense,

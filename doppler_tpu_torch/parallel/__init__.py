@@ -1,2 +1,3 @@
-"""Splitting a run over processes: the host split of the stream
-(``distributed``)."""
+"""Splitting a run: over processes by stream range (``distributed``), and
+inside one process over a ``(channel, time)`` grid of devices (``mesh``,
+with the sharded steps of ``sharded``)."""

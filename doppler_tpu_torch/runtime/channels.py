@@ -25,6 +25,18 @@ same chunks the same way:
 - anything else (mixed rates, the partial EOF chunk, no resampler) → the
   channel-batched mixer kernel, then each rate group's batched resampler.
 
+Under a ``mesh`` (``parallel.mesh``) each rate group shards its channels
+over the ``channel`` axis and the chunk's blocks over ``time``
+(``parallel.sharded``), as the JAX package does: no resampler → the
+channel mixer per shard; a single-stage resampler → the channel mixer and
+the window resampler per shard (not the channel chain); a cascade → the
+channel-batched cascade per shard, each time shard k > 0 replaying the
+raw blocks before it for its carries.  The bytes are the unsharded run's
+(on the card a uniform single-stage capture's unsharded chunks run the
+channel chain, whose dot sums in another order: ≤ 1 LSB).  The partial
+EOF chunk with a resampler, a group that does not divide over the channel
+axis and a cascade a shard cannot take run unsharded (the last two warn).
+
 One chunk is in flight: :meth:`MultiChannelPipeline.dispatch_chunk` plans,
 stages into pinned host memory, copies with ``non_blocking=True``, launches
 and starts the copy back; the finalizer it returns waits on the chunk's
@@ -52,18 +64,23 @@ from doppler_tpu_torch.ops.phase_plan import (
     plan_blocks,
     plan_fields_uniform,
 )
+from doppler_tpu_torch.parallel import sharded
 from doppler_tpu_torch.runtime import stream as streaming
 from doppler_tpu_torch.runtime.pipeline import (
     ConstScheduler,
     Scheduler,
     carry_rows,
     host_buffer,
+    mark_devices,
     resolve_device,
+    span_s,
     stage_chunk,
 )
-from doppler_tpu_torch.runtime.telemetry import Counters
+from doppler_tpu_torch.runtime.telemetry import Counters, get_logger
 
 __all__ = ["ChannelSpec", "MultiChannelPipeline", "load_channel_config"]
+
+log = get_logger("channels")
 
 
 @dataclass
@@ -88,14 +105,19 @@ class MultiChannelPipeline:
     ``host_s`` accumulates the host's planning and staging seconds.
     ``device_s`` accumulates each finalized chunk's span between two CUDA
     events: one recorded before its host→device copies are enqueued, one
-    after its device→host copy.  The span holds the copies and the kernels,
+    after its device→host copy (under a mesh, on each card of the mesh; the
+    longest span counts).  The span holds the copies and the kernels,
     and also every gap in which the stream waits for the host to enqueue the
     next piece of the chunk's work, so it is an upper bound of the time the
     device was busy, not that time.
 
     ``precision``: ``'exact'`` or ``'fast'``, as in the JAX package: 'fast'
-    runs only the channel-batched chain's dot as ``split3``; the cascade and
-    the unfused route stay exact.
+    runs only the channel-batched chain's dot as ``split3``; the cascade,
+    the unfused route and every sharded step stay exact.
+
+    ``mesh``: a ``parallel.mesh.Mesh`` whose first device is ``device``;
+    the channel count must divide over its channel axis and
+    ``chunk_blocks`` over its time axis.
     """
 
     def __init__(
@@ -114,6 +136,7 @@ class MultiChannelPipeline:
         resample_stages: str = "single",
         precision: str = "exact",
         device="cuda",
+        mesh=None,
     ):
         if not channels:
             raise ValueError("need at least one channel")
@@ -163,6 +186,42 @@ class MultiChannelPipeline:
         self._cascade_carries = None  # per fused stage (C, 2, T_s−1)
         self.host_s = 0.0
         self.device_s = 0.0
+
+        # --mesh: channels × time-blocks over a grid of devices, per rate
+        # group; the bytes are the unsharded run's
+        self.mesh = mesh
+        self._sharded_steps: dict = {}       # (kind, group) → sharded step
+        self._sharded_casc_cfg: dict = {}    # group → fused count or None
+        self._warned: set = set()
+        if mesh is not None:
+            n_chan, n_time = mesh.shape["channel"], mesh.shape["time"]
+            if len(channels) % n_chan:
+                raise ValueError(
+                    f"{len(channels)} channels must divide over mesh "
+                    f"channel={n_chan}")
+            if self.chunk_blocks % n_time:
+                raise ValueError(
+                    f"chunk_blocks={self.chunk_blocks} must be divisible by "
+                    f"mesh time={n_time}")
+            if mesh.device() != self.device:
+                raise ValueError(
+                    f"the mesh starts on {mesh.device()}, the pipeline "
+                    f"runs on {self.device}")
+            n_loc = self.chunk_blocks * self.block_samples // n_time
+            for _, rs in self._groups:
+                if rs is None or getattr(rs, "bank", None) is None:
+                    continue
+                if rs.T - 1 > n_loc:
+                    raise ValueError(
+                        f"resampler history ({rs.T - 1}) exceeds one time "
+                        f"shard ({n_loc} samples); use fewer/larger chunks")
+                if n_loc * rs.P >= (1 << 30):
+                    raise ValueError("time shard too large for 32-bit phase math")
+
+    def _warn_once(self, msg: str) -> None:
+        if msg not in self._warned:
+            self._warned.add(msg)
+            log.warning(msg)
 
     # -- planning -------------------------------------------------------------
 
@@ -279,14 +338,17 @@ class MultiChannelPipeline:
         plans = host_buffer((7, C, B), torch.int32, self.device)
         plans.numpy()[...] = fields.view(np.int32)
         self.host_s += time.perf_counter() - t0
-        start = None
+        if self.mesh is not None:
+            starts = mark_devices(self.mesh.distinct_devices())
+            parts = self._dispatch_sharded(data, plans, total)
+            if parts is not None:
+                return self._start_out(parts, starts)
+        starts = mark_devices([self.device])
         if self.device.type == "cuda":
-            start = torch.cuda.Event(enable_timing=True)
-            start.record()
             # one (7, C, B) transfer a chunk
             plans = plans.to(self.device, non_blocking=True)
             data = data.to(self.device, non_blocking=True)
-        return self._start_out(self._dispatch_local(data, plans, total), start)
+        return self._start_out(self._dispatch_local(data, plans, total), starts)
 
     def _dispatch_local(self, data, plans, total: int):
         """Launch one staged chunk down its route.  Returns the parts
@@ -369,6 +431,110 @@ class MultiChannelPipeline:
                 parts.append((idxs, self._encode(yi, yq), n_out))
         return parts
 
+    def _casc_group_cfg(self, g: int, rs):
+        """The fused stage count with which rate group ``g``'s cascade runs
+        the sharded step, or None when a shard cannot take it: the JAX
+        rule on the port's geometry (``sharded.cascade_shard_replay``).
+        Cached per group."""
+        if g not in self._sharded_casc_cfg:
+            B, L = self.chunk_blocks, self.block_samples
+            k = cascade.split_point(rs.stages) if L % 128 == 0 else 0
+            ok = k > 0 and sharded.cascade_shard_replay(
+                rs, k, L, B // self.mesh.shape["time"]) is not None
+            self._sharded_casc_cfg[g] = k if ok else None
+        return self._sharded_casc_cfg[g]
+
+    def _dispatch_sharded(self, data, plans, total: int):
+        """``--mesh`` dispatch of one staged host chunk, per rate group.
+        Returns the ``(channel indices, device output, n_valid)`` parts, or
+        None for the unsharded dispatch (the partial EOF chunk with a
+        resampler; a group that does not divide over the channel axis, or
+        a cascade a shard cannot take, with a warning)."""
+        B, L = self.chunk_blocks, self.block_samples
+        n_chan, n_time = self.mesh.shape["channel"], self.mesh.shape["time"]
+        if any(rs is not None for _, rs in self._groups) and total != B * L:
+            return None
+        for g, (idxs, rs) in enumerate(self._groups):
+            if len(idxs) % n_chan:
+                self._warn_once(
+                    f"mesh mode: group of {len(idxs)} channels does not "
+                    f"divide over mesh channel={n_chan} — running unsharded")
+                return None
+            if (rs is not None and getattr(rs, "bank", None) is None
+                    and self._casc_group_cfg(g, rs) is None):
+                self._warn_once(
+                    "mesh mode: this cascade cannot run the sharded fused "
+                    "step (geometry) — running unsharded")
+                return None
+
+        def step(kind, g, make):
+            if (kind, g) not in self._sharded_steps:
+                self._sharded_steps[kind, g] = make()
+            return self._sharded_steps[kind, g]
+
+        parts = []
+        for g, (idxs, rs) in enumerate(self._groups):
+            C_g = len(idxs)
+            plans_g = plans if C_g == len(self.channels) else plans[:, idxs]
+            if rs is None:
+                mix = step("mix", g, lambda: sharded.make_wideband_mix_step(
+                    self.mesh, intype=self.intype, outtype=self.outtype, C=C_g))
+                parts += [(idxs[cs], out,
+                           max(0, min(L * (bs.stop - bs.start), total - bs.start * L)))
+                          for cs, bs, out in mix(data, plans_g)]
+            elif getattr(rs, "bank", None) is not None:
+                run = step("window", g, lambda: sharded.make_wideband_stream_step(
+                    self.mesh, intype=self.intype, outtype=self.outtype,
+                    C=C_g, resampler=rs))
+                rem, off, counts = sharded.stream_step_alignment(
+                    rs, rs.in_consumed, B * L // n_time, n_time)
+                out_parts, rs._hist_i, rs._hist_q = run(
+                    data, plans_g, rs._hist_i, rs._hist_q, rem, off, counts)
+                rs.m_next += sum(counts)
+                rs.in_consumed += total
+                parts += [(idxs[cs], out, counts[bs.start * n_time // B])
+                          for cs, bs, out in out_parts]
+            else:
+                parts += self._sharded_cascade_group(g, rs, idxs, data,
+                                                     plans_g, total, step)
+        # a later unsharded fused chunk reseeds from the histories
+        self._chain_carries = None
+        self._cascade_carries = None
+        return parts
+
+    def _sharded_cascade_group(self, g, rs, idxs, data, plans, total, step):
+        """One rate group's sharded fused-cascade chunk (full or split).
+        Its carries are seeded from each fused stage's batched history
+        every chunk, as in the JAX package, so the mesh and the unsharded
+        route hand over to each other and to checkpoints bitwise."""
+        k = self._sharded_casc_cfg[g]
+        split = k < len(rs.stages)
+        fused = rs.stages[:k]
+        C_g = len(idxs)
+        run = step("cascade", g, lambda: sharded.make_cascade_channels_step(
+            self.mesh, resampler=rs, fused=k, C=C_g, intype=self.intype,
+            outtype="f32" if split else self.outtype, final_dense=split))
+        carries = tuple(torch.stack([st._hist_i, st._hist_q], dim=1)
+                        for st in fused)
+        out_parts, carries = run(data, plans, carries)
+        n_mid = self._advance(fused, carries, total)
+        n_time = self.mesh.shape["time"]
+        if not split:
+            return [(idxs[cs], out, n_mid // n_time) for cs, _, out in out_parts]
+        # split: the tail stages run once, over the gathered front planes,
+        # on the mesh's first device
+        by_rows: dict = {}
+        for cs, _, out in out_parts:
+            by_rows.setdefault(cs.start, []).append(
+                out.reshape(2, cs.stop - cs.start, -1).to(self.device))
+        planes = torch.cat([torch.cat(by_rows[c], dim=2)
+                            for c in sorted(by_rows)], dim=1)
+        yi, yq, n_out = planes[0], planes[1], n_mid
+        for st in rs.stages[k:]:
+            yi, yq, n_out = st.process(yi, yq, n_out,
+                                       M=st.max_out_for(int(yi.shape[-1])))
+        return [(idxs, self._encode(yi, yq), n_out)]
+
     def _advance(self, stages, carries, total: int) -> int:
         """Advance the fused stages' stream counters and mirror each one's
         per-channel history out of its ``(C, 2, T−1)`` device carry (no
@@ -390,39 +556,38 @@ class MultiChannelPipeline:
 
     # -- output ---------------------------------------------------------------
 
-    def _start_out(self, parts, start):
+    def _start_out(self, parts, starts: dict):
         """Start the device→host copies of every part's valid outputs;
         returns the finalizer that waits for them and cuts the per-channel
-        byte strings."""
-        hosts = []
+        byte strings.  ``parts``: ``(channel indices, output, n_valid)``;
+        a channel's parts are in stream order.  ``starts``: the
+        :func:`~doppler_tpu_torch.runtime.pipeline.mark_devices` events
+        before the chunk's copies in."""
+        hosts, devices = [], []
         for idxs, out, n_valid in parts:
             if self.outtype == "i16":
                 valid = out.reshape(len(idxs), -1)[:, :n_valid]
             else:
                 valid = out.reshape(2, len(idxs), -1)[:, :, :n_valid]
             valid = valid.contiguous()
-            if self.device.type == "cuda":
-                host = host_buffer(tuple(valid.shape), valid.dtype, self.device)
+            if valid.device.type == "cuda":
+                host = host_buffer(tuple(valid.shape), valid.dtype, valid.device)
                 host.copy_(valid, non_blocking=True)
+                devices.append(valid.device)
                 valid = host
             hosts.append((idxs, valid))
-        end = None
-        if start is not None:
-            end = torch.cuda.Event(enable_timing=True)
-            end.record()
+        ends = mark_devices(devices)
 
         def finalize() -> list[bytes]:
-            if end is not None:
-                end.synchronize()
-                self.device_s += start.elapsed_time(end) / 1e3
+            self.device_s += span_s(starts, ends)
             outs: list[bytes] = [b""] * len(self.channels)
             for idxs, host in hosts:
                 arr = host.numpy()
                 for row, cidx in enumerate(idxs):
                     if self.outtype == "i16":
-                        outs[cidx] = codec.i16_words_to_bytes(arr[row])
+                        outs[cidx] += codec.i16_words_to_bytes(arr[row])
                     else:
-                        outs[cidx] = codec.f32_pairs_to_bytes(
+                        outs[cidx] += codec.f32_pairs_to_bytes(
                             np.stack([arr[0, row], arr[1, row]], axis=-1))
             return outs
         return finalize
@@ -444,7 +609,7 @@ class MultiChannelPipeline:
                 parts.append((idxs, self._encode(yi, yq), n_out))
         self._chain_carries = None    # histories advanced past the stream end
         self._cascade_carries = None
-        return self._start_out(parts, None)()
+        return self._start_out(parts, {})()
 
     # -- main loop ------------------------------------------------------------
 

@@ -31,6 +31,13 @@ device→host copy starts and an event is recorded.  :meth:`Pipeline._finalize`
 waits on that event, so host planning of chunk k+1 overlaps the device work
 of chunk k.
 
+``mesh`` (``parallel.mesh``, channel axis 1) shards each chunk's blocks
+over a time grid of devices: the mixer, the chain and the cascade run per
+shard (``parallel.sharded``), each shard k > 0 rebuilding its FIR carries
+by replaying the raw blocks before it, so the bytes are the unsharded
+run's.  The partial EOF chunk, and a cascade whose stages a shard cannot
+take, run unsharded on ``device``, the mesh's first device.
+
 ``device`` is explicit and nothing falls back: ``'cuda'`` raises when no card
 is present; ``'cpu'`` runs the kernels' plain versions.
 """
@@ -45,13 +52,17 @@ import torch
 
 from doppler_tpu_torch.ops import codec
 from doppler_tpu_torch.ops.cuda import cascade, chain, mixer
+from doppler_tpu_torch.ops.cuda.cascade import carry_rows
 from doppler_tpu_torch.ops.nco import PLAN_FIELDS, plan_tensor
 from doppler_tpu_torch.ops.phase_plan import NCOState, plan_blocks
+from doppler_tpu_torch.parallel import sharded
 from doppler_tpu_torch.runtime import stream as streaming
-from doppler_tpu_torch.runtime.telemetry import Counters
+from doppler_tpu_torch.runtime.telemetry import Counters, get_logger
 
 __all__ = ["Scheduler", "ConstScheduler", "Pipeline", "resolve_device",
-           "carry_rows", "host_buffer", "stage_chunk"]
+           "carry_rows", "host_buffer", "stage_chunk", "mark_devices", "span_s"]
+
+log = get_logger("pipeline")
 
 
 class Scheduler(Protocol):
@@ -91,14 +102,32 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
-def carry_rows(T: int) -> int:
-    """Whole 128-sample rows of the TPU chain's FIR history."""
-    return -(-max(T - 1, 1) // 128)
-
-
 def host_buffer(shape, dtype, device: torch.device) -> torch.Tensor:
     """A host staging tensor, pinned when ``device`` is a card."""
     return torch.empty(shape, dtype=dtype, pin_memory=device.type == "cuda")
+
+
+def mark_devices(devices) -> dict:
+    """A timing event recorded now on the current stream of each card
+    among ``devices`` (none for the CPU): ``{device: event}``."""
+    marks = {}
+    for dev in devices:
+        if dev.type == "cuda" and dev not in marks:
+            with torch.cuda.device(dev):
+                marks[dev] = torch.cuda.Event(enable_timing=True)
+                marks[dev].record()
+    return marks
+
+
+def span_s(starts: dict, ends: dict) -> float:
+    """Wait for each card's end event; the longest span from its
+    :func:`mark_devices` start, in seconds (0 without a card)."""
+    spans = []
+    for dev, end in ends.items():
+        end.synchronize()
+        if dev in starts:
+            spans.append(starts[dev].elapsed_time(end) / 1e3)
+    return max(spans, default=0.0)
 
 
 def stage_chunk(data: bytes, intype: str, B: int, L: int,
@@ -138,10 +167,16 @@ class Pipeline:
     EOF chunk and the drain stay exact, so with a cascade 'fast' gives the
     exact bytes.
 
+    ``mesh``: a ``parallel.mesh.Mesh`` with channel axis 1 whose first
+    device is ``device``; ``chunk_blocks`` must divide over its time axis.
+    Its bytes are the unsharded run's (``--precision`` does not apply to
+    its chain chunks, which keep the exact dot, as in the JAX package).
+
     ``host_s`` accumulates the host's planning and staging seconds.
     ``device_s`` accumulates each finalized chunk's span between two CUDA
     events: one recorded before its host→device copies are enqueued, one
-    after its device→host copy.  The span holds the copies and the kernels,
+    after its device→host copy (under a mesh, on each card of the mesh;
+    the longest span counts).  The span holds the copies and the kernels,
     and also every gap in which the stream waits for the host to enqueue the
     next piece of the chunk's work, so it is an upper bound of the time the
     device was busy, not that time.
@@ -161,6 +196,7 @@ class Pipeline:
         prefetch_chunks: int = 0,
         precision: str = "exact",
         device="cuda",
+        mesh=None,
     ):
         if samplerate <= 0:
             raise ValueError("samplerate must be positive")
@@ -191,6 +227,23 @@ class Pipeline:
         self.block_samples = self.block_bytes // self._bps_in
         self._sample_offset = 0  # absolute index of next input sample
         self.resampler = None
+        # --mesh: shard the chunk's blocks over a (channel=1, time) grid;
+        # the bytes are the unsharded run's
+        self.mesh = mesh
+        if mesh is not None:
+            if mesh.shape["channel"] != 1:
+                raise ValueError(
+                    "single-stream pipeline needs mesh channel=1 "
+                    "(use channels mode for channel parallelism)")
+            n_time = mesh.shape["time"]
+            if self.chunk_blocks % n_time:
+                raise ValueError(
+                    f"chunk_blocks={self.chunk_blocks} must be divisible by "
+                    f"mesh time={n_time}")
+            if mesh.device() != self.device:
+                raise ValueError(
+                    f"the mesh starts on {mesh.device()}, the pipeline "
+                    f"runs on {self.device}")
         self._reset_fused_state()
         self.host_s = 0.0
         self.device_s = 0.0
@@ -203,6 +256,21 @@ class Pipeline:
                 f"{self.device}")
         self.resampler = resampler
         self._reset_fused_state()
+        if self.mesh is None:
+            return
+        if getattr(resampler, "bank", None) is None:
+            if not self._cascade_mesh_ok():
+                log.warning(
+                    "mesh mode: this cascade cannot run the sharded fused "
+                    "step (geometry) — resampling runs on the default device")
+            return
+        n_loc = self.chunk_blocks * self.block_samples // self.mesh.shape["time"]
+        if resampler.T - 1 > n_loc:
+            raise ValueError(
+                f"resampler history ({resampler.T - 1} samples) exceeds one "
+                f"time shard ({n_loc} samples); use fewer/larger chunks")
+        if n_loc * resampler.P >= (1 << 30):
+            raise ValueError("time shard too large for 32-bit phase math")
 
     def _reset_fused_state(self) -> None:
         self._chain_carry = None
@@ -211,6 +279,8 @@ class Pipeline:
         self._cascade_stages = None     # their (P, Q, T)
         self._cascade_banks = None
         self._cascade_carries = None
+        self._cascade_mesh_ok_c = None  # may the mesh shard the cascade?
+        self._sharded_steps = {}        # kind → parallel.sharded step
 
     # -- fused-chain plumbing ------------------------------------------------
 
@@ -284,6 +354,29 @@ class Pipeline:
             self._cascade_stages = fused
         return self._cascade_k > 0 and total == self.chunk_blocks * L
 
+    def _cascade_mesh_ok(self) -> bool:
+        """May ``--mesh`` chunks run the sharded fused cascade step?
+
+        The JAX rule on the port's geometry: the fused stages take a shard
+        of ``chunk_blocks / time`` blocks (``chunk_out_count``) and the
+        replay span fits in one shard (``sharded.cascade_shard_replay``).
+        The split form (odd-Q final stage) shards its ÷2^k front.  Decided
+        once per resampler.
+        """
+        rs = self.resampler
+        if (self.mesh is None or rs is None
+                or getattr(rs, "stages", None) is None):
+            return False
+        if self._cascade_mesh_ok_c is None:
+            L = self.block_samples
+            ok = self._cascade_eligible(self.chunk_blocks * L)
+            if ok:
+                b_loc = self.chunk_blocks // self.mesh.shape["time"]
+                ok = sharded.cascade_shard_replay(
+                    rs, self._cascade_k, L, b_loc) is not None
+            self._cascade_mesh_ok_c = ok
+        return self._cascade_mesh_ok_c
+
     def _ensure_cascade_state(self) -> None:
         """Seed the fused stages' banks and carries (idempotent; reseeds
         after a chunk that took the mixer + resampler route, from each
@@ -334,18 +427,15 @@ class Pipeline:
             return 1
         L = self.block_samples
         if self._cascade_eligible(self.chunk_blocks * L):
-            return -(-(2 * (rs.T - 1) + self._cascade_cone()) // L)
+            return -(-self._cascade_replay_need() // L)
         return -(-(2 * (rs.T - 1)) // L)
 
-    def _cascade_cone(self) -> int:
-        """Input-referred samples of the longest stage carry: whole
-        128-sample rows for the fused stages, T−1 for the tail's."""
-        rs = self.resampler
-        return max(
-            (carry_rows(st.T) * 128 if i < self._cascade_k else st.T - 1)
-            * (self.samplerate // st.in_rate)
-            for i, st in enumerate(rs.stages)
-        )
+    def _cascade_replay_need(self) -> int:
+        """Input samples the seek's replay needs: the corrupt head of the
+        whole cascade plus its longest stage carry, whole 128-sample rows
+        for the fused stages and T−1 for the tail's."""
+        return cascade.cascade_replay_need(self.resampler.stages,
+                                           self.samplerate, self._cascade_k)
 
     def _stage_history(self, history: bytes, n_blocks: int, tail) -> tuple:
         """The last ``tail.shape[1]`` history blocks, zero-prepadded to
@@ -486,7 +576,7 @@ class Pipeline:
         if self._cascade_eligible(self.chunk_blocks * L):
             # the zero-history corrupt head plus every stage's carry cone
             # must fit inside the replayed real blocks
-            need = 2 * (rs.T - 1) + self._cascade_cone()
+            need = self._cascade_replay_need()
             if k_h * L < need:
                 raise ValueError(
                     f"history ({k_h} blocks = {k_h * L} samples) too short "
@@ -543,27 +633,32 @@ class Pipeline:
 
     # -- staging ------------------------------------------------------------
 
-    def _stage_out(self, host: torch.Tensor) -> bytes:
-        """Valid output (int32 words, or float32 planes ``(2, n)``) → bytes."""
-        arr = host.numpy()
+    def _stage_out(self, hosts) -> bytes:
+        """Valid outputs in stream order (int32 words, or float32 planes
+        ``(2, n)``) → bytes."""
+        arr = np.concatenate([h.numpy() for h in hosts], axis=-1)
         if self.outtype == "i16":
             return codec.i16_words_to_bytes(arr)
         return codec.f32_pairs_to_bytes(np.stack([arr[0], arr[1]], axis=-1))
 
-    def _start_out(self, out: torch.Tensor, n_valid: int, start):
-        """Start the device→host copy of the valid outputs; returns the
-        pending handle :meth:`_finalize` completes."""
-        if self.outtype == "i16":
-            valid = out.reshape(-1)[:n_valid]
-        else:
-            valid = out.reshape(2, -1)[:, :n_valid].contiguous()
-        if self.device.type == "cpu":
-            return valid, None, None
-        host = host_buffer(tuple(valid.shape), valid.dtype, self.device)
-        host.copy_(valid, non_blocking=True)
-        end = torch.cuda.Event(enable_timing=True)
-        end.record()
-        return host, start, end
+    def _start_out(self, parts, starts: dict):
+        """Start the device→host copies of the valid outputs: ``parts`` are
+        ``(device output, n_valid)`` in stream order, ``starts`` the
+        :func:`mark_devices` events before the chunk's copies in.  Returns
+        the pending handle :meth:`_finalize` completes."""
+        hosts, devices = [], []
+        for out, n_valid in parts:
+            if self.outtype == "i16":
+                valid = out.reshape(-1)[:n_valid]
+            else:
+                valid = out.reshape(2, -1)[:, :n_valid].contiguous()
+            if valid.device.type == "cuda":
+                host = host_buffer(tuple(valid.shape), valid.dtype, valid.device)
+                host.copy_(valid, non_blocking=True)
+                devices.append(valid.device)
+                valid = host
+            hosts.append(valid)
+        return hosts, starts, mark_devices(devices)
 
     # -- main loop ----------------------------------------------------------
 
@@ -571,12 +666,9 @@ class Pipeline:
         """Wait for a dispatched chunk and return its bytes."""
         if pending is None:
             return b""
-        host, start, end = pending
-        if end is not None:
-            end.synchronize()
-        if start is not None:
-            self.device_s += start.elapsed_time(end) / 1e3
-        return self._stage_out(host)
+        hosts, starts, ends = pending
+        self.device_s += span_s(starts, ends)
+        return self._stage_out(hosts)
 
     def _dispatch(self, chunk: streaming.Chunk):
         """Plan + launch one chunk on the device WITHOUT waiting for it.
@@ -603,14 +695,95 @@ class Pipeline:
         data = stage_chunk(chunk.data, self.intype, self.chunk_blocks,
                            self.block_samples, self.device)
         self.host_s += time.perf_counter() - t0
-        start = None
+        if self.mesh is not None:
+            starts = mark_devices(self.mesh.distinct_devices())
+            parts = self._dispatch_sharded(data, plans, total)
+            if parts is not None:
+                return self._start_out(parts, starts)
+        starts = mark_devices([self.device])
         if self.device.type == "cuda":
-            start = torch.cuda.Event(enable_timing=True)
-            start.record()
             plans = plans.pin_memory().to(self.device, non_blocking=True)
             data = data.to(self.device, non_blocking=True)
-        out, n_valid = self._dispatch_local(data, plans, total)
-        return self._start_out(out, n_valid, start)
+        return self._start_out([self._dispatch_local(data, plans, total)],
+                               starts)
+
+    def _dispatch_sharded(self, data, plans, total: int):
+        """``--mesh`` dispatch of one staged host chunk over the time shards.
+        Returns the ``(device output, n_valid)`` parts in stream order, or
+        None for the unsharded dispatch: the partial EOF chunk with a
+        resampler, and a cascade whose stages a shard cannot take (which
+        ``set_resampler`` warned of).
+
+        Mix-only streams shard every chunk.  A full chunk runs the chain
+        step when the chain gate passes, the cascade step (full or split)
+        when ``_cascade_mesh_ok``, else — a single-stage resampler the
+        chain gate refuses — the mixer + window resampler step.
+        """
+        B, L = self.chunk_blocks, self.block_samples
+        rs = self.resampler
+        n_time = self.mesh.shape["time"]
+        full = total == B * L
+
+        def step(kind, make):
+            if kind not in self._sharded_steps:
+                self._sharded_steps[kind] = make()
+            return self._sharded_steps[kind]
+
+        if rs is None:
+            mix = step("mix", lambda: sharded.make_wideband_mix_step(
+                self.mesh, intype=self.intype, outtype=self.outtype, C=1))
+            self._sample_offset += total
+            return [(out, max(0, min(L * (bs.stop - bs.start),
+                                     total - bs.start * L)))
+                    for _, bs, out in mix(data, plans)]
+        if not full:
+            return None            # the EOF chunk: mixer + resampler
+
+        if self._chain_eligible(total):
+            run = step("chain", lambda: sharded.make_chain_stream_step(
+                self.mesh, resampler=rs, intype=self.intype,
+                outtype=self.outtype))
+            self._ensure_chain_state()
+            outs, self._chain_carry = run(data, plans, self._chain_carry)
+            self._advance_chain_state(total, self._chain_carry)
+            return [(out, out.shape[-1] * (B // n_time)) for out in outs]
+
+        if self._cascade_mesh_ok():
+            self._ensure_cascade_state()
+            k = self._cascade_k
+            split = k < len(rs.stages)
+            run = step("cascade", lambda: sharded.make_cascade_stream_step(
+                self.mesh, resampler=rs, fused=k, intype=self.intype,
+                outtype="f32" if split else self.outtype, final_dense=split))
+            outs, self._cascade_carries = run(data, plans,
+                                              self._cascade_carries)
+            n_mid = self._advance_cascade_state(total, self._cascade_carries)
+            if not split:
+                return [(out, n_mid // n_time) for out in outs]
+            # split: the tail stages run once, over the gathered front
+            # planes, on the mesh's first device
+            planes = torch.cat([out.reshape(2, -1).to(self.device)
+                                for out in outs], dim=1)
+            yi, yq, n_out = planes[0], planes[1], n_mid
+            for st in rs.stages[k:]:
+                yi, yq, n_out = st.process(yi, yq, n_out,
+                                           M=st.max_out_for(int(yi.shape[-1])))
+            return [(self._encode(yi, yq), n_out)]
+
+        if getattr(rs, "bank", None) is None:
+            return None            # a cascade the mesh cannot shard
+        run = step("window", lambda: sharded.make_wideband_stream_step(
+            self.mesh, intype=self.intype, outtype=self.outtype, C=1,
+            resampler=rs))
+        rem, off, counts = sharded.stream_step_alignment(
+            rs, rs.in_consumed, B * L // n_time, n_time)
+        parts, hist_i, hist_q = run(data, plans, rs._hist_i, rs._hist_q,
+                                    rem, off, counts)
+        rs.m_next += sum(counts)
+        rs.in_consumed += total
+        rs._hist_i, rs._hist_q = hist_i, hist_q
+        self._sample_offset += total
+        return [(out, n) for (_, _, out), n in zip(parts, counts)]
 
     def _dispatch_local(self, data, plans, total: int):
         """Launch one staged chunk: the fused chain or cascade on a full
@@ -737,4 +910,5 @@ class Pipeline:
         self._cascade_carries = None
         if n_out == 0:
             return b""
-        return self._finalize(self._start_out(self._encode(yi, yq), n_out, None))
+        return self._finalize(self._start_out([(self._encode(yi, yq), n_out)],
+                                              {}))

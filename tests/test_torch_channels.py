@@ -475,8 +475,10 @@ def test_cli_channels_rejects_unported_flags(tmp_path):
     (tmp_path / "c.json").write_text('{"channels": [{"name": "x", "shift": 1}]}')
     base = ["channels", "-s", str(FS), "-i", "i16", "--config",
             str(tmp_path / "c.json"), "--device", "cpu"]
-    for extra in (["--mesh", "channel=2"], ["--impl", "pallas"]):
-        assert cli.main(base + extra, stdin=io.BytesIO(b"")) == 2
+    assert cli.main(base + ["--impl", "pallas"], stdin=io.BytesIO(b"")) == 2
+    # --mesh is ported (tests/test_torch_mesh.py): one channel does not
+    # divide over mesh channel=2, a configuration error
+    assert cli.main(base + ["--mesh", "channel=2"], stdin=io.BytesIO(b"")) == 1
     # the host split's flags are ported (tests/test_torch_distributed.py);
     # a split run needs --input, checked before joining the group
     args = cli.build_parser().parse_args(

@@ -1209,3 +1209,86 @@ def test_seek_on_card_is_bitwise_the_uninterrupted_run(card, route):
         assert torch.equal(a._hist_i, b._hist_i) and torch.equal(a._hist_q, b._hist_q)
     suffix = run(seeked, raw[k * bb:])
     assert prefix + suffix == whole and suffix
+
+
+MESH_ROUTES = {   # fs, intype, stages, mesh time, chunk_blocks, wrapper, launches a full chunk
+    "mix": (256000, "f32", None, 4, 16, mix_blocks_fmt, 4),
+    "chain": (FS, "i16", "single", 4, 16, mix_resample_chain_stream, 7),
+    "cascade": (FS, "i16", "multi", 4, 16, mix_cascade_stream, 7),
+    "split": (100_000_000, "i16", "multi", 2, 32, mix_cascade_stream, 3),
+    "window": (250000, "i16", "single", 4, 16, mix_blocks_fmt, 4),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", list(MESH_ROUTES))
+def test_mesh_on_card_is_bitwise_the_unsharded_run(card, route):
+    """``Pipeline(mesh=…)`` with every shard on this card
+    (``make_mesh(devices=[cuda:0] × n)``): the bytes of the unsharded run,
+    and each full chunk launches the route's kernel once a shard plus one
+    replay for every shard k > 0 (the chain, the cascade) or once a shard
+    (the mixer; the window resampler's halo rides the shard's own mixer
+    launch).  Shards on distinct cards need a machine with several."""
+    from doppler_tpu_torch.parallel.mesh import make_mesh
+
+    fs, intype, stages, n_time, cb, wrapper, per_chunk = MESH_ROUTES[route]
+    L = 8192 // (4 if intype == "i16" else 8)
+    n_full = 3
+    rng = np.random.default_rng(93)
+    if intype == "i16":
+        raw = rng.integers(-9000, 9000, size=2 * (L * cb * n_full + 300),
+                           dtype=np.int16).tobytes()
+    else:
+        raw = (0.3 * rng.standard_normal(2 * (L * cb * n_full + 300))
+               ).astype("<f4").tobytes()
+
+    def run(mesh):
+        p = Pipeline(fs, intype, "i16", ConstScheduler(1e6 if fs > FS else -15000.0),
+                     chunk_blocks=cb, device="cuda", mesh=mesh)
+        if stages:
+            attach_resampler(p, 48000, stages=stages)
+        out = io.BytesIO()
+        p.run(io.BytesIO(raw), out)
+        return out.getvalue(), p
+
+    want, _ = run(None)
+    before = wrapper.launches
+    got, pipe = run(make_mesh(time=n_time, devices=["cuda:0"] * n_time))
+    launched = wrapper.launches - before
+    assert got == want and len(got) > 0
+    if route == "mix":
+        assert launched == per_chunk * (n_full + 1)    # the EOF chunk too
+    elif route == "window":
+        assert launched == per_chunk * n_full + 1      # + the EOF chunk's
+    else:
+        assert launched == per_chunk * n_full
+    assert list(pipe._sharded_steps) == [
+        {"mix": "mix", "chain": "chain", "window": "window"}.get(route, "cascade")]
+
+
+@pytest.mark.cuda
+def test_mesh_channels_cascade_on_card(card):
+    """``MultiChannelPipeline`` over a time=2 × channel=2 mesh on this card:
+    the channel-batched cascade, one launch a shard plus a replay for each
+    channel shard's second time shard, bytes of the unsharded run."""
+    from doppler_tpu_torch.parallel.mesh import make_mesh
+
+    rng = np.random.default_rng(94)
+    raw = rng.integers(-9000, 9000, size=2 * (2048 * 16 * 2 + 500),
+                       dtype=np.int16).tobytes()
+
+    def run(mesh):
+        specs = [ChannelSpec(name=f"c{k}", scheduler=ConstScheduler(-30000.0 + 8000 * k))
+                 for k in range(4)]
+        mp = MultiChannelPipeline(FS, "i16", "i16", specs, out_rate=48000,
+                                  chunk_blocks=16, resample_stages="multi",
+                                  device="cuda", mesh=mesh)
+        outs = [io.BytesIO() for _ in specs]
+        mp.run(io.BytesIO(raw), outs)
+        return [o.getvalue() for o in outs]
+
+    want = run(None)
+    before = mix_cascade_channels.launches
+    got = run(make_mesh(time=2, channel=2, devices=["cuda:0"] * 4))
+    assert mix_cascade_channels.launches - before == 2 * 6
+    assert got == want and all(want)

@@ -15,6 +15,10 @@ import pytest
 from doppler_tpu.ops import filters as j_filters
 from doppler_tpu.ops import fixedpoint as j_fxp
 from doppler_tpu.ops import phase_plan as j_plan
+from doppler_tpu.ops.multistage import MultiStageResampler as JMultiStage
+from doppler_tpu.ops.pallas import chain as j_chain
+from doppler_tpu.ops.resample import RationalResampler as JRational
+from doppler_tpu.parallel import sharded as j_sharded
 from doppler_tpu.orbit import Observer as JObserver
 from doppler_tpu.orbit import Predictor as JPredictor
 from doppler_tpu.orbit import Tle as JTle
@@ -22,6 +26,10 @@ from doppler_tpu.orbit import TrackScheduler as JTrackScheduler
 from doppler_tpu.runtime import stream as j_stream
 from doppler_tpu.runtime import telemetry as j_tel
 from doppler_tpu_torch.ops import filters, fixedpoint, phase_plan
+from doppler_tpu_torch.ops.cuda import cascade
+from doppler_tpu_torch.ops.multistage import MultiStageResampler
+from doppler_tpu_torch.ops.resample import RationalResampler
+from doppler_tpu_torch.parallel import sharded
 from doppler_tpu_torch.ops.nco import PLAN_FIELDS
 from doppler_tpu_torch.orbit import Observer, Predictor, Tle, TrackScheduler
 from doppler_tpu_torch.orbit.tle import _checksum
@@ -193,3 +201,43 @@ def test_telemetry_formats_equal():
     c = telemetry.Counters()
     c.add(samples=10, bytes_in=40, bytes_out=40)
     assert (c.samples, c.bytes_in, c.bytes_out, c.blocks) == (10, 40, 40, 1)
+
+
+@pytest.mark.parametrize("s_abs,n_loc,n_time,P,Q", [
+    (0, 8192, 4, 3, 64),
+    (123456789, 16384, 8, 24, 125),
+    (7 * 2 ** 33 + 5, 4096, 2, 384, 3125),
+    (2048 * 256 * 9, 2048 * 64, 4, 1, 1),
+])
+def test_sharded_host_helpers_equal(s_abs, n_loc, n_time, P, Q):
+    """``parallel.sharded``'s alignment helpers are the JAX package's."""
+    assert (sharded.shard_valid_out_counts(n_loc, n_time, P, Q)
+            == j_sharded.shard_valid_out_counts(n_loc, n_time, P, Q))
+    got, want = (m.shard_alignment(s_abs, n_loc, n_time, P, Q)
+                 for m in (sharded, j_sharded))
+    for g, w in zip(got, want):
+        assert np.array_equal(g, w) and np.asarray(g).dtype == np.asarray(w).dtype
+    # the window form through stream_step_alignment, on equal resamplers
+    rs_t = RationalResampler(1024000, 48000)
+    rs_j = JRational(1024000, 48000, impl="window")   # the port has no conv form
+    got, want = (m.stream_step_alignment(rs, s_abs, n_loc, n_time)
+                 for m, rs in ((sharded, rs_t), (j_sharded, rs_j)))
+    for g, w in zip(got, want):
+        assert np.array_equal(g, w)
+
+
+@pytest.mark.parametrize("fs", [1024000, 250000, 6250000, 100_000_000])
+def test_cascade_replay_need_equal(fs):
+    """The replay need of the fused front is the JAX package's; with the
+    tail (``fused = k``) it is the seek's count, which
+    ``tests/test_torch_distributed.py`` holds to the JAX seek's."""
+    ms_t, ms_j = MultiStageResampler(fs, 48000), JMultiStage(fs, 48000)
+    k = cascade.split_point(ms_t.stages)
+    assert k == j_chain.split_point(ms_j.stages)
+    assert (cascade.cascade_replay_need(ms_t.stages[:k], fs)
+            == j_chain.cascade_replay_need(ms_j.stages[:k], fs))
+    assert cascade.carry_rows(ms_t.T) == j_chain.carry_rows(ms_j.T)
+    t = 1 + sum((st.T - 1) * (fs // st.in_rate) for st in ms_j.stages)
+    cone = max((j_chain.carry_rows(st.T) * 128 if i < k else st.T - 1)
+               * (fs // st.in_rate) for i, st in enumerate(ms_j.stages))
+    assert cascade.cascade_replay_need(ms_t.stages, fs, k) == 2 * (t - 1) + cone

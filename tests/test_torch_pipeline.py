@@ -262,8 +262,7 @@ def test_cuda_device_raises_without_card(monkeypatch):
 
 
 def test_cli_rejects_unported_flags():
-    for extra in (["--mesh", "time=2"], ["--resample-impl", "conv"],
-                  ["--impl", "pallas"]):
+    for extra in (["--resample-impl", "conv"], ["--impl", "pallas"]):
         assert cli.main(["const", "-s", "256000", "-i", "i16", "--shift", "1",
                          "--device", "cpu"] + extra,
                         stdin=io.BytesIO(b""), stdout=io.BytesIO()) == 2
@@ -276,12 +275,53 @@ def test_cli_rejects_unported_flags():
         2, 2, "coordinator=h:1,num_processes=2,process_id=0")
 
 
+def test_cli_mesh_flag_identical():
+    """``--mesh time=4 --device cpu``: the bytes of the unsharded run
+    (the fused cascade, the default route, with a partial EOF chunk)."""
+    raw = _i16_stream(2048 * 40 + 1234, 8)
+
+    def run_cli(extra):
+        out = io.BytesIO()
+        rc = cli.main(["const", "-s", "1024000", "-i", "i16", "--shift",
+                       "-15000", "--resample-to", "48000", "--chunk-blocks",
+                       "16", "--device", "cpu", "--log-level", "error"] + extra,
+                      stdin=io.BytesIO(raw), stdout=out)
+        assert rc == 0
+        return out.getvalue()
+
+    a = run_cli([])
+    assert a == run_cli(["--mesh", "time=4"]) and len(a) > 0
+
+
+def test_cli_mesh_rejects_channel_outside_channels_mode(monkeypatch):
+    """channel > 1 outside channels mode, a bad spec, and more shards than
+    cards (the JAX message) exit 1."""
+    base = ["const", "-s", "256000", "-i", "i16", "--shift", "-100",
+            "--log-level", "error"]
+    for extra in (["--mesh", "time=2,channel=2", "--device", "cpu"],
+                  ["--mesh", "time=x", "--device", "cpu"],
+                  ["--mesh", "space=2", "--device", "cpu"]):
+        assert cli.main(base + extra, stdin=io.BytesIO(b""),
+                        stdout=io.BytesIO()) == 1
+    assert cli.parse_mesh("time=2,channel=4") == (2, 4)
+    assert cli.parse_mesh("channel=3") == (1, 3)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    from doppler_tpu_torch.parallel.mesh import make_mesh
+
+    with pytest.raises(ValueError, match="need 2 devices, have 1"):
+        make_mesh(time=2, device="cuda")
+    assert cli.main(base + ["--mesh", "time=2"], stdin=io.BytesIO(b""),
+                    stdout=io.BytesIO()) == 1
+
+
 def test_port_imports_no_jax():
     code = ("import sys, doppler_tpu_torch.cli, doppler_tpu_torch.runtime.pipeline, "
             "doppler_tpu_torch.convert, doppler_tpu_torch.ops.cuda.chain, "
             "doppler_tpu_torch.ops.cuda.cascade, doppler_tpu_torch.ops.multistage, "
             "doppler_tpu_torch.runtime.channels, doppler_tpu_torch.runtime.checkpoint, "
-            "doppler_tpu_torch.parallel.distributed; "
+            "doppler_tpu_torch.parallel.distributed, doppler_tpu_torch.parallel.mesh, "
+            "doppler_tpu_torch.parallel.sharded; "
             "assert 'jax' not in sys.modules and 'doppler_tpu' not in sys.modules")
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True,
                    timeout=120)
