@@ -64,6 +64,16 @@ Phases (each prints one line or a few; any failure exits non-zero):
              front; then
              ``csrc/chain_fast.cu`` with one pass (kernels 2 and 4 in
              ``default``) at C = 1 and 16 against its plain version.
+4g. conv  — the banded-matmul resampler kernel (``csrc/conv.cu``, the
+             ``--resample-impl conv`` product) at config 3's chunk (P/Q =
+             3/64, T = 370, 524288 inputs) mid-stream: against its plain
+             version on the card (cuBLAS, TF32 off), its CPU twin and the
+             window kernel, float32 within 1e-5 of the peak and ≤ 1 LSB in
+             under 1% after encode; the stream bitwise at two chunk widths
+             and one-shot (and whether the cuBLAS form is, printed); the
+             refusal of TF32 matmuls; then the window kernel
+             (``csrc/window.cu``, the window resampler on the card) against
+             its plain version ``window_dot``, within 2^-20.
 5. slices  — synthetic captures through the CLI entry point
              ``doppler_tpu_torch.cli.main`` on the card, each with the launch
              counts set to 0 just before it and read just after:
@@ -119,6 +129,16 @@ Phases (each prints one line or a few; any failure exits non-zero):
              with ``--mesh time=1`` (slice (i)'s bytes) and with one shard
              more than the machine has cards (exit 1, "need N devices,
              have M").
+5e. unfused — slice (iii) with ``--impl xla``: (iii)'s bytes, the mixer
+             once a chunk and no chain launch; with ``--impl xla
+             --resample-impl conv``: the conv kernel once a chunk, > 70 dB
+             against (iii)'s golden, ≤ 1 LSB in under 1% from (iii)'s bytes;
+             then that route in process over ``--mesh time=2`` on
+             ``[cuda:0] × 2``: the unsharded conv bytes.
+5f. native — the native host library's build seconds; slices (i) and (iv)
+             in process with the track predictors' ``use_native`` on and
+             off: phase 5's bytes both ways, ``host_s`` and the schedulers'
+             seconds (the SGP4 curve and the staircase) of each.
 5b. conformance — ``doppler_tpu_torch.tools.conformance --device cuda``:
              the five BASELINE configs through ``python -m doppler_tpu_torch``
              subprocesses on the card against the golden model, > 60 dB each.
@@ -146,6 +166,11 @@ Phases (each prints one line or a few; any failure exits non-zero):
              process at 33,554,432 samples; every variant's line; then the
              counts are read.
 
+6c. resample_probe — ``doppler_tpu_torch.tools.resample_probe`` (conv
+             block against window_dot at 2^24 inputs), then the conv kernel
+             at the pipeline's chunk against its plain version and the
+             library's strided ``conv1d`` by one timer, with its bound.
+
 The kernels' JSON record takes the mixer's and the cascade's launch counts
 from slice (i) (their seek replays' as ``launches_seek``, with the
 chain's and the fast chain's, from phase 5c; the mesh runs' of phase 5d
@@ -155,7 +180,9 @@ chain's from slice
 (iv), the channel chain's from (v), the fast kernel's from (iii-fast) and
 (v-fast), and the Q15 mixer's, the probes', the one-pass chain's and the
 fast cascade's (split3 and default, which no CLI path reaches) from
-phase 6b; the Q15 mixer's and the probes' times are at B = 16384, the
+phase 6b, the window kernel's from slice (i) (its EOF chunk, one a stage),
+the conv kernel's from phase 5e's ``--impl xla --resample-impl conv`` slice
+(both their times from 6c); the Q15 mixer's and the probes' times are at B = 16384, the
 tools' shape (the elementwise probe's and its ``library_ms`` by phase 6's
 one timer of 16 calls).  The line before the last is that
 record; the last line is ``{"ok": true, "device": {...}}``.  Without a CUDA
@@ -240,6 +267,18 @@ def phase_device(torch):
           f"{torch.cuda.device_count()} device(s)")
     check(torch.cuda.is_available(), "torch.cuda.is_available() is False")
     return card
+
+
+def phase_build_native(card):
+    """Build the native host library (``runtime/native.py``, g++ from
+    ``native/src``); returns its ``build_info``."""
+    from doppler_tpu_torch.runtime import native
+
+    info = native.build_info()
+    print(f"build: native host library {info['seconds']!r} s "
+          f"({'compiled' if info['built'] else 'cached'}) -> "
+          f"{os.path.relpath(info['path'])} [{card}]")
+    return info
 
 
 def phase_build():
@@ -1288,9 +1327,12 @@ def _counters():
     """Each kernel's launch count: (wrapper, attribute).  A ``*_fast``
     count holds both pass counts of its source, ``*_default`` the one-pass
     launches among them."""
-    from doppler_tpu_torch.ops.cuda import cascade, chain, mixer
+    from doppler_tpu_torch.ops import resample
+    from doppler_tpu_torch.ops.cuda import cascade, chain, conv, mixer
 
     return {"mixer": (mixer.mix_blocks_fmt, "launches"),
+            "window": (resample.window_resample, "launches"),
+            "conv": (conv.resample_conv_stream, "launches"),
             "chain": (chain.mix_resample_chain_stream, "launches"),
             "chain_fast": (chain.mix_resample_chain_stream, "launches_fast"),
             "chain_fast_default": (chain.mix_resample_chain_stream, "launches_default"),
@@ -1363,7 +1405,10 @@ def _run_slice(name, argv, raw, card, channels=1):
         "wall_s": wall, "msps_in": msps, "host_s": host_s, "device_s": device_s}
 
 
-def _check_slice(name, out, n_in, want_n, launches, kernel, golden):
+def _check_slice(name, out, n_in, want_n, launches, kernel, golden, window=0):
+    """Length, launches (``kernel`` once a full chunk, the mixer on the EOF
+    chunk, the window kernel ``window`` times: once a resampler stage the
+    EOF chunk runs, plus a split cascade's tail) and SNR of one slice."""
     from doppler_tpu_torch import oracle
 
     n_out = len(out) // 4
@@ -1373,8 +1418,10 @@ def _check_slice(name, out, n_in, want_n, launches, kernel, golden):
     check(n_out == want_n, f"{name}: output length {n_out} != {want_n}")
     check(launches[kernel] == full,
           f"{name}: {kernel} launched {launches[kernel]} times, {full} full chunks")
+    check(launches["window"] == window,
+          f"{name}: window launched {launches['window']} times, want {window}")
     for other, count in launches.items():
-        if other not in (kernel, "mixer"):
+        if other not in (kernel, "mixer", "window"):
             check(count == 0, f"{name}: {other} launched {count} times")
     check(launches["mixer"] >= 1, f"{name}: the EOF chunk did not run the mixer kernel")
     got = oracle.decode_i16_bytes(out[:len(golden) * 4])
@@ -1415,7 +1462,8 @@ def phase_slices(torch, card):
               "default: the CLI did not pick the cascade")
         ms = MultiStageResampler(FS, OUT_RATE)
         snr = _check_slice("default", out, N_SLICE, ms.out_count_for(N_SLICE),
-                           launches, "cascade", _golden(mixed, ms.stages))
+                           launches, "cascade", _golden(mixed, ms.stages),
+                           window=len(ms.stages))
         res["default"] = dict(split, launches=launches, snr_db=snr, raw=raw,
                               out=out)
         # --precision fast leaves the cascade exact: the same bytes
@@ -1433,8 +1481,10 @@ def phase_slices(torch, card):
                 "--resample-to", str(OUT_RATE)]
         out, launches, _, split = _run_slice("split", argv, raw5, card)
         ms5 = MultiStageResampler(FS_SPLIT, OUT_RATE)
+        # the tail stage once a full chunk, every stage on the EOF chunk
         snr = _check_slice("split", out, N_SPLIT, ms5.out_count_for(N_SPLIT),
-                           launches, "cascade", _golden(mixed5, ms5.stages))
+                           launches, "cascade", _golden(mixed5, ms5.stages),
+                           window=N_SPLIT // (B_MAIN * 2048) + len(ms5.stages))
         res["split"] = dict(split, launches=launches, snr_db=snr, raw=raw5,
                             out=out)
 
@@ -1444,8 +1494,9 @@ def phase_slices(torch, card):
         rs = RationalResampler(FS, OUT_RATE)
         golden = _golden(mixed, [rs])
         snr = _check_slice("chain", out, N_SLICE, -(-N_SLICE * 3 // 64),
-                           launches, "chain", golden)
-        res["chain"] = dict(split, launches=launches, snr_db=snr, out=out)
+                           launches, "chain", golden, window=1)
+        res["chain"] = dict(split, launches=launches, snr_db=snr, out=out,
+                            golden=golden)
 
         # (iii-fast) the same with --precision fast: the fast kernel, held
         # to (iii)'s golden and within 1 LSB of (iii)'s bytes
@@ -1453,7 +1504,7 @@ def phase_slices(torch, card):
             "chain-fast", track + ["--resample-stages", "single", "--precision",
                                    "fast"], raw, card)
         snr = _check_slice("chain-fast", out_fast, N_SLICE, -(-N_SLICE * 3 // 64),
-                           launches, "chain_fast", golden)
+                           launches, "chain_fast", golden, window=1)
         d = _lsb_diff(torch, torch.frombuffer(bytearray(out_fast), dtype=torch.int32),
                       torch.frombuffer(bytearray(out), dtype=torch.int32))
         lsb, frac = int(d.max()), float((d > 0).float().mean())
@@ -1629,7 +1680,8 @@ def phase_channel_slices(torch, card):
             raw4, card, top)
         snr = _check_channels_slice(
             "config4", outs, N_SLICE, ms.out_count_for(N_SLICE), launches,
-            _launches(cascade_channels=full(N_SLICE), mixer_channels=1),
+            _launches(cascade_channels=full(N_SLICE), mixer_channels=1,
+                      window=len(ms.stages)),
             [(c, "plan-word", _golden(mixed4[c], ms.stages)) for c in checked]
             + [(mid, "sequential", _golden(seq["config 4", mid], ms.stages))])
         res["config4"] = dict(split, launches=launches, snr_db=snr, raw=raw4,
@@ -1644,7 +1696,7 @@ def phase_channel_slices(torch, card):
         goldens_v = {c: _golden(mixed4[c], [rs]) for c in checked}
         snr = _check_channels_slice(
             "config4-chain", outs, N_CH_CHAIN, -(-N_CH_CHAIN * 3 // 64), launches,
-            _launches(chain_channels=full(N_CH_CHAIN), mixer_channels=1),
+            _launches(chain_channels=full(N_CH_CHAIN), mixer_channels=1, window=1),
             [(c, "plan-word", goldens_v[c]) for c in checked]
             + [(mid, "sequential", _golden(seq["config 4", mid], [rs]))])
         res["config4-chain"] = dict(split, launches=launches, snr_db=snr)
@@ -1659,7 +1711,8 @@ def phase_channel_slices(torch, card):
             raw4[:N_CH_FAST * 4], card, top)
         snr = _check_channels_slice(
             "config4-chain-fast", outs_f, N_CH_FAST, -(-N_CH_FAST * 3 // 64), launches,
-            _launches(chain_channels_fast=full(N_CH_FAST), mixer_channels=1),
+            _launches(chain_channels_fast=full(N_CH_FAST), mixer_channels=1,
+                      window=1),
             [(c, "plan-word", goldens_v[c]) for c in checked])
         lsb = max(int(_lsb_diff(
             torch, torch.frombuffer(bytearray(f[:4 * n_fast]), dtype=torch.int32),
@@ -1688,7 +1741,8 @@ def phase_channel_slices(torch, card):
             raw5, card)
         snr = _check_channels_slice(
             "config5", outs, N_WIDE, ms5.out_count_for(N_WIDE), launches,
-            _launches(cascade_channels=full(N_WIDE), mixer_channels=1),
+            _launches(cascade_channels=full(N_WIDE), mixer_channels=1,
+                      window=full(N_WIDE) + len(ms5.stages)),
             [(c, "plan-word", _golden(mixed5[c], ms5.stages)) for c in checked5]
             + [(mid5, "sequential", _golden(seq["config 5", mid5], ms5.stages))])
         res["config5"] = dict(split, launches=launches, snr_db=snr, raw=raw5,
@@ -2295,14 +2349,17 @@ def phase_distributed(torch, card):
         return build
 
     seek = {}
-    for name, data, build, kernel in (
-            ("default", raw, make(FS, "auto"), "cascade"),
-            ("chain", raw, make(FS, "single"), "chain"),
-            ("chain-fast", raw, make(FS, "single", "fast"), "chain_fast"),
-            ("split", raw5, make(FS_SPLIT, "auto"), "cascade"),
-            ("mixer", raw, make(FS, "single", block_bytes=8000), "mixer")):
+    # the split route's replay runs its front's planes through the tail
+    # stage: one window launch beside its cascade's
+    for name, data, build, kernel, window in (
+            ("default", raw, make(FS, "auto"), "cascade", 0),
+            ("chain", raw, make(FS, "single"), "chain", 0),
+            ("chain-fast", raw, make(FS, "single", "fast"), "chain_fast", 0),
+            ("split", raw5, make(FS_SPLIT, "auto"), "cascade", 1),
+            ("mixer", raw, make(FS, "single", block_bytes=8000), "mixer", 0)):
         replay, run_counts = _seek_route(torch, name, data, build, card)
-        check(replay[kernel] == 1 and sum(replay.values()) == 1,
+        check(replay[kernel] == 1 and replay["window"] == window
+              and sum(replay.values()) == 1 + window,
               f"seek {name}: the replay launched {replay}, want one {kernel}")
         check(run_counts[kernel] >= 1, f"seek {name}: the seeked run launched {run_counts}")
         seek[name] = replay
@@ -2488,14 +2545,16 @@ def phase_mesh(torch, card, slices):
                 frequency_hz=FREQ, offset_hz=OFFSET, samplerate=FS,
                 start_time=START_UNIX)
 
+        # the EOF chunk runs unsharded: the mixer, then the window kernel
+        # once a stage (and a split cascade's tail once a full chunk)
         check_run("config 3 default route (cascade), time=4",
                   stream(FS, track, "auto"), feed_stream(raw), on_card(4),
                   slices["default"]["out"], "cascade", 4 + 3, full(N_SLICE),
-                  {"mixer": 1})
+                  {"mixer": 1, "window": 2})
         check_run("config 3 single-stage (chain), time=4",
                   stream(FS, track, "single"), feed_stream(raw), on_card(4),
                   slices["chain"]["out"], "chain", 4 + 3, full(N_SLICE),
-                  {"mixer": 1})
+                  {"mixer": 1, "window": 1})
         n_chunks1 = -(-N_MESH_C1 // (B_MAIN * 1024))
         check_run("config 1 mix only (f32 -> i16), time=4",
                   stream(FS_C1, lambda: ConstScheduler(-15000.0), intype="f32"),
@@ -2503,7 +2562,8 @@ def phase_mesh(torch, card, slices):
         check_run("100 Msps split route, time=2",
                   stream(FS_SPLIT, lambda: ConstScheduler(OFFSET), "auto"),
                   feed_stream(raw5), on_card(2), slices["split"]["out"],
-                  "cascade", 2 + 1, full(N_SPLIT), {"mixer": 1})
+                  "cascade", 2 + 1, full(N_SPLIT),
+                  {"mixer": 1, "window": full(N_SPLIT) + 3})
 
         def channels(fs, cfg):
             cfg_path = os.path.join(tmp, f"mesh{len(cfg['channels'])}.json")
@@ -2532,12 +2592,12 @@ def phase_mesh(torch, card, slices):
         check_run("config 4, 16 channels (channel cascade), time=2 x channel=2",
                   channels(FS, cfg4), feed_channels(slices["config4"]["raw"]),
                   grid, slices["config4"]["outs"], "cascade_channels", 4 + 2,
-                  full(N_SLICE), {"mixer_channels": 1})
+                  full(N_SLICE), {"mixer_channels": 1, "window": 2})
         check_run("config 5 rate x 256 channels, time=2 x channel=2",
                   channels(FS_SPLIT, dict(channels=_config5_channels())),
                   feed_channels(slices["config5"]["raw"]), grid,
                   slices["config5"]["outs"], "cascade_channels", 4 + 2,
-                  full(N_WIDE), {"mixer_channels": 1})
+                  full(N_WIDE), {"mixer_channels": 1, "window": full(N_WIDE) + 3})
 
         # the CLI: --mesh time=1 on the card is slice (i); one shard more
         # than the machine's cards exits 1 with the JAX package's message
@@ -2564,6 +2624,405 @@ def phase_mesh(torch, card, slices):
         check(rc == 1 and want_msg in log.getvalue(),
               f"--mesh time={n + 1}: rc {rc}, log {log.getvalue()[-300:]!r}")
     return launches_mesh, walls
+
+
+# -- the conv resampler, --impl xla, the native host library ----------------------
+
+N_CONV = B_MAIN * 2048             # the pipeline's chunk: the conv step's shape
+CONV_REL = 1e-5                    # conv kernel vs another order, float32 out
+
+
+def _conv_setup(torch, n, seed, in_consumed):
+    """Config 3's single stage: ``T − 1 + n`` seeded float32 samples a plane
+    on the card, its taps matrix, and the conv geometry of a chunk that
+    starts at input ``in_consumed`` of a stream."""
+    import numpy as np
+
+    from doppler_tpu_torch.ops.resample import (
+        RationalResampler,
+        conv_stream_geometry,
+        make_taps_matrix,
+    )
+
+    rs = RationalResampler(FS, OUT_RATE)
+    P, Q, T = rs.P, rs.Q, rs.T
+    rng = np.random.default_rng(seed)
+    xi, xq = (torch.from_numpy((0.3 * rng.standard_normal(T - 1 + n)).astype(
+        np.float32)).cuda() for _ in range(2))
+    taps = torch.from_numpy(make_taps_matrix(rs.bank, P, Q)).cuda()
+    m0 = -(-in_consumed * P // Q)
+    M = n * P // Q + 2
+    geo = conv_stream_geometry(m0, in_consumed, M, n, P=P, Q=Q, T=T)
+    return rs, xi, xq, taps, m0, M, geo
+
+
+def _conv_stream(torch, x, width):
+    """``x`` (2, n) on the card through ``RationalResampler(impl='conv')``
+    in chunks of ``width``, the last one zero padded."""
+    from doppler_tpu_torch.ops.resample import RationalResampler
+
+    r = RationalResampler(FS, OUT_RATE, impl="conv", device="cuda")
+    n, parts = x.shape[1], []
+    for lo in range(0, n, width):
+        v = min(width, n - lo)
+        c = torch.zeros(2, width, device="cuda")
+        c[:, :v] = x[:, lo:lo + v]
+        yi, yq, k = r.process(c[0], c[1], v, r.max_out_for(width))
+        parts.append(torch.stack([yi[:k], yq[:k]]))
+    return torch.cat(parts, dim=1)
+
+
+def phase_conv(torch, card):
+    """(a) The conv kernel (``csrc/conv.cu``) at config 3's chunk, mid-stream
+    (p0 ≠ 0): against its plain version on the card (cuBLAS, TF32 off), its
+    CPU twin and the window kernel, float32 within 1e-5 of the peak and ≤ 1
+    LSB in under 1% after encode; the stream bitwise across two chunk widths
+    and one-shot; the TF32 refusal.  Whether the plain version (cuBLAS) is
+    itself bitwise across chunk widths is printed, not required.  Then the
+    window kernel (``csrc/window.cu``) against its plain version
+    (``window_dot``) on the same buffers, within 2^-20.  Returns the largest
+    float32 errors by comparison."""
+    from doppler_tpu_torch.ops import codec
+    from doppler_tpu_torch.ops import resample as resample_mod
+    from doppler_tpu_torch.ops.cuda import conv
+    from doppler_tpu_torch.ops.resample import (
+        RationalResampler,
+        window_dot,
+        window_resample,
+    )
+
+    in_consumed = 7 * N_CONV + 5
+    rs, xi, xq, taps, m0, M, geo = _conv_setup(torch, N_CONV, 31, in_consumed)
+    start0, p0, K, PADZ, TAIL = geo
+    P, Q, T = rs.P, rs.Q, rs.T
+    kw = dict(P=P, Q=Q, T=T, K=K, M=M, PADZ=PADZ, TAIL=TAIL)
+    print(f"conv: P/Q = {P}/{Q}, T = {T}, chunk {N_CONV} inputs, M = {M}, "
+          f"start0 = {start0}, p0 = {p0}, K = {K} [{card}]")
+    got = torch.stack(conv.resample_conv_stream(xi, xq, taps, start0, p0, **kw))
+    torch.cuda.synchronize()
+    plain = torch.stack(conv.resample_conv_stream_plain(xi, xq, taps, start0, p0,
+                                                        **kw))
+    twin = torch.stack(conv.resample_conv_stream_plain(
+        xi.cpu(), xq.cpu(), taps.cpu(), start0, p0, **kw)).cuda()
+    bank_rev = torch.from_numpy(rs.bank[:, ::-1].copy()).cuda()
+    window = torch.stack(window_resample(xi, xq, bank_rev, (m0 * Q) % P,
+                                         (m0 * Q) // P - in_consumed, P=P, Q=Q,
+                                         T=T, M=M))
+    # the outputs whose newest input lies in the buffer (the rest read past
+    # it, zeros for conv and a clipped index for window)
+    n = -(-(in_consumed + N_CONV) * P // Q) - m0
+    peak = plain.abs().max().item()
+    errs = {}
+    for name, want in (("plain (cuBLAS)", plain), ("CPU twin", twin),
+                       ("window kernel", window)):
+        errs[name] = (got[:, :n] - want[:, :n]).abs().max().item()
+        d = _lsb_diff(torch, codec.iq_to_i16_words(got[0, :n], got[1, :n]),
+                      codec.iq_to_i16_words(want[0, :n], want[1, :n]))
+        lsb, frac = int(d.max()), float((d > 0).float().mean())
+        print(f"conv: kernel vs {name}: max abs err {errs[name]!r} (peak "
+              f"{peak!r}), encoded max LSB={lsb} frac={frac!r} [{card}]")
+        check(errs[name] <= CONV_REL * peak and lsb <= 1 and frac < 0.01,
+              f"conv: the kernel is not within tolerance of the {name}")
+
+    gen = torch.Generator(device="cuda").manual_seed(33)
+    x = 0.3 * torch.randn(2, 3 * N_CONV + 12345, device="cuda", generator=gen)
+    one = _conv_stream(torch, x, x.shape[1])
+    same = [torch.equal(_conv_stream(torch, x, w), one) for w in (N_CONV, 100_000)]
+    print(f"conv: stream at {N_CONV} and 100000 a chunk bitwise one-shot: "
+          f"{same} [{card}]")
+    check(all(same), "conv: the kernel's bytes depend on the chunk width")
+    kernel_stream = resample_mod.resample_conv_stream
+    resample_mod.resample_conv_stream = conv.resample_conv_stream_plain
+    try:
+        one_p = _conv_stream(torch, x, x.shape[1])
+        same_p = [torch.equal(_conv_stream(torch, x, w), one_p)
+                  for w in (N_CONV, 100_000)]
+    finally:
+        resample_mod.resample_conv_stream = kernel_stream
+    print(f"conv: the plain version on the card (R cuBLAS products) bitwise "
+          f"one-shot at the same widths: {same_p} [{card}]")
+
+    r = RationalResampler(FS, OUT_RATE, impl="conv", device="cuda")
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        r.process(x[0, :4096], x[1, :4096], 4096, r.max_out_for(4096))
+        refused = False
+    except RuntimeError as e:
+        refused = "TF32" in str(e)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    print(f"conv: refuses TF32 matmuls: {refused} [{card}]")
+    check(refused and torch.get_float32_matmul_precision() == "highest",
+          "conv: the TF32 refusal failed or the setting was left changed")
+
+    # the window kernel against its plain version (window_dot's tree) on
+    # the same buffers: 2^-20, as the chain kernel against its plain version
+    plain_w = torch.stack(window_dot(xi, xq, bank_rev, (m0 * Q) % P,
+                                     (m0 * Q) // P - in_consumed, P=P, Q=Q, T=T,
+                                     M=M))
+    errs["window plain"] = (window[:, :n] - plain_w[:, :n]).abs().max().item()
+    d = _lsb_diff(torch, codec.iq_to_i16_words(window[0, :n], window[1, :n]),
+                  codec.iq_to_i16_words(plain_w[0, :n], plain_w[1, :n]))
+    lsb, frac = int(d.max()), float((d > 0).float().mean())
+    print(f"window: kernel vs plain (window_dot): max abs err "
+          f"{errs['window plain']!r}, encoded max LSB={lsb} frac={frac!r} "
+          f"[{card}]")
+    check(errs["window plain"] <= TOL_F32 and lsb <= 1 and frac < 0.01,
+          "window: the kernel is not within tolerance of its plain version")
+    return errs
+
+
+def _track_argv(tle_path):
+    return ["track", "-s", str(FS), "-i", "i16", "--tlefile", tle_path,
+            "--tlename", "TEST SAT", "--location", LOCATION,
+            "--frequency", str(int(FREQ)), "--offset", str(int(OFFSET)),
+            "--time", time.strftime("%Y-%m-%dT%H:%M:%S", time.gmtime(START_UNIX)),
+            "--resample-to", str(OUT_RATE)]
+
+
+def phase_unfused(torch, card, slices):
+    """(b) slice (iii) with ``--impl xla``: the mixer kernel and the window
+    resampler on every chunk, (iii)'s bytes, mixer once a chunk and no
+    chain launch; (c) with ``--impl xla --resample-impl conv``: the conv
+    kernel once a chunk, > 70 dB against (iii)'s golden, ≤ 1 LSB in under
+    1% from (iii)'s bytes; then that route in process over ``--mesh
+    time=2`` on ``[cuda:0] × 2``, the unsharded conv bytes."""
+    from doppler_tpu_torch import oracle
+    from doppler_tpu_torch.ops.resample import attach_resampler
+    from doppler_tpu_torch.orbit import make_track_scheduler
+    from doppler_tpu_torch.parallel.mesh import make_mesh
+    from doppler_tpu_torch.runtime.pipeline import Pipeline
+
+    raw = slices["default"]["raw"]
+    chain_out, golden = slices["chain"]["out"], slices["chain"]["golden"]
+    n_full = N_SLICE // (B_MAIN * 2048)
+    n_chunks = -(-N_SLICE // (B_MAIN * 2048))
+    want_n = -(-N_SLICE * 3 // 64)
+    res = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        tle_path = os.path.join(tmp, "sat.txt")
+        with open(tle_path, "w") as f:
+            f.write("TEST SAT\n" + "\n".join(_tle_lines()) + "\n")
+        argv = _track_argv(tle_path) + ["--resample-stages", "single", "--impl", "xla"]
+
+        out, launches, _, split = _run_slice("chain-xla", argv, raw, card)
+        same = out == chain_out
+        print(f"slice chain-xla: bytes equal to (iii)'s={same} [{card}]")
+        check(same, "chain-xla: --impl xla is not (iii)'s bytes")
+        check(launches == _launches(mixer=n_chunks, window=n_chunks),
+              f"chain-xla: launches {launches}, want the mixer and the window "
+              f"kernel {n_chunks} times each")
+        res["chain-xla"] = dict(split, launches=launches)
+
+        out, launches, _, split = _run_slice(
+            "chain-xla-conv", argv + ["--resample-impl", "conv"], raw, card)
+        check(len(out) // 4 == want_n,
+              f"chain-xla-conv: output length {len(out) // 4} != {want_n}")
+        check(launches == _launches(mixer=n_chunks, conv=n_chunks),
+              f"chain-xla-conv: launches {launches}, want mixer and conv "
+              f"{n_chunks} times each")
+        snr = oracle.snr_db(golden, oracle.decode_i16_bytes(out[:len(golden) * 4]))
+        d = _lsb_diff(torch, torch.frombuffer(bytearray(out), dtype=torch.int32),
+                      torch.frombuffer(bytearray(chain_out), dtype=torch.int32))
+        lsb, frac = int(d.max()), float((d > 0).float().mean())
+        print(f"slice chain-xla-conv: first {len(golden)} outputs vs golden: SNR "
+              f"{snr!r} dB; against (iii)'s bytes max LSB={lsb} frac={frac!r} "
+              f"[{card}]")
+        check(snr > 70.0 and lsb <= 1 and frac < 0.01,
+              "chain-xla-conv: not within tolerance of the golden and (iii)")
+        res["chain-xla-conv"] = dict(split, launches=launches, snr_db=snr)
+
+        lat, lon, alt = (float(v.split("=")[1]) for v in LOCATION.split(","))
+
+        def make(mesh):
+            p = Pipeline(FS, "i16", "i16", make_track_scheduler(
+                tlefile=tle_path, tlename="TEST SAT", lat=lat, lon=lon, alt=alt,
+                frequency_hz=FREQ, offset_hz=OFFSET, samplerate=FS,
+                start_time=START_UNIX), impl="xla", device="cuda", mesh=mesh)
+            attach_resampler(p, OUT_RATE, stages="single", impl="conv")
+            return p
+
+        def feed(pipe):
+            sink = _Sink()
+            pipe.run(io.BytesIO(raw), sink)
+            return b"".join(sink.parts)
+
+        got, launches_m, wall = _mesh_run(torch, "chain-xla-conv", make, feed,
+                                          make_mesh(time=2, devices=["cuda:0"] * 2),
+                                          card)
+        print(f"mesh: chain-xla-conv time=2: bytes equal to the CLI's unsharded "
+              f"run's={got == out} [{card}]")
+        check(got == out, "chain-xla-conv: --mesh time=2 is not the unsharded bytes")
+        want_m = {"mixer": 2 * n_full + 1, "conv": 2 * n_full + 1}
+        check(launches_m == want_m,
+              f"chain-xla-conv mesh: launches {launches_m}, want {want_m}")
+        res["chain-xla-conv"]["launches_mesh"] = launches_m
+    return res
+
+
+class _TimedScheduler:
+    """A scheduler whose ``shifts`` calls are timed: ``seconds`` holds the
+    time in the Doppler curve (SGP4) and the staircase."""
+
+    def __init__(self, inner):
+        self.inner = inner
+        self.seconds = 0.0
+
+    def shifts(self, counts):
+        t0 = time.perf_counter()
+        out = self.inner.shifts(counts)
+        self.seconds += time.perf_counter() - t0
+        return out
+
+    def __getattr__(self, name):
+        return getattr(self.inner, name)
+
+
+def phase_native(torch, card, slices, native_info):
+    """(d) The native host library: its build seconds, then slices (i) and
+    (iv) in process, built as the CLI builds them, with the track
+    predictors' ``use_native`` on and off: the bytes of phase 5's CLI runs
+    both ways, and ``host_s`` with the schedulers' share beside it."""
+    from doppler_tpu_torch.ops.resample import attach_resampler
+    from doppler_tpu_torch.orbit import make_track_scheduler
+    from doppler_tpu_torch.runtime.channels import (
+        MultiChannelPipeline,
+        load_channel_config,
+    )
+    from doppler_tpu_torch.runtime.pipeline import Pipeline
+
+    print(f"native: libdoppler_native.so built in {native_info['seconds']!r} s "
+          f"({'compiled' if native_info['built'] else 'cached'}) -> "
+          f"{os.path.relpath(native_info['path'])} [{card}]")
+    lat, lon, alt = (float(v.split("=")[1]) for v in LOCATION.split(","))
+    res = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        tle_path = os.path.join(tmp, "sat.txt")
+        with open(tle_path, "w") as f:
+            f.write("TEST SAT\n" + "\n".join(_tle_lines()) + "\n")
+        cfg_path = os.path.join(tmp, "config4.json")
+        with open(cfg_path, "w") as f:
+            json.dump({"tlefile": tle_path, "location": LOCATION,
+                       "time": time.strftime("%Y-%m-%dT%H:%M:%S",
+                                             time.gmtime(START_UNIX)),
+                       "channels": _config4_channels()}, f)
+        for use_native in (True, False):
+            sched = _TimedScheduler(make_track_scheduler(
+                tlefile=tle_path, tlename="TEST SAT", lat=lat, lon=lon, alt=alt,
+                frequency_hz=FREQ, offset_hz=OFFSET, samplerate=FS,
+                start_time=START_UNIX, use_native=use_native))
+            check(sched.predictor.native == use_native,
+                  f"native: the predictor's C++ curve is not {use_native}")
+            pipe = Pipeline(FS, "i16", "i16", sched, device="cuda")
+            attach_resampler(pipe, OUT_RATE, stages="auto")
+            sink = _Sink()
+            t0 = time.perf_counter()
+            pipe.run(io.BytesIO(slices["default"]["raw"]), sink)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            same = b"".join(sink.parts) == slices["default"]["out"]
+            print(f"native: slice (i) use_native={use_native}: bytes equal to "
+                  f"the CLI run's={same}; host_s {pipe.host_s!r} s, of which the "
+                  f"scheduler (SGP4 + staircase) {sched.seconds!r} s "
+                  f"({sched.seconds / pipe.host_s!r}); wall {wall!r} s [{card}]")
+            check(same, f"native: slice (i) use_native={use_native} bytes differ")
+            res["default", use_native] = dict(host_s=pipe.host_s,
+                                              sched_s=sched.seconds, wall_s=wall)
+
+            specs, _ = load_channel_config(cfg_path, FS, use_native=use_native)
+            timed = [_TimedScheduler(s.scheduler) for s in specs]
+            for s, t in zip(specs, timed):
+                s.scheduler = t
+            mp = MultiChannelPipeline(FS, "i16", "i16", specs, out_rate=OUT_RATE,
+                                      chunk_blocks=B_MAIN, resample_stages="auto",
+                                      device="cuda")
+            sinks = [_Sink() for _ in specs]
+            t0 = time.perf_counter()
+            mp.run(io.BytesIO(slices["config4"]["raw"]), sinks)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            sched_s = sum(t.seconds for t in timed)
+            same = [b"".join(s.parts) for s in sinks] == slices["config4"]["outs"]
+            print(f"native: slice (iv) use_native={use_native}: bytes equal to "
+                  f"the CLI run's={same}; host_s {mp.host_s!r} s, of which the 16 "
+                  f"schedulers {sched_s!r} s ({sched_s / mp.host_s!r}); wall "
+                  f"{wall!r} s [{card}]")
+            check(same, f"native: slice (iv) use_native={use_native} bytes differ")
+            res["config4", use_native] = dict(host_s=mp.host_s, sched_s=sched_s,
+                                              wall_s=wall)
+    return res
+
+
+def phase_resample_probe(torch, card):
+    """(e) ``tools/resample_probe.py`` on the card (the conv block, the
+    window kernel and the torch ``window_dot`` at N = 2^24), then the conv
+    and the window kernel at the pipeline's chunk against their plain
+    versions and the library's strided ``conv1d`` (one call computing the
+    same resampler, both forms' function), by one timer
+    (``timed_dispatches``, 16 calls, best of 5, in turns), with their
+    bounds.  Returns the probe's JSON and ``{kernel: (ms, plain_ms,
+    bound_ms, bound_by, library_ms)}``."""
+    from doppler_tpu_torch.ops.cuda import conv
+    from doppler_tpu_torch.ops.resample import window_dot, window_resample
+    from doppler_tpu_torch.tools import common, resample_probe
+
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = resample_probe.main(["--device", "cuda"])
+    for line in err.getvalue().splitlines():
+        if not line.startswith("device:"):
+            print(f"resample_probe: {line}" + ("" if line.endswith("]") else f" [{card}]"))
+    check(rc == 0, f"resample_probe returned {rc}")
+    probe = json.loads(out.getvalue().strip().splitlines()[-1])
+    print(f"resample_probe: {json.dumps(probe)} [{card}]")
+
+    rs, xi, xq, taps, m0, M, geo = _conv_setup(torch, N_CONV, 34, 7 * N_CONV + 5)
+    start0, p0, K, PADZ, TAIL = geo
+    P, Q, T = rs.P, rs.Q, rs.T
+    w_len, R = conv.conv_bands(Q, T)
+    kw = dict(P=P, Q=Q, T=T, K=K, M=M, PADZ=PADZ, TAIL=TAIL)
+    x2 = torch.nn.functional.pad(torch.stack([xi, xq]), (PADZ, TAIL))
+    lo = start0 + PADZ
+    xs = x2[:, lo:lo + (K + R) * Q].unsqueeze(1).contiguous()      # (2, 1, n)
+    weight = torch.nn.functional.pad(taps, (0, 0, 0, R * Q - w_len)).t()
+    weight = weight.unsqueeze(1).contiguous()                      # (P, 1, R·Q)
+
+    def library():
+        return torch.nn.functional.conv1d(xs, weight, stride=Q)     # (2, P, K+1)
+
+    lib_y = library()[:, :, :K].transpose(1, 2).reshape(2, K * P)[:, p0:p0 + M]
+    ker_y = torch.stack(conv.resample_conv_stream(xi, xq, taps, start0, p0, **kw))
+    lib_err = (lib_y - ker_y).abs().max().item()
+    print(f"conv: the library's conv1d computes the same product: max abs err "
+          f"{lib_err!r} against the kernel [{card}]")
+    check(lib_err <= CONV_REL * ker_y.abs().max().item(),
+          "conv: the library's conv1d is not the same function")
+    bank_rev = torch.from_numpy(rs.bank[:, ::-1].copy()).cuda()
+    win = dict(P=P, Q=Q, T=T, M=M)
+    rem0, off0 = (m0 * Q) % P, (m0 * Q) // P - (7 * N_CONV + 5)
+    steps = {
+        "conv": lambda: conv.resample_conv_stream(xi, xq, taps, start0, p0, **kw),
+        "conv plain": lambda: conv.resample_conv_stream_plain(
+            xi, xq, taps, start0, p0, **kw),
+        "window": lambda: window_resample(xi, xq, bank_rev, rem0, off0, **win),
+        "window plain": lambda: window_dot(xi, xq, bank_rev, rem0, off0, **win),
+        "library": library,
+    }
+    K_disp = 16
+    best = common.best_of(steps, 5, K_disp, torch.device("cuda"))
+    ms = {k: v / K_disp * 1e3 for k, v in best.items()}
+    res = {}
+    n_bytes = 2 * 4 * (xi.numel() + M)
+    for name, fma in (("conv", R * Q), ("window", T)):
+        flop = 2 * 2 * fma * M
+        t_b, t_f = n_bytes / HBM_BYTES_PER_S, flop / F32_FLOP_PER_S
+        bound_ms, by = max(t_b, t_f) * 1e3, "bytes" if t_b >= t_f else "operations"
+        print(f"timing: {name} kernel {ms[name]!r} ms, plain "
+              f"{ms[name + ' plain']!r} ms, library conv1d {ms['library']!r} ms "
+              f"a chunk of {N_CONV} inputs ({M} outputs); bound {bound_ms!r} ms "
+              f"by {by} ({n_bytes} B, {flop} FLOP) [{card}]")
+        res[name] = (ms[name], ms[name + " plain"], bound_ms, by, ms["library"])
+    return probe, res
 
 
 def phase_conformance():
@@ -2664,6 +3123,7 @@ def main() -> int:
     try:
         card = phase_device(torch)
         sass = timed(phase_build)
+        native_info = timed(phase_build_native, card)
         gen = torch.Generator(device="cuda").manual_seed(0)
         mix_err = timed(phase_mixer, torch, gen)
         chain_err = timed(phase_chain, torch, gen)
@@ -2672,8 +3132,11 @@ def main() -> int:
         fast_err = timed(phase_chain_fast, torch, gen)
         cfast_err = timed(phase_cascade_fast, torch, gen)
         timed(phase_probes, torch, gen)
+        conv_err = timed(phase_conv, torch, card)
         slices = timed(phase_slices, torch, card)
         slices.update(timed(phase_channel_slices, torch, card))
+        unfused = timed(phase_unfused, torch, card, slices)
+        timed(phase_native, torch, card, slices, native_info)
         seek = timed(phase_distributed, torch, card)
         mesh_launches, _ = timed(phase_mesh, torch, card, slices)
         timed(phase_conformance)
@@ -2681,6 +3144,7 @@ def main() -> int:
         times.update(timed(phase_timing_channels, torch, gen, card))
         probe_times = timed(phase_timing_probes, torch, gen, card, sass)
         _, tool_launches = timed(phase_roofline, card)
+        _, resampler_times = timed(phase_resample_probe, torch, card)
         if "jax" in sys.modules:
             raise Failed("jax was imported")
     except Exception as e:      # every failure ends the run non-zero
@@ -2770,6 +3234,24 @@ def main() -> int:
         probe_entry("mix_shape", "probes.cu",
                     "tools/probe_chain_precision.py:190", "mix-fold",
                     ms_mix_select="mix-select"),
+        # the resampler's two forms, XLA functions in the JAX package (no
+        # Pallas kernel); times at the pipeline's chunk, the library's
+        # strided conv1d beside them (phase_resample_probe).  The window
+        # kernel's launches are slice (i)'s EOF chunk (one a stage), its
+        # error the largest against its plain version on phase 4g's chunk
+        dict(zip(("ms", "plain_ms", "bound_ms", "bound_by", "library_ms"),
+                 resampler_times["window"]),
+             name="window", route="cuda", source="doppler_tpu_torch/csrc/window.cu",
+             replaces="doppler_tpu/ops/resample.py:61", launches=default["window"],
+             max_abs_err=conv_err["window plain"],
+             launches_unfused=unfused["chain-xla"]["launches"]["window"]),
+        dict(zip(("ms", "plain_ms", "bound_ms", "bound_by", "library_ms"),
+                 resampler_times["conv"]),
+             name="conv", route="cuda", source="doppler_tpu_torch/csrc/conv.cu",
+             replaces="doppler_tpu/ops/resample.py:96",
+             launches=unfused["chain-xla-conv"]["launches"]["conv"],
+             max_abs_err=conv_err["plain (cuBLAS)"],
+             launches_mesh=unfused["chain-xla-conv"]["launches_mesh"]["conv"]),
     ]
     for k in kernels:
         if k["launches"] < 1:

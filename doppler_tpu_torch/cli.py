@@ -31,9 +31,19 @@ Flag-compatible with ``doppler_tpu/cli.py`` for what this package runs:
   sharded over a grid of the local cards, ``parallel.mesh``; the bytes are
   the unsharded run's) and ``--device {cuda,cpu}`` (default ``cuda``; no
   silent CPU fallback; with ``cpu`` every shard of a mesh is the CPU).
-
-The JAX package's ``--impl`` and ``--resample-impl`` are not ported; their
-flags do not exist here.
+- the JAX package's implementation flags, with its choices and defaults:
+  ``--impl {auto,xla,pallas}`` (``auto`` and ``pallas``: the fused chain
+  and cascade kernels where the gates take a chunk; ``xla``: the unfused
+  route, the mixer kernel and then the resampler on every chunk — unfused,
+  not the plain versions), ``--resample-impl {auto,conv,window}`` (the
+  resampler's form: ``conv`` is the banded windows-matmul,
+  ``csrc/conv.cu`` on the card; ``auto`` means ``window`` here, because
+  the fused kernels compute the ``window`` bytes and the EOF chunk of the
+  same stream takes the resampler; channels mode ignores the flag, as the
+  JAX CLI does) and ``--platform {cpu,tpu,default}`` (``cpu`` is
+  ``--device cpu``, and ``--device cuda`` beside it is a usage error;
+  ``default`` leaves ``--device`` as it is; ``tpu`` is a usage error: there
+  is no TPU here, use ``--device``).  Usage errors exit with 2.
 
 IQ bytes flow stdin → stdout; telemetry goes to stderr only (main.rs:212-233).
 """
@@ -143,9 +153,21 @@ def _add_io_args(p: argparse.ArgumentParser) -> None:
                         "kernel) when decimating ≥4x and the single-stage "
                         "polyphase design otherwise; 'single'/'multi' force "
                         "one structure")
+    p.add_argument("--resample-impl", choices=["auto", "conv", "window"],
+                   default="auto",
+                   help="resampler formulation: banded windows-matmul "
+                        "(conv, a CUDA kernel on the card) or gather+fixed-"
+                        "tree (window); 'auto' (default) is window, the "
+                        "bytes of the fused kernels.  Channels mode ignores "
+                        "it, as the JAX CLI does")
     p.add_argument("--exact-ratio", action="store_true",
                    help="use exact rational NCO rate instead of mirroring the "
                         "reference's f32-rounded shift/samplerate ratio")
+    p.add_argument("--impl", choices=["auto", "xla", "pallas"], default="auto",
+                   help="'pallas' and 'auto' (default) run the fused chain "
+                        "and cascade kernels where they take a chunk; 'xla' "
+                        "runs the unfused route on every chunk: the mixer "
+                        "kernel, then the resampler")
     p.add_argument("--precision", choices=["exact", "fast"], default="exact",
                    help="resampler dot precision: 'exact' (default) sums "
                         "float32 products; 'fast' runs the fused single-"
@@ -157,6 +179,10 @@ def _add_io_args(p: argparse.ArgumentParser) -> None:
                    help="flush the resampler FIR tail with zeros at EOF")
     p.add_argument("--log-format", choices=["fern", "json"], default="fern",
                    help="stderr telemetry format")
+    p.add_argument("--platform", choices=["cpu", "tpu", "default"],
+                   default="default",
+                   help="the JAX CLI's platform override: 'cpu' is --device "
+                        "cpu, 'default' keeps --device, 'tpu' is refused")
     p.add_argument("--log-level", default="info",
                    choices=["debug", "info", "warning", "error"])
     p.add_argument("--mesh", default=None, metavar="SPEC",
@@ -195,7 +221,7 @@ def _add_io_args(p: argparse.ArgumentParser) -> None:
                         "fed from there) and appends to the output; under "
                         "--distributed host k restores PATH.hK and appends "
                         "to its own part file")
-    p.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
+    p.add_argument("--device", choices=["cuda", "cpu"], default=None,
                    help="'cuda' (default) runs the hand-written kernels on "
                         "the GPU and fails without one; 'cpu' runs their "
                         "plain torch versions")
@@ -245,6 +271,26 @@ def build_parser() -> argparse.ArgumentParser:
     chans.add_argument("--output-dir", default=".",
                        help="directory for per-channel <name>.iq outputs")
     return ap
+
+
+def _resolve_device(args) -> str:
+    """``--platform`` onto ``--device``: ``cpu`` → ``cpu``, ``default`` →
+    ``--device`` (``cuda`` when unset).  Raises ``ValueError`` (a usage
+    error) for ``tpu`` and for ``--platform cpu --device cuda``."""
+    if args.platform == "tpu":
+        raise ValueError("--platform tpu: this package runs on CUDA cards "
+                         "or the CPU; choose with --device {cuda,cpu}")
+    if args.platform == "cpu":
+        if args.device == "cuda":
+            raise ValueError("--platform cpu contradicts --device cuda")
+        return "cpu"
+    return args.device or "cuda"
+
+
+def _pipeline_impl(impl: str) -> str:
+    """``--impl``: ``xla`` → the unfused route; ``auto`` and ``pallas`` →
+    the fused kernels (the JAX CLI's ``auto`` picks ``pallas`` on a TPU)."""
+    return "xla" if impl == "xla" else "pallas"
 
 
 def _resolve_chunk_blocks(arg, samplerate: int, block_samples: int,
@@ -558,6 +604,7 @@ def _main_channels(args, log, outtype: str, chunk_blocks: int, stdin,
             drain_on_eof=args.drain,
             resample_stages=args.resample_stages,
             precision=args.precision,
+            impl=_pipeline_impl(args.impl),
             device=args.device,
             mesh=mesh,
         )
@@ -648,12 +695,14 @@ def _main_stream(args, log, outtype: str, chunk_blocks: int, stdin, stdout,
             drain_on_eof=args.drain,
             prefetch_chunks=args.prefetch_chunks,
             precision=args.precision,
+            impl=_pipeline_impl(args.impl),
             device=args.device,
             mesh=mesh,
         )
         if args.resample_to is not None:
             attach_resampler(pipe, args.resample_to,
-                             stages=args.resample_stages)
+                             stages=args.resample_stages,
+                             impl=args.resample_impl)
     except (ValueError, RuntimeError) as e:
         log.error("%s", e)
         return 1
@@ -727,6 +776,10 @@ def main(argv=None, stdin=None, stdout=None) -> int:
     ap = build_parser()
     try:
         args = ap.parse_args(argv)
+        try:
+            args.device = _resolve_device(args)
+        except ValueError as e:
+            ap.error(str(e))
     except SystemExit as e:
         return int(e.code or 0)
 

@@ -26,6 +26,8 @@ __all__ = [
     "pack_i16_words",
     "i16_words_to_iq",
     "iq_to_i16_words",
+    "f32_pairs_to_iq",
+    "iq_to_f32_pairs",
     "saturating_trunc_i16",
     "bytes_to_i16_words",
     "i16_words_to_bytes",
@@ -80,6 +82,16 @@ def iq_to_i16_words(i: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
     """Planar (i, q) float32 → int32 words of LE i16 pairs (main.rs:76-84)."""
     return pack_i16_words(saturating_trunc_i16(i * _SCALE_OUT),
                           saturating_trunc_i16(q * _SCALE_OUT))
+
+
+def f32_pairs_to_iq(pairs: torch.Tensor):
+    """(…, N, 2) float32 interleaved pairs → planar (i, q) views."""
+    return pairs[..., 0], pairs[..., 1]
+
+
+def iq_to_f32_pairs(i: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    """Planar (i, q) → (…, N, 2) float32 interleaved pairs."""
+    return torch.stack([i, q], dim=-1)
 
 
 # ---------------------------------------------------------------------------

@@ -43,6 +43,7 @@ _vp = ctypes.c_void_p
 _i = ctypes.c_int
 _vpp = ctypes.POINTER(ctypes.c_void_p)   # an array of pointers
 _ip = ctypes.POINTER(ctypes.c_int)      # an array of ints
+_ll = ctypes.c_longlong
 
 
 def _nvcc() -> str:
@@ -176,6 +177,16 @@ def load() -> ctypes.CDLL:
     lib.doppler_cascade_fast_part.argtypes = [_vp, _vp, _vp, _vpp, _vpp, _vpp,
                                               _ip, _i, _i, _i, _i, _i, _i,
                                               ctypes.c_longlong, _i, _i, _vp, _vp]
+    lib.doppler_conv.restype = _i
+    # xi, xq, taps, yi, yq, C, len, x_stride, M, start0, p0, P, Q, R, w_len,
+    # stream
+    lib.doppler_conv.argtypes = [_vp, _vp, _vp, _vp, _vp, _i, _ll, _ll, _ll,
+                                 _ll, _i, _i, _i, _i, _i, _vp]
+    lib.doppler_window.restype = _i
+    # xi, xq, bank_rev, yi, yq, C, len, x_stride, M, rem0, off0, P, Q, T,
+    # stream
+    lib.doppler_window.argtypes = [_vp, _vp, _vp, _vp, _vp, _i, _ll, _ll, _ll,
+                                   _i, _ll, _i, _i, _i, _vp]
     lib.doppler_error_string.restype = ctypes.c_char_p
     lib.doppler_error_string.argtypes = [_i]
     return lib

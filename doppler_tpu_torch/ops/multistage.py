@@ -63,12 +63,15 @@ class MultiStageResampler:
     ``load_state`` surface, and the same ``channels=C`` batch form).
     Decimation only (``out_rate < in_rate``).
     ``P``/``Q`` are the overall reduced ratio and ``T`` the input-referred
-    FIR span, ``1 + Σ (T_s − 1)·(in_rate / rate_s)``.
+    FIR span, ``1 + Σ (T_s − 1)·(in_rate / rate_s)``.  ``impl`` is every
+    stage's resampler form (``RationalResampler(impl=)``), as in the JAX
+    package.
     """
 
     def __init__(self, in_rate: int, out_rate: float, *,
                  atten_db: float = 70.0, channels: int | None = None,
-                 max_denominator: int = 1 << 16, device="cpu"):
+                 max_denominator: int = 1 << 16, device="cpu",
+                 impl: str = "auto"):
         if out_rate >= in_rate:
             raise ValueError(
                 "MultiStageResampler is decimation-only; use "
@@ -102,13 +105,13 @@ class MultiStageResampler:
                 break
             self.stages.append(RationalResampler(
                 int(rate), rate / q, taps_per_phase=taps, atten_db=atten_s,
-                channels=channels, device=self.device))
+                channels=channels, device=self.device, impl=impl))
             rate = rate / q
         fin_ratio = max(1.0, rate / float(out_rate))
         self.stages.append(RationalResampler(
             int(rate), out_rate, atten_db=atten_db + 10.0 * math.log10(fin_ratio),
             channels=channels, max_denominator=max_denominator,
-            device=self.device))
+            device=self.device, impl=impl))
         g = 1
         for st in self.stages[:-1]:
             g *= st.Q                     # P = 1 decimation front
@@ -161,7 +164,8 @@ def make_resampler(in_rate: int, out_rate: float, *, stages: str = "single",
                    atten_db: float = 70.0, channels: int | None = None,
                    device="cpu", **kwargs):
     """``stages='single'`` → :class:`RationalResampler`; ``'auto'`` → the
-    cascade when decimating by 4× or more; ``'multi'`` → the cascade."""
+    cascade when decimating by 4× or more; ``'multi'`` → the cascade.
+    ``kwargs`` (``impl``, ``max_denominator``) go to the resampler."""
     if stages not in ("single", "auto", "multi"):
         raise ValueError(f"stages must be single|auto|multi, got {stages!r}")
     heavy = float(out_rate) * 4.0 <= float(in_rate)

@@ -28,8 +28,10 @@ def make_track_scheduler(
     samplerate: int,
     start_time: float | None,
     telemetry: bool = True,
+    use_native="auto",
 ):
     """CLI glue: build the track-mode scheduler (recorded or realtime).
+    ``use_native`` is the ``Predictor``'s (the C++ curve by default).
 
     Raises ``FileNotFoundError``/``TleError``/``SGP4Error`` (ValueError
     subclasses) for the CLI's exit(1) path, mirroring main.rs:141-147.
@@ -38,7 +40,7 @@ def make_track_scheduler(
         tle = Tle.from_file(tlename, tlefile)
     except OSError as e:
         raise FileNotFoundError(f"cannot read TLE file {tlefile!r}: {e}") from None
-    predictor = Predictor(tle, Observer(lat, lon, alt))
+    predictor = Predictor(tle, Observer(lat, lon, alt), use_native=use_native)
     if start_time is not None:
         return TrackScheduler(
             predictor, frequency_hz, offset_hz, samplerate, start_time,

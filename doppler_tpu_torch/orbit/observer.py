@@ -101,24 +101,67 @@ class Observer:
 class Predictor:
     """TLE + site → observation at UTC time(s); the gpredict `Predict` analog.
 
-    Always evaluates through the NumPy SGP4 below.  (The JAX package can
-    also route near-earth satellites through its C++ curve evaluator,
-    ``native/src/sgp4_native.cpp``; that host accelerator is not part of
-    this package, and the two implement the same math.)
+    ``use_native='auto'`` (the default, as in the JAX package) evaluates the
+    Doppler curve through the C++ SGP4 of ``runtime.native`` (``NativeSGP4``,
+    ``native/src/sgp4_native.cpp``); a TLE the C++ code does not take (a
+    deep-space satellite) runs the NumPy SGP4/SDP4 below.  ``True`` requires
+    the C++ curve, ``False`` always runs NumPy.  The two implement the same
+    math; unlike the JAX package, a native library that fails to build
+    raises instead of falling back.
     """
 
-    def __init__(self, tle: Tle, observer: Observer):
+    def __init__(self, tle: Tle, observer: Observer, use_native="auto"):
+        if use_native not in ("auto", True, False):
+            raise ValueError(
+                f"use_native must be 'auto', True or False, got {use_native!r}")
         self.tle = tle
         self.observer = observer
         self.sgp4 = SGP4(tle)
+        self._native = None
+        if use_native is not False:
+            from doppler_tpu_torch.runtime.native import (
+                NativeInitError,
+                NativeSGP4,
+            )
+
+            try:
+                self._native = NativeSGP4(tle)
+            except NativeInitError:
+                if use_native is True:
+                    raise
+
+    @property
+    def native(self) -> bool:
+        """Does the C++ curve evaluate this predictor?"""
+        return self._native is not None
 
     def observe_unix(self, unix_s) -> SatObs:
+        if self._native is not None:
+            _, obs = self._observe_native(unix_s, 0.0)
+            return obs
         jd = unix_to_jd(unix_s)
         tsince_min = (jd - self.tle.epoch_jd) * 1440.0
         r, v = self.sgp4.propagate(tsince_min)
         return self.observer.topocentric(jd, r, v)
 
+    def _observe_native(self, unix_s, frequency_hz):
+        ts = np.asarray(unix_s, dtype=np.float64)
+        shape = ts.shape
+        o = self.observer
+        dop, rng, rate, az, el = self._native.doppler_curve(
+            ts.reshape(-1), math.degrees(o.lat), math.degrees(o.lon),
+            o.alt_km * 1000.0, frequency_hz,
+        )
+        obs = SatObs(
+            az_deg=az.reshape(shape), el_deg=el.reshape(shape),
+            range_km=rng.reshape(shape),
+            range_rate_km_sec=rate.reshape(shape),
+        )
+        return dop.reshape(shape), obs
+
     def doppler_hz(self, unix_s, frequency_hz: float, c_m_s: float = 299792458.0):
         """``−(range_rate·1000/c)·f`` exactly as main.rs:163 computes it."""
+        if self._native is not None:
+            return self._observe_native(unix_s, float(frequency_hz))
         obs = self.observe_unix(unix_s)
         return (obs.range_rate_km_sec * 1000.0 / c_m_s) * float(frequency_hz) * (-1.0), obs

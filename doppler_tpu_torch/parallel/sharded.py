@@ -12,7 +12,7 @@ JAX the left neighbour's last raw blocks travel there by ``lax.ppermute``;
 here the host already holds the whole raw chunk, so shard k's host→device
 copy takes the ``r`` blocks before its own with it, and the shard replays
 them through the stream's own kernel from zero carries — a 1-block chain
-call, an ``r_h``-block cascade call, or the mixer for the window
+call, an ``r_h``-block cascade call, or the mixer for a single-stage
 resampler's T−1 mixed samples.  The replay runs the stream's program on
 the stream's inputs, so its carries are bitwise the ones the unsharded run
 holds there, and a mesh run's bytes equal the unsharded run's.  Shard 0
@@ -36,13 +36,18 @@ import torch
 
 from doppler_tpu_torch.ops import codec
 from doppler_tpu_torch.ops.cuda import cascade, chain, mixer
-from doppler_tpu_torch.ops.resample import window_dot
+from doppler_tpu_torch.ops.resample import (
+    conv_stream_geometry,
+    resample_conv_stream,
+    window_resample,
+)
 from doppler_tpu_torch.parallel.mesh import shard_slices
 
 __all__ = [
     "make_sharded_step",
     "shard_valid_out_counts",
     "shard_alignment",
+    "shard_conv_alignment",
     "stream_step_alignment",
     "cascade_shard_replay",
     "make_wideband_mix_step",
@@ -88,12 +93,31 @@ def shard_alignment(s_abs: int, n_loc: int, n_time: int, P_: int, Q_: int):
     return rem, off, counts
 
 
+def shard_conv_alignment(s_abs: int, n_loc: int, n_time: int,
+                         P_: int, Q_: int):
+    """Host: per-time-shard ``(start0, p0, counts)`` for the conv step.
+
+    Same ownership rule as :func:`shard_alignment`; shard k behaves exactly
+    like a streaming chunk with ``in_consumed = s_abs + k·n_loc`` and
+    ``m_next = ms[k]`` (``ops.resample.conv_stream_geometry``).
+    """
+    ms = [-(-(s_abs + k * n_loc) * P_ // Q_) for k in range(n_time + 1)]
+    start0 = np.zeros(n_time, np.int32)
+    p0 = np.zeros(n_time, np.int32)
+    for k in range(n_time):
+        a_k = s_abs + k * n_loc
+        i0, pk = divmod(ms[k], P_)
+        start0[k] = i0 * Q_ - a_k
+        p0[k] = pk
+    counts = [ms[k + 1] - ms[k] for k in range(n_time)]
+    return start0, p0, counts
+
+
 def stream_step_alignment(rs, s_abs: int, n_loc: int, n_time: int):
-    """Host: the ``(rem, off, counts)`` triple of the window resampler's
-    sharded step.  The JAX package's ``'conv'`` resampler form, and with it
-    its ``shard_conv_alignment``, is not ported."""
-    if getattr(rs, "impl", "window") != "window":
-        raise ValueError(f"resampler form {rs.impl!r} has no sharded step here")
+    """Host: the ``(a1, a2, counts)`` triple of ``rs.impl``'s sharded step:
+    ``(rem, off)`` for ``'window'``, ``(start0, p0)`` for ``'conv'``."""
+    if rs.impl == "conv":
+        return shard_conv_alignment(s_abs, n_loc, n_time, rs.P, rs.Q)
     return shard_alignment(s_abs, n_loc, n_time, rs.P, rs.Q)
 
 
@@ -269,9 +293,9 @@ def make_sharded_step(mesh, *, intype: str = "i16", outtype: str = "i16",
                                         device=dev)
                     xi = torch.cat([zeros, planes[0]], dim=-1)
                     xq = torch.cat([zeros, planes[1]], dim=-1)
-                yi, yq = window_dot(xi, xq, bank_rev.get(dev), int(rem[t]),
-                                    int(off[t]), P=rs.P, Q=rs.Q, T=rs.T,
-                                    M=M_max)
+                yi, yq = window_resample(xi, xq, bank_rev.get(dev),
+                                         int(rem[t]), int(off[t]), P=rs.P,
+                                         Q=rs.Q, T=rs.T, M=M_max)
                 out = _encode(yi, yq, outtype)
             if outtype == "i16":
                 result[cs, t] = out.to(dev0)
@@ -315,9 +339,9 @@ def make_wideband_mix_step(mesh, *, intype: str, outtype: str, C: int):
 
 def make_wideband_stream_step(mesh, *, intype: str, outtype: str, C: int,
                               resampler):
-    """Sharded streaming mix + window resampler — the route of a
-    single-stage resampler the chain gate refuses (and of every
-    single-stage channel group under a mesh, as in the JAX package).
+    """Sharded streaming mix + resampler — the route of a single-stage
+    resampler the chain gate refuses (and of every single-stage channel
+    group under a mesh, and of ``impl='xla'``, as in the JAX package).
 
     ``step(data, plans, hist_i, hist_q, rem, off, counts)``:
 
@@ -326,14 +350,17 @@ def make_wideband_stream_step(mesh, *, intype: str, outtype: str, C: int,
     - ``plans``          : ``(7, B)`` with ``C = 1``, else ``(7, C, B)``;
     - ``hist_i/hist_q``  : the ``(T−1,)`` — or ``(C, T−1)`` — mixed history
                            entering the chunk;
-    - ``rem/off/counts`` : :func:`shard_alignment` of the chunk.
+    - ``rem/off/counts`` : :func:`stream_step_alignment` of the chunk
+                           (``start0``/``p0`` in place of ``rem``/``off``
+                           for a ``'conv'`` resampler).
 
     Each shard mixes its blocks in one mixer launch (float32 planes), with
     the ⌈(T−1)/L⌉ blocks before them when it is not shard 0: their last
     T−1 mixed samples are its left halo, bitwise the unsharded run's
     because the mixer is pure per block.  Shard 0 takes the history.  The
-    resample is ``ops.resample.window_dot``, the unsharded resampler's own
-    function.  Returns ``(parts, tail_i, tail_q)``: one ``(channel slice,
+    resample is the unsharded resampler's own function,
+    ``ops.resample.window_resample`` or ``resample_conv_stream`` (a shard's
+    buffer is the [T−1 history | n_loc inputs] of a streaming chunk).  Returns ``(parts, tail_i, tail_q)``: one ``(channel slice,
     block slice, out)`` a shard with ``out`` its ``counts[t]`` encoded
     outputs (int32 words or float32 planes ``(2, …)``), and the last
     shard's T−1 mixed samples — the next chunk's history — on the mesh's
@@ -343,8 +370,12 @@ def make_wideband_stream_step(mesh, *, intype: str, outtype: str, C: int,
     rs = resampler
     H = rs.T - 1
     dev0 = mesh.device()
-    bank_rev = _PerDevice(lambda dev: torch.from_numpy(
-        rs.bank[:, ::-1].copy()).to(dev))
+    conv = rs.impl == "conv"
+    if conv:
+        taps_mat = _PerDevice(lambda dev: rs._taps_mat.to(dev))
+    else:
+        bank_rev = _PerDevice(lambda dev: torch.from_numpy(
+            rs.bank[:, ::-1].copy()).to(dev))
 
     def step(data, plans, hist_i, hist_q, rem, off, counts):
         B, L = plans.shape[-1], data.shape[-1]
@@ -374,9 +405,17 @@ def make_wideband_stream_step(mesh, *, intype: str, outtype: str, C: int,
                 else:
                     xi = torch.cat([hist_i[rows].to(dev), planes[0]], dim=-1)
                     xq = torch.cat([hist_q[rows].to(dev), planes[1]], dim=-1)
-                yi, yq = window_dot(xi, xq, bank_rev.get(dev), int(rem[t]),
-                                    int(off[t]), P=rs.P, Q=rs.Q, T=rs.T,
-                                    M=int(counts[t]))
+                M = int(counts[t])
+                if conv:
+                    _, _, K, PADZ, TAIL = conv_stream_geometry(
+                        0, 0, M, xi.shape[-1] - H, P=rs.P, Q=rs.Q, T=rs.T)
+                    yi, yq = resample_conv_stream(
+                        xi, xq, taps_mat.get(dev), int(rem[t]), int(off[t]),
+                        P=rs.P, Q=rs.Q, T=rs.T, K=K, M=M, PADZ=PADZ, TAIL=TAIL)
+                else:
+                    yi, yq = window_resample(xi, xq, bank_rev.get(dev),
+                                             int(rem[t]), int(off[t]), P=rs.P,
+                                             Q=rs.Q, T=rs.T, M=M)
                 parts.append((cs, bs, _encode(yi, yq, outtype)))
             if t == n_time - 1:
                 n = planes.shape[-1]

@@ -22,7 +22,8 @@ same chunks the same way:
   cascade kernel (``ops.cuda.cascade``) over its leading ``split_point``
   stages; when that is not all of them the front's float32 planes run the
   remaining stages' batched ``process``;
-- anything else (mixed rates, the partial EOF chunk, no resampler) → the
+- anything else (mixed rates, the partial EOF chunk, no resampler, and
+  every chunk under ``impl='xla'``, the JAX package's unfused route) → the
   channel-batched mixer kernel, then each rate group's batched resampler.
 
 Under a ``mesh`` (``parallel.mesh``) each rate group shards its channels
@@ -65,6 +66,7 @@ from doppler_tpu_torch.ops.phase_plan import (
     plan_fields_uniform,
 )
 from doppler_tpu_torch.parallel import sharded
+from doppler_tpu_torch.runtime import native
 from doppler_tpu_torch.runtime import stream as streaming
 from doppler_tpu_torch.runtime.pipeline import (
     ConstScheduler,
@@ -111,6 +113,10 @@ class MultiChannelPipeline:
     next piece of the chunk's work, so it is an upper bound of the time the
     device was busy, not that time.
 
+    ``impl``: ``'pallas'`` (the default) or ``'xla'``, as ``Pipeline``'s:
+    'xla' never runs the fused channel kernels (under a mesh a cascade group
+    runs unsharded, as in the JAX package).
+
     ``precision``: ``'exact'`` or ``'fast'``, as in the JAX package: 'fast'
     runs only the channel-batched chain's dot as ``split3``; the cascade,
     the unfused route and every sharded step stay exact.
@@ -135,11 +141,15 @@ class MultiChannelPipeline:
         drain_on_eof: bool = False,
         resample_stages: str = "single",
         precision: str = "exact",
+        impl: str = "pallas",
         device="cuda",
         mesh=None,
     ):
         if not channels:
             raise ValueError("need at least one channel")
+        if impl not in ("xla", "pallas"):
+            raise ValueError(f"impl must be 'xla' or 'pallas', got {impl!r}")
+        self.impl = impl
         if precision not in ("exact", "fast"):
             raise ValueError(
                 f"precision must be 'exact' or 'fast', got {precision!r}")
@@ -286,6 +296,7 @@ class MultiChannelPipeline:
         B, L = self.chunk_blocks, self.block_samples
         return (
             rs is not None
+            and self.impl == "pallas"
             and getattr(rs, "bank", None) is not None   # single-stage only
             and L % 128 == 0
             and 128 % rs.Q == 0
@@ -302,7 +313,8 @@ class MultiChannelPipeline:
         never fuses.
         """
         rs = self.resampler
-        if rs is None or getattr(rs, "stages", None) is None:
+        if (rs is None or self.impl != "pallas"
+                or getattr(rs, "stages", None) is None):
             return False
         B, L = self.chunk_blocks, self.block_samples
         if self._cascade_k is None:
@@ -460,11 +472,14 @@ class MultiChannelPipeline:
                     f"mesh mode: group of {len(idxs)} channels does not "
                     f"divide over mesh channel={n_chan} — running unsharded")
                 return None
+            # the sharded cascade step is the cascade kernel: impl='xla'
+            # runs the cascade unsharded, as in the JAX package
             if (rs is not None and getattr(rs, "bank", None) is None
-                    and self._casc_group_cfg(g, rs) is None):
+                    and (self.impl != "pallas"
+                         or self._casc_group_cfg(g, rs) is None)):
                 self._warn_once(
                     "mesh mode: this cascade cannot run the sharded fused "
-                    "step (geometry) — running unsharded")
+                    "step (geometry/impl) — running unsharded")
                 return None
 
         def step(kind, g, make):
@@ -588,7 +603,7 @@ class MultiChannelPipeline:
                         outs[cidx] += codec.i16_words_to_bytes(arr[row])
                     else:
                         outs[cidx] += codec.f32_pairs_to_bytes(
-                            np.stack([arr[0, row], arr[1, row]], axis=-1))
+                            native.planar_to_f32_pairs(arr[0, row], arr[1, row]))
             return outs
         return finalize
 
@@ -671,13 +686,14 @@ class MultiChannelPipeline:
         return counters
 
 
-def load_channel_config(path: str, samplerate: int):
+def load_channel_config(path: str, samplerate: int, use_native="auto"):
     """Build ChannelSpecs from a JSON config (see docs/channels.md).
 
     Shared keys may live at the top level (tlefile, location, time); each
     entry in ``channels`` is either const (``shift``) or track (``tlename`` +
     ``frequency`` [+ ``offset``]), plus optional ``center_offset`` and
-    ``resample_to``.  Returns ``(specs, config dict)``.
+    ``resample_to``.  ``use_native`` is the track channels' ``Predictor``'s.
+    Returns ``(specs, config dict)``.
     """
     with open(path) as f:
         cfg = json.load(f)
@@ -710,6 +726,7 @@ def load_channel_config(path: str, samplerate: int):
                 offset_hz=float(ch.get("offset", 0.0)),
                 samplerate=samplerate,
                 start_time=parse_time_utc(time_s) if time_s else None,
+                use_native=use_native,
             )
         specs.append(ChannelSpec(
             name=ch["name"], scheduler=sched, center_offset_hz=center,

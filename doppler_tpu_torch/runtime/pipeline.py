@@ -14,8 +14,17 @@ the device runs one kernel per *chunk* of ``chunk_blocks`` reference blocks:
   stage's Q does not divide 128, whose float32 planes then run the
   remaining stages' ``RationalResampler.process``;
 - any other chunk with a resampler (the partial EOF chunk) → the mixer
-  kernel to float32 planes, then the resampler's ``process``;
+  kernel to float32 planes, then the resampler's ``process`` (its
+  ``'window'`` or ``'conv'`` form);
 - no resampler → the mixer kernel alone.
+
+``impl='xla'`` is the JAX package's unfused route: every chunk takes the
+mixer kernel and then the resampler's ``process``, never the chain or the
+cascade kernel.  It is "unfused", not "plain": on the card the mixer and
+the resampler's step (``csrc/window.cu`` or ``csrc/conv.cu``) are kernels.
+With the ``'window'`` form its bytes are the fused route's: the window
+kernel sums each output as the chain and cascade kernels do, so on the
+card the bytes of a chunk depend on neither its route nor the chunk width.
 
 :meth:`Pipeline.seek_to_block` starts a fresh pipeline at a block of the
 stream without processing the blocks before it (the host split of
@@ -56,6 +65,7 @@ from doppler_tpu_torch.ops.cuda.cascade import carry_rows
 from doppler_tpu_torch.ops.nco import PLAN_FIELDS, plan_tensor
 from doppler_tpu_torch.ops.phase_plan import NCOState, plan_blocks
 from doppler_tpu_torch.parallel import sharded
+from doppler_tpu_torch.runtime import native
 from doppler_tpu_torch.runtime import stream as streaming
 from doppler_tpu_torch.runtime.telemetry import Counters, get_logger
 
@@ -134,7 +144,8 @@ def stage_chunk(data: bytes, intype: str, B: int, L: int,
                 device: torch.device) -> torch.Tensor:
     """Raw chunk bytes → host tensor of the kernels' wire layout, zero
     padded to the chunk shape: int32 words ``(B, L)`` for i16, float32
-    planes ``(2, B, L)`` for f32.  Pinned when the device is a card."""
+    planes ``(2, B, L)`` for f32 (split by the native library's
+    ``f32_pairs_to_planar_into``).  Pinned when the device is a card."""
     if intype == "i16":
         words = codec.bytes_to_i16_words(data)
         host = host_buffer((B, L), torch.int32, device)
@@ -146,8 +157,7 @@ def stage_chunk(data: bytes, intype: str, B: int, L: int,
     host = host_buffer((2, B, L), torch.float32, device)
     planes = host.numpy().reshape(2, -1)
     n = pairs.shape[0]
-    planes[0, :n] = pairs[:, 0]
-    planes[1, :n] = pairs[:, 1]
+    native.f32_pairs_to_planar_into(pairs, planes[0], planes[1])
     planes[:, n:] = 0.0
     return host
 
@@ -161,6 +171,11 @@ class Pipeline:
     match the reference; ``chunk_blocks`` blocks form one device dispatch.
     ``prefetch_chunks``: chunks a reader thread stages ahead of the
     dispatch (``streaming.ChunkPrefetcher``; 0 = read in the loop).
+    ``impl``: ``'pallas'`` (the default) runs full chunks through the fused
+    chain or cascade kernel where the gates take them; ``'xla'`` runs every
+    chunk through the mixer kernel and the resampler (the JAX package's
+    ``impl='xla'``; under a mesh, the sharded mixer + resampler step for a
+    single-stage resampler, and a cascade unsharded).
     ``precision``: ``'exact'`` or ``'fast'``, as in the JAX package: 'fast'
     runs the fused single-stage chain's dot as ``split3``
     (``ops.cuda.chain``); the cascade, the mixer + resampler route of the
@@ -195,11 +210,15 @@ class Pipeline:
         drain_on_eof: bool = False,
         prefetch_chunks: int = 0,
         precision: str = "exact",
+        impl: str = "pallas",
         device="cuda",
         mesh=None,
     ):
         if samplerate <= 0:
             raise ValueError("samplerate must be positive")
+        if impl not in ("xla", "pallas"):
+            raise ValueError(f"impl must be 'xla' or 'pallas', got {impl!r}")
+        self.impl = impl
         if precision not in ("exact", "fast"):
             raise ValueError(
                 f"precision must be 'exact' or 'fast', got {precision!r}")
@@ -262,7 +281,8 @@ class Pipeline:
             if not self._cascade_mesh_ok():
                 log.warning(
                     "mesh mode: this cascade cannot run the sharded fused "
-                    "step (geometry) — resampling runs on the default device")
+                    "step (geometry/impl) — resampling runs on the default "
+                    "device")
             return
         n_loc = self.chunk_blocks * self.block_samples // self.mesh.shape["time"]
         if resampler.T - 1 > n_loc:
@@ -293,7 +313,7 @@ class Pipeline:
         ``L % Q == 0``, which they imply.
         """
         rs = self.resampler
-        if rs is None:
+        if rs is None or self.impl != "pallas":
             return False
         L = self.block_samples
         return (
@@ -343,7 +363,8 @@ class Pipeline:
         cascade never fuses.
         """
         rs = self.resampler
-        if rs is None or getattr(rs, "stages", None) is None:
+        if (rs is None or self.impl != "pallas"
+                or getattr(rs, "stages", None) is None):
             return False
         L = self.block_samples
         if self._cascade_k is None:
@@ -639,7 +660,7 @@ class Pipeline:
         arr = np.concatenate([h.numpy() for h in hosts], axis=-1)
         if self.outtype == "i16":
             return codec.i16_words_to_bytes(arr)
-        return codec.f32_pairs_to_bytes(np.stack([arr[0], arr[1]], axis=-1))
+        return codec.f32_pairs_to_bytes(native.planar_to_f32_pairs(arr[0], arr[1]))
 
     def _start_out(self, parts, starts: dict):
         """Start the device→host copies of the valid outputs: ``parts`` are

@@ -475,7 +475,9 @@ def test_cli_channels_rejects_unported_flags(tmp_path):
     (tmp_path / "c.json").write_text('{"channels": [{"name": "x", "shift": 1}]}')
     base = ["channels", "-s", str(FS), "-i", "i16", "--config",
             str(tmp_path / "c.json"), "--device", "cpu"]
-    assert cli.main(base + ["--impl", "pallas"], stdin=io.BytesIO(b"")) == 2
+    # --impl and --resample-impl are ported (tests/test_torch_cli_parity.py);
+    # --platform tpu is refused, a usage error
+    assert cli.main(base + ["--platform", "tpu"], stdin=io.BytesIO(b"")) == 2
     # --mesh is ported (tests/test_torch_mesh.py): one channel does not
     # divide over mesh channel=2, a configuration error
     assert cli.main(base + ["--mesh", "channel=2"], stdin=io.BytesIO(b"")) == 1

@@ -66,6 +66,7 @@ from doppler_tpu_torch.ops.cuda import geometry, probes
 from doppler_tpu_torch.ops.filters import design_polyphase_bank
 from doppler_tpu_torch.ops.multistage import MultiStageResampler
 from doppler_tpu_torch.ops.phase_plan import NCOState, plan_blocks
+from doppler_tpu_torch.ops import resample as resample_mod
 from doppler_tpu_torch.ops.resample import attach_resampler
 from doppler_tpu_torch.runtime.channels import ChannelSpec, MultiChannelPipeline
 from doppler_tpu_torch.runtime.pipeline import ConstScheduler, Pipeline
@@ -1292,3 +1293,163 @@ def test_mesh_channels_cascade_on_card(card):
     got = run(make_mesh(time=2, channel=2, devices=["cuda:0"] * 4))
     assert mix_cascade_channels.launches - before == 2 * 6
     assert got == want and all(want)
+
+
+def _conv_inputs(card, n, seed):
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy((0.3 * rng.standard_normal(n)).astype(np.float32)
+                             ).to(card) for _ in range(2)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("chunk,m0_in", [(256 * 2048, (7 * 3 + 1, 7 * 64 + 5)),
+                                         (3000, (0, 0))])
+def test_conv_kernel_vs_plain(card, chunk, m0_in):
+    """``csrc/conv.cu`` against the plain version (its R ``torch.matmul``
+    terms on the card, TF32 off) at config 3's stage: float32 within 1e-5 of
+    the largest output (another summation order), encoded ≤ 1 LSB in under
+    1%; one launch; p0 ≠ 0 and a negative start0 included."""
+    from doppler_tpu_torch.ops import codec
+    from doppler_tpu_torch.ops.cuda import conv
+    from doppler_tpu_torch.ops.resample import conv_stream_geometry, make_taps_matrix
+
+    m0, in_consumed = m0_in
+    xi, xq = _conv_inputs(card, T - 1 + chunk, 95)
+    taps = torch.from_numpy(make_taps_matrix(BANK, P, Q)).to(card)
+    M = chunk * P // Q + 2
+    geo = conv_stream_geometry(m0, in_consumed, M, chunk, P=P, Q=Q, T=T)
+    start0, p0, K, PADZ, TAIL = geo
+    kw = dict(P=P, Q=Q, T=T, K=K, M=M, PADZ=PADZ, TAIL=TAIL)
+    before = conv.resample_conv_stream.launches
+    yi, yq = conv.resample_conv_stream(xi, xq, taps, start0, p0, **kw)
+    torch.cuda.synchronize()
+    assert conv.resample_conv_stream.launches == before + 1
+    wi, wq = conv.resample_conv_stream_plain(xi, xq, taps, start0, p0, **kw)
+    peak = max(wi.abs().max().item(), wq.abs().max().item())
+    assert (yi - wi).abs().max().item() <= 1e-5 * peak
+    assert (yq - wq).abs().max().item() <= 1e-5 * peak
+    d = _lsb(codec.iq_to_i16_words(yi, yq), codec.iq_to_i16_words(wi, wq))
+    assert d.max().item() <= 1 and (d > 0).float().mean().item() < 0.01
+
+
+@pytest.mark.cuda
+def test_conv_stream_bitwise_across_chunk_widths_on_card(card):
+    """``RationalResampler(impl='conv')`` on the card: the stream cut at two
+    chunk widths, and in one piece, gives the same bits (the kernel sums
+    every output in one order whatever the chunk around it)."""
+    from doppler_tpu_torch.ops.resample import RationalResampler
+
+    n = 5 * 4096 + 77
+    xi, xq = _conv_inputs(card, n, 96)
+
+    def stream(width):
+        rs = RationalResampler(FS, 48000, impl="conv", device=card)
+        parts = []
+        for lo in range(0, n, width):
+            v = min(width, n - lo)
+            ci = torch.zeros(width, device=card)
+            cq = torch.zeros(width, device=card)
+            ci[:v], cq[:v] = xi[lo:lo + v], xq[lo:lo + v]
+            yi, yq, k = rs.process(ci, cq, v, rs.max_out_for(width))
+            parts.append(torch.stack([yi[:k], yq[:k]]))
+        return torch.cat(parts, dim=1)
+
+    one = stream(n)
+    assert torch.equal(stream(4096), one) and torch.equal(stream(1000), one)
+
+
+@pytest.mark.cuda
+def test_impl_xla_is_the_fused_route_bitwise_on_card(card):
+    """``Pipeline(impl='xla')`` on the card (the mixer kernel and the window
+    resampler on every chunk, no chain launch) gives the chain route's
+    bytes; with a ``'conv'`` resampler the conv kernel runs each chunk and
+    a time=2 mesh gives the unsharded conv bytes."""
+    from doppler_tpu_torch.ops.cuda import conv
+    from doppler_tpu_torch.parallel.mesh import make_mesh
+
+    rng = np.random.default_rng(97)
+    raw = rng.integers(-9000, 9000, size=2 * (2048 * 16 * 3 + 300),
+                       dtype=np.int16).tobytes()
+
+    def run(impl, resample_impl="window", mesh=None):
+        p = Pipeline(FS, "i16", "i16", ConstScheduler(-15000.0), chunk_blocks=16,
+                     impl=impl, device="cuda", mesh=mesh)
+        attach_resampler(p, 48000, stages="single", impl=resample_impl)
+        out = io.BytesIO()
+        p.run(io.BytesIO(raw), out)
+        return out.getvalue()
+
+    fused = run("pallas")
+    chains, mixes = mix_resample_chain_stream.launches, mix_blocks_fmt.launches
+    assert run("xla") == fused
+    assert mix_resample_chain_stream.launches == chains
+    assert mix_blocks_fmt.launches - mixes == 4
+    convs = conv.resample_conv_stream.launches
+    unsharded = run("xla", "conv")
+    assert conv.resample_conv_stream.launches - convs == 4
+    assert run("xla", "conv", make_mesh(time=2, devices=["cuda:0"] * 2)) == unsharded
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C", [None, 3])
+def test_window_kernel_vs_plain_and_the_chain(card, C):
+    """``csrc/window.cu`` (the window resampler on the card) against its
+    plain version's tree (float32 within 2^-20, as the chain kernel; encoded
+    ≤ 1 LSB in under 1%), and the mixer + window kernel bitwise the chain kernel's
+    float32 output (both sum each output as one FMA chain over the taps)."""
+    from doppler_tpu_torch.ops import codec
+    from doppler_tpu_torch.ops.resample import RationalResampler, window_dot
+
+    rng = np.random.default_rng(98)
+    B, L = 16, 2048
+    data, plan = _chunk(B, L, "i16", rng, NCOState())
+    x = torch.from_numpy(data).to(card)
+    p = nco.plan_tensor(plan, device=card)
+    mixed = mix_blocks_fmt(x, p, intype="i16", outtype="f32").reshape(2, -1)
+    if C:
+        mixed = mixed[:, None].expand(2, C, -1).contiguous()
+    rs = RationalResampler(FS, 48000, channels=C, device=card)
+    hist = rs._hist_i
+    xi = torch.cat([hist, mixed[0]], dim=-1)
+    xq = torch.cat([hist, mixed[1]], dim=-1)
+    M = rs.max_out_for(B * L)
+    before = resample_mod.window_resample.launches
+    yi, yq, n = rs.process(mixed[0], mixed[1], B * L, M)
+    torch.cuda.synchronize()
+    assert resample_mod.window_resample.launches == before + 1
+    wi, wq = window_dot(xi, xq, rs._bank_rev, 0, 0, P=P, Q=Q, T=T, M=M)
+    got = torch.stack([yi[..., :n], yq[..., :n]])
+    want = torch.stack([wi[..., :n], wq[..., :n]])
+    assert (got - want).abs().max().item() <= 2.0 ** -20
+    d = _lsb(codec.iq_to_i16_words(got[0], got[1]),
+             codec.iq_to_i16_words(want[0], want[1]))
+    assert d.max().item() <= 1 and (d > 0).float().mean().item() < 0.01
+    chain_out, _ = mix_resample_chain_stream(
+        x, p, torch.from_numpy(BANK).to(card), torch.zeros(2, T - 1, device=card),
+        P=P, Q=Q, T=T, intype="i16", outtype="f32")
+    chain_out = chain_out.reshape(2, -1)
+    assert torch.equal(got[:, 0] if C else got, chain_out[:, :n])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fs,stages", [(FS, "single"), (FS, "multi"),
+                                       (100_000_000, "multi")])
+def test_pipeline_bytes_do_not_depend_on_chunk_width_on_card(card, fs, stages):
+    """On the card a stream's bytes are the same at every ``chunk_blocks``:
+    the fused kernels take the full chunks and the mixer + window kernel the
+    EOF chunk (and a split cascade's tail), all summing each output as one
+    FMA chain over its taps."""
+    rng = np.random.default_rng(99)
+    raw = rng.integers(-9000, 9000, size=2 * (2048 * 48 + 1234),
+                       dtype=np.int16).tobytes()
+
+    def run(cb):
+        p = Pipeline(fs, "i16", "i16", ConstScheduler(1e6 if fs > FS else -15000.0),
+                     chunk_blocks=cb, device="cuda")
+        attach_resampler(p, 48000, stages=stages)
+        out = io.BytesIO()
+        p.run(io.BytesIO(raw), out)
+        return out.getvalue()
+
+    want = run(16)
+    assert want and run(8) == want and run(32) == want

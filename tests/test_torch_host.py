@@ -161,7 +161,8 @@ def test_tle_sgp4_doppler_staircase_equal():
     """The copied orbit stack gives the JAX package's NumPy staircase bit for
     bit (the JAX predictor pinned to its NumPy SGP4, which the copy is)."""
     fs = 256000
-    pred_t = Predictor(Tle.from_lines("TEST SAT", TLE_L1, TLE_L2), Observer(*SITE))
+    pred_t = Predictor(Tle.from_lines("TEST SAT", TLE_L1, TLE_L2), Observer(*SITE),
+                       use_native=False)
     pred_j = JPredictor(JTle.from_lines("TEST SAT", TLE_L1, TLE_L2),
                         JObserver(*SITE), use_native=False)
     times = START_UNIX + np.arange(0.0, 600.0, 7.0)

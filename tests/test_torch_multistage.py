@@ -64,7 +64,8 @@ def _track(fs, jax=False):
         pred = JPredictor(JTle.from_lines("TEST SAT", TLE_L1, TLE_L2),
                           JObserver(*SITE), use_native=False)
         return JTrackScheduler(pred, FREQ, 5000.0, fs, START_UNIX, telemetry=False)
-    pred = Predictor(Tle.from_lines("TEST SAT", TLE_L1, TLE_L2), Observer(*SITE))
+    pred = Predictor(Tle.from_lines("TEST SAT", TLE_L1, TLE_L2), Observer(*SITE),
+                     use_native=False)
     return TrackScheduler(pred, FREQ, 5000.0, fs, START_UNIX, telemetry=False)
 
 

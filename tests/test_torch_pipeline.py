@@ -60,7 +60,8 @@ def _track(fs, jax=False):
         pred = JPredictor(JTle.from_lines("TEST SAT", TLE_L1, TLE_L2),
                           JObserver(*SITE), use_native=False)
         return JTrackScheduler(pred, FREQ, 5000.0, fs, START_UNIX, telemetry=False)
-    pred = Predictor(Tle.from_lines("TEST SAT", TLE_L1, TLE_L2), Observer(*SITE))
+    pred = Predictor(Tle.from_lines("TEST SAT", TLE_L1, TLE_L2), Observer(*SITE),
+                     use_native=False)
     return TrackScheduler(pred, FREQ, 5000.0, fs, START_UNIX, telemetry=False)
 
 
@@ -259,20 +260,6 @@ def test_cuda_device_raises_without_card(monkeypatch):
     assert cli.main(["const", "-s", "256000", "-i", "i16", "--shift", "1",
                      "--device", "cuda", "--log-level", "error"],
                     stdin=io.BytesIO(b""), stdout=io.BytesIO()) == 1
-
-
-def test_cli_rejects_unported_flags():
-    for extra in (["--resample-impl", "conv"], ["--impl", "pallas"]):
-        assert cli.main(["const", "-s", "256000", "-i", "i16", "--shift", "1",
-                         "--device", "cpu"] + extra,
-                        stdin=io.BytesIO(b""), stdout=io.BytesIO()) == 2
-    # the host split's flags are ported (tests/test_torch_distributed.py)
-    args = cli.build_parser().parse_args(
-        ["const", "-s", "256000", "-i", "i16", "--shift", "1",
-         "--prefetch-chunks", "2", "--host-channels", "2", "--distributed",
-         "coordinator=h:1,num_processes=2,process_id=0"])
-    assert (args.prefetch_chunks, args.host_channels, args.distributed) == (
-        2, 2, "coordinator=h:1,num_processes=2,process_id=0")
 
 
 def test_cli_mesh_flag_identical():
