@@ -73,7 +73,12 @@ Phases (each prints one line or a few; any failure exits non-zero):
              and one-shot (and whether the cuBLAS form is, printed); the
              refusal of TF32 matmuls; then the window kernel
              (``csrc/window.cu``, the window resampler on the card) against
-             its plain version ``window_dot``, within 2^-20.
+             its plain version ``window_dot``, within 2^-20; then both
+             kernels' bytes at every resampler case of
+             ``tools/kernel_digests.py`` (config 3 at the chunk, at 2^24,
+             mid-stream, 16 strided channels, both edges; the cascade's
+             stages; the split tail at C = 1 and 256) against the SHA-256
+             digests pinned before their redesign.
 5. slices  — synthetic captures through the CLI entry point
              ``doppler_tpu_torch.cli.main`` on the card, each with the launch
              counts set to 0 just before it and read just after:
@@ -89,8 +94,9 @@ Phases (each prints one line or a few; any failure exits non-zero):
              (vi) config 4 as the conformance harness runs it, 16 const
              channels and no resampler (the channel mixer); (vii) config
              5's rate and width on one card: 100 Msps, 256 const channels →
-             48 ksps, 0.1 s (the ÷256 front batched, the tail batched in
-             plain torch).  Exact output lengths on every channel, launch
+             48 ksps, 0.1 s (the ÷256 front batched, the 384/3125 tail
+             through the window kernel, all 256 channels in one launch a
+             chunk).  Exact output lengths on every channel, launch
              counts, and SNR against the golden model (on the first, the
              middle and the last channel from the plan words, and on the
              middle channel from the reference's sequential mix as well).
@@ -169,7 +175,11 @@ Phases (each prints one line or a few; any failure exits non-zero):
 6c. resample_probe — ``doppler_tpu_torch.tools.resample_probe`` (conv
              block against window_dot at 2^24 inputs), then the conv kernel
              at the pipeline's chunk against its plain version and the
-             library's strided ``conv1d`` by one timer, with its bound.
+             library's strided ``conv1d`` by one timer, with its bound; then
+             ``resample_probe.case_times``: both kernels' profiler device µs
+             a launch and the wrapper's time a call at the chunk, at 2^24 and
+             at the split tail (C = 1 and 256), with ``conv1d`` at the chunk
+             and at 2^24.
 
 The kernels' JSON record takes the mixer's and the cascade's launch counts
 from slice (i) (their seek replays' as ``launches_seek``, with the
@@ -182,7 +192,9 @@ chain's from slice
 fast cascade's (split3 and default, which no CLI path reaches) from
 phase 6b, the window kernel's from slice (i) (its EOF chunk, one a stage),
 the conv kernel's from phase 5e's ``--impl xla --resample-impl conv`` slice
-(both their times from 6c); the Q15 mixer's and the probes' times are at B = 16384, the
+(both their times from 6c, with ``device_us``: the profiler's µs a launch at
+the chunk, at 2^24 and at the split tail, and the conv entry's
+``library_device_us``: ``conv1d``'s); the Q15 mixer's and the probes' times are at B = 16384, the
 tools' shape (the elementwise probe's and its ``library_ms`` by phase 6's
 one timer of 16 calls).  The line before the last is that
 record; the last line is ``{"ok": true, "device": {...}}``.  Without a CUDA
@@ -2769,6 +2781,16 @@ def phase_conv(torch, card):
           f"[{card}]")
     check(errs["window plain"] <= TOL_F32 and lsb <= 1 and frac < 0.01,
           "window: the kernel is not within tolerance of its plain version")
+
+    # both kernels' bytes against the digests taken before their redesign
+    from doppler_tpu_torch.tools import kernel_digests
+
+    got = kernel_digests.compute_resample()
+    bad = kernel_digests.mismatches(got)
+    print(f"resample digests: {len(got) - len(bad)} of {len(got)} equal the "
+          f"pinned (window and conv, {len(kernel_digests.RESAMPLE_CASES)} cases "
+          f"each) [{card}]")
+    check(not bad, f"resample digests differ: {bad}")
     return errs
 
 
@@ -3022,7 +3044,24 @@ def phase_resample_probe(torch, card):
               f"a chunk of {N_CONV} inputs ({M} outputs); bound {bound_ms!r} ms "
               f"by {by} ({n_bytes} B, {flop} FLOP) [{card}]")
         res[name] = (ms[name], ms[name + " plain"], bound_ms, by, ms["library"])
-    return probe, res
+
+    # the device time a launch at the chunk, at 2^24 and at the split tail
+    def line(row):
+        dev = row["device_us"]
+        share = (f"{row['bound_ms'] * 1e3 / dev:.1%}" if dev
+                 else "not measured")
+        print(f"timing: {row['kernel']} at {row['case']}: device "
+              f"{dev!r} µs a launch, {row['ms']!r} ms a call (16 calls, best of "
+              f"3); bound {row['bound_ms']!r} ms by {row['bound_by']}, "
+              f"{share} of it [{card}]")
+
+    rows = resample_probe.case_times(
+        torch.device("cuda"), 3, ("c3-chunk/C1", "c3-2p24/C1", "tail/C1",
+                                  "tail/C256"), line)
+    cases = {}
+    for row in rows:
+        cases.setdefault(row["kernel"], {})[row["case"]] = row["device_us"]
+    return probe, res, cases
 
 
 def phase_conformance():
@@ -3144,7 +3183,7 @@ def main() -> int:
         times.update(timed(phase_timing_channels, torch, gen, card))
         probe_times = timed(phase_timing_probes, torch, gen, card, sass)
         _, tool_launches = timed(phase_roofline, card)
-        _, resampler_times = timed(phase_resample_probe, torch, card)
+        _, resampler_times, resampler_us = timed(phase_resample_probe, torch, card)
         if "jax" in sys.modules:
             raise Failed("jax was imported")
     except Exception as e:      # every failure ends the run non-zero
@@ -3238,20 +3277,24 @@ def main() -> int:
         # Pallas kernel); times at the pipeline's chunk, the library's
         # strided conv1d beside them (phase_resample_probe).  The window
         # kernel's launches are slice (i)'s EOF chunk (one a stage), its
-        # error the largest against its plain version on phase 4g's chunk
+        # error the largest against its plain version on phase 4g's chunk;
+        # device_us: the profiler's µs a launch by case (phase 6c)
         dict(zip(("ms", "plain_ms", "bound_ms", "bound_by", "library_ms"),
                  resampler_times["window"]),
              name="window", route="cuda", source="doppler_tpu_torch/csrc/window.cu",
              replaces="doppler_tpu/ops/resample.py:61", launches=default["window"],
              max_abs_err=conv_err["window plain"],
-             launches_unfused=unfused["chain-xla"]["launches"]["window"]),
+             launches_unfused=unfused["chain-xla"]["launches"]["window"],
+             device_us=resampler_us["window"]),
         dict(zip(("ms", "plain_ms", "bound_ms", "bound_by", "library_ms"),
                  resampler_times["conv"]),
              name="conv", route="cuda", source="doppler_tpu_torch/csrc/conv.cu",
              replaces="doppler_tpu/ops/resample.py:96",
              launches=unfused["chain-xla-conv"]["launches"]["conv"],
              max_abs_err=conv_err["plain (cuBLAS)"],
-             launches_mesh=unfused["chain-xla-conv"]["launches_mesh"]["conv"]),
+             launches_mesh=unfused["chain-xla-conv"]["launches_mesh"]["conv"],
+             device_us=resampler_us["conv"],
+             library_device_us=resampler_us["conv1d"]),
     ]
     for k in kernels:
         if k["launches"] < 1:

@@ -206,6 +206,7 @@ __device__ __forceinline__ bool cascade_phase(
                         smem + f.tap_off, f, p.run[ph - 1], tid, nthreads, sink);
             }
         }
+        smem_copy_wait();       // the taps (phase 0)
         return true;
     }
 

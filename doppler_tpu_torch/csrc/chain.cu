@@ -124,6 +124,7 @@ __device__ __forceinline__ bool chain_phase(
                         p.org};
         chain_fill<kInF32>(p.lo, p.last, in, plans, stride, g.B, g.L,
                            g.vec4 != 0, H, carry_in, tid, nthreads, store);
+        smem_copy_wait();       // the taps
         return true;
     }
     ChainSink sink{g.out_f32, out, g.m_total, g.C, ch};

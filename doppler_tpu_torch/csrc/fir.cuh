@@ -39,6 +39,8 @@
 // never stored.
 #pragma once
 
+#include <cstdint>
+
 #include "host_shim.cuh"
 
 namespace doppler {
@@ -99,6 +101,50 @@ struct SpanStore {
     }
 };
 
+// Four bytes from global to shared memory with no register between
+// (cp.async): a thread's copies all fly at once, so a fill that runs few
+// threads is not one load latency a sample; smem_copy_wait() waits for the
+// thread's own copies (a barrier after it shows them to the CTA).
+__device__ __forceinline__ void smem_copy(float* dst, const float* src) {
+#if defined(__CUDA_ARCH__)
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                     (unsigned)__cvta_generic_to_shared(dst)),
+                 "l"(src));
+#else
+    *dst = *src;
+#endif
+}
+
+__device__ __forceinline__ void smem_copy_wait() {
+#if defined(__CUDA_ARCH__)
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
+#endif
+}
+
+// x[b] for b = b_lo .. b_lo+n−1 of one channel's two rows (I and Q) into
+// *dst(i), i = b − b_lo, a float2 (I, Q), where x[b] outside [0, len) is the
+// edge sample (kZero false: the index clamps) or +0 (kZero).  Consecutive
+// threads take consecutive samples (the copies of a warp coalesce).
+template <bool kZero, class Dst>
+__device__ __forceinline__ void span_fill(const float* __restrict__ xi,
+                                          const float* __restrict__ xq,
+                                          long long len, long long b_lo, int n,
+                                          int tid, int nthreads, const Dst& dst) {
+    // unrolled: a CTA of few warps is bound by each sample's index chain
+#pragma unroll 4
+    for (int i = tid; i < n; i += nthreads) {
+        const long long b = b_lo + i;
+        float2* d = dst(i);
+        if (kZero && (b < 0 || b >= len)) {
+            *d = make_float2(0.0f, 0.0f);
+            continue;
+        }
+        const long long c = b < 0 ? 0 : (b >= len ? len - 1 : b);
+        smem_copy(&d->x, xi + c);
+        smem_copy(&d->y, xq + c);
+    }
+}
+
 __host__ __device__ __forceinline__ int fir_np(int P) { return P == 3 ? 3 : 1; }
 
 __host__ __device__ __forceinline__ void fir_derive(FirStage& st) {
@@ -116,7 +162,10 @@ __host__ __device__ __forceinline__ long long span_origin(const FirStage& st,
 
 // The stage's rows into shared memory: row p (the outputs' phase, not the
 // bank's row) at p·tap_stride + kTapFront + lead_p; the floats around the
-// taps stay unwritten and are read but never used.
+// taps stay unwritten and are read but never used.  kRev: `bank` holds each
+// row reversed (bank_rev[p, k] = bank[p, T−1−k], the window form's).  The
+// copies are smem_copy's: smem_copy_wait() before the barrier.
+template <bool kRev = false>
 __device__ __forceinline__ void fir_load_taps(float* __restrict__ smem,
                                               const FirStage& st,
                                               const float* __restrict__ bank,
@@ -127,7 +176,9 @@ __device__ __forceinline__ void fir_load_taps(float* __restrict__ smem,
             ? ((off_top - (p * st.Q) / st.P) & 3) : 0;
         const float* row = bank + ((p * st.Q) % st.P) * st.T;
         float* dst = smem + st.tap_off + p * st.tap_stride + kTapFront + lead;
-        for (int l = tid; l < st.T; l += nthreads) dst[l] = row[l];
+#pragma unroll 4
+        for (int l = tid; l < st.T; l += nthreads)
+            smem_copy(dst + l, row + (kRev ? st.T - 1 - l : l));
     }
 }
 

@@ -12,7 +12,10 @@
 // plain torch version, within a tolerance, and itself across geometries;
 // so is the cascade's (cascade_fast.cu), on the same stand-in.  The mixer
 // (mixer.cu) runs its CTAs' threads one after the other; its reference is
-// the plain torch version, bitwise.  So does the chain-shaped mix probe
+// the plain torch version, bitwise.  The resampler's kernels (window.cu,
+// conv.cu) run their CTAs' threads one after the other too; their
+// references are the kernels they replaced, one output-plane at a time.
+// So does the chain-shaped mix probe
 // (probes.cu): a warp's lanes one after the other, each loading the plan
 // words the device broadcasts by shuffles, the tile's side word an XOR fold
 // on the host where the device shuffles.
@@ -29,8 +32,10 @@
 #include "cascade_fast.cu"
 #include "chain.cu"
 #include "chain_fast.cu"
+#include "conv.cu"
 #include "mixer.cu"
 #include "probes.cu"
+#include "window.cu"
 
 using namespace doppler;
 
@@ -382,4 +387,150 @@ extern "C" int emu_fast_cascade_plans(const int* layout, int S, int B, int L, in
         }
     }
     return g.units;
+}
+
+// -- the resampler's kernels ---------------------------------------------------
+
+// doppler_window's arguments (csrc/window.cu) but the stream, all pointers to
+// host memory.  Returns 1 where the arguments are refused.
+extern "C" int emu_window(const float* xi, const float* xq, const float* bank_rev,
+                          float* yi, float* yq, int C, long long len,
+                          long long x_stride, long long M, int rem0, long long off0,
+                          int P, int Q, int T, const int* layout, int threads,
+                          long long smem) {
+    WindowArgs a;
+    if (!make_window_args(a, C, len, x_stride, M, rem0, off0, P, Q, T, layout))
+        return 1;
+    std::vector<float4> shared((smem + 15) / 16);
+    const long long grid = (long long)(a.rows ? a.groups : C) * a.n_tiles;
+    for (long long block = 0; block < grid; ++block) {
+        poison(shared);
+        WindowPlan plan;
+        if (a.rows) {
+            window_plan<true>(a, (unsigned)block, plan);
+        } else {
+            window_plan<false>(a, (unsigned)block, plan);
+        }
+        for (int ph = 0;; ++ph) {
+            bool more = false;
+            for (int tid = 0; tid < threads; ++tid) {
+                float* sm = reinterpret_cast<float*>(shared.data());
+                more = a.rows ? window_phase<true>(xi, xq, bank_rev, yi, yq, a, plan,
+                                                   tid, threads, ph, sm)
+                              : window_phase<false>(xi, xq, bank_rev, yi, yq, a, plan,
+                                                    tid, threads, ph, sm);
+            }
+            if (!more) break;
+        }
+    }
+    return 0;
+}
+
+// The window kernel as it stood before its redesign: one output-plane at a
+// time, one fmaf chain over k = T−1 .. 0 of bank_rev[p] and x[clamp(base +
+// k)].
+extern "C" int ref_window(const float* xi, const float* xq, const float* bank_rev,
+                          float* yi, float* yq, int C, long long len,
+                          long long x_stride, long long M, int rem0, long long off0,
+                          int P, int Q, int T) {
+    for (int c = 0; c < C; ++c) {
+        for (long long j = 0; j < M; ++j) {
+            const long long u = j * Q + rem0, n = u / P;
+            const float* taps = bank_rev + (u - n * P) * T;
+            for (int plane = 0; plane < 2; ++plane) {
+                const float* x = (plane ? xq : xi) + c * x_stride;
+                float acc = 0.0f;
+                for (int k = T - 1; k >= 0; --k) {
+                    long long idx = off0 + n + k;
+                    idx = idx < 0 ? 0 : (idx > len - 1 ? len - 1 : idx);
+                    acc = std::fmaf(taps[k], x[idx], acc);
+                }
+                (plane ? yq : yi)[c * M + j] = acc;
+            }
+        }
+    }
+    return 0;
+}
+
+// doppler_conv's arguments (csrc/conv.cu) but the stream, all pointers to host
+// memory.  Returns 1 where the arguments are refused.
+extern "C" int emu_conv(const float* xi, const float* xq, const float* taps,
+                        float* yi, float* yq, int C, long long len,
+                        long long x_stride, long long M, long long start0, int p0,
+                        int P, int Q, int R, int w_len, const int* layout,
+                        int threads, long long smem) {
+    ConvArgs a;
+    if (!make_conv_args(a, C, len, x_stride, M, start0, p0, P, Q, R, w_len, layout)
+            || (a.rows && (threads < a.tile || threads % a.tile)))
+        return 1;
+    std::vector<float4> shared((smem + 15) / 16);
+    float* sm = reinterpret_cast<float*>(shared.data());
+    const long long grid = (long long)a.groups * a.n_tiles;
+    for (long long block = 0; block < grid; ++block) {
+        poison(shared);
+        ConvPlan plan;
+        if (a.rows) {
+            conv_plan<true>(a, (unsigned)block, plan);
+        } else {
+            conv_plan<false>(a, (unsigned)block, plan);
+        }
+        std::vector<ConvRowsState<4, 2>> s42(threads);
+        std::vector<ConvRowsState<2, 2>> s22(threads);
+        std::vector<ConvRowsState<1, 2>> s12(threads);
+        std::vector<ConvRowsState<4, 1>> s41(threads);
+        std::vector<ConvRowsState<2, 1>> s21(threads);
+        std::vector<ConvRowsState<1, 1>> s11(threads);
+        for (int ph = 0;; ++ph) {
+            bool more = false;
+            for (int tid = 0; tid < threads; ++tid) {
+                const int k = a.rows ? a.cg * 2 + a.rg : 0;
+                switch (a.rows ? k : 100 + a.P) {
+#define ROWS(CG, RG, st) case CG * 2 + RG: more = conv_rows_phase<CG, RG>( \
+                    xi, xq, taps, yi, yq, a, plan, tid, threads, ph, sm, st[tid]); break;
+                    ROWS(4, 2, s42) ROWS(2, 2, s22) ROWS(1, 2, s12)
+                    ROWS(4, 1, s41) ROWS(2, 1, s21) ROWS(1, 1, s11)
+#undef ROWS
+#define TILE(P_) case 100 + P_: more = conv_tile_phase<P_>( \
+                    xi, xq, taps, yi, yq, a, plan, tid, threads, ph, sm); break;
+                    TILE(1) TILE(2) TILE(3) TILE(4)
+#undef TILE
+                    default: return 1;
+                }
+            }
+            if (!more) break;
+        }
+    }
+    return 0;
+}
+
+// The conv kernel as it stood before its redesign: one output-plane at a
+// time, R fmaf chains over q in order, added in order.
+extern "C" int ref_conv(const float* xi, const float* xq, const float* taps,
+                        float* yi, float* yq, int C, long long len,
+                        long long x_stride, long long M, long long start0, int p0,
+                        int P, int Q, int R, int w_len) {
+    for (int c = 0; c < C; ++c) {
+        for (long long m = 0; m < M; ++m) {
+            const long long f = p0 + m, k = f / P;
+            const int p = (int)(f - k * P);
+            const long long base = start0 + k * Q;
+            for (int plane = 0; plane < 2; ++plane) {
+                const float* x = (plane ? xq : xi) + c * x_stride;
+                float acc = 0.0f;
+                for (int r = 0; r < R; ++r) {
+                    float t = 0.0f;
+                    for (int q = 0; q < Q; ++q) {
+                        const int row = r * Q + q;
+                        const long long b = base + row;
+                        const float v = (b >= 0 && b < len) ? x[b] : 0.0f;
+                        const float w = row < w_len ? taps[(long long)row * P + p] : 0.0f;
+                        t = std::fmaf(v, w, t);
+                    }
+                    acc = r == 0 ? t : acc + t;
+                }
+                (plane ? yq : yi)[c * M + m] = acc;
+            }
+        }
+    }
+    return 0;
 }

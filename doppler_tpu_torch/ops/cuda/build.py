@@ -179,14 +179,14 @@ def load() -> ctypes.CDLL:
                                               ctypes.c_longlong, _i, _i, _vp, _vp]
     lib.doppler_conv.restype = _i
     # xi, xq, taps, yi, yq, C, len, x_stride, M, start0, p0, P, Q, R, w_len,
-    # stream
+    # layout (7 ints, geometry.ConvLayout.args), threads, smem, stream
     lib.doppler_conv.argtypes = [_vp, _vp, _vp, _vp, _vp, _i, _ll, _ll, _ll,
-                                 _ll, _i, _i, _i, _i, _i, _vp]
+                                 _ll, _i, _i, _i, _i, _i, _ip, _i, _ll, _vp]
     lib.doppler_window.restype = _i
     # xi, xq, bank_rev, yi, yq, C, len, x_stride, M, rem0, off0, P, Q, T,
-    # stream
+    # layout (9 ints, geometry.WindowLayout.args), threads, smem, stream
     lib.doppler_window.argtypes = [_vp, _vp, _vp, _vp, _vp, _i, _ll, _ll, _ll,
-                                   _i, _ll, _i, _i, _i, _vp]
+                                   _i, _ll, _i, _i, _i, _ip, _i, _ll, _vp]
     lib.doppler_error_string.restype = ctypes.c_char_p
     lib.doppler_error_string.argtypes = [_i]
     return lib

@@ -23,11 +23,12 @@ never changes the setting.
 
 from __future__ import annotations
 
+import ctypes
 import math
 
 import torch
 
-from doppler_tpu_torch.ops.cuda import build
+from doppler_tpu_torch.ops.cuda import build, geometry
 
 __all__ = ["check_no_tf32", "conv_bands", "resample_conv_stream",
            "resample_conv_stream_plain", "row_layout"]
@@ -117,13 +118,15 @@ def row_layout(xi: torch.Tensor, xq: torch.Tensor):
 
 def resample_conv_stream(xi, xq, taps_mat, start0: int, p0: int, *,
                          P: int, Q: int, T: int, K: int, M: int, PADZ: int,
-                         TAIL: int):
+                         TAIL: int, layout=None):
     """Streaming banded-matmul resampler over one chunk's buffers.
 
     The arguments of :func:`resample_conv_stream_plain`.  A CPU tensor runs
     the plain version; a CUDA tensor launches the kernel (which needs only
     ``start0``, ``p0`` and ``M``: it reads zeros outside the buffer, where
-    the plain version pads ``PADZ``/``TAIL`` zeros) or raises.
+    the plain version pads ``PADZ``/``TAIL`` zeros) or raises.  ``layout``
+    (a ``geometry.ConvLayout``) overrides the kernel's picked path and sizes
+    (tests and timing only: the bytes do not depend on it).
     """
     check_no_tf32()
     if xi.device.type == "cpu":
@@ -147,11 +150,15 @@ def resample_conv_stream(xi, xq, taps_mat, start0: int, p0: int, *,
     if M <= 0:
         return yi, yq
     taps = taps_mat.contiguous()
+    C = math.prod(lead)
+    lay = layout or geometry.pick_conv(
+        P, Q, R, C, M, p0, build.shared_memory_limit(xi.device.index),
+        build.sm_count(xi.device.index))
     rc = build.load().doppler_conv(
         xi_r.data_ptr(), xq_r.data_ptr(), taps.data_ptr(), yi.data_ptr(),
-        yq.data_ptr(), math.prod(lead), xi.shape[-1], stride, M, start0, p0,
-        P, Q, R,
-        w_len, torch.cuda.current_stream(xi.device).cuda_stream)
+        yq.data_ptr(), C, xi.shape[-1], stride, M, start0, p0, P, Q, R, w_len,
+        (ctypes.c_int * 7)(*lay.args), lay.threads, lay.smem_bytes,
+        torch.cuda.current_stream(xi.device).cuda_stream)
     build.check(rc, "conv")
     resample_conv_stream.launches += 1
     return yi, yq

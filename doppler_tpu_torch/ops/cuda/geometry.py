@@ -613,3 +613,309 @@ def cascade_fast_nan_reach(stages, Ds, n0: int, nan_at) -> set:
             rows[max(0, -(-(n + lo - K + 1) // (Q * D))):(n + lo) // (Q * D) + 1] = True
         bad = np.repeat(rows, D * P)
     return set(np.flatnonzero(bad).tolist())
+
+
+# -- the resampler's kernels (csrc/window.cu, csrc/conv.cu) -------------------
+
+RESAMPLE_THREADS = (256, 128, 64, 32)
+ROWS_THREADS = RESAMPLE_THREADS + (16, 8)   # the rows paths: threads of the dot
+FILL_THREADS = 128        # the rows paths' CTAs: threads past the tile only fill
+CONV_CHUNK_BYTES = 96 * 1024   # conv.cu's rows path: a chunk of x and taps
+WINDOW_FIR_MAX_P = 16     # window.cu's fir path: every row of taps in the CTA
+CONV_TILE_MAX_P = 4       # conv.cu's tile path: a row of taps is one float4
+SM_COUNT = 132            # an H100 SXM's SMs: the pickers' default
+
+
+def _odd(n: int) -> int:
+    return n | 1
+
+
+def _occupied(smem_bytes: int, threads: int) -> bool:
+    """Two CTAs or more on an SM, with 8 warps or more between them."""
+    n = min(SM_SHARED_BYTES // (smem_bytes + CTA_RESERVED_BYTES), 2048 // threads)
+    return n >= 2 and n * threads >= 256
+
+
+def _pick(candidates, limit: int, want: int, what: str):
+    """The first layout of ``candidates`` (largest tile first) that fits
+    ``limit``, leaves an SM occupied and gives ``want`` CTAs or more; where
+    none does, the last that fits (the most CTAs)."""
+    fits = [lay for lay in candidates if lay.smem_bytes <= limit]
+    if not fits:
+        raise ValueError(f"{what} needs more than {limit} bytes of shared "
+                         f"memory a CTA even at its smallest tile")
+    for lay in fits:
+        if lay.grid >= want and _occupied(lay.smem_bytes, lay.threads):
+            return lay
+    return fits[-1]
+
+
+@dataclasses.dataclass(frozen=True)
+class WindowLayout:
+    """One launch of ``csrc/window.cu``: the path (``rows`` False: fir.cuh's
+    dot on one channel), ``tile`` outputs a CTA, its threads and shared
+    memory, and the ints the C entry point takes (:attr:`args`).  fir path:
+    R windows a thread and the stage's :class:`Layout` offsets (taps at
+    ``tap_off``, the span at ``buf_off``, ``words`` float2 entries); rows
+    path: ``cg`` channels a CTA, one output a thread, the tile's rows at 0
+    (``row_stride`` floats each), the channels' spans at ``buf_off``
+    (``span_stride`` float2 each, ``words`` used)."""
+    rows: bool
+    tile: int
+    threads: int
+    R: int
+    tap_stride: int
+    tap_off: int
+    buf_off: int
+    cg: int
+    row_stride: int
+    span_stride: int
+    words: int
+    smem_bytes: int
+    grid: int
+
+    @property
+    def args(self) -> tuple:
+        return (int(self.rows), self.tile, self.R, self.tap_stride, self.tap_off,
+                self.buf_off, self.cg, self.row_stride, self.span_stride)
+
+
+def window_fir_tile(P: int, threads: int, R: int = 1) -> int:
+    """Outputs a fir-path CTA takes so that each thread has one item of
+    fir.cuh's dot whatever phase the tile starts at: W windows (a thread's
+    NP phases of R windows each) span at most P·(W − 1) + 1 outputs."""
+    windows = threads * R if n_phases(P) == P else (threads // P) * R
+    return P * (windows - 1) + 1
+
+
+def window_layout(P: int, Q: int, T: int, C: int, M: int, *, rows: bool,
+                  threads: int, R: int = 1) -> WindowLayout:
+    """The layout of one path at one size (raises where it cannot be);
+    ``threads``: the threads of the dot."""
+    if rows:
+        cg = min(C, 32)
+        tile = threads // cg
+        if tile < 1:
+            raise ValueError(f"{threads} threads hold fewer than {cg} channels")
+        span = ((tile - 1) * Q + P - 1) // P + T
+        row_stride, span_stride = _odd(T), _odd(span)
+        buf_off = (tile * row_stride + 1) // 2 * 2
+        smem = 4 * buf_off + 8 * cg * span_stride
+        # at least four warps, the ones past cg·tile only to fill
+        return WindowLayout(True, tile, max(cg * tile, FILL_THREADS), 0, 0, 0,
+                            buf_off, cg, row_stride, span_stride, span, smem,
+                            -(-C // cg) * -(-M // tile))
+    if threads < P or (n_phases(P) != P and threads // P < 1):
+        raise ValueError(f"the fir path needs {P} threads or more")
+    tile = window_fir_tile(P, threads, R)
+    lay = layout(((P, Q, T),), tile, threads, (R,))
+    (_, _, _, _, stride, tap_off, buf_off), = lay.rows
+    words, = lay.words
+    return WindowLayout(False, tile, threads, R, stride, tap_off, buf_off, 0, 0,
+                        0, words, lay.smem_bytes, C * -(-M // tile))
+
+
+def window_offsets_fit(lay: WindowLayout, P: int, Q: int) -> bool:
+    """Whether a CTA's offsets fit 32 bits: fir.cuh's span_div (k·S < 2^32
+    over the span) and the rows path's ``(pr0 + jj·Q)`` and tap indices."""
+    if lay.rows:
+        return (P + lay.tile * Q < 2 ** 31
+                and lay.tile * lay.row_stride + 2 * lay.cg * lay.span_stride < 2 ** 31)
+    return lay.words * Q * lay.R < 2 ** 32
+
+
+@functools.lru_cache(maxsize=None)
+def pick_window(P: int, Q: int, T: int, C: int, M: int, limit: int,
+                sms: int = SM_COUNT) -> WindowLayout:
+    """Path and sizes of ``csrc/window.cu`` for ``C`` channels of ``M``
+    outputs on a card whose CTA may take ``limit`` bytes of shared memory.
+
+    The fir path (fir.cuh's dot, every row of taps in the CTA) where P ≤
+    :data:`WINDOW_FIR_MAX_P` and its rows and span fit; else the rows path,
+    which holds only the rows of its own outputs (at the split tail's P =
+    384, all the rows would take 384 × 176 floats, over a CTA's limit).
+    The fir path takes the largest tile that keeps an SM occupied (a
+    thread's one item of the dot sets a CTA's time, whatever the tile:
+    ``tools/kernel_sweep.py --kernels window``); the rows path the largest
+    that still gives every SM a CTA, else the smallest (at the split tail
+    a chunk's M is small: the grid, not the tile, sets the time)."""
+    fir = []
+    if P <= WINDOW_FIR_MAX_P:
+        for threads in RESAMPLE_THREADS:
+            if threads < P:
+                continue
+            lay = window_layout(P, Q, T, C, M, rows=False, threads=threads)
+            if window_offsets_fit(lay, P, Q):
+                fir.append(lay)
+        if any(lay.smem_bytes <= limit for lay in fir):
+            return _pick(fir, limit, 0, f"window P/Q/T = {P}/{Q}/{T}")
+    cands = []
+    cg = min(C, 32)
+    for threads in ROWS_THREADS:
+        if threads // cg < 1:
+            continue
+        lay = window_layout(P, Q, T, C, M, rows=True, threads=threads)
+        if window_offsets_fit(lay, P, Q):
+            cands.append(lay)
+    return _pick(cands, limit, sms, f"window P/Q/T = {P}/{Q}/{T}")
+
+
+def window_shift(P: int, Q: int, T: int, rem0: int, off0: int) -> tuple:
+    """``(js, d)`` of the fir path (``csrc/window.cu window_shift``): output
+    j is fir.cuh's output J = j + js (js·Q ≡ rem0 mod P) and fir.cuh's x
+    index n is buffer index n + d."""
+    js = next(j for j in range(P) if j * Q % P == rem0)
+    return js, off0 + T - 1 - (js * Q - rem0) // P
+
+
+def window_cta_spans(lay: WindowLayout, P: int, Q: int, T: int, C: int, M: int,
+                     rem0: int, off0: int):
+    """The CTAs of a launch as ``(channels, j0, cnt, b_lo, n)``: channels
+    ``channels`` (a range), outputs ``j0 .. j0+cnt−1`` of each, from the
+    buffer indices ``b_lo .. b_lo+n−1`` (before the clamp) it stages —
+    ``csrc/window.cu window_plan``'s arithmetic."""
+    out = []
+    groups = -(-C // lay.cg) if lay.rows else C
+    js, d = (0, 0) if lay.rows else window_shift(P, Q, T, rem0, off0)
+    for g in range(groups):
+        chans = (range(g * lay.cg, min(C, (g + 1) * lay.cg)) if lay.rows
+                 else range(g, g + 1))
+        for j0 in range(0, M, lay.tile):
+            cnt = min(lay.tile, M - j0)
+            if lay.rows:
+                u0 = j0 * Q + rem0
+                n0 = u0 // P
+                span = (u0 + (cnt - 1) * Q) // P - n0 + T
+                out.append((chans, j0, cnt, off0 + n0, span))
+            else:
+                J0 = j0 + js
+                lo = J0 * Q // P - (T - 1)
+                last = (J0 + cnt - 1) * Q // P
+                out.append((chans, j0, cnt, lo + d, last - lo + 1))
+    return out
+
+
+@dataclasses.dataclass(frozen=True)
+class ConvLayout:
+    """One launch of ``csrc/conv.cu``: the path (``rows`` False: the tile
+    path, ``tile`` cycles a CTA, one a thread, the taps as R·Q float4 at
+    ``tap_off`` and the padded span of ``words`` float2 at ``buf_off``;
+    True: ``tile`` outputs a CTA, one a thread, ``cg`` channels, ``rg``
+    terms at a time, chunks of ``qc`` columns: ``words`` float2 of x at
+    ``buf_off`` and ``rg·qc·tile`` floats of taps at ``tap_off``), its
+    threads and shared memory, and the ints the C entry point takes
+    (:attr:`args`)."""
+    rows: bool
+    tile: int
+    threads: int
+    cg: int
+    rg: int
+    qc: int
+    tap_off: int
+    buf_off: int
+    words: int
+    smem_bytes: int
+    grid: int
+
+    @property
+    def args(self) -> tuple:
+        return (int(self.rows), self.tile, self.cg, self.rg, self.qc,
+                self.tap_off, self.buf_off)
+
+
+def conv_cycles(P: int, M: int, p0: int) -> int:
+    """Cycles (rows of P outputs) the outputs p0 .. p0+M−1 fall in."""
+    return (p0 + M - 1) // P + 1
+
+
+def conv_qs(qc: int) -> int:
+    """Floats a column of taps takes in a rows CTA of ``csrc/conv.cu``: qc
+    rounded up to 32, plus 4."""
+    return (qc + 31) // 32 * 32 + 4
+
+
+def _tap_off(words: int) -> int:
+    """Float offset of what follows ``words`` float2: 16-byte aligned."""
+    return (2 * words + 3) // 4 * 4
+
+
+def conv_layout(P: int, Q: int, R: int, C: int, M: int, p0: int, *, rows: bool,
+                threads: int, qc: int | None = None) -> ConvLayout:
+    """The layout of one path at one size; ``threads``: the threads of the
+    dot (one cycle, or one output, each)."""
+    if rows:
+        cg = 4 if C >= 4 else (2 if C >= 2 else 1)
+        rg = 2 if R >= 2 else 1
+        nb = (threads + P - 2) // P + 1 + rg - 1
+
+        def smem(qc):       # x, then the taps (a column conv_qs(qc) floats)
+            return 4 * _tap_off(cg * nb * qc) + 4 * rg * threads * conv_qs(qc)
+
+        if qc is None:      # the most columns a chunk that fit, a multiple of 4
+            qc = 4
+            while qc + 4 <= max(4, Q) and smem(qc + 4) <= CONV_CHUNK_BYTES:
+                qc += 4
+        words = cg * nb * qc
+        return ConvLayout(True, threads, max(threads, FILL_THREADS), cg, rg,
+                          qc, _tap_off(words), 0, words, smem(qc),
+                          -(-C // cg) * -(-M // threads))
+    if P > CONV_TILE_MAX_P:
+        raise ValueError(f"the tile path takes P ≤ {CONV_TILE_MAX_P}, not {P}")
+    n = (threads + R - 1) * Q
+    words = n + (n - 1) // Q + 1
+    buf_off = 4 * R * Q
+    return ConvLayout(False, threads, threads, 0, 0, 0, 0, buf_off, words,
+                      4 * buf_off + 8 * words,
+                      C * -(-conv_cycles(P, M, p0) // threads))
+
+
+def conv_offsets_fit(lay: ConvLayout, Q: int) -> bool:
+    """Whether a CTA's offsets fit 32 bits: the tile path's span_div (k·S <
+    2^32 over the span), the rows path's column indices."""
+    if lay.rows:
+        return lay.words < 2 ** 31
+    return lay.words * Q < 2 ** 32
+
+
+@functools.lru_cache(maxsize=None)
+def pick_conv(P: int, Q: int, R: int, C: int, M: int, p0: int, limit: int,
+              sms: int = SM_COUNT) -> ConvLayout:
+    """Path and sizes of ``csrc/conv.cu``: the tile path where P ≤
+    :data:`CONV_TILE_MAX_P` and it fits (one cycle a thread), else the rows
+    path; each path's tile as :func:`pick_window` chooses it."""
+    if P <= CONV_TILE_MAX_P:
+        tile = [lay for lay in (conv_layout(P, Q, R, C, M, p0, rows=False,
+                                            threads=t) for t in RESAMPLE_THREADS)
+                if conv_offsets_fit(lay, Q)]
+        if any(lay.smem_bytes <= limit for lay in tile):
+            return _pick(tile, limit, 0, f"conv P/Q = {P}/{Q}")
+    cands = [conv_layout(P, Q, R, C, M, p0, rows=True, threads=t)
+             for t in ROWS_THREADS]
+    return _pick([lay for lay in cands if conv_offsets_fit(lay, Q)], limit, sms,
+                 f"conv P/Q = {P}/{Q}")
+
+
+def conv_cta_spans(lay: ConvLayout, P: int, Q: int, R: int, C: int, M: int,
+                   p0: int, start0: int):
+    """The CTAs of a launch as ``(channels, outputs, b_lo, n)``: the output
+    indices it stores (a range) of the channels ``channels`` and the input
+    indices ``b_lo .. b_lo+n−1`` whose rows it stages (the rows path: over
+    all its chunks) — ``csrc/conv.cu``'s arithmetic."""
+    out = []
+    if lay.rows:
+        for g in range(-(-C // lay.cg)):
+            chans = range(g * lay.cg, min(C, (g + 1) * lay.cg))
+            for m_lo in range(0, M, lay.tile):
+                cnt = min(lay.tile, M - m_lo)
+                k_lo = (p0 + m_lo) // P
+                kspan = (p0 + m_lo + cnt - 1) // P - k_lo + 1
+                out.append((chans, range(m_lo, m_lo + cnt),
+                            start0 + k_lo * Q, (kspan + R - 1) * Q))
+        return out
+    for c in range(C):
+        for k_lo in range(0, conv_cycles(P, M, p0), lay.tile):
+            m_lo = max(0, k_lo * P - p0)
+            m_hi = min(M, (k_lo + lay.tile) * P - p0)
+            out.append((range(c, c + 1), range(m_lo, m_hi), start0 + k_lo * Q,
+                        (lay.tile + R - 1) * Q))
+    return out

@@ -34,12 +34,13 @@ the chunk width.)  ``'conv'`` runs only when asked for.
 
 from __future__ import annotations
 
+import ctypes
 import math
 
 import numpy as np
 import torch
 
-from doppler_tpu_torch.ops.cuda import build
+from doppler_tpu_torch.ops.cuda import build, geometry
 from doppler_tpu_torch.ops.cuda.conv import (
     conv_bands,
     resample_conv_stream,
@@ -207,7 +208,7 @@ def resample_conv_block(xi, xq, taps_mat, *, P: int, Q: int, T: int):
 
 
 def window_resample(xi, xq, bank_rev, rem0: int, off0: int, *, P: int, Q: int,
-                    T: int, M: int):
+                    T: int, M: int, layout=None):
     """The ``'window'`` resampler step: :func:`window_dot`'s function.
 
     A CPU tensor runs :func:`window_dot`, its plain version; a CUDA tensor
@@ -216,6 +217,8 @@ def window_resample(xi, xq, bank_rev, rem0: int, off0: int, *, P: int, Q: int,
     order), so on the card the mixer and this step give the fused kernels'
     bytes; it is within 1 LSB of the plain version's tree.  ``xi/xq`` are
     ``(H + N,)`` or ``(C, H + N)``; returns ``(M,)`` or ``(C, M)`` planes.
+    ``layout`` (a ``geometry.WindowLayout``) overrides the kernel's picked
+    path and sizes (tests and timing only: the bytes do not depend on it).
     """
     if xi.device.type == "cpu":
         return window_dot(xi, xq, bank_rev, rem0, off0, P=P, Q=Q, T=T, M=M)
@@ -233,10 +236,15 @@ def window_resample(xi, xq, bank_rev, rem0: int, off0: int, *, P: int, Q: int,
     if M <= 0:
         return yi, yq
     bank = bank_rev.contiguous()
+    C = math.prod(lead)
+    lay = layout or geometry.pick_window(
+        P, Q, T, C, M, build.shared_memory_limit(xi.device.index),
+        build.sm_count(xi.device.index))
     rc = build.load().doppler_window(
         xi_r.data_ptr(), xq_r.data_ptr(), bank.data_ptr(), yi.data_ptr(),
-        yq.data_ptr(), math.prod(lead), xi.shape[-1], stride, M, rem0, off0,
-        P, Q, T, torch.cuda.current_stream(xi.device).cuda_stream)
+        yq.data_ptr(), C, xi.shape[-1], stride, M, rem0, off0, P, Q, T,
+        (ctypes.c_int * 9)(*lay.args), lay.threads, lay.smem_bytes,
+        torch.cuda.current_stream(xi.device).cuda_stream)
     build.check(rc, "window")
     window_resample.launches += 1
     return yi, yq
@@ -262,8 +270,9 @@ class RationalResampler:
     ``'conv'``, the banded windows-matmul form (:func:`resample_conv_stream`;
     the same alignment and taps, another summation order).  ``'conv'``
     raises if float32 matrix products may use TF32.  A NaN input reaches
-    every ``'conv'`` output whose window row (Q−1+T samples, not T) holds
-    it, so NaN-carrying streams keep ``'window'``.
+    every ``'conv'`` output whose row of R·Q samples (the Q−1+T of its
+    window row and the zero taps' rows after it, not T) holds it, so
+    NaN-carrying streams keep ``'window'``.
     """
 
     def __init__(self, in_rate: int, out_rate: float, *,

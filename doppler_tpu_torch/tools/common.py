@@ -13,6 +13,9 @@ from doppler_tpu_torch.ops.phase_plan import NCOState, plan_blocks
 from doppler_tpu_torch.runtime.pipeline import resolve_device
 from doppler_tpu_torch.runtime.timing import card_label, timed_dispatches
 
+__all__ = ["FS", "OUT_RATE", "L", "add_common_args", "bench_inputs",
+           "open_device", "best_of", "device_us", "card_label"]
+
 FS = 1_024_000      # config 3's input rate
 OUT_RATE = 48_000
 L = 2048            # the reference block of i16 input (8192 bytes)
@@ -68,3 +71,37 @@ def best_of(steps: dict, iters: int, K: int, device: torch.device,
             if on_time is not None:
                 on_time(it, name, dt)
     return best
+
+
+def device_us(step, match: str | None, runs: int = 10, tries: int = 3):
+    """Mean device µs of ``step()``'s kernels whose name holds ``match`` (a
+    launch), or of all its device work summed (a call) where ``match`` is
+    None, over ``runs`` calls, from ``torch.profiler``; None when none of
+    ``tries`` sessions recorded any (a session can record none)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    step()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        # an empty session first: what a previous session left behind lands
+        # there, not in the one that is read
+        with profile(activities=[ProfilerActivity.CUDA]):
+            torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(runs):
+                step()
+            torch.cuda.synchronize()
+        total, count = 0.0, 0
+        for ev in prof.key_averages():
+            if getattr(ev, "device_type", None) != torch.autograd.DeviceType.CUDA:
+                continue
+            if match is not None and (match not in ev.key
+                                      or "at::native" in ev.key):
+                continue
+            total += (getattr(ev, "device_time_total", None)
+                      or getattr(ev, "cuda_time_total", 0.0))
+            count += ev.count
+        if total > 0:
+            return total / (runs if match is None else count)
+    return None

@@ -23,8 +23,22 @@ function of them).  A third of the blocks switch segment inside the block,
 a third never (``t = L``), the rest at once (``t = 0``).  The stream cases
 run channel 0's plan words and carries.
 
+The resampler's two kernels, ``csrc/window.cu`` (``window``) and
+``csrc/conv.cu`` (``conv``), have cases of their own (:data:`RESAMPLE_CASES`):
+seeded float32 ``[T−1 history | N inputs]`` buffers through the wrappers
+``ops.resample.window_resample`` and ``ops.cuda.conv.resample_conv_stream``
+at the arguments ``RationalResampler.process`` gives a chunk that starts at
+input ``in_consumed`` of a stream — config 3's single stage at the
+pipeline's chunk, at 2^24 inputs, mid-stream (``rem0``, ``p0`` ≠ 0, a
+negative ``start0``), at 16 channels on strided, misaligned rows and at a
+small buffer whose outputs run past both ends (the window form's clamp, the
+conv form's zeros); the config-3 cascade's two stages on an EOF chunk; the
+100 Msps split tail (P/Q = 384/3125) at the CLI's 2048 inputs a channel, one
+channel and config 5's 256.  The digest is of ``stack([yi, yq])``.
+
     python -m doppler_tpu_torch.tools.kernel_digests            # print all
     python -m doppler_tpu_torch.tools.kernel_digests --check    # vs PINNED
+    python -m doppler_tpu_torch.tools.kernel_digests --kernels window,conv
 
 Digests are of the card's bytes; the plain versions sum the FIR in another
 order and are not held to them.
@@ -33,6 +47,7 @@ order and are not held to them.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import hashlib
 import json
 import sys
@@ -40,9 +55,14 @@ import sys
 import numpy as np
 import torch
 
-from doppler_tpu_torch.ops.cuda import cascade, chain
+from doppler_tpu_torch.ops.cuda import cascade, chain, conv
 from doppler_tpu_torch.ops.multistage import MultiStageResampler
-from doppler_tpu_torch.ops.resample import RationalResampler
+from doppler_tpu_torch.ops.resample import (
+    RationalResampler,
+    conv_stream_geometry,
+    make_taps_matrix,
+    window_resample,
+)
 
 FS = 1_024_000
 FS_SPLIT = 100_000_000
@@ -51,6 +71,7 @@ L = 2048
 C_MANY = 16
 BLOCKS = (256, 16384)
 KERNELS = ("chain", "cascade", "front")
+RESAMPLE_KERNELS = ("window", "conv")
 
 # Taken on the kernels as they stood before their redesign (one output a
 # thread, 128-output tiles, a 64-bit division and a 64-bit product a sample),
@@ -194,6 +215,48 @@ PINNED: dict = {
         ]},
 }
 
+# The resampler kernels' cases, taken on csrc/window.cu and csrc/conv.cu as
+# they stood before their redesign (one thread an output-plane, a chain of
+# L1 loads), NVIDIA H100 80GB HBM3, 700.00 W, nvcc 12.9.86, torch
+# 2.11.0+cu128.
+PINNED.update({
+    "conv/c3-2p24/C1":
+        "3590506a058bef8e328cd3e6d9281d64946f2a37ce851f0587b09327dbefc0a1",
+    "conv/c3-chunk/C1":
+        "09ba1ecc01685b93f45ec534dd58593ad05bd3e5172be0cbd141d244768b8da3",
+    "conv/c3-edge/C1":
+        "0be064cdae2c4141eea40345de526001c8e5dc0b1a56ab4d42dcb16f9eb39d01",
+    "conv/c3-mid/C1":
+        "5ef9fe55ce651dd1a05467da4a4083fd90c2fc1710bd59f78a632e27cd222d1f",
+    "conv/c3-mid/C16":
+        "1acf31c87a5cbb7927edf0c254f621d00af35f541ff6780e5a4f26bbe90e3a3d",
+    "conv/c38-s0/C1":
+        "95cfadeca075bf7878729326c16c66aec02b1838e5948f54d763cdd30f1b48d3",
+    "conv/c38-s1/C1":
+        "9e43fd02ebdb6ca34921f9cab6b15c0cf362dae51f152d75024c4289d05a5dff",
+    "conv/tail/C1":
+        "f3012ad41d4571218b7c387dde3f649ae6d5445dacba20b70003ecf8d895682d",
+    "conv/tail/C256":
+        "1e92bebf73db7fcd3a26f7896beabbef1a9dae4f867816a8da9649d4a99b4c59",
+    "window/c3-2p24/C1":
+        "3ed6b1041e8cd0937ffc8663e3d44e57449f05193359d23389d68dbd177a0e62",
+    "window/c3-chunk/C1":
+        "882f325d81720c15e8e80ff207a1ac7ef803d285f4f766f4fc87ef47a45c563a",
+    "window/c3-edge/C1":
+        "783d7b217a17bc6c11f144076466a429f472f9be23bd798fbca93a20175d59e4",
+    "window/c3-mid/C1":
+        "e8d462c6dc079e5f16a6e8c8c0eaafd96962b4e941823c2f2eb29d60c9112368",
+    "window/c3-mid/C16":
+        "c49c8d94ea7d5c32708ab7b458476ca06a01e8d41ca291e1e86611ee3521100b",
+    "window/c38-s0/C1":
+        "cdea9ded1dfe741d1a86e06ac30a92827a266ceab4d4effa11f39bc78ce8d4b5",
+    "window/c38-s1/C1":
+        "08304b2eb5b68462ea185abb3e24ab9990b51a44243fb4b1bf8bba663c650d5f",
+    "window/tail/C1":
+        "8df5515ca108f705120db161e9b9fd446d21c0319280c80aad0d59882ee21f70",
+    "window/tail/C256":
+        "01001ee058490be08811a4f6b6ca0ad35c612bf01d7c3889c9eab81a722b7db7",
+})
 
 def case_name(kernel: str, B: int, fmt: str, C: int) -> str:
     return f"{kernel}/B{B}/{fmt}/C{C}"
@@ -284,6 +347,114 @@ def compute(blocks=BLOCKS, kernels=KERNELS, channels=(1, C_MANY),
     return res
 
 
+# -- the resampler's kernels (csrc/window.cu, csrc/conv.cu) ------------------------
+
+CHUNK = 256 * L                    # the pipeline's chunk: 256 blocks of 2048
+TAIL_CHUNK = CHUNK // 256          # the split tail's inputs a chunk (÷256 front)
+
+
+@dataclasses.dataclass(frozen=True)
+class ResampleCase:
+    """One resampler step: ``stage`` is ``(in_rate, index)`` of a stage of
+    ``MultiStageResampler(in_rate, OUT_RATE)`` (index None: the single-stage
+    ``RationalResampler``); C channels of ``[T−1 | N]`` samples, the chunk
+    starting at input ``in_consumed`` of the stream at output ``m0``
+    (None: the stream's own, ⌈in_consumed·P/Q⌉); M outputs, ``extra``
+    beyond the resampler's capacity ``N·P//Q + 2``; ``strided``: rows of a
+    wider, misaligned buffer."""
+    stage: tuple
+    C: int
+    N: int
+    in_consumed: int
+    m0: int | None = None
+    extra: int = 0
+    strided: bool = False
+
+
+RESAMPLE_CASES = {
+    "c3-chunk/C1": ResampleCase((FS, None), 1, CHUNK, 0),
+    "c3-2p24/C1": ResampleCase((FS, None), 1, 1 << 24, 0),
+    "c3-mid/C1": ResampleCase((FS, None), 1, CHUNK, 7 * CHUNK + 5),
+    "c3-mid/C16": ResampleCase((FS, None), 16, 1 << 16, 3 * (1 << 16) + 11,
+                               strided=True),
+    # start0 = −2Q−1, p0 = 2; the window form's off0 = −87: both ends
+    "c3-edge/C1": ResampleCase((FS, None), 1, 3000, 769, m0=32, extra=40),
+    "c38-s0/C1": ResampleCase((FS, 0), 1, CHUNK, 39 * CHUNK),
+    "c38-s1/C1": ResampleCase((FS, 1), 1, CHUNK // 8 + 2, 39 * CHUNK // 8 + 5),
+    "tail/C1": ResampleCase((FS_SPLIT, 2), 1, TAIL_CHUNK, 95 * TAIL_CHUNK),
+    "tail/C256": ResampleCase((FS_SPLIT, 2), 256, TAIL_CHUNK, 95 * TAIL_CHUNK),
+}
+
+
+def resample_stage(case: ResampleCase):
+    """``(P, Q, T, bank)`` of a case's stage, the bank as a NumPy array."""
+    fs, index = case.stage
+    rs = (RationalResampler(fs, OUT_RATE) if index is None
+          else MultiStageResampler(fs, OUT_RATE).stages[index])
+    return rs.P, rs.Q, rs.T, rs.bank
+
+
+def resample_args(case: ResampleCase, P: int, Q: int, T: int) -> dict:
+    """The host ints of a case: M, the window form's ``(rem0, off0)`` and the
+    conv form's ``conv_stream_geometry``, as ``RationalResampler.process``
+    computes them."""
+    m0 = (-(-case.in_consumed * P // Q) if case.m0 is None else case.m0)
+    M = case.N * P // Q + 2 + case.extra
+    start0, p0, K, PADZ, TAIL = conv_stream_geometry(
+        m0, case.in_consumed, M, case.N, P=P, Q=Q, T=T)
+    return dict(M=M, rem0=(m0 * Q) % P, off0=(m0 * Q) // P - case.in_consumed,
+                start0=start0, p0=p0, K=K, PADZ=PADZ, TAIL=TAIL)
+
+
+def resample_inputs(name: str, device):
+    """``(xi, xq)`` of a case on ``device``: seeded float32 rows, ``(n,)``
+    for one channel, ``(C, n)`` else (views of wider rows, one float in,
+    where the case is ``strided``)."""
+    case = RESAMPLE_CASES[name]
+    _, _, T, _ = resample_stage(case)
+    n = T - 1 + case.N
+    seed = int.from_bytes(hashlib.sha256(name.encode()).digest()[:8], "little")
+    rng = np.random.default_rng(seed)
+    width = n + 13 if case.strided else n
+    planes = []
+    for _ in range(2):
+        x = (rng.standard_normal((case.C, width), dtype=np.float32)
+             * np.float32(0.3))
+        t = torch.from_numpy(x).to(device)
+        t = t[:, 1:1 + n] if case.strided else t
+        planes.append(t[0] if case.C == 1 else t)
+    return planes
+
+
+def resample_step(kernel: str, name: str, device):
+    """A zero-argument call of ``kernel``'s wrapper on case ``name``'s
+    inputs (made once, on ``device``), returning ``(yi, yq)``."""
+    case = RESAMPLE_CASES[name]
+    P, Q, T, bank = resample_stage(case)
+    a = resample_args(case, P, Q, T)
+    xi, xq = resample_inputs(name, device)
+    if kernel == "window":
+        bank_rev = torch.from_numpy(bank[:, ::-1].copy()).to(device)
+        return lambda: window_resample(xi, xq, bank_rev, a["rem0"], a["off0"],
+                                       P=P, Q=Q, T=T, M=a["M"])
+    taps = torch.from_numpy(make_taps_matrix(bank, P, Q)).to(device)
+    kw = {k: a[k] for k in ("K", "M", "PADZ", "TAIL")}
+    return lambda: conv.resample_conv_stream(xi, xq, taps, a["start0"], a["p0"],
+                                             P=P, Q=Q, T=T, **kw)
+
+
+def compute_resample(kernels=RESAMPLE_KERNELS, cases=None,
+                     device="cuda") -> dict:
+    """Digests of the resampler kernels' cases, by ``kernel/case`` name."""
+    device = torch.device(device)
+    res = {}
+    for name in (cases or RESAMPLE_CASES):
+        for kernel in kernels:
+            yi, yq = resample_step(kernel, name, device)()
+            res[f"{kernel}/{name}"] = _sha(torch.stack([yi, yq]))
+    return res
+
+
 def mismatches(got: dict) -> list:
     """Names of the cases of ``got`` whose digests differ from :data:`PINNED`
     (a case that is not pinned counts as a mismatch)."""
@@ -293,14 +464,24 @@ def mismatches(got: dict) -> list:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--blocks", default=",".join(map(str, BLOCKS)))
+    ap.add_argument("--kernels", default=",".join(KERNELS + RESAMPLE_KERNELS),
+                    help="comma-separated, of "
+                         f"{', '.join(KERNELS + RESAMPLE_KERNELS)}")
     ap.add_argument("--check", action="store_true",
                     help="exit 1 unless every digest equals the pinned one")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) fails without a card; on cpu the "
                          "plain versions run, whose bytes are not the pinned")
     args = ap.parse_args(argv)
-    got = compute(tuple(int(b) for b in args.blocks.split(",")),
-                  device=args.device)
+    names = args.kernels.split(",")
+    unknown = [k for k in names if k not in KERNELS + RESAMPLE_KERNELS]
+    if unknown:
+        ap.error(f"unknown kernels {unknown}")
+    fir = tuple(k for k in KERNELS if k in names)
+    got = (compute(tuple(int(b) for b in args.blocks.split(",")), kernels=fir,
+                   device=args.device) if fir else {})
+    got.update(compute_resample(tuple(k for k in RESAMPLE_KERNELS if k in names),
+                                device=args.device))
     print(json.dumps(got, indent=1, sort_keys=True))
     if args.check:
         bad = mismatches(got)

@@ -29,6 +29,13 @@ without one.
     python -m doppler_tpu_torch.tools.kernel_sweep --kernels fast,fast-default
     python -m doppler_tpu_torch.tools.kernel_sweep --kernels cascade-fast,cascade-fast-default
     python -m doppler_tpu_torch.tools.kernel_sweep --kernels chain-shape --blocks 256
+    python -m doppler_tpu_torch.tools.kernel_sweep --kernels window,conv --cases c3-2p24/C1,tail/C1
+
+The resampler's kernels (``--kernels window,conv``, ``csrc/window.cu`` and
+``csrc/conv.cu``) sweep both paths of ``ops/cuda/geometry.py`` (the fir /
+tile path's threads and R / RC, the rows path's threads and outputs a
+thread) at the digest cases of ``tools/kernel_digests.py`` named by
+``--cases``, each layout's profiler device µs a launch, fastest first.
 """
 
 from __future__ import annotations
@@ -212,6 +219,66 @@ def sweep(kernel: str, B: int, C: int, iters: int, K: int, device) -> list:
     return rows
 
 
+RESAMPLE_CASES = ("c3-chunk/C1", "c3-2p24/C1", "tail/C1", "tail/C256")
+
+
+def resample_layouts(kernel: str, name: str, limit: int) -> list:
+    """Every layout of both paths of a resampler kernel at a digest case that
+    fits ``limit``; the picked one first."""
+    case = kernel_digests.RESAMPLE_CASES[name]
+    P, Q, T, _ = kernel_digests.resample_stage(case)
+    a = kernel_digests.resample_args(case, P, Q, T)
+    C, M, R = case.C, a["M"], -(-(Q - 1 + T) // Q)
+    if kernel == "window":
+        lays = [geometry.pick_window(P, Q, T, C, M, limit)]
+        lays += [geometry.window_layout(P, Q, T, C, M, rows=True, threads=t)
+                 for t in geometry.ROWS_THREADS if t >= min(C, 32)]
+        if P <= geometry.WINDOW_FIR_MAX_P:
+            lays += [geometry.window_layout(P, Q, T, C, M, rows=False, threads=t,
+                                            R=r)
+                     for t in geometry.RESAMPLE_THREADS for r in (1, 2) if t >= P]
+    else:
+        lays = [geometry.pick_conv(P, Q, R, C, M, a["p0"], limit)]
+        lays += [geometry.conv_layout(P, Q, R, C, M, a["p0"], rows=True, threads=t)
+                 for t in geometry.ROWS_THREADS]
+        if P <= geometry.CONV_TILE_MAX_P:
+            lays += [geometry.conv_layout(P, Q, R, C, M, a["p0"], rows=False,
+                                          threads=t)
+                     for t in geometry.RESAMPLE_THREADS]
+    return [lay for lay in dict.fromkeys(lays) if lay.smem_bytes <= limit]
+
+
+def sweep_resample(kernel: str, name: str, device) -> list:
+    """``[(device µs a launch, layout, picked)]`` of a resampler kernel at a
+    digest case, fastest first (None where the profiler recorded nothing)."""
+    from doppler_tpu_torch.ops.cuda import conv
+    from doppler_tpu_torch.ops.resample import make_taps_matrix, window_resample
+
+    case = kernel_digests.RESAMPLE_CASES[name]
+    P, Q, T, bank = kernel_digests.resample_stage(case)
+    a = kernel_digests.resample_args(case, P, Q, T)
+    xi, xq = kernel_digests.resample_inputs(name, device)
+    limit = torch.cuda.get_device_properties(device).shared_memory_per_block_optin
+    if kernel == "window":
+        bank_rev = torch.from_numpy(bank[:, ::-1].copy()).to(device)
+
+        def step(lay):
+            return lambda: window_resample(xi, xq, bank_rev, a["rem0"], a["off0"],
+                                           P=P, Q=Q, T=T, M=a["M"], layout=lay)
+    else:
+        taps = torch.from_numpy(make_taps_matrix(bank, P, Q)).to(device)
+        kw = {k: a[k] for k in ("K", "M", "PADZ", "TAIL")}
+
+        def step(lay):
+            return lambda: conv.resample_conv_stream(
+                xi, xq, taps, a["start0"], a["p0"], P=P, Q=Q, T=T, **kw,
+                layout=lay)
+    lays = resample_layouts(kernel, name, limit)
+    rows = [(common.device_us(step(lay), kernel + "_"), lay, i == 0)
+            for i, lay in enumerate(lays)]
+    return sorted(rows, key=lambda r: float("inf") if r[0] is None else r[0])
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--blocks", type=int, default=16384)
@@ -220,6 +287,8 @@ def main(argv=None) -> int:
     ap.add_argument("--dispatches", type=int, default=8)
     ap.add_argument("--kernels", default=",".join(kernel_digests.KERNELS))
     ap.add_argument("--top", type=int, default=12, help="lines a kernel")
+    ap.add_argument("--cases", default=",".join(RESAMPLE_CASES),
+                    help="the resampler kernels' digest cases")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("no CUDA device: this tool measures a card", file=sys.stderr)
@@ -228,6 +297,24 @@ def main(argv=None) -> int:
     label = card_label(device)
     result = {}
     for kernel in args.kernels.split(","):
+        if kernel in kernel_digests.RESAMPLE_KERNELS:
+            for name in args.cases.split(","):
+                rows = sweep_resample(kernel, name, device)
+                for us, lay, picked in rows[:args.top] + [r for r in rows[args.top:]
+                                                          if r[2]]:
+                    path = "rows" if lay.rows else ("fir" if kernel == "window"
+                                                    else "tile")
+                    knobs = (f"cg={lay.cg}" if kernel == "window" and lay.rows
+                             else f"R={lay.R}" if kernel == "window"
+                             else f"cg={lay.cg} qc={lay.qc}" if lay.rows else "")
+                    print(f"{kernel:6s} {name:12s} {path:4s} tile={lay.tile:4d} "
+                          f"threads={lay.threads:3d} {knobs} grid={lay.grid} "
+                          f"device {us!r} us{' *' if picked else ''} [{label}]",
+                          file=sys.stderr)
+                result[f"{kernel}/{name}"] = [
+                    dict(device_us=us, picked=picked, **dataclasses.asdict(lay))
+                    for us, lay, picked in rows]
+            continue
         if kernel == SHAPE:
             rows = sweep_shape(args.blocks, args.iters, args.dispatches, device)
             for ms, g, picked, us in rows[:args.top] + [r for r in rows[args.top:]

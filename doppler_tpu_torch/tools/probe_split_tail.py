@@ -5,7 +5,8 @@ Counterpart of ``tools/probe_split_tail.py``.  The ÷16·÷16 front fused in
 ``csrc/cascade.cu`` (``mix_cascade_stream(final_dense=True, outtype="f32")``,
 float32 planes at 390.625 ksps), then the 384/3125 tail stage as
 ``runtime/pipeline.py`` runs it: the stage's ``RationalResampler.process``
-in plain torch on the device, then the i16 encode.  Variants:
+(on the card the window kernel, ``csrc/window.cu``; on the CPU its plain
+version), then the i16 encode.  Variants:
 
   full   front + tail + encode (the pipeline's split route)
   front  the front alone (planes out, tail elided)
@@ -55,7 +56,7 @@ def main(argv=None) -> int:
     tail = ms.stages[k:]
     print("split stages: " + " -> ".join(
         f"{st.P}/{st.Q}(T={st.T})" for st in ms.stages)
-        + f"  (front {k} fused, tail plain torch)", file=sys.stderr)
+        + f"  (front {k} fused, tail the window resampler)", file=sys.stderr)
     banks = tuple(torch.from_numpy(st.bank).to(device) for st in ms.stages[:k])
     carries = tuple(torch.zeros(2, T - 1, device=device) for _, _, T in front)
     kw = dict(stages=front, outtype="f32", final_dense=True)

@@ -29,7 +29,9 @@ carries that are mixed samples (tolerances above their tests).
 The chain and cascade kernels are also held to the SHA-256 digests of
 ``tools/kernel_digests.py``, taken on the kernels they replaced: their bytes
 may depend on nothing but their inputs, so every tile, thread count and
-register tile gives the same bytes, and a redesign gives the old ones.
+register tile gives the same bytes, and a redesign gives the old ones.  So
+are the resampler's two kernels (``csrc/window.cu``, ``csrc/conv.cu``),
+pinned before their redesign, on both paths of each.
 """
 
 import io
@@ -1453,3 +1455,139 @@ def test_pipeline_bytes_do_not_depend_on_chunk_width_on_card(card, fs, stages):
 
     want = run(16)
     assert want and run(8) == want and run(32) == want
+
+
+# -- the resampler kernels' redesign: bytes pinned before it ------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", kernel_digests.RESAMPLE_KERNELS)
+def test_resample_kernel_bytes_equal_the_pinned_digests(card, kernel):
+    """``csrc/window.cu`` and ``csrc/conv.cu`` at every resampler case of
+    ``tools/kernel_digests.py`` (config 3 at the chunk, at 2^24, mid-stream,
+    16 strided channels, both edges; the cascade's stages; the split tail at
+    C = 1 and 256): the digests taken on the kernels they replaced."""
+    got = kernel_digests.compute_resample(kernels=(kernel,))
+    assert len(got) == len(kernel_digests.RESAMPLE_CASES)
+    assert kernel_digests.mismatches(got) == []
+
+
+def _resample_case(card, name, kernel, layout=None):
+    """``(got, want, n)``: a digest case's kernel output and its plain
+    version's, both ``(2, C, M)``, and the outputs inside the buffer."""
+    from doppler_tpu_torch.ops.cuda import conv
+    from doppler_tpu_torch.ops.resample import make_taps_matrix, window_dot
+
+    case = kernel_digests.RESAMPLE_CASES[name]
+    P_, Q_, T_, bank = kernel_digests.resample_stage(case)
+    a = kernel_digests.resample_args(case, P_, Q_, T_)
+    xi, xq = kernel_digests.resample_inputs(name, card)
+    if kernel == "window":
+        bank_rev = torch.from_numpy(bank[:, ::-1].copy()).to(card)
+        args = (xi, xq, bank_rev, a["rem0"], a["off0"])
+        kw = dict(P=P_, Q=Q_, T=T_, M=a["M"])
+        got = resample_mod.window_resample(*args, **kw, layout=layout)
+        want = window_dot(*args, **kw)
+    else:
+        taps = torch.from_numpy(make_taps_matrix(bank, P_, Q_)).to(card)
+        args = (xi, xq, taps, a["start0"], a["p0"])
+        kw = dict(P=P_, Q=Q_, T=T_, **{k: a[k] for k in ("K", "M", "PADZ", "TAIL")})
+        got = conv.resample_conv_stream(*args, **kw, layout=layout)
+        want = conv.resample_conv_stream_plain(*args, **kw)
+    n = (-(-(case.in_consumed + case.N) * P_ // Q_)
+         - (-(-case.in_consumed * P_ // Q_)))
+    shape = (2, case.C, a["M"])
+    return (torch.stack(got).reshape(shape), torch.stack(want).reshape(shape),
+            min(n, a["M"]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["tail/C1", "tail/C256", "c3-mid/C1",
+                                  "c38-s1/C1"])
+@pytest.mark.parametrize("kernel", kernel_digests.RESAMPLE_KERNELS)
+def test_resample_kernels_vs_plain_at_the_split_tail(card, kernel, name):
+    """Both kernels against their plain versions at the split tail (P/Q =
+    384/3125, the rows paths) at C = 1 and 256, and on the fir / tile paths:
+    the window kernel within 2^-20 (as the chain kernel), the conv kernel
+    within 1e-5 of the peak; encoded ≤ 1 LSB in under 1%."""
+    from doppler_tpu_torch.ops import codec
+
+    got, want, n = _resample_case(card, name, kernel)
+    got, want = got[..., :n], want[..., :n]
+    tol = 2.0 ** -20 if kernel == "window" else 1e-5 * want.abs().max().item()
+    assert (got - want).abs().max().item() <= tol
+    d = _lsb(codec.iq_to_i16_words(got[0].reshape(-1), got[1].reshape(-1)),
+             codec.iq_to_i16_words(want[0].reshape(-1), want[1].reshape(-1)))
+    assert d.max().item() <= 1 and (d > 0).float().mean().item() < 0.01
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["c3-mid/C16", "tail/C256", "c38-s0/C1"])
+def test_resample_kernel_bytes_do_not_depend_on_the_layout(card, name):
+    """Every path and size of both kernels gives the picked launch's bytes."""
+    case = kernel_digests.RESAMPLE_CASES[name]
+    P_, Q_, T_, _ = kernel_digests.resample_stage(case)
+    a = kernel_digests.resample_args(case, P_, Q_, T_)
+    C, M = case.C, a["M"]
+    R = -(-(Q_ - 1 + T_) // Q_)
+    limit = torch.cuda.get_device_properties(card).shared_memory_per_block_optin
+    lays = {"window": [geometry.window_layout(P_, Q_, T_, C, M, rows=True,
+                                              threads=t)
+                       for t in (256, 64, 8) if t >= min(C, 32)],
+            "conv": [geometry.conv_layout(P_, Q_, R, C, M, a["p0"], rows=True,
+                                          threads=t, qc=qc)
+                     for t in (128, 32) for qc in (8, None)]}
+    if P_ <= geometry.WINDOW_FIR_MAX_P:
+        lays["window"] += [geometry.window_layout(P_, Q_, T_, C, M, rows=False,
+                                                  threads=t, R=r)
+                           for t in (256, 32) for r in (1, 2)]
+    if P_ <= geometry.CONV_TILE_MAX_P:
+        lays["conv"] += [geometry.conv_layout(P_, Q_, R, C, M, a["p0"], rows=False,
+                                              threads=t)
+                         for t in (256, 128, 32)]
+    for kernel, cands in lays.items():
+        want, _, _ = _resample_case(card, name, kernel)
+        for lay in cands:
+            if lay.smem_bytes <= limit:
+                got, _, _ = _resample_case(card, name, kernel, lay)
+                assert torch.equal(got, want), (kernel, lay)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["c3-mid/C1", "tail/C1"])
+def test_resample_kernels_nan_reach_on_card(card, name):
+    """A NaN in x reaches exactly the window outputs whose T-sample window
+    (after the clamp) holds it, and the conv outputs whose row of R·Q
+    samples (the Q−1+T of the window row and the zero taps' rows after it:
+    every product is computed) does; the other outputs keep their bytes."""
+    from doppler_tpu_torch.ops.cuda import conv
+    from doppler_tpu_torch.ops.resample import make_taps_matrix
+
+    case = kernel_digests.RESAMPLE_CASES[name]
+    P_, Q_, T_, bank = kernel_digests.resample_stage(case)
+    a = kernel_digests.resample_args(case, P_, Q_, T_)
+    M, at = a["M"], 1000
+    bank_rev = torch.from_numpy(bank[:, ::-1].copy()).to(card)
+    taps = torch.from_numpy(make_taps_matrix(bank, P_, Q_)).to(card)
+    kw = {k: a[k] for k in ("K", "M", "PADZ", "TAIL")}
+
+    def run(nan):
+        xi, xq = kernel_digests.resample_inputs(name, card)
+        if nan:
+            xi[at] = float("nan")
+        w = resample_mod.window_resample(xi, xq, bank_rev, a["rem0"], a["off0"],
+                                         P=P_, Q=Q_, T=T_, M=M)
+        c = conv.resample_conv_stream(xi, xq, taps, a["start0"], a["p0"], P=P_,
+                                      Q=Q_, T=T_, **kw)
+        return torch.stack(w).cpu().numpy(), torch.stack(c).cpu().numpy()
+
+    (w, c), (w0, c0) = run(True), run(False)
+    j = np.arange(M)
+    base = a["off0"] + (j * Q_ + a["rem0"]) // P_
+    idx = np.clip(base[:, None] + np.arange(T_)[None, :], 0, T_ - 1 + case.N - 1)
+    R = -(-(Q_ - 1 + T_) // Q_)
+    row0 = a["start0"] + (a["p0"] + j) // P_ * Q_
+    for got, clean, reach in ((w, w0, (idx == at).any(axis=1)),
+                              (c, c0, (row0 <= at) & (at < row0 + R * Q_))):
+        assert reach.any() and (np.isnan(got[0]) == reach).all()
+        assert not np.isnan(got[1]).any()
+        assert got[0][~reach].tobytes() == clean[0][~reach].tobytes()
