@@ -74,7 +74,9 @@ Phases (each prints one line or a few; any failure exits non-zero):
              refusal of TF32 matmuls; then the window kernel
              (``csrc/window.cu``, the window resampler on the card) against
              its plain version ``window_dot``, within 2^-20; then both
-             kernels' bytes at every resampler case of
+             kernels against their plain versions at the split tail (P/Q =
+             384/3125, the rows paths) at C = 1 and 256, at the same
+             tolerances; then both kernels' bytes at every resampler case of
              ``tools/kernel_digests.py`` (config 3 at the chunk, at 2^24,
              mid-stream, 16 strided channels, both edges; the cascade's
              stages; the split tail at C = 1 and 256) against the SHA-256
@@ -308,6 +310,7 @@ def phase_build():
         if "Used" in line or "spill" in line:
             print(f"build: ptxas {line.split('ptxas info    :')[-1].strip()}")
     _print_sass_counts(info["path"])
+    _print_conv_dot_sass(info["path"])
     g = probes.shape_geometry(B_BIG, 2048, build.sm_count(None))
     return _probe_sass(info["path"], 32 * g.warps, g.depth)
 
@@ -374,6 +377,32 @@ def _print_sass_counts(path):
     print(f"sass: mixer i16->i16 ({name}): {len(ins)} instructions, {in_loop} of them "
           f"in the channel loop ({per_trip} channel-samples a trip); at C={C_MAIN} "
           f"B={B_BIG} (G={G}): {per!r} a channel-sample")
+
+
+def _print_conv_dot_sass(path):
+    """The conv kernel's tile-path dot at config 3 (``conv_tile_kernel<3>``):
+    its innermost loop that reads shared memory, with its loads, FMAs and
+    the distinct registers its loads write (one set a step: each load waits
+    for the FMAs before it), and the kernel's registers."""
+    funcs, usage = _sass_instructions(path), _resource_usage(path)
+    found = [n for n in funcs if "conv_tile_kernelILi3E" in n]
+    check(len(found) == 1, f"sass: {len(found)} conv_tile_kernel<3> instances")
+    name, ins = found[0], funcs[found[0]]
+    loops = []
+    for addr, text in ins:
+        m = re.search(r"\bBRA\b[^;]*?(0x[0-9a-f]+)", text)
+        if m and int(m.group(1), 16) < addr:
+            body = [t for a, t in ins if int(m.group(1), 16) <= a <= addr]
+            if any(t.startswith("LDS") for t in body):
+                loops.append(body)
+    check(loops, f"sass: no loop reading shared memory in {name}")
+    body = min(loops, key=len)
+    lds = [t for t in body if t.startswith("LDS")]
+    dst = {t.split()[1].rstrip(",") for t in lds}
+    ffma = sum(1 for t in body if t.startswith("FFMA"))
+    print(f"sass: conv tile dot ({name}): its loop {len(body)} instructions, "
+          f"{len(lds)} LDS into {len(dst)} distinct registers, {ffma} FFMA; "
+          f"{usage.get(name, ('?',))[0]} registers")
 
 
 # the chain-shaped probe's mix instances whose loop is counted: mode 1 (the
@@ -2782,9 +2811,23 @@ def phase_conv(torch, card):
     check(errs["window plain"] <= TOL_F32 and lsb <= 1 and frac < 0.01,
           "window: the kernel is not within tolerance of its plain version")
 
-    # both kernels' bytes against the digests taken before their redesign
+    # both kernels against their plain versions at the split tail (P/Q =
+    # 384/3125, the rows paths) at C = 1 and 256, the shapes (ii) and
+    # (vii) give them: window 2^-20, conv 1e-5 of the peak, ≤ 1 LSB in < 1%
     from doppler_tpu_torch.tools import kernel_digests
 
+    for name in ("tail/C1", "tail/C256"):
+        for kernel in kernel_digests.RESAMPLE_KERNELS:
+            r = kernel_digests.resample_vs_plain(kernel, name, "cuda")
+            print(f"{kernel}: kernel vs plain at the split tail {name}: max abs "
+                  f"err {r['max_abs_err']!r} (tolerance {r['tol']!r}), encoded "
+                  f"max LSB={r['lsb']} frac={r['frac']!r} [{card}]")
+            check(r["ok"], f"{kernel}: the kernel is not within tolerance of its "
+                           f"plain version at {name}")
+            key = f"{kernel} tail"
+            errs[key] = max(errs.get(key, 0.0), r["max_abs_err"])
+
+    # both kernels' bytes against the digests taken before their redesign
     got = kernel_digests.compute_resample()
     bad = kernel_digests.mismatches(got)
     print(f"resample digests: {len(got) - len(bad)} of {len(got)} equal the "
@@ -3277,13 +3320,14 @@ def main() -> int:
         # Pallas kernel); times at the pipeline's chunk, the library's
         # strided conv1d beside them (phase_resample_probe).  The window
         # kernel's launches are slice (i)'s EOF chunk (one a stage), its
-        # error the largest against its plain version on phase 4g's chunk;
+        # error the largest against its plain version on phase 4g's chunk
+        # and split tails;
         # device_us: the profiler's µs a launch by case (phase 6c)
         dict(zip(("ms", "plain_ms", "bound_ms", "bound_by", "library_ms"),
                  resampler_times["window"]),
              name="window", route="cuda", source="doppler_tpu_torch/csrc/window.cu",
              replaces="doppler_tpu/ops/resample.py:61", launches=default["window"],
-             max_abs_err=conv_err["window plain"],
+             max_abs_err=max(conv_err["window plain"], conv_err["window tail"]),
              launches_unfused=unfused["chain-xla"]["launches"]["window"],
              device_us=resampler_us["window"]),
         dict(zip(("ms", "plain_ms", "bound_ms", "bound_by", "library_ms"),
@@ -3291,7 +3335,7 @@ def main() -> int:
              name="conv", route="cuda", source="doppler_tpu_torch/csrc/conv.cu",
              replaces="doppler_tpu/ops/resample.py:96",
              launches=unfused["chain-xla-conv"]["launches"]["conv"],
-             max_abs_err=conv_err["plain (cuBLAS)"],
+             max_abs_err=max(conv_err["plain (cuBLAS)"], conv_err["conv tail"]),
              launches_mesh=unfused["chain-xla-conv"]["launches_mesh"]["conv"],
              device_us=resampler_us["conv"],
              library_device_us=resampler_us["conv1d"]),

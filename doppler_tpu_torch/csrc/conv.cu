@@ -34,13 +34,10 @@
 // - tile (P ≤ 4): a CTA owns a tile of consecutive cycles of one channel and
 //   holds their rows of x (neighbouring cycles overlap by (R−1)·Q samples)
 //   and the whole taps matrix, a row as one float4 (P ≤ 4 phases, zeros
-//   after them and at rows ≥ w_len).  A thread owns the P outputs of RC
-//   neighbouring cycles (kConvCycles) and walks the x positions of their
-//   union once: the value at position s of its first cycle's row is term
-//   r = ⌊s/Q⌋ − rr of cycle rr, so one x load feeds 2·P·RC FMAs and each
-//   term still runs q = 0..Q−1 in order; the terms close at the same s for
-//   every cycle.  x sits as float2 (I, Q) at pad(s) = s + ⌊s/S⌋, S = Q·RC
-//   (fir.cuh's span padding), so the lanes of a warp, S + 1 entries apart,
+//   after them and at rows ≥ w_len).  A thread owns the P outputs of one
+//   cycle, so one x load feeds 2·P FMAs, each term a chain over q =
+//   0..Q−1 in order.  x sits as float2 (I, Q) at pad(s) = s + ⌊s/Q⌋
+//   (fir.cuh's span padding), so the lanes of a warp, Q + 1 entries apart,
 //   meet different banks; the taps are one warp-uniform 16-byte load.
 // - rows (larger P, e.g. the 100 Msps split tail's 384/3125): a CTA owns a
 //   tile of consecutive outputs (one thread each) of CG channels, and
@@ -66,7 +63,7 @@ struct ConvArgs {
     int tile;           // tile: cycles a CTA; rows: outputs a CTA
     int n_tiles;        // tiles a channel (group)
     int groups;         // channel groups (rows path; C for the tile path)
-    unsigned magic;     // tile: ⌈2^32 / S⌉, S = Q·kConvCycles (span_div)
+    unsigned magic;     // tile: ⌈2^32 / Q⌉ (span_div)
     int cg;             // rows: channels a CTA
     int rg;             // rows: terms at a time
     int qc;             // rows: columns of a chunk of x (a multiple of 4)
@@ -107,10 +104,6 @@ __device__ __forceinline__ void conv_plan(const ConvArgs& a, unsigned block,
 
 // -- the tile path ------------------------------------------------------------
 
-// Cycles a thread of the tile path (RC below): one.  The walk takes more (x
-// loaded once for RC cycles' terms); two measured slower (PERF.md §6).
-constexpr int kConvCycles = 1;
-
 struct ConvSpanDst {
     float2* xs;
     int S;
@@ -142,32 +135,20 @@ __device__ __forceinline__ float lane4(const float4& w, int p) {
     return p == 0 ? w.x : (p == 1 ? w.y : (p == 2 ? w.z : w.w));
 }
 
-// Block b of a thread's walk: the Q positions b·Q .. b·Q+Q−1 of its first
-// cycle's row, term r = b − rr of each cycle rr that has one (kAll: all do).
-template <int P, int RC, bool kAll>
-__device__ __forceinline__ void conv_block(const float2* __restrict__ xb,
-                                           const float4* __restrict__ taps,
-                                           int b, int Q, int R, float (*ti)[P],
-                                           float (*tq)[P]) {
-#pragma unroll 4
-    for (int q = 0; q < Q; ++q) {
-        const float2 v = xb[q];
+// One step q of a term: x's (I, Q) against the P phases' taps.
+template <int P>
+__device__ __forceinline__ void conv_fma(const float2 v, const float4 t,
+                                         float* ti, float* tq) {
 #pragma unroll
-        for (int rr = 0; rr < RC; ++rr) {
-            const int r = b - rr;
-            if (kAll || (r >= 0 && r < R)) {
-                const float4 w = taps[r * Q + q];
-#pragma unroll
-                for (int p = 0; p < P; ++p) {
-                    ti[rr][p] = __fmaf_rn(v.x, lane4(w, p), ti[rr][p]);
-                    tq[rr][p] = __fmaf_rn(v.y, lane4(w, p), tq[rr][p]);
-                }
-            }
-        }
+    for (int p = 0; p < P; ++p) {
+        ti[p] = __fmaf_rn(v.x, lane4(t, p), ti[p]);
+        tq[p] = __fmaf_rn(v.y, lane4(t, p), tq[p]);
     }
 }
 
-template <int P, int RC>
+// Thread g of the tile holds cycle k_lo + g: its row of x starts at span
+// position g·Q, padded g·(Q+1), and term r's Q samples follow r·(Q+1) later.
+template <int P>
 __device__ __forceinline__ void conv_tile_dot(const float2* __restrict__ xs,
                                               const float4* __restrict__ taps,
                                               float* __restrict__ yi,
@@ -175,42 +156,43 @@ __device__ __forceinline__ void conv_tile_dot(const float2* __restrict__ xs,
                                               const ConvArgs& a,
                                               const ConvPlan& w, int tid,
                                               int nthreads) {
-    const int Q = a.Q, R = a.R, S = Q * RC;
-    for (int g = tid; g * RC < a.tile; g += nthreads) {
-        const float2* xg = xs + g * (S + 1);
-        float ti[RC][P], tq[RC][P], ai[RC][P], aq[RC][P];
+    const int Q = a.Q, R = a.R;
+    for (int g = tid; g < a.tile; g += nthreads) {
+        const float2* xg = xs + g * (Q + 1);
+        float ai[P], aq[P];
+        for (int r = 0; r < R; ++r) {
+            const float2* xb = xg + r * (Q + 1);
+            const float4* tb = taps + r * Q;
+            float ti[P], tq[P];
 #pragma unroll
-        for (int rr = 0; rr < RC; ++rr) {
+            for (int p = 0; p < P; ++p) ti[p] = tq[p] = 0.0f;
+            // four steps' loads issued before their FMAs: with one pair of
+            // registers reused a step, each load waited for the FMAs before it
+            int q = 0;
+            for (; q + 4 <= Q; q += 4) {
+                float2 v[4];
+                float4 t[4];
 #pragma unroll
-            for (int p = 0; p < P; ++p) ti[rr][p] = tq[rr][p] = ai[rr][p] = aq[rr][p] = 0.0f;
-        }
-        for (int b = 0; b < R + RC - 1; ++b) {
-            const float2* xb = xg + b * Q + b / RC;
-            if (b >= RC - 1 && b < R)
-                conv_block<P, RC, true>(xb, taps, b, Q, R, ti, tq);
-            else
-                conv_block<P, RC, false>(xb, taps, b, Q, R, ti, tq);
-#pragma unroll
-            for (int rr = 0; rr < RC; ++rr) {
-                const int r = b - rr;
-                if (r < 0 || r >= R) continue;
-#pragma unroll
-                for (int p = 0; p < P; ++p) {
-                    ai[rr][p] = r == 0 ? ti[rr][p] : __fadd_rn(ai[rr][p], ti[rr][p]);
-                    aq[rr][p] = r == 0 ? tq[rr][p] : __fadd_rn(aq[rr][p], tq[rr][p]);
-                    ti[rr][p] = tq[rr][p] = 0.0f;
+                for (int u = 0; u < 4; ++u) {
+                    v[u] = xb[q + u];
+                    t[u] = tb[q + u];
                 }
+#pragma unroll
+                for (int u = 0; u < 4; ++u) conv_fma<P>(v[u], t[u], ti, tq);
+            }
+            for (; q < Q; ++q) conv_fma<P>(xb[q], tb[q], ti, tq);
+#pragma unroll
+            for (int p = 0; p < P; ++p) {
+                ai[p] = r == 0 ? ti[p] : __fadd_rn(ai[p], ti[p]);
+                aq[p] = r == 0 ? tq[p] : __fadd_rn(aq[p], tq[p]);
             }
         }
 #pragma unroll
-        for (int rr = 0; rr < RC; ++rr) {
-#pragma unroll
-            for (int p = 0; p < P; ++p) {
-                const long long m = (w.k_lo + g * RC + rr) * P + p - a.p0;
-                if (m >= 0 && m < a.M) {
-                    yi[(size_t)w.ch * a.M + m] = ai[rr][p];
-                    yq[(size_t)w.ch * a.M + m] = aq[rr][p];
-                }
+        for (int p = 0; p < P; ++p) {
+            const long long m = (w.k_lo + g) * P + p - a.p0;
+            if (m >= 0 && m < a.M) {
+                yi[(size_t)w.ch * a.M + m] = ai[p];
+                yq[(size_t)w.ch * a.M + m] = aq[p];
             }
         }
     }
@@ -229,11 +211,11 @@ __device__ __forceinline__ bool conv_tile_phase(
         const size_t row = (size_t)w.ch * a.x_stride;
         span_fill<true>(xi + row, xq + row, a.len, a.start0 + w.k_lo * a.Q,
                         (a.tile + a.R - 1) * a.Q, tid, nthreads,
-                        ConvSpanDst{xs, a.Q * kConvCycles, a.magic});
+                        ConvSpanDst{xs, a.Q, a.magic});
         smem_copy_wait();
         return true;
     }
-    conv_tile_dot<P, kConvCycles>(xs, taps4, yi, yq, a, w, tid, nthreads);
+    conv_tile_dot<P>(xs, taps4, yi, yq, a, w, tid, nthreads);
     return false;
 }
 
@@ -427,9 +409,7 @@ inline bool make_conv_args(ConvArgs& a, int C, long long len, long long x_stride
         a.groups = C;
         const long long cycles = (p0 + M - 1) / P + 1;
         a.n_tiles = (int)((cycles + a.tile - 1) / a.tile);
-        const unsigned S = (unsigned)(Q * kConvCycles);
-        a.magic = S > 1 ? (unsigned)((0x100000000ULL + S - 1) / S) : 0u;
-        if (a.tile % kConvCycles) return false;
+        a.magic = Q > 1 ? (unsigned)((0x100000000ULL + Q - 1) / Q) : 0u;
     }
     return true;
 }

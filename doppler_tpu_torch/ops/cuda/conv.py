@@ -118,21 +118,27 @@ def row_layout(xi: torch.Tensor, xq: torch.Tensor):
 
 def resample_conv_stream(xi, xq, taps_mat, start0: int, p0: int, *,
                          P: int, Q: int, T: int, K: int, M: int, PADZ: int,
-                         TAIL: int, layout=None):
+                         TAIL: int):
     """Streaming banded-matmul resampler over one chunk's buffers.
 
     The arguments of :func:`resample_conv_stream_plain`.  A CPU tensor runs
     the plain version; a CUDA tensor launches the kernel (which needs only
     ``start0``, ``p0`` and ``M``: it reads zeros outside the buffer, where
-    the plain version pads ``PADZ``/``TAIL`` zeros) or raises.  ``layout``
-    (a ``geometry.ConvLayout``) overrides the kernel's picked path and sizes
-    (tests and timing only: the bytes do not depend on it).
+    the plain version pads ``PADZ``/``TAIL`` zeros) or raises.
     """
     check_no_tf32()
     if xi.device.type == "cpu":
         return resample_conv_stream_plain(xi, xq, taps_mat, start0, p0, P=P,
                                           Q=Q, T=T, K=K, M=M, PADZ=PADZ,
                                           TAIL=TAIL)
+    return _launch(xi, xq, taps_mat, start0, p0, P=P, Q=Q, T=T, M=M)
+
+
+def _launch(xi, xq, taps_mat, start0: int, p0: int, *, P: int, Q: int, T: int,
+            M: int, layout=None):
+    """:func:`resample_conv_stream` on the card.  ``layout`` (a
+    ``geometry.ConvLayout``) overrides the picked path and sizes (the card
+    tests and the sweep walk several: the bytes do not depend on it)."""
     if xi.device.type != "cuda":
         raise ValueError(f"no conv resampler for device {xi.device}")
     w_len, R = conv_bands(Q, T)

@@ -208,7 +208,7 @@ def resample_conv_block(xi, xq, taps_mat, *, P: int, Q: int, T: int):
 
 
 def window_resample(xi, xq, bank_rev, rem0: int, off0: int, *, P: int, Q: int,
-                    T: int, M: int, layout=None):
+                    T: int, M: int):
     """The ``'window'`` resampler step: :func:`window_dot`'s function.
 
     A CPU tensor runs :func:`window_dot`, its plain version; a CUDA tensor
@@ -217,11 +217,17 @@ def window_resample(xi, xq, bank_rev, rem0: int, off0: int, *, P: int, Q: int,
     order), so on the card the mixer and this step give the fused kernels'
     bytes; it is within 1 LSB of the plain version's tree.  ``xi/xq`` are
     ``(H + N,)`` or ``(C, H + N)``; returns ``(M,)`` or ``(C, M)`` planes.
-    ``layout`` (a ``geometry.WindowLayout``) overrides the kernel's picked
-    path and sizes (tests and timing only: the bytes do not depend on it).
     """
     if xi.device.type == "cpu":
         return window_dot(xi, xq, bank_rev, rem0, off0, P=P, Q=Q, T=T, M=M)
+    return _window_launch(xi, xq, bank_rev, rem0, off0, P=P, Q=Q, T=T, M=M)
+
+
+def _window_launch(xi, xq, bank_rev, rem0: int, off0: int, *, P: int, Q: int,
+                   T: int, M: int, layout=None):
+    """:func:`window_resample` on the card.  ``layout`` (a
+    ``geometry.WindowLayout``) overrides the picked path and sizes (the card
+    tests and the sweep walk several: the bytes do not depend on it)."""
     if xi.device.type != "cuda":
         raise ValueError(f"no window resampler for device {xi.device}")
     xi_r, xq_r, stride = row_layout(xi, xq)

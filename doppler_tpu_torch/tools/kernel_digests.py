@@ -55,12 +55,14 @@ import sys
 import numpy as np
 import torch
 
+from doppler_tpu_torch.ops import codec, resample
 from doppler_tpu_torch.ops.cuda import cascade, chain, conv
 from doppler_tpu_torch.ops.multistage import MultiStageResampler
 from doppler_tpu_torch.ops.resample import (
     RationalResampler,
     conv_stream_geometry,
     make_taps_matrix,
+    window_dot,
     window_resample,
 )
 
@@ -402,8 +404,9 @@ def resample_args(case: ResampleCase, P: int, Q: int, T: int) -> dict:
     M = case.N * P // Q + 2 + case.extra
     start0, p0, K, PADZ, TAIL = conv_stream_geometry(
         m0, case.in_consumed, M, case.N, P=P, Q=Q, T=T)
-    return dict(M=M, rem0=(m0 * Q) % P, off0=(m0 * Q) // P - case.in_consumed,
-                start0=start0, p0=p0, K=K, PADZ=PADZ, TAIL=TAIL)
+    return dict(m0=m0, M=M, rem0=(m0 * Q) % P,
+                off0=(m0 * Q) // P - case.in_consumed, start0=start0, p0=p0, K=K,
+                PADZ=PADZ, TAIL=TAIL)
 
 
 def resample_inputs(name: str, device):
@@ -426,21 +429,57 @@ def resample_inputs(name: str, device):
     return planes
 
 
-def resample_step(kernel: str, name: str, device):
+def resample_step(kernel: str, name: str, device, layout=None, plain=False):
     """A zero-argument call of ``kernel``'s wrapper on case ``name``'s
-    inputs (made once, on ``device``), returning ``(yi, yq)``."""
+    inputs (made once, on ``device``), returning ``(yi, yq)``.  ``layout``:
+    the kernel's launch at that path and those sizes
+    (``ops.resample._window_launch``, ``ops.cuda.conv._launch``); ``plain``:
+    its plain version (``window_dot``, ``resample_conv_stream_plain``) on
+    the same inputs."""
     case = RESAMPLE_CASES[name]
     P, Q, T, bank = resample_stage(case)
     a = resample_args(case, P, Q, T)
     xi, xq = resample_inputs(name, device)
     if kernel == "window":
         bank_rev = torch.from_numpy(bank[:, ::-1].copy()).to(device)
-        return lambda: window_resample(xi, xq, bank_rev, a["rem0"], a["off0"],
-                                       P=P, Q=Q, T=T, M=a["M"])
+        args = (xi, xq, bank_rev, a["rem0"], a["off0"])
+        kw = dict(P=P, Q=Q, T=T, M=a["M"])
+        if plain:
+            return lambda: window_dot(*args, **kw)
+        if layout is not None:
+            return lambda: resample._window_launch(*args, **kw, layout=layout)
+        return lambda: window_resample(*args, **kw)
     taps = torch.from_numpy(make_taps_matrix(bank, P, Q)).to(device)
-    kw = {k: a[k] for k in ("K", "M", "PADZ", "TAIL")}
-    return lambda: conv.resample_conv_stream(xi, xq, taps, a["start0"], a["p0"],
-                                             P=P, Q=Q, T=T, **kw)
+    args = (xi, xq, taps, a["start0"], a["p0"])
+    kw = dict(P=P, Q=Q, T=T, **{k: a[k] for k in ("K", "M", "PADZ", "TAIL")})
+    if plain:
+        return lambda: conv.resample_conv_stream_plain(*args, **kw)
+    if layout is not None:
+        return lambda: conv._launch(*args, P=P, Q=Q, T=T, M=a["M"], layout=layout)
+    return lambda: conv.resample_conv_stream(*args, **kw)
+
+
+def resample_vs_plain(kernel: str, name: str, device) -> dict:
+    """``kernel`` against its plain version on case ``name``'s inputs, over
+    the outputs whose inputs lie in the buffer: the largest float32 error
+    and its tolerance (window 2^-20, as the chain kernel; conv 1e-5 of the
+    plain version's peak), and after encoding to i16 the largest LSB
+    difference and the share of words that differ.  ``ok``: within the
+    tolerance, ≤ 1 LSB in under 1%."""
+    case = RESAMPLE_CASES[name]
+    P, Q, T, _ = resample_stage(case)
+    a = resample_args(case, P, Q, T)
+    n = max(0, min(-(-(case.in_consumed + case.N) * P // Q) - a["m0"], a["M"]))
+    got, want = (torch.stack(resample_step(kernel, name, device, plain=p)())
+                 .reshape(2, -1, a["M"])[..., :n] for p in (False, True))
+    tol = 2.0 ** -20 if kernel == "window" else 1e-5 * want.abs().max().item()
+    err = (got - want).abs().max().item()
+    words = [codec.iq_to_i16_words(y[0].reshape(-1), y[1].reshape(-1))
+             .view(torch.int16).int() for y in (got, want)]
+    d = (words[0] - words[1]).abs()
+    lsb, frac = int(d.max().item()), float((d > 0).float().mean().item())
+    return dict(max_abs_err=err, tol=tol, lsb=lsb, frac=frac,
+                ok=err <= tol and lsb <= 1 and frac < 0.01)
 
 
 def compute_resample(kernels=RESAMPLE_KERNELS, cases=None,

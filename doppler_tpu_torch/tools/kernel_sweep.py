@@ -251,30 +251,11 @@ def resample_layouts(kernel: str, name: str, limit: int) -> list:
 def sweep_resample(kernel: str, name: str, device) -> list:
     """``[(device µs a launch, layout, picked)]`` of a resampler kernel at a
     digest case, fastest first (None where the profiler recorded nothing)."""
-    from doppler_tpu_torch.ops.cuda import conv
-    from doppler_tpu_torch.ops.resample import make_taps_matrix, window_resample
-
-    case = kernel_digests.RESAMPLE_CASES[name]
-    P, Q, T, bank = kernel_digests.resample_stage(case)
-    a = kernel_digests.resample_args(case, P, Q, T)
-    xi, xq = kernel_digests.resample_inputs(name, device)
     limit = torch.cuda.get_device_properties(device).shared_memory_per_block_optin
-    if kernel == "window":
-        bank_rev = torch.from_numpy(bank[:, ::-1].copy()).to(device)
-
-        def step(lay):
-            return lambda: window_resample(xi, xq, bank_rev, a["rem0"], a["off0"],
-                                           P=P, Q=Q, T=T, M=a["M"], layout=lay)
-    else:
-        taps = torch.from_numpy(make_taps_matrix(bank, P, Q)).to(device)
-        kw = {k: a[k] for k in ("K", "M", "PADZ", "TAIL")}
-
-        def step(lay):
-            return lambda: conv.resample_conv_stream(
-                xi, xq, taps, a["start0"], a["p0"], P=P, Q=Q, T=T, **kw,
-                layout=lay)
     lays = resample_layouts(kernel, name, limit)
-    rows = [(common.device_us(step(lay), kernel + "_"), lay, i == 0)
+    rows = [(common.device_us(kernel_digests.resample_step(kernel, name, device,
+                                                           layout=lay),
+                              kernel + "_"), lay, i == 0)
             for i, lay in enumerate(lays)]
     return sorted(rows, key=lambda r: float("inf") if r[0] is None else r[0])
 

@@ -1471,35 +1471,6 @@ def test_resample_kernel_bytes_equal_the_pinned_digests(card, kernel):
     assert kernel_digests.mismatches(got) == []
 
 
-def _resample_case(card, name, kernel, layout=None):
-    """``(got, want, n)``: a digest case's kernel output and its plain
-    version's, both ``(2, C, M)``, and the outputs inside the buffer."""
-    from doppler_tpu_torch.ops.cuda import conv
-    from doppler_tpu_torch.ops.resample import make_taps_matrix, window_dot
-
-    case = kernel_digests.RESAMPLE_CASES[name]
-    P_, Q_, T_, bank = kernel_digests.resample_stage(case)
-    a = kernel_digests.resample_args(case, P_, Q_, T_)
-    xi, xq = kernel_digests.resample_inputs(name, card)
-    if kernel == "window":
-        bank_rev = torch.from_numpy(bank[:, ::-1].copy()).to(card)
-        args = (xi, xq, bank_rev, a["rem0"], a["off0"])
-        kw = dict(P=P_, Q=Q_, T=T_, M=a["M"])
-        got = resample_mod.window_resample(*args, **kw, layout=layout)
-        want = window_dot(*args, **kw)
-    else:
-        taps = torch.from_numpy(make_taps_matrix(bank, P_, Q_)).to(card)
-        args = (xi, xq, taps, a["start0"], a["p0"])
-        kw = dict(P=P_, Q=Q_, T=T_, **{k: a[k] for k in ("K", "M", "PADZ", "TAIL")})
-        got = conv.resample_conv_stream(*args, **kw, layout=layout)
-        want = conv.resample_conv_stream_plain(*args, **kw)
-    n = (-(-(case.in_consumed + case.N) * P_ // Q_)
-         - (-(-case.in_consumed * P_ // Q_)))
-    shape = (2, case.C, a["M"])
-    return (torch.stack(got).reshape(shape), torch.stack(want).reshape(shape),
-            min(n, a["M"]))
-
-
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", ["tail/C1", "tail/C256", "c3-mid/C1",
                                   "c38-s1/C1"])
@@ -1508,16 +1479,11 @@ def test_resample_kernels_vs_plain_at_the_split_tail(card, kernel, name):
     """Both kernels against their plain versions at the split tail (P/Q =
     384/3125, the rows paths) at C = 1 and 256, and on the fir / tile paths:
     the window kernel within 2^-20 (as the chain kernel), the conv kernel
-    within 1e-5 of the peak; encoded ≤ 1 LSB in under 1%."""
-    from doppler_tpu_torch.ops import codec
-
-    got, want, n = _resample_case(card, name, kernel)
-    got, want = got[..., :n], want[..., :n]
-    tol = 2.0 ** -20 if kernel == "window" else 1e-5 * want.abs().max().item()
-    assert (got - want).abs().max().item() <= tol
-    d = _lsb(codec.iq_to_i16_words(got[0].reshape(-1), got[1].reshape(-1)),
-             codec.iq_to_i16_words(want[0].reshape(-1), want[1].reshape(-1)))
-    assert d.max().item() <= 1 and (d > 0).float().mean().item() < 0.01
+    within 1e-5 of the peak; encoded ≤ 1 LSB in under 1%
+    (``kernel_digests.resample_vs_plain``, as ``chip_smoke.py`` holds them)."""
+    r = kernel_digests.resample_vs_plain(kernel, name, card)
+    assert r["max_abs_err"] <= r["tol"], r
+    assert r["lsb"] <= 1 and r["frac"] < 0.01, r
 
 
 @pytest.mark.cuda
@@ -1545,10 +1511,11 @@ def test_resample_kernel_bytes_do_not_depend_on_the_layout(card, name):
                                               threads=t)
                          for t in (256, 128, 32)]
     for kernel, cands in lays.items():
-        want, _, _ = _resample_case(card, name, kernel)
+        want = torch.stack(kernel_digests.resample_step(kernel, name, card)())
         for lay in cands:
             if lay.smem_bytes <= limit:
-                got, _, _ = _resample_case(card, name, kernel, lay)
+                got = torch.stack(kernel_digests.resample_step(
+                    kernel, name, card, layout=lay)())
                 assert torch.equal(got, want), (kernel, lay)
 
 

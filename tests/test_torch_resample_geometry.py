@@ -42,8 +42,17 @@ LIMIT = 232448                    # an H100 CTA's shared memory (opt-in)
 CASES = tuple(kd.RESAMPLE_CASES)
 
 
+# tile-path geometries (P ≤ 4) whose Q is not a multiple of 4: the conv
+# kernel's four-step loads and the steps after them (2/5, 3/7, 4/7 → 48 ksps)
+ODD_Q = {
+    "q5/C1": kd.ResampleCase((120_000, None), 1, 3000, 1001),
+    "q7/C3": kd.ResampleCase((112_000, None), 3, 2000, 70, strided=True),
+    "q7p4/C1": kd.ResampleCase((84_000, None), 1, 2500, 0),
+}
+
+
 def _geometry(name, N=None, C=None):
-    case = kd.RESAMPLE_CASES[name]
+    case = kd.RESAMPLE_CASES.get(name) or ODD_Q[name]
     case = dataclasses.replace(case, N=N or case.N, C=C or case.C)
     P, Q, T, bank = kd.resample_stage(case)
     return case, P, Q, T, bank, kd.resample_args(case, P, Q, T)
@@ -243,6 +252,18 @@ def test_emulated_conv_kernel_bitwise_the_kernel_it_replaced(emu, name, N, C):
         assert inp.conv(emu, "emu", lay).tobytes() == want.tobytes(), lay
 
 
+@pytest.mark.parametrize("name", ODD_Q)
+def test_emulated_kernels_bitwise_at_a_q_not_a_multiple_of_four(emu, name):
+    inp = _Inputs(name)
+    assert inp.Q % 4 and inp.P <= geometry.CONV_TILE_MAX_P
+    for fn, lays in ((inp.conv, _conv_layouts(inp)),
+                     (inp.window, _window_layouts(inp))):
+        want = fn(emu, "ref")
+        assert not np.isnan(want).any()
+        for lay in [None] + lays:
+            assert fn(emu, "emu", lay).tobytes() == want.tobytes(), lay
+
+
 @pytest.mark.parametrize("name,N,C", EMULATED[1:2] + EMULATED[5:7])
 def test_emulated_kernels_within_tolerance_of_plain_and_jax(emu, name, N, C):
     """The window kernel within 2^-20 of ``window_dot`` (the plain version)
@@ -350,3 +371,19 @@ def test_probe_bounds_and_sweep_layouts():
                       if kernel == "window" else
                       geometry.pick_conv(P, Q, R, case.C, a["M"], a["p0"], LIMIT))
             assert lays[0] == picked
+
+
+@pytest.mark.parametrize("kernel", kd.RESAMPLE_KERNELS)
+def test_vs_plain_check_and_launches_stay_off_the_cpu(kernel):
+    """``kernel_digests.resample_vs_plain`` (the card tests' and
+    ``chip_smoke.py``'s check at the split tail) on CPU tensors, where the
+    wrapper runs the plain version: no error, over the outputs in the
+    buffer.  The kernels' launches refuse CPU tensors: no fallback."""
+    r = kd.resample_vs_plain(kernel, "tail/C1", "cpu")
+    assert r["ok"] and r["max_abs_err"] == 0.0 and r["lsb"] == 0
+    assert r["tol"] == (2.0 ** -20 if kernel == "window" else pytest.approx(
+        1e-5 * torch.stack(kd.resample_step(kernel, "tail/C1", "cpu", plain=True)())
+        .abs().max().item()))
+    lay = geometry.window_layout(3, 64, 370, 1, 8, rows=True, threads=32)
+    with pytest.raises(ValueError, match="no .* resampler for device cpu"):
+        kd.resample_step(kernel, "c38-s1/C1", "cpu", layout=lay)()
