@@ -173,6 +173,24 @@ Phases (each prints one line or a few; any failure exits non-zero):
              ``…probe_split_tail.main`` (full, front: the tail's share) in
              process at 33,554,432 samples; every variant's line; then the
              counts are read.
+6d. bench — ``doppler_tpu_torch.tools.bench.main`` in process for every
+             mode of ``bench.py`` at 2^25 samples (``--iters 4
+             --dispatches 16``; ``chain-pallas`` and ``channels-pallas``
+             also with ``--precision fast``, ``channels-split`` also at
+             ``--channels 256``), the launch counts set to 0 before each
+             mode and read after it: exactly the kernels of the mode, once a
+             step each (``conv`` three times in ``split-xla``); the JSON
+             line's metric name, and its rate under the mode's bound (the
+             fused function's, by ``_bound``); the profiler's device µs a
+             dispatch (every device event of a call, the torch glue
+             included; each kernel's mean a launch × its launches a step
+             beside it) and the busy share K·device / best (from profiler
+             sessions that recorded every call's once-launched kernel);
+             then the step at the size it is timed, 2^25 samples and the
+             same launch layouts, against itself with every kernel wrapper
+             swapped for its plain version on the same card tensors (no
+             kernel launched): bitwise for the mixer, ≤ 1 LSB in under 1%
+             otherwise.
 
 6c. resample_probe — ``doppler_tpu_torch.tools.resample_probe`` (conv
              block against window_dot at 2^24 inputs), then the conv kernel
@@ -198,8 +216,9 @@ the conv kernel's from phase 5e's ``--impl xla --resample-impl conv`` slice
 the chunk, at 2^24 and at the split tail, and the conv entry's
 ``library_device_us``: ``conv1d``'s); the Q15 mixer's and the probes' times are at B = 16384, the
 tools' shape (the elementwise probe's and its ``library_ms`` by phase 6's
-one timer of 16 calls).  The line before the last is that
-record; the last line is ``{"ok": true, "device": {...}}``.  Without a CUDA
+one timer of 16 calls).  Each kernel of the bench's path also carries
+``launches_bench``, its launches in phase 6d.  The line before the last is
+that record; the last line is ``{"ok": true, "device": {...}}``.  Without a CUDA
 device, or without the package beside it, the script fails before printing
 either.
 """
@@ -3179,6 +3198,188 @@ def phase_roofline(card):
     return results, launches
 
 
+# bench.py's modes as phase_bench runs them: (mode, further arguments, bench.py's
+# metric, the kernels a step launches: counter -> launches a step)
+BENCH_RUNS = (
+    ("mix", [], "nco_mix_i16_samples_per_s_chip", {"mixer": 1}),
+    ("mix-pallas", [], "nco_mix_pallas_i16_samples_per_s_chip", {"mixer": 1}),
+    ("chain-pallas", [], "mix_resample_chain_pallas_i16_samples_per_s_chip",
+     {"chain": 1}),
+    ("chain-pallas", ["--precision", "fast"],
+     "mix_resample_chain_fast_i16_samples_per_s_chip", {"chain_fast": 1}),
+    ("cascade-pallas", [], "mix_cascade_pallas_i16_samples_per_s_chip",
+     {"cascade": 1}),
+    ("split-pallas", [], "mix_split_cascade_pallas_i16_samples_per_s_chip",
+     {"cascade": 1, "conv": 1}),
+    ("split-xla", [], "mix_split_cascade_xla_i16_samples_per_s_chip",
+     {"mixer": 1, "conv": 3}),
+    ("channels-split", [], "channels16_split_cascade_i16_ch_samples_per_s_chip",
+     {"cascade_channels": 1, "conv": 1}),
+    ("channels-split", ["--channels", "256"],
+     "channels256_split_cascade_i16_ch_samples_per_s_chip",
+     {"cascade_channels": 1, "conv": 1}),
+    ("chain-mesh", [], "chain_mesh_i16_samples_per_s_aggregate", None),
+    ("channels-pallas", [], "channels16_pallas_chain_i16_samples_per_s_chip",
+     {"chain_channels": 1}),
+    ("channels-pallas", ["--precision", "fast"],
+     "channels16_pallas_chain_fast_i16_samples_per_s_chip",
+     {"chain_channels_fast": 1}),
+    ("channels", [], "channels16_mix_resample_i16_samples_per_s_chip",
+     {"mixer_channels": 1, "conv": 1}),
+    ("chain", [], "mix_resample_chain_i16_samples_per_s_chip",
+     {"mixer": 1, "conv": 1}),
+)
+
+
+# a bench counter's kernel as the profiler names it
+BENCH_KERNEL_NAMES = {"mixer": "mixer_kernel", "mixer_channels": "mixer_kernel",
+                      "chain": "chain_kernel", "chain_channels": "chain_kernel",
+                      "chain_fast": "chain_fast_kernel",
+                      "chain_channels_fast": "chain_fast_kernel",
+                      "cascade": "cascade_kernel", "cascade_channels": "cascade_kernel",
+                      "conv": "conv_"}
+
+
+def _bench_bound(mode, fs, C, B, fast):
+    """:func:`_bound` of a bench mode's function (its unfused and sharded
+    forms compute the same function as the fused one), over the stages
+    ``bench.build`` designs at ``fs``."""
+    from doppler_tpu_torch.ops.multistage import MultiStageResampler
+    from doppler_tpu_torch.ops.resample import RationalResampler
+
+    if mode in ("mix", "mix-pallas"):
+        designed = []
+    elif mode == "cascade-pallas" or "split" in mode:
+        designed = MultiStageResampler(fs, OUT_RATE).stages
+    else:
+        designed = [RationalResampler(fs, OUT_RATE)]
+    stages = tuple((st.P, st.Q, st.T) for st in designed)
+    return _bound(C if mode.startswith("channels") else 1, B, 8192, stages,
+                  passes=3 if fast else 0)
+
+
+@contextlib.contextmanager
+def _plain_wrappers():
+    """Every kernel wrapper that a bench step calls through its module
+    (``tools/bench.py`` and ``parallel/sharded.py`` call them so) swapped
+    for its plain version, which runs on the same card tensors."""
+    from doppler_tpu_torch.ops.cuda import cascade, chain, conv, mixer
+
+    swaps = ((mixer, "mix_blocks_fmt", mixer.mix_blocks_fmt_plain),
+             (mixer, "mix_blocks_fmt_channels", mixer.mix_blocks_fmt_channels_plain),
+             (chain, "mix_resample_chain_stream", chain.mix_resample_chain_plain),
+             (chain, "mix_resample_chain_channels",
+              chain.mix_resample_chain_channels_plain),
+             (cascade, "mix_cascade_stream", cascade.mix_cascade_plain),
+             (cascade, "mix_cascade_channels", cascade.mix_cascade_channels_plain),
+             (conv, "resample_conv_stream", conv.resample_conv_stream_plain))
+    kept = [(mod, name, getattr(mod, name)) for mod, name, _ in swaps]
+    for mod, name, plain in swaps:
+        setattr(mod, name, plain)
+    try:
+        yield
+    finally:
+        for mod, name, wrapper in kept:
+            setattr(mod, name, wrapper)
+
+
+def phase_bench(torch, card):
+    """``doppler_tpu_torch.tools.bench.main`` in process for every mode of
+    ``bench.py`` at 2^25 samples, each with the launch counts set to 0 just
+    before and read just after; its rate against the mode's bound, the
+    profiler's device µs a dispatch and the busy share; then the step at
+    the size it is timed (``bench.build`` of the same arguments: the same
+    inputs, the same launch layouts) against itself with every kernel
+    wrapper swapped for its plain version, on the card."""
+    from doppler_tpu_torch.tools import bench, common
+
+    counters = dict(_counters(), **_tool_counters())
+    K, iters, samples = 16, 4, 1 << 25
+    calls = 1 + iters * (K + 1)      # the warm-up, and one untimed launch a round
+    n_cards = torch.cuda.device_count()
+    results, launches_bench = [], dict.fromkeys(counters, 0)
+    for mode, extra, metric, per_call in BENCH_RUNS:
+        name = " ".join([mode] + extra)
+        fast = "fast" in extra
+        C = int(extra[-1]) if "--channels" in extra else 16
+        argv = ["--mode", mode, "--samples", str(samples), "--iters", str(iters),
+                "--dispatches", str(K)] + extra
+        out, err = io.StringIO(), io.StringIO()
+        _zero_counts(counters)
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            rc = bench.main(argv)
+        launches = _read_counts(counters)
+        for line in err.getvalue().splitlines():
+            if not line.startswith("bench device:"):
+                print(f"bench {name}: {line}")
+        check(rc == 0, f"bench {name} returned {rc}")
+        lines = out.getvalue().strip().splitlines()
+        check(len(lines) == 1, f"bench {name} printed {len(lines)} lines")
+        res = json.loads(lines[0])
+        if per_call is None:        # chain-mesh: one launch a shard, one replay
+            per_call = {"chain": 2 * n_cards - 1}   # a shard k > 0
+        want = {k: per_call.get(k, 0) * calls for k in counters}
+        check(launches == want, f"bench {name}: launches {launches}, want {want}")
+        for k, v in launches.items():
+            launches_bench[k] += v
+        check(res["metric"] == metric, f"bench {name}: metric {res['metric']}")
+        fs = FS_SPLIT if "split" in mode else FS
+        check(res["unit"] == "samples/s" and res["vs_baseline"] == res["value"] / fs,
+              f"bench {name}: {res}")
+        args = bench.parse_args(argv)
+        with contextlib.redirect_stderr(io.StringIO()):    # main printed it
+            step, total, _, _ = bench.build(mode, args, torch.device("cuda"))
+        B = total // (C if mode.startswith("channels") else 1) // bench.L
+        bound_ms, by = _bench_bound(mode, fs, C, B, fast)
+        bound_rate = total / (bound_ms / 1e3)
+        # device µs a dispatch: every device event of a call (the torch glue
+        # included) from sessions that recorded each call's once-launched
+        # kernel, and each kernel's mean a launch times its launches a step
+        once = [BENCH_KERNEL_NAMES[k] for k, n in per_call.items() if n == 1]
+        dev_us = common.device_us(step, None, tries=5,
+                                  calls_by=once[0] if once else None)
+        parts = {k: common.device_us(step, BENCH_KERNEL_NAMES[k]) for k in per_call}
+        parts = {k: None if us is None else us * per_call[k] for k, us in parts.items()}
+        busy = None if dev_us is None else dev_us * 1e-6 * res["value"] / total
+        # the timed step against itself on the plain versions, at 2^25 samples
+        got = step()
+        _zero_counts(counters)
+        with _plain_wrappers():
+            want_out = step()
+        check(not any(_read_counts(counters).values()),
+              f"bench {name}: the plain step launched a kernel")
+        del step
+        if mode == "chain-mesh":        # the time shards in stream order
+            got = torch.cat([o.cpu() for o in got])
+            want_out = torch.cat([o.cpu() for o in want_out])
+        check(got.shape == want_out.shape, f"bench {name}: shape {tuple(got.shape)}")
+        d = _lsb_diff(torch, got, want_out)
+        err_lsb, frac = float(d.max()), float((d > 0).float().mean())
+        exact = torch.equal(got, want_out)
+        del got, want_out, d
+        check(exact if mode.startswith("mix") else err_lsb <= 1 and frac < 0.01,
+              f"bench {name}: step against plain: max LSB {err_lsb}, frac {frac}")
+        row = dict(mode=mode, extra=extra, metric=metric, gsps=res["value"] / 1e9,
+                   vs_baseline=res["vs_baseline"], bound_gsps=bound_rate / 1e9,
+                   bound_by=by, share=res["value"] / bound_rate, device_us=dev_us,
+                   device_us_by_kernel=parts,
+                   busy=busy, max_lsb=err_lsb, frac=frac, bitwise=exact,
+                   **{k: res[k] for k in ("mesh_time", "efficiency_vs_time1")
+                      if k in res})
+        check(row["share"] <= 1.0, f"bench {name}: {row['gsps']!r} GS/s is above "
+              f"its bound {row['bound_gsps']!r} GS/s")
+        print(f"bench {name}: {row['gsps']!r} GS/s, vs_baseline "
+              f"{row['vs_baseline']!r}; bound {row['bound_gsps']!r} GS/s ({by}), "
+              f"share {row['share']!r}; device {dev_us!r} us a dispatch of {total} "
+              f"samples (kernels {parts}), busy {busy!r}; "
+              f"{sum(launches.values())} launches; the step at {total} samples "
+              f"against its plain versions on the card: max LSB {err_lsb:g} frac "
+              f"{frac!r} bitwise {exact} [{card}]")
+        results.append(row)
+    print(f"bench: launches {({k: v for k, v in launches_bench.items() if v})}")
+    return results, launches_bench
+
+
 def main() -> int:
     try:
         import torch
@@ -3226,6 +3427,7 @@ def main() -> int:
         times.update(timed(phase_timing_channels, torch, gen, card))
         probe_times = timed(phase_timing_probes, torch, gen, card, sass)
         _, tool_launches = timed(phase_roofline, card)
+        _, bench_launches = timed(phase_bench, torch, card)
         _, resampler_times, resampler_us = timed(phase_resample_probe, torch, card)
         if "jax" in sys.modules:
             raise Failed("jax was imported")
@@ -3265,30 +3467,38 @@ def main() -> int:
               default["mixer"], mix_err,
               launches_channels=slices["config4-mix"]["launches"]["mixer_channels"],
               launches_seek=seek["mixer"]["mixer"],
-              launches_mesh=mesh_launches["mixer"]),
+              launches_mesh=mesh_launches["mixer"],
+              launches_bench=bench_launches["mixer"],
+              launches_bench_channels=bench_launches["mixer_channels"]),
         entry("chain", "chain.cu", "doppler_tpu/ops/pallas/chain.py:404",
               slices["chain"]["launches"]["chain"], chain_err,
               launches_seek=seek["chain"]["chain"],
-              launches_mesh=mesh_launches["chain"]),
+              launches_mesh=mesh_launches["chain"],
+              launches_bench=bench_launches["chain"]),
         entry("cascade", "cascade.cu", "doppler_tpu/ops/pallas/chain.py:960",
               default["cascade"], cascade_err,
               launches_seek=seek["default"]["cascade"] + seek["split"]["cascade"],
-              launches_mesh=mesh_launches["cascade"]),
+              launches_mesh=mesh_launches["cascade"],
+              launches_bench=bench_launches["cascade"]),
         entry("chain_channels", "chain.cu", "doppler_tpu/ops/pallas/chain.py:556",
               slices["config4-chain"]["launches"]["chain_channels"],
-              channel_err["chain"]),
+              channel_err["chain"],
+              launches_bench=bench_launches["chain_channels"]),
         entry("chain_fast", "chain_fast.cu", "doppler_tpu/ops/pallas/chain.py:404",
               slices["chain-fast"]["launches"]["chain_fast"], fast_err["stream"],
               branch="dot_precision='split3'",
-              launches_seek=seek["chain-fast"]["chain_fast"]),
+              launches_seek=seek["chain-fast"]["chain_fast"],
+              launches_bench=bench_launches["chain_fast"]),
         entry("chain_channels_fast", "chain_fast.cu",
               "doppler_tpu/ops/pallas/chain.py:556",
               slices["config4-chain-fast"]["launches"]["chain_channels_fast"],
-              fast_err["channels"], branch="dot_precision='split3'"),
+              fast_err["channels"], branch="dot_precision='split3'",
+              launches_bench=bench_launches["chain_channels_fast"]),
         entry("cascade_channels", "cascade.cu",
               "doppler_tpu/ops/pallas/chain.py:1078",
               config4["cascade_channels"], channel_err["cascade"],
-              launches_mesh=mesh_launches["cascade_channels"]),
+              launches_mesh=mesh_launches["cascade_channels"],
+              launches_bench=bench_launches["cascade_channels"]),
         # the branches no CLI path reaches (the JAX CLI's cascades pass
         # 'highest'): their launches are the tools' path's, phase 6b
         entry("chain_fast_default", "chain_fast.cu",
@@ -3337,6 +3547,7 @@ def main() -> int:
              launches=unfused["chain-xla-conv"]["launches"]["conv"],
              max_abs_err=max(conv_err["plain (cuBLAS)"], conv_err["conv tail"]),
              launches_mesh=unfused["chain-xla-conv"]["launches_mesh"]["conv"],
+             launches_bench=bench_launches["conv"],
              device_us=resampler_us["conv"],
              library_device_us=resampler_us["conv1d"]),
     ]

@@ -183,7 +183,8 @@ def test_no_module_of_the_port_imports_jax():
                           text=True, timeout=300, cwd=ROOT)
     assert proc.returncode == 0, proc.stderr[-2000:]
     walked = proc.stdout.split()
-    for name in ("doppler_tpu_torch.tools.roofline",
+    for name in ("doppler_tpu_torch.tools.bench",
+                 "doppler_tpu_torch.tools.roofline",
                  "doppler_tpu_torch.tools.probe_chain_precision",
                  "doppler_tpu_torch.tools.probe_cascade_precision",
                  "doppler_tpu_torch.tools.probe_split_tail",
