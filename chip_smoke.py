@@ -1449,20 +1449,19 @@ def _run_slice(name, argv, raw, card, channels=1):
     msgs = [json.loads(ln)["msg"] for ln in log.getvalue().splitlines()]
     done = [m for m in msgs if m.startswith("done:")]
     check(done, f"{name}: no 'done' line from the CLI")
-    m = re.search(r"host plan\+stage ([0-9.]+) s, device span ([0-9.]+) s", done[-1])
-    host_s, device_s = float(m.group(1)), float(m.group(2))
+    m = re.search(r"host plan\+stage ([0-9.]+) s, device wait ([0-9.]+) s", done[-1])
+    host_s, wait_s = float(m.group(1)), float(m.group(2))
     n_in = len(raw) // 4
     msps = n_in / wall / 1e6
     print(f"slice {name}: launches {launches}")
     print(f"slice {name}: wall {wall!r} s, {msps!r} Msps in"
           + (f" x {channels} channels = {msps * channels!r} M channel-samples/s"
              if channels > 1 else "") + f" [{card}]")
-    print(f"slice {name}: split host plan+stage {host_s!r} s, device span "
-          f"{device_s!r} s (CUDA events around each chunk: copies, kernels and "
-          f"the gaps while the host enqueues), other host {wall - host_s!r} s "
-          f"[{card}]")
+    print(f"slice {name}: split host plan+stage {host_s!r} s, device wait "
+          f"{wait_s!r} s (the host blocked on each chunk's device-to-host "
+          f"copy), other host {wall - host_s!r} s [{card}]")
     return b"".join(sink.parts), launches, msgs, {
-        "wall_s": wall, "msps_in": msps, "host_s": host_s, "device_s": device_s}
+        "wall_s": wall, "msps_in": msps, "host_s": host_s, "wait_s": wait_s}
 
 
 def _check_slice(name, out, n_in, want_n, launches, kernel, golden, window=0):
@@ -2525,8 +2524,8 @@ def _mesh_run(torch, name, make, feed, mesh, card):
     wall = time.perf_counter() - t0
     launches = {k: v for k, v in _read_counts(_counters()).items() if v}
     what = "unsharded" if mesh is None else f"mesh {mesh.shape}"
-    print(f"mesh: {name} {what}: wall {wall!r} s, device span "
-          f"{pipe.device_s!r} s, launches {launches} [{card}]")
+    print(f"mesh: {name} {what}: wall {wall!r} s, device wait "
+          f"{pipe.spans.seconds('wait')!r} s, launches {launches} [{card}]")
     return out, launches, wall
 
 

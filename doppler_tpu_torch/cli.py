@@ -664,11 +664,12 @@ def _main_channels(args, log, outtype: str, chunk_blocks: int, stdin,
     dt = counters.elapsed()
     log.info(
         "done: %d wideband samples x %d channels in %.6f s (%.6f Msps in); "
-        "host plan+stage %.6f s, device span %.6f s",
+        "host plan+stage %.6f s, device wait %.6f s",
         counters.samples, len(specs), dt,
         (counters.samples / dt if dt > 0 else 0.0) / 1e6,
-        mpipe.host_s, mpipe.device_s,
+        mpipe.host_s, mpipe.spans.seconds("wait"),
     )
+    log.info("spans: %s", mpipe.spans.summary())
     return 0
 
 
@@ -760,10 +761,11 @@ def _main_stream(args, log, outtype: str, chunk_blocks: int, stdin, stdout,
     dt = counters.elapsed()
     log.info(
         "done: %d samples in, %d out in %.6f s (%.6f Msps in); host plan+"
-        "stage %.6f s, device span %.6f s",
+        "stage %.6f s, device wait %.6f s",
         n_in, counters.samples, dt, (n_in / dt if dt > 0 else 0.0) / 1e6,
-        pipe.host_s, pipe.device_s,
+        pipe.host_s, pipe.spans.seconds("wait"),
     )
+    log.info("spans: %s", pipe.spans.summary())
     return 0
 
 

@@ -72,12 +72,12 @@ from doppler_tpu_torch.runtime.pipeline import (
     ConstScheduler,
     Scheduler,
     carry_rows,
+    copy_events,
     host_buffer,
-    mark_devices,
     resolve_device,
-    span_s,
     stage_chunk,
 )
+from doppler_tpu_torch.runtime import telemetry
 from doppler_tpu_torch.runtime.telemetry import Counters, get_logger
 
 __all__ = ["ChannelSpec", "MultiChannelPipeline", "load_channel_config"]
@@ -104,14 +104,10 @@ class ChannelSpec:
 class MultiChannelPipeline:
     """Batched multi-satellite corrector over one input stream.
 
-    ``host_s`` accumulates the host's planning and staging seconds.
-    ``device_s`` accumulates each finalized chunk's span between two CUDA
-    events: one recorded before its host→device copies are enqueued, one
-    after its device→host copy (under a mesh, on each card of the mesh; the
-    longest span counts).  The span holds the copies and the kernels,
-    and also every gap in which the stream waits for the host to enqueue the
-    next piece of the chunk's work, so it is an upper bound of the time the
-    device was busy, not that time.
+    ``spans``: the newest :meth:`run`'s ``telemetry.Spans``, as
+    ``Pipeline``'s, with the counters ``plans_uniform`` and
+    ``plans_per_channel``.  ``host_s`` is the host's planning and staging
+    seconds, the ``schedule``, ``plan`` and ``stage`` totals.
 
     ``impl``: ``'pallas'`` (the default) or ``'xla'``, as ``Pipeline``'s:
     'xla' never runs the fused channel kernels (under a mesh a cascade group
@@ -194,8 +190,7 @@ class MultiChannelPipeline:
         self._cascade_stages = None   # their (P, Q, T)
         self._cascade_banks = None
         self._cascade_carries = None  # per fused stage (C, 2, T_s−1)
-        self.host_s = 0.0
-        self.device_s = 0.0
+        self.spans = telemetry.Spans()
 
         # --mesh: channels × time-blocks over a grid of devices, per rate
         # group; the bytes are the unsharded run's
@@ -228,6 +223,10 @@ class MultiChannelPipeline:
                 if n_loc * rs.P >= (1 << 30):
                     raise ValueError("time shard too large for 32-bit phase math")
 
+    @property
+    def host_s(self) -> float:
+        return self.spans.seconds("schedule", "plan", "stage")
+
     def _warn_once(self, msg: str) -> None:
         if msg not in self._warned:
             self._warned.add(msg)
@@ -235,12 +234,11 @@ class MultiChannelPipeline:
 
     # -- planning -------------------------------------------------------------
 
-    def _plan_all(self, counts) -> np.ndarray:
+    def _plan_all(self, counts, k=None) -> np.ndarray:
         """Plan words of every channel for one chunk: ``(7, C, B)`` uint32,
-        zero past ``len(counts)`` blocks."""
-        C = len(self.channels)
-        B = self.chunk_blocks
-        n = len(counts)
+        zero past ``len(counts)`` blocks.  Records the chunk's ``schedule``
+        and ``plan`` spans under ``k`` and counts the lane that planned it."""
+        t0 = time.perf_counter()
         # per-channel shifts for the chunk: f32(scheduler) + f32(center),
         # added in float32 exactly as the single-stream path composes them
         # (main.rs:177)
@@ -250,6 +248,18 @@ class MultiChannelPipeline:
             .astype(np.float64)
             for ch in self.channels
         ]
+        t1 = time.perf_counter()
+        uniform, fields = self._plan_fields(counts, shifts_all)
+        self.spans.bump("plans_uniform" if uniform else "plans_per_channel")
+        self.spans.add("schedule", k, t0, t1)
+        self.spans.add("plan", k, t1, time.perf_counter())
+        return fields
+
+    def _plan_fields(self, counts, shifts_all) -> tuple:
+        """``(uniform lane?, plan words)`` of one chunk from its shifts."""
+        C = len(self.channels)
+        B = self.chunk_blocks
+        n = len(counts)
 
         # uniform fast lane (config-5 scale): when every channel's shift is
         # constant within the chunk, one (C, B) vectorized planning pass
@@ -263,10 +273,10 @@ class MultiChannelPipeline:
             )
             if f is not None:
                 if n == B:
-                    return np.ascontiguousarray(f)
+                    return True, np.ascontiguousarray(f)
                 fields = np.zeros((7, C, B), dtype=np.uint32)
                 fields[:, :, :n] = f
-                return fields
+                return True, fields
 
         fields = np.zeros((7, C, B), dtype=np.uint32)
         for c, ch in enumerate(self.channels):
@@ -281,7 +291,7 @@ class MultiChannelPipeline:
                  plan.c2_hi, plan.c2_lo, plan.t)
             ):
                 fields[fi, c, : arr.size] = arr
-        return fields
+        return False, fields
 
     # -- the gates ------------------------------------------------------------
 
@@ -327,9 +337,10 @@ class MultiChannelPipeline:
 
     # -- dispatch -------------------------------------------------------------
 
-    def dispatch_chunk(self, chunk: streaming.Chunk):
+    def dispatch_chunk(self, chunk: streaming.Chunk, k=None):
         """Host planning + device dispatch without waiting → zero-argument
-        finalizer returning the per-channel byte strings.
+        finalizer returning the per-channel byte strings (None for a chunk
+        of no samples).  The chunk's spans carry the chunk id ``k``.
 
         All pipeline and resampler state advances here (host integers and
         device tensors in stream order), so a finalizer is a pure
@@ -340,27 +351,31 @@ class MultiChannelPipeline:
         C = len(self.channels)
         if total == 0:
             if counts:
-                self._plan_all(counts)   # still advance the schedulers
-            return lambda: [b""] * C
+                self._plan_all(counts, k)   # still advance the schedulers
+            return None
         B, L = self.chunk_blocks, self.block_samples
+        fields = self._plan_all(counts, k)
         t0 = time.perf_counter()
-        fields = self._plan_all(counts)
         self.samples_in += total
         data = stage_chunk(chunk.data, self.intype, B, L, self.device)
         plans = host_buffer((7, C, B), torch.int32, self.device)
         plans.numpy()[...] = fields.view(np.int32)
-        self.host_s += time.perf_counter() - t0
+        t1 = time.perf_counter()
+        self.spans.add("stage", k, t0, t1)
+        pending = None
         if self.mesh is not None:
-            starts = mark_devices(self.mesh.distinct_devices())
             parts = self._dispatch_sharded(data, plans, total)
             if parts is not None:
-                return self._start_out(parts, starts)
-        starts = mark_devices([self.device])
-        if self.device.type == "cuda":
-            # one (7, C, B) transfer a chunk
-            plans = plans.to(self.device, non_blocking=True)
-            data = data.to(self.device, non_blocking=True)
-        return self._start_out(self._dispatch_local(data, plans, total), starts)
+                pending = self._start_out(parts, k)
+        if pending is None:
+            if self.device.type == "cuda":
+                # one (7, C, B) transfer a chunk
+                plans = plans.to(self.device, non_blocking=True)
+                data = data.to(self.device, non_blocking=True)
+            pending = self._start_out(self._dispatch_local(data, plans, total),
+                                      k)
+        self.spans.add("launch", k, t1, time.perf_counter())
+        return pending
 
     def _dispatch_local(self, data, plans, total: int):
         """Launch one staged chunk down its route.  Returns the parts
@@ -571,13 +586,12 @@ class MultiChannelPipeline:
 
     # -- output ---------------------------------------------------------------
 
-    def _start_out(self, parts, starts: dict):
+    def _start_out(self, parts, k=None):
         """Start the device→host copies of every part's valid outputs;
         returns the finalizer that waits for them and cuts the per-channel
-        byte strings.  ``parts``: ``(channel indices, output, n_valid)``;
-        a channel's parts are in stream order.  ``starts``: the
-        :func:`~doppler_tpu_torch.runtime.pipeline.mark_devices` events
-        before the chunk's copies in."""
+        byte strings, its ``wait`` and ``cut`` spans under chunk ``k`` (none
+        for the drain, ``k`` None).  ``parts``: ``(channel indices, output,
+        n_valid)``; a channel's parts are in stream order."""
         hosts, devices = [], []
         for idxs, out, n_valid in parts:
             if self.outtype == "i16":
@@ -591,21 +605,34 @@ class MultiChannelPipeline:
                 devices.append(valid.device)
                 valid = host
             hosts.append((idxs, valid))
-        ends = mark_devices(devices)
+        events = copy_events(devices)
 
         def finalize() -> list[bytes]:
-            self.device_s += span_s(starts, ends)
-            outs: list[bytes] = [b""] * len(self.channels)
-            for idxs, host in hosts:
-                arr = host.numpy()
-                for row, cidx in enumerate(idxs):
-                    if self.outtype == "i16":
-                        outs[cidx] += codec.i16_words_to_bytes(arr[row])
-                    else:
-                        outs[cidx] += codec.f32_pairs_to_bytes(
-                            native.planar_to_f32_pairs(arr[0, row], arr[1, row]))
+            t0 = time.perf_counter()
+            for ev in events:
+                ev.synchronize()
+            t1 = time.perf_counter()
+            outs = self._cut(hosts)
+            hosts.clear()   # free the host buffers inside the cut span, not after it
+            if k is not None:
+                self.spans.add("wait", k, t0, t1)
+                self.spans.add("cut", k, t1, time.perf_counter())
             return outs
         return finalize
+
+    def _cut(self, hosts) -> list[bytes]:
+        """Copied-out outputs ``(channel indices, host tensor)`` → each
+        channel's bytes, in stream order."""
+        outs: list[bytes] = [b""] * len(self.channels)
+        for idxs, host in hosts:
+            arr = host.numpy()
+            for row, cidx in enumerate(idxs):
+                if self.outtype == "i16":
+                    outs[cidx] += codec.i16_words_to_bytes(arr[row])
+                else:
+                    outs[cidx] += codec.f32_pairs_to_bytes(
+                        native.planar_to_f32_pairs(arr[0, row], arr[1, row]))
+        return outs
 
     def drain(self) -> list[bytes]:
         """Flush every resampler group's FIR tail with T−1 zero samples —
@@ -624,7 +651,7 @@ class MultiChannelPipeline:
                 parts.append((idxs, self._encode(yi, yq), n_out))
         self._chain_carries = None    # histories advanced past the stream end
         self._cascade_carries = None
-        return self._start_out(parts, {})()
+        return self._start_out(parts)()
 
     # -- main loop ------------------------------------------------------------
 
@@ -634,16 +661,20 @@ class MultiChannelPipeline:
         One chunk in flight, as ``Pipeline.run``: chunk k+1 is planned and
         dispatched before chunk k's output is waited for.  ``should_stop``
         is polled between chunks; a stop leaves the state consistent with
-        the bytes written and does not drain.
+        the bytes written and does not drain.  Each run records its chunks'
+        spans in a fresh ``self.spans``.
         """
         if len(writers) != len(self.channels):
             raise ValueError(f"{len(writers)} writers for "
                              f"{len(self.channels)} channels")
         reader = streaming.BlockReader(fin, self.block_bytes)
         counters = Counters()
+        spans = self.spans = telemetry.start_spans()
+        clock = time.perf_counter
 
-        def emit(fin_cb, bytes_in, blocks):
-            outs = fin_cb()
+        def emit(finalize, bytes_in, blocks, k):
+            outs = finalize()
+            t0 = clock()
             for w, ob in zip(writers, outs):
                 if ob:
                     w.write(ob)
@@ -653,19 +684,25 @@ class MultiChannelPipeline:
                 bytes_out=sum(len(ob) for ob in outs),
                 blocks=blocks,
             )
+            spans.add("write", k, t0, clock())
 
         pending = None
-        pending_meta = (0, 0)
+        pending_meta = (0, 0, None)
         hit_eof = False
+        k = 0
         while True:
             if should_stop is not None and should_stop():
                 break
+            t0 = clock()
             chunk = reader.read_chunk(self.chunk_blocks)
-            new_pending = self.dispatch_chunk(chunk)
+            spans.add("read", k, t0, clock())
+            spans.bump("chunks")
+            new_pending = self.dispatch_chunk(chunk, k)
             if pending is not None:
                 emit(pending, *pending_meta)
             pending = new_pending
-            pending_meta = (len(chunk.data), chunk.n_blocks)
+            pending_meta = (len(chunk.data), chunk.n_blocks, k)
+            k += 1
             if chunk.eof:
                 hit_eof = True
                 break

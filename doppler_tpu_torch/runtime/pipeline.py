@@ -67,10 +67,11 @@ from doppler_tpu_torch.ops.phase_plan import NCOState, plan_blocks
 from doppler_tpu_torch.parallel import sharded
 from doppler_tpu_torch.runtime import native
 from doppler_tpu_torch.runtime import stream as streaming
+from doppler_tpu_torch.runtime import telemetry
 from doppler_tpu_torch.runtime.telemetry import Counters, get_logger
 
 __all__ = ["Scheduler", "ConstScheduler", "Pipeline", "resolve_device",
-           "carry_rows", "host_buffer", "stage_chunk", "mark_devices", "span_s"]
+           "carry_rows", "host_buffer", "stage_chunk", "copy_events"]
 
 log = get_logger("pipeline")
 
@@ -117,27 +118,17 @@ def host_buffer(shape, dtype, device: torch.device) -> torch.Tensor:
     return torch.empty(shape, dtype=dtype, pin_memory=device.type == "cuda")
 
 
-def mark_devices(devices) -> dict:
-    """A timing event recorded now on the current stream of each card
-    among ``devices`` (none for the CPU): ``{device: event}``."""
-    marks = {}
+def copy_events(devices) -> list:
+    """An event (no timing) recorded now on the current stream of each card
+    among ``devices``, none for the CPU: once each has completed, the
+    device→host copies enqueued before it are done."""
+    events = {}
     for dev in devices:
-        if dev.type == "cuda" and dev not in marks:
+        if dev.type == "cuda" and dev not in events:
             with torch.cuda.device(dev):
-                marks[dev] = torch.cuda.Event(enable_timing=True)
-                marks[dev].record()
-    return marks
-
-
-def span_s(starts: dict, ends: dict) -> float:
-    """Wait for each card's end event; the longest span from its
-    :func:`mark_devices` start, in seconds (0 without a card)."""
-    spans = []
-    for dev, end in ends.items():
-        end.synchronize()
-        if dev in starts:
-            spans.append(starts[dev].elapsed_time(end) / 1e3)
-    return max(spans, default=0.0)
+                events[dev] = torch.cuda.Event()
+                events[dev].record()
+    return list(events.values())
 
 
 def stage_chunk(data: bytes, intype: str, B: int, L: int,
@@ -187,14 +178,10 @@ class Pipeline:
     Its bytes are the unsharded run's (``--precision`` does not apply to
     its chain chunks, which keep the exact dot, as in the JAX package).
 
-    ``host_s`` accumulates the host's planning and staging seconds.
-    ``device_s`` accumulates each finalized chunk's span between two CUDA
-    events: one recorded before its host→device copies are enqueued, one
-    after its device→host copy (under a mesh, on each card of the mesh;
-    the longest span counts).  The span holds the copies and the kernels,
-    and also every gap in which the stream waits for the host to enqueue the
-    next piece of the chunk's work, so it is an upper bound of the time the
-    device was busy, not that time.
+    ``spans``: the newest :meth:`run`'s ``telemetry.Spans``, each chunk's
+    ``read``, ``schedule``, ``plan``, ``stage``, ``launch``, ``wait``,
+    ``cut`` and ``write``.  ``host_s`` is the host's planning and staging
+    seconds, the ``schedule``, ``plan`` and ``stage`` totals.
     """
 
     def __init__(
@@ -264,8 +251,11 @@ class Pipeline:
                     f"the mesh starts on {mesh.device()}, the pipeline "
                     f"runs on {self.device}")
         self._reset_fused_state()
-        self.host_s = 0.0
-        self.device_s = 0.0
+        self.spans = telemetry.Spans()
+
+    @property
+    def host_s(self) -> float:
+        return self.spans.seconds("schedule", "plan", "stage")
 
     def set_resampler(self, resampler) -> None:
         """Insert a post-mix resampler stage (``ops.resample``)."""
@@ -662,11 +652,11 @@ class Pipeline:
             return codec.i16_words_to_bytes(arr)
         return codec.f32_pairs_to_bytes(native.planar_to_f32_pairs(arr[0], arr[1]))
 
-    def _start_out(self, parts, starts: dict):
+    def _start_out(self, parts):
         """Start the device→host copies of the valid outputs: ``parts`` are
-        ``(device output, n_valid)`` in stream order, ``starts`` the
-        :func:`mark_devices` events before the chunk's copies in.  Returns
-        the pending handle :meth:`_finalize` completes."""
+        ``(device output, n_valid)`` in stream order.  Returns the pending
+        handle ``(host tensors, copy events)`` that :meth:`_finalize`
+        completes."""
         hosts, devices = [], []
         for out, n_valid in parts:
             if self.outtype == "i16":
@@ -679,20 +669,32 @@ class Pipeline:
                 devices.append(valid.device)
                 valid = host
             hosts.append(valid)
-        return hosts, starts, mark_devices(devices)
+        return hosts, copy_events(devices)
 
     # -- main loop ----------------------------------------------------------
 
-    def _finalize(self, pending) -> bytes:
-        """Wait for a dispatched chunk and return its bytes."""
+    def _finalize(self, pending, k=None) -> bytes:
+        """Wait for a dispatched chunk and return its bytes; the wait and
+        the cut are the ``wait`` and ``cut`` spans of chunk ``k`` (none
+        for the drain, ``k`` None)."""
         if pending is None:
             return b""
-        hosts, starts, ends = pending
-        self.device_s += span_s(starts, ends)
-        return self._stage_out(hosts)
+        hosts, events = pending
+        t0 = time.perf_counter()
+        for ev in events:
+            ev.synchronize()
+        t1 = time.perf_counter()
+        out = self._stage_out(hosts)
+        hosts.clear()   # free the host buffers inside the cut span, not after it
+        if k is not None:
+            self.spans.add("wait", k, t0, t1)
+            self.spans.add("cut", k, t1, time.perf_counter())
+        return out
 
-    def _dispatch(self, chunk: streaming.Chunk):
-        """Plan + launch one chunk on the device WITHOUT waiting for it.
+    def _dispatch(self, chunk: streaming.Chunk, k=None):
+        """Plan + launch one chunk on the device WITHOUT waiting for it;
+        its ``schedule``, ``plan``, ``stage`` and ``launch`` spans carry
+        the chunk id ``k``.
 
         All host state (scheduler, NCO counter, resampler bookkeeping)
         advances here, so the next chunk can be dispatched while this one
@@ -700,33 +702,38 @@ class Pipeline:
         """
         counts = [size // self._bps_in for size in chunk.block_sizes]
         total = sum(counts)
+        clock = time.perf_counter
+        t0 = clock()
+        shifts = list(self.scheduler.shifts(counts)) if counts else []
+        t1 = clock()
+        self.spans.add("schedule", k, t0, t1)
         if total == 0:
-            # still advance the scheduler for empty tail blocks
-            if counts:
-                self.scheduler.shifts(counts)
-            return None
-        t0 = time.perf_counter()
-        shifts = list(self.scheduler.shifts(counts))
+            return None     # empty tail blocks still advanced the scheduler
         assert len(shifts) == len(counts)
         plan = plan_blocks(
             shifts, counts, self.samplerate, self.nco_state, self.block_samples,
             quantize_f32=self.quantize_ratio_f32,
         )
         plans = plan_tensor(plan, self.chunk_blocks)
+        t2 = clock()
         data = stage_chunk(chunk.data, self.intype, self.chunk_blocks,
                            self.block_samples, self.device)
-        self.host_s += time.perf_counter() - t0
+        t3 = clock()
+        self.spans.add("plan", k, t1, t2)
+        self.spans.add("stage", k, t2, t3)
+        pending = None
         if self.mesh is not None:
-            starts = mark_devices(self.mesh.distinct_devices())
             parts = self._dispatch_sharded(data, plans, total)
             if parts is not None:
-                return self._start_out(parts, starts)
-        starts = mark_devices([self.device])
-        if self.device.type == "cuda":
-            plans = plans.pin_memory().to(self.device, non_blocking=True)
-            data = data.to(self.device, non_blocking=True)
-        return self._start_out([self._dispatch_local(data, plans, total)],
-                               starts)
+                pending = self._start_out(parts)
+        if pending is None:
+            if self.device.type == "cuda":
+                plans = plans.pin_memory().to(self.device, non_blocking=True)
+                data = data.to(self.device, non_blocking=True)
+            pending = self._start_out([self._dispatch_local(data, plans,
+                                                            total)])
+        self.spans.add("launch", k, t3, clock())
+        return pending
 
     def _dispatch_sharded(self, data, plans, total: int):
         """``--mesh`` dispatch of one staged host chunk over the time shards.
@@ -868,15 +875,19 @@ class Pipeline:
         ``should_stop``: optional callable polled between chunks — a stop
         leaves the pipeline state consistent with the bytes written, so a
         later ``run`` on the rest of the stream continues it exactly.
+        Each run records its chunks' spans in a fresh ``self.spans``.
         """
         reader = streaming.BlockReader(fin, self.block_bytes)
         if self.prefetch_chunks > 0:
             reader = streaming.ChunkPrefetcher(
                 reader, self.chunk_blocks, depth=self.prefetch_chunks)
         counters = Counters()
+        spans = self.spans = telemetry.start_spans()
+        clock = time.perf_counter
 
-        def emit(pending, bytes_in, blocks):
-            out_bytes = self._finalize(pending)
+        def emit(pending, bytes_in, blocks, k):
+            out_bytes = self._finalize(pending, k)
+            t0 = clock()
             if out_bytes:
                 fout.write(out_bytes)
                 fout.flush()
@@ -886,20 +897,27 @@ class Pipeline:
                 bytes_out=len(out_bytes),
                 blocks=blocks,
             )
+            if pending is not None:
+                spans.add("write", k, t0, clock())
 
         # one-chunk-deep pipelining: dispatch chunk k+1 while k materializes
         pending = None
-        pending_meta = (0, 0)
+        pending_meta = (0, 0, None)
         hit_eof = False
+        k = 0
         while True:
             if should_stop is not None and should_stop():
                 break
+            t0 = clock()
             chunk = reader.read_chunk(self.chunk_blocks)
-            new_pending = self._dispatch(chunk)
+            spans.add("read", k, t0, clock())
+            spans.bump("chunks")
+            new_pending = self._dispatch(chunk, k)
             if pending is not None or pending_meta[1]:
                 emit(pending, *pending_meta)
             pending = new_pending
-            pending_meta = (len(chunk.data), chunk.n_blocks)
+            pending_meta = (len(chunk.data), chunk.n_blocks, k)
+            k += 1
             if chunk.eof:
                 hit_eof = True
                 break
@@ -931,5 +949,4 @@ class Pipeline:
         self._cascade_carries = None
         if n_out == 0:
             return b""
-        return self._finalize(self._start_out([(self._encode(yi, yq), n_out)],
-                                              {}))
+        return self._finalize(self._start_out([(self._encode(yi, yq), n_out)]))

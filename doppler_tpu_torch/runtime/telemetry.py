@@ -8,11 +8,14 @@ nothing in this framework may ever print to stdout except IQ bytes.
 
 from __future__ import annotations
 
+import collections
 import logging
+import math
 import sys
 import time as _time
 
-__all__ = ["setup_logger", "get_logger", "Counters"]
+__all__ = ["setup_logger", "get_logger", "Counters", "Spans", "SPAN_NAMES",
+           "start_spans", "last_spans"]
 
 _LOGGER_NAME = "doppler_tpu_torch"
 
@@ -70,8 +73,7 @@ def get_logger(name: str | None = None) -> logging.Logger:
 class Counters:
     """Lightweight throughput counters for the profiling hooks (SURVEY §5).
 
-    Tracks samples and bytes moved plus wall time; ``rate()`` reports
-    samples/s — the framework's primary per-chip metric (BASELINE.md).
+    Tracks samples and bytes moved plus wall time since construction.
     """
 
     def __init__(self) -> None:
@@ -90,6 +92,96 @@ class Counters:
     def elapsed(self) -> float:
         return _time.perf_counter() - self._t0
 
-    def rate(self) -> float:
-        dt = self.elapsed()
-        return self.samples / dt if dt > 0 else 0.0
+
+# what a run loop does with one chunk, in the order the loop's thread does it
+SPAN_NAMES = ("read", "schedule", "plan", "stage", "launch", "wait", "cut",
+              "write")
+RING = 65536
+
+
+class Spans:
+    """Chunk-keyed spans of one ``run()`` on ``time.perf_counter``.
+
+    A span is ``(name, chunk, t0, t1)``; ``chunk`` is the chunk's sequence
+    number within the run, from 0, and every span of a chunk carries it.
+    The run loops record :data:`SPAN_NAMES`, which follow each other on
+    the loop's thread:
+
+    - ``read``: the chunk's blocks from the input (with a prefetching
+      reader, the take from its queue);
+    - ``schedule``: the Doppler schedulers' shifts for the chunk's blocks;
+    - ``plan``: the NCO plan words;
+    - ``stage``: the input bytes (and, in channels mode, the plan words)
+      into pinned host buffers;
+    - ``launch``: the host→device copies, the kernels and the device→host
+      copies enqueued;
+    - ``wait``: the host blocked until the chunk's device→host copies are
+      done (with one chunk in flight, after the next chunk's launch);
+    - ``cut``: the device's output into each channel's bytes;
+    - ``write``: the bytes to the output stream or files.
+
+    The newest ``capacity`` records are kept in a ring (the oldest are
+    dropped first, so a long run holds constant memory); ``totals`` keeps
+    each name's exact ``[count, seconds]`` over the whole run, and
+    ``counters`` the run's counts (``chunks``; in channels mode
+    ``plans_uniform`` and ``plans_per_channel``, the chunks planned by the
+    vectorised lane and by one planner a channel).
+    """
+
+    def __init__(self, capacity: int = RING) -> None:
+        self.records: collections.deque = collections.deque(maxlen=capacity)
+        self.totals: dict = {}
+        self.counters: dict = {}
+
+    def add(self, name: str, chunk, t0: float, t1: float) -> None:
+        self.records.append((name, chunk, t0, t1))
+        tot = self.totals.get(name)
+        if tot is None:
+            self.totals[name] = [1, t1 - t0]
+        else:
+            tot[0] += 1
+            tot[1] += t1 - t0
+
+    def bump(self, name: str, n: int = 1) -> None:
+        self.counters[name] = self.counters.get(name, 0) + n
+
+    def seconds(self, *names: str) -> float:
+        """Total seconds of the spans of ``names``, over the whole run."""
+        return sum(self.totals[n][1] for n in names if n in self.totals)
+
+    def summary(self) -> str:
+        """Each name's count, total seconds and 95th percentile (over the
+        records the ring still holds), then the counters: the CLI's
+        ``spans:`` line."""
+        durations: dict = {}
+        for name, _, t0, t1 in self.records:
+            durations.setdefault(name, []).append(t1 - t0)
+        names = [n for n in SPAN_NAMES if n in self.totals]
+        names += sorted(n for n in self.totals if n not in SPAN_NAMES)
+        parts = []
+        for n in names:
+            count, secs = self.totals[n]
+            d = sorted(durations.get(n, ()))
+            p95 = (f"{1e3 * d[max(0, math.ceil(0.95 * len(d)) - 1)]:.3f} ms"
+                   if d else "n/a")
+            parts.append(f"{n} {count} in {secs:.6f} s (p95 {p95})")
+        counts = ", ".join(f"{k} {v}" for k, v in self.counters.items())
+        return "; ".join(parts) + (f"; {counts}" if counts else "")
+
+
+_last: Spans | None = None
+
+
+def start_spans() -> Spans:
+    """A fresh recorder for one ``run()``; :func:`last_spans` returns it
+    until the next one starts."""
+    global _last
+    _last = Spans()
+    return _last
+
+
+def last_spans() -> Spans | None:
+    """The recorder of the newest ``run()`` in this process (None before
+    the first): how a caller of ``cli.main``, which returns only its exit
+    code, reads the spans of the run it made."""
+    return _last

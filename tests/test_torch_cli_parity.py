@@ -13,6 +13,7 @@ conv`` within 1 LSB in under 1% of samples.
 """
 
 import io
+import logging
 
 import numpy as np
 import pytest
@@ -96,8 +97,17 @@ def test_resample_impl_conv_against_the_jax_cli(raw, stages):
                     "--resample-impl", "conv"]
     rc, got = _run(argv + ["--device", "cpu"], raw)
     out = io.BytesIO()
-    assert jcli.main(argv + ["--platform", "cpu"], stdin=io.BytesIO(raw),
-                     stdout=out) == 0 and rc == 0
+    # the JAX CLI turns off its logger's propagation; restore it, so that a
+    # later test in this process still reads its records through caplog
+    logger = logging.getLogger("doppler_tpu")
+    saved = (list(logger.handlers), logger.propagate, logger.level)
+    try:
+        jrc = jcli.main(argv + ["--platform", "cpu"], stdin=io.BytesIO(raw),
+                        stdout=out)
+    finally:
+        logger.handlers, logger.propagate = saved[0], saved[1]
+        logger.setLevel(saved[2])
+    assert jrc == 0 and rc == 0
     a = np.frombuffer(got, "<i2").astype(int)
     b = np.frombuffer(out.getvalue(), "<i2").astype(int)
     assert a.shape == b.shape and a.size > 0

@@ -168,7 +168,10 @@ def test_pipeline_on_card_matches_cpu(card):
         return out.getvalue(), pipe
 
     gpu, pipe = run("cuda", False)
-    assert gpu == run("cpu", False)[0] and pipe.device_s > 0
+    assert gpu == run("cpu", False)[0]
+    # every chunk read (the last one partial) waited for its copy out
+    waited = [c for name, c, _, _ in pipe.spans.records if name == "wait"]
+    assert waited == list(range(pipe.spans.counters["chunks"]))
     gpu, _ = run("cuda", True)
     cpu, _ = run("cpu", True)
     assert len(gpu) == len(cpu)
@@ -439,7 +442,8 @@ def test_channels_pipeline_on_card_matches_cpu(card, fs, stages, rates):
     assert fused.launches - before[fused] == (full if uniform else 0)
     assert (mix_blocks_fmt_channels.launches - before[mix_blocks_fmt_channels]
             == (1 if uniform else full + 1))
-    assert mp.device_s > 0
+    waited = [c for name, c, _, _ in mp.spans.records if name == "wait"]
+    assert waited == list(range(mp.spans.counters["chunks"]))
     cpu, _ = run("cpu")
     for g, w, r in zip(gpu, cpu, rates):
         assert len(g) == len(w) > 0
