@@ -59,7 +59,8 @@ def _warn_multi_reset(r32: np.float32, block_len: int) -> None:
         "each block) — reduce --block-bytes for full reset fidelity",
         block_len, key)
 
-__all__ = ["NCOState", "BlockPlan", "plan_blocks", "plan_fields_uniform"]
+__all__ = ["NCOState", "BlockPlan", "plan_blocks", "plan_fields_uniform",
+           "plan_fields_periodic", "rate_constants", "const_lane"]
 
 _M64 = (1 << 64) - 1
 
@@ -800,6 +801,119 @@ def plan_fields_uniform(
 
     end = np.where(total <= p0[:, 0], m0_c + total,
                    (total - p0[:, 0] - 1) % r1_c + 1)
+    for c in range(C):
+        states[c].samplenum = int(end[c])
+        states[c].abs_offset += total
+    return fields
+
+
+_PERIODIC_Q = 1 << 20      # plan_blocks' exact-periodic regime: q ≤ 2²⁰
+
+_RATE_CACHE_MAX = 4096
+_rate_cache: dict[tuple, tuple] = {}
+
+
+def rate_constants(shift_hz: float, samplerate: int,
+                   quantize_f32: bool = True) -> tuple:
+    """``(D, r32, q, bound)`` of one constant shift: the Q0.64 increment,
+    the f32 ratio, its exact period (None when huge) and the exact-only
+    bound (None without q).  Cached by ``(shift, samplerate,
+    quantize_f32)``, so a chunk of constant channels builds no
+    ``Fraction``."""
+    key = (float(shift_hz), int(samplerate), bool(quantize_f32))
+    got = _rate_cache.get(key)
+    if got is None:
+        if len(_rate_cache) >= _RATE_CACHE_MAX:
+            _rate_cache.clear()      # a track channel adds a value a step
+        r32 = _ratio_f32(key[0], key[1])
+        q = _exact_period(r32)
+        got = (fxp.rate_to_q64(key[0], key[1], quantize_f32=key[2]), r32, q,
+               None if q is None else _exact_only_bound(r32, q))
+        _rate_cache[key] = got
+    return got
+
+
+def const_lane(shift_hz: float, samplerate: int, *,
+               quantize_f32: bool = True, reset_quirk: bool = True) -> str:
+    """The batched planner for a channel whose shift is constant over a
+    chunk, from its f32 ratio alone: ``'periodic'``
+    (:func:`plan_fields_periodic`) for an exact period q ≤ 2²⁰ under the
+    reset quirk, else ``'uniform'`` (:func:`plan_fields_uniform`, which
+    without the quirk takes any ratio).  Each lane's planner tests its own
+    regime on the states (genesis, a seeked state, a wrap) and refuses the
+    whole lane to :func:`plan_blocks` when a channel leaves it."""
+    q = rate_constants(shift_hz, samplerate, quantize_f32)[2]
+    if reset_quirk and q is not None and q <= _PERIODIC_Q:
+        return "periodic"
+    return "uniform"
+
+
+def plan_fields_periodic(
+    shifts_c: Sequence[float],
+    counts: Sequence[int],
+    samplerate: int,
+    states: Sequence[NCOState],
+    block_len: int,
+    *,
+    quantize_f32: bool = True,
+) -> np.ndarray | None:
+    """Batched planner for C channels whose f32 ratio has a short exact
+    period q ≤ 2²⁰, under the reset quirk — :func:`plan_fields_uniform`'s
+    twin for the other regime, with its contract (without the quirk
+    :func:`plan_fields_uniform` takes every ratio).
+
+    ``shifts_c[c]`` is channel c's (constant within the chunk) shift;
+    returns the ``(7, C, B)`` uint32 plan fields and advances every state,
+    or ``None`` (no state touched) when any channel's ratio has no such q or
+    leaves :func:`plan_blocks`' exact-periodic regime in any block (a
+    counter past 2²⁴, or |r|·n at the exact-only bound), in which case the
+    caller runs per-channel :func:`plan_blocks`.
+
+    In the regime every reset is exact and keeps the phase, so a block's
+    words are closed-form: ``m_k = m0 + s_k (s_k ≤ j0) | ((s_k − j0 − 1)
+    mod q) + 1`` with ``j0 = (−m0) mod q``, ``C1 = C2 = m_k·D``, ``T = L``
+    — :func:`plan_blocks`' fast path over the whole ``(C, B)`` grid at once
+    (bit-identical; tests/test_torch_plan_lanes.py).
+    """
+    C = len(shifts_c)
+    B = len(counts)
+    counts_a = np.asarray(counts, dtype=np.int64)
+    starts = np.concatenate([[0], np.cumsum(counts_a)[:-1]])
+    total = int(counts_a.sum())
+    consts = [rate_constants(s, samplerate, quantize_f32) for s in shifts_c]
+    if any(k[2] is None or k[2] > _PERIODIC_Q for k in consts):
+        return None
+    d_c = np.array([k[0] for k in consts], np.uint64)[:, None]
+    q_c = np.array([k[2] for k in consts], np.int64)
+    absr = np.array([abs(float(k[1])) for k in consts])
+    bound = np.array([k[3] for k in consts])
+    m0_c = np.array([st.samplenum for st in states], np.int64)
+    j0 = (-m0_c) % q_c
+    # counters at the block starts, in place over one (C, B) array (a chunk
+    # of 256 channels is ~0.5 MB a temporary: fewer passes, fewer pages)
+    M = starts[None, :] - (j0 + 1)[:, None]
+    M %= q_c[:, None]
+    M += 1
+    k = int(np.searchsorted(starts, j0.max(), side="right"))
+    if k:                                # blocks before the first reset
+        head = starts[:k]
+        M[:, :k] = np.where(head <= j0[:, None], m0_c[:, None] + head,
+                            M[:, :k])
+    # both regime tests grow with the counter, so each channel's largest
+    # block-end counter decides every block (in place, as above)
+    M += counts_a
+    n_top = M.max(axis=1)
+    M -= counts_a
+    if not ((n_top <= (1 << 24)) & (absr * n_top < bound)).all():
+        return None
+    C1 = M.view(np.uint64)
+    with np.errstate(over="ignore"):
+        C1 *= d_c
+    fields = np.empty((7, C, B), np.uint32)
+    fields[6] = np.uint32(block_len)
+    _split_into(fields, d_c, C1, C1)
+
+    end = np.where(total <= j0, m0_c + total, (total - j0 - 1) % q_c + 1)
     for c in range(C):
         states[c].samplenum = int(end[c])
         states[c].abs_offset += total

@@ -62,7 +62,9 @@ from doppler_tpu_torch.ops.cuda import cascade, chain, mixer
 from doppler_tpu_torch.ops.multistage import make_resampler
 from doppler_tpu_torch.ops.phase_plan import (
     NCOState,
+    const_lane,
     plan_blocks,
+    plan_fields_periodic,
     plan_fields_uniform,
 )
 from doppler_tpu_torch.parallel import sharded
@@ -105,9 +107,12 @@ class MultiChannelPipeline:
     """Batched multi-satellite corrector over one input stream.
 
     ``spans``: the newest :meth:`run`'s ``telemetry.Spans``, as
-    ``Pipeline``'s, with the counters ``plans_uniform`` and
-    ``plans_per_channel``.  ``host_s`` is the host's planning and staging
-    seconds, the ``schedule``, ``plan`` and ``stage`` totals.
+    ``Pipeline``'s, with the planner's counters: ``chan_plans_periodic``,
+    ``chan_plans_uniform`` and ``chan_plans_per_channel``, the
+    channel-chunks each lane planned; ``plans_uniform`` and
+    ``plans_per_channel``, the chunks in which no channel, and at least
+    one, ran ``plan_blocks``.  ``host_s`` is the host's planning and
+    staging seconds, the ``schedule``, ``plan`` and ``stage`` totals.
 
     ``impl``: ``'pallas'`` (the default) or ``'xla'``, as ``Pipeline``'s:
     'xla' never runs the fused channel kernels (under a mesh a cascade group
@@ -237,7 +242,8 @@ class MultiChannelPipeline:
     def _plan_all(self, counts, k=None) -> np.ndarray:
         """Plan words of every channel for one chunk: ``(7, C, B)`` uint32,
         zero past ``len(counts)`` blocks.  Records the chunk's ``schedule``
-        and ``plan`` spans under ``k`` and counts the lane that planned it."""
+        and ``plan`` spans under ``k`` and counts the lanes that planned
+        it."""
         t0 = time.perf_counter()
         # per-channel shifts for the chunk: f32(scheduler) + f32(center),
         # added in float32 exactly as the single-stream path composes them
@@ -249,49 +255,75 @@ class MultiChannelPipeline:
             for ch in self.channels
         ]
         t1 = time.perf_counter()
-        uniform, fields = self._plan_fields(counts, shifts_all)
-        self.spans.bump("plans_uniform" if uniform else "plans_per_channel")
+        lanes, fields = self._plan_fields(counts, shifts_all)
+        for lane, n in lanes.items():
+            self.spans.bump(f"chan_plans_{lane}", n)
+        self.spans.bump("plans_per_channel" if lanes["per_channel"]
+                        else "plans_uniform")
         self.spans.add("schedule", k, t0, t1)
         self.spans.add("plan", k, t1, time.perf_counter())
         return fields
 
     def _plan_fields(self, counts, shifts_all) -> tuple:
-        """``(uniform lane?, plan words)`` of one chunk from its shifts."""
-        C = len(self.channels)
-        B = self.chunk_blocks
-        n = len(counts)
+        """``({lane: channels it planned}, plan words)`` of one chunk.
 
-        # uniform fast lane (config-5 scale): when every channel's shift is
-        # constant within the chunk, one (C, B) vectorized planning pass
-        # replaces C Python planners (bit-identical)
-        if n and all(s.size and (s == s[0]).all() for s in shifts_all):
-            f = plan_fields_uniform(
-                [float(s[0]) for s in shifts_all], counts, self.samplerate,
-                [ch.state for ch in self.channels], self.block_samples,
-                quantize_f32=self.quantize_ratio_f32,
-                reset_quirk=self.reset_quirk,
-            )
-            if f is not None:
-                if n == B:
-                    return True, np.ascontiguousarray(f)
+        Each channel whose shift is constant over the chunk goes to a lane
+        by its f32 ratio (``phase_plan.const_lane``): a short exact period
+        → ``plan_fields_periodic``, else ``plan_fields_uniform``; each lane
+        one vectorised ``(C', B)`` pass.  A varying shift (a track channel)
+        and the channels of a lane that refuses them (genesis, a seeked
+        state: its planner tests the states) go to one ``plan_blocks`` a
+        channel.  Every lane gives ``plan_blocks``' words and states bit for
+        bit.
+        """
+        C, B, n = len(self.channels), self.chunk_blocks, len(counts)
+        planned = {"periodic": 0, "uniform": 0, "per_channel": 0}
+        fields = None
+        opts = dict(quantize_f32=self.quantize_ratio_f32,
+                    reset_quirk=self.reset_quirk)
+        lanes: dict = {"periodic": [], "uniform": []}
+        rest = []
+        for c, s in enumerate(shifts_all if n else ()):
+            if (s == s[0]).all():
+                lanes[const_lane(float(s[0]), self.samplerate,
+                                 **opts)].append(c)
+            else:
+                rest.append(c)
+        for lane, planner, kw in (
+                ("periodic", plan_fields_periodic,
+                 {"quantize_f32": self.quantize_ratio_f32}),
+                ("uniform", plan_fields_uniform, opts)):
+            idx = lanes[lane]
+            if not idx:
+                continue
+            f = planner(
+                [float(shifts_all[c][0]) for c in idx], counts,
+                self.samplerate,
+                [self.channels[c].state for c in idx], self.block_samples,
+                **kw)
+            if f is None:
+                rest += idx              # refused: no state touched
+                continue
+            planned[lane] = len(idx)
+            if len(idx) == C and n == B:
+                return planned, f        # one lane planned the whole chunk
+            if fields is None:
                 fields = np.zeros((7, C, B), dtype=np.uint32)
-                fields[:, :, :n] = f
-                return True, fields
+            fields[:, idx, :n] = f
 
-        fields = np.zeros((7, C, B), dtype=np.uint32)
-        for c, ch in enumerate(self.channels):
+        if fields is None:
+            fields = np.zeros((7, C, B), dtype=np.uint32)
+        for c in rest:
             plan = plan_blocks(
-                shifts_all[c], counts, self.samplerate, ch.state,
-                self.block_samples,
-                quantize_f32=self.quantize_ratio_f32,
-                reset_quirk=self.reset_quirk,
-            )
+                shifts_all[c], counts, self.samplerate,
+                self.channels[c].state, self.block_samples, **opts)
             for fi, arr in enumerate(
                 (plan.d_hi, plan.d_lo, plan.c1_hi, plan.c1_lo,
                  plan.c2_hi, plan.c2_lo, plan.t)
             ):
                 fields[fi, c, : arr.size] = arr
-        return False, fields
+        planned["per_channel"] = len(rest)
+        return planned, fields
 
     # -- the gates ------------------------------------------------------------
 

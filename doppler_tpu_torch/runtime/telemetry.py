@@ -124,8 +124,11 @@ class Spans:
     dropped first, so a long run holds constant memory); ``totals`` keeps
     each name's exact ``[count, seconds]`` over the whole run, and
     ``counters`` the run's counts (``chunks``; in channels mode
-    ``plans_uniform`` and ``plans_per_channel``, the chunks planned by the
-    vectorised lane and by one planner a channel).
+    ``chan_plans_periodic``, ``chan_plans_uniform`` and
+    ``chan_plans_per_channel``, the channel-chunks planned by the two
+    vectorised lanes and by one planner a channel, and ``plans_uniform``
+    and ``plans_per_channel``, the chunks in which no channel, and at
+    least one, was planned by its own planner).
     """
 
     def __init__(self, capacity: int = RING) -> None:

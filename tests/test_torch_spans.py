@@ -151,10 +151,14 @@ def test_uniform_channels_count_the_uniform_lane():
 
 
 def test_a_short_exact_period_counts_the_per_channel_planners():
-    # shift k · fs / 256: the ratio k / 256 has an exact period of 256 ≤ 2^20
+    # shift k · fs / 256: the ratio k / 256 has an exact period of 256 ≤ 2^20,
+    # so every chunk, the genesis chunk too, plans in the periodic lane and
+    # the per-channel planners' counters read none
     mp = _channels([FS / 256 * k for k in range(1, 5)])
     c = mp.spans.counters
-    assert c["plans_per_channel"] == 4 and "plans_uniform" not in c
+    assert c["plans_uniform"] == 4 and "plans_per_channel" not in c
+    assert c["chan_plans_periodic"] == 16
+    assert c["chan_plans_uniform"] == c["chan_plans_per_channel"] == 0
 
 
 class _Keep(logging.Handler):
