@@ -111,8 +111,11 @@ class MultiChannelPipeline:
     ``chan_plans_uniform`` and ``chan_plans_per_channel``, the
     channel-chunks each lane planned; ``plans_uniform`` and
     ``plans_per_channel``, the chunks in which no channel, and at least
-    one, ran ``plan_blocks``.  ``host_s`` is the host's planning and
-    staging seconds, the ``schedule``, ``plan`` and ``stage`` totals.
+    one, ran ``plan_blocks``; with track channels, ``track_evals``, the
+    instants their schedulers propagated, and ``track_steps``, the
+    channel-chunks whose shift changes inside the chunk.  ``host_s`` is the
+    host's planning and staging seconds, the ``schedule``, ``plan`` and
+    ``stage`` totals.
 
     ``impl``: ``'pallas'`` (the default) or ``'xla'``, as ``Pipeline``'s:
     'xla' never runs the fused channel kernels (under a mesh a cascade group
@@ -196,6 +199,9 @@ class MultiChannelPipeline:
         self._cascade_banks = None
         self._cascade_carries = None  # per fused stage (C, 2, T_s−1)
         self.spans = telemetry.Spans()
+        # the schedulers that propagate an orbit (track channels)
+        self._tracked = [ch.scheduler for ch in channels
+                         if hasattr(ch.scheduler, "last_evals")]
 
         # --mesh: channels × time-blocks over a grid of devices, per rate
         # group; the bytes are the unsharded run's
@@ -243,7 +249,7 @@ class MultiChannelPipeline:
         """Plan words of every channel for one chunk: ``(7, C, B)`` uint32,
         zero past ``len(counts)`` blocks.  Records the chunk's ``schedule``
         and ``plan`` spans under ``k`` and counts the lanes that planned
-        it."""
+        it, and the track channels' propagated instants and steps."""
         t0 = time.perf_counter()
         # per-channel shifts for the chunk: f32(scheduler) + f32(center),
         # added in float32 exactly as the single-stream path composes them
@@ -255,17 +261,22 @@ class MultiChannelPipeline:
             for ch in self.channels
         ]
         t1 = time.perf_counter()
-        lanes, fields = self._plan_fields(counts, shifts_all)
+        lanes, steps, fields = self._plan_fields(counts, shifts_all)
         for lane, n in lanes.items():
             self.spans.bump(f"chan_plans_{lane}", n)
         self.spans.bump("plans_per_channel" if lanes["per_channel"]
                         else "plans_uniform")
+        if self._tracked:
+            self.spans.bump("track_evals",
+                            sum(s.last_evals for s in self._tracked))
+            self.spans.bump("track_steps", steps)
         self.spans.add("schedule", k, t0, t1)
         self.spans.add("plan", k, t1, time.perf_counter())
         return fields
 
     def _plan_fields(self, counts, shifts_all) -> tuple:
-        """``({lane: channels it planned}, plan words)`` of one chunk.
+        """``({lane: channels it planned}, channels whose shift varies,
+        plan words)`` of one chunk.
 
         Each channel whose shift is constant over the chunk goes to a lane
         by its f32 ratio (``phase_plan.const_lane``): a short exact period
@@ -289,6 +300,7 @@ class MultiChannelPipeline:
                                  **opts)].append(c)
             else:
                 rest.append(c)
+        steps = len(rest)
         for lane, planner, kw in (
                 ("periodic", plan_fields_periodic,
                  {"quantize_f32": self.quantize_ratio_f32}),
@@ -306,7 +318,7 @@ class MultiChannelPipeline:
                 continue
             planned[lane] = len(idx)
             if len(idx) == C and n == B:
-                return planned, f        # one lane planned the whole chunk
+                return planned, steps, f   # one lane planned the whole chunk
             if fields is None:
                 fields = np.zeros((7, C, B), dtype=np.uint32)
             fields[:, idx, :n] = f
@@ -323,7 +335,7 @@ class MultiChannelPipeline:
             ):
                 fields[fi, c, : arr.size] = arr
         planned["per_channel"] = len(rest)
-        return planned, fields
+        return planned, steps, fields
 
     # -- the gates ------------------------------------------------------------
 
@@ -778,15 +790,18 @@ def load_channel_config(path: str, samplerate: int, use_native="auto"):
             from doppler_tpu_torch.cli import parse_location, parse_time_utc
             from doppler_tpu_torch.orbit import make_track_scheduler
 
-            lat, lon, alt = parse_location(ch.get("location", cfg["location"]))
             time_s = ch.get("time", cfg.get("time"))
             tlef = ch.get("tlefile", cfg.get("tlefile"))
-            if tlef is None:
-                # open(None) would raise a TypeError that escapes the CLI's
-                # bad-config handling — fail like every other config error
-                raise ValueError(
-                    f"channel {ch.get('name')!r}: track entry needs "
-                    "'tlefile' (at the channel or top level)")
+            loc = ch.get("location", cfg.get("location"))
+            for key, value in (("tlefile", tlef), ("location", loc)):
+                if value is None:
+                    # open(None) would raise a TypeError that escapes the
+                    # CLI's bad-config handling — fail like every other
+                    # config error
+                    raise ValueError(
+                        f"channel {ch.get('name')!r}: track entry needs "
+                        f"{key!r} (at the channel or top level)")
+            lat, lon, alt = parse_location(loc)
             sched = make_track_scheduler(
                 tlefile=tlef,
                 tlename=ch["tlename"],

@@ -126,9 +126,12 @@ class Spans:
     ``counters`` the run's counts (``chunks``; in channels mode
     ``chan_plans_periodic``, ``chan_plans_uniform`` and
     ``chan_plans_per_channel``, the channel-chunks planned by the two
-    vectorised lanes and by one planner a channel, and ``plans_uniform``
-    and ``plans_per_channel``, the chunks in which no channel, and at
-    least one, was planned by its own planner).
+    vectorised lanes and by one planner a channel, ``plans_uniform`` and
+    ``plans_per_channel``, the chunks in which no channel, and at least
+    one, was planned by its own planner, and with track channels
+    ``track_evals`` and ``track_steps``, the instants their schedulers
+    propagated and the channel-chunks whose shift changes inside the
+    chunk).
     """
 
     def __init__(self, capacity: int = RING) -> None:

@@ -461,6 +461,8 @@ def test_cli_channels_equal_the_pipeline(tmp_path):
     '{"channels": [{"name": "x"}]}',                          # neither mode
     '{"channels": [{"name": "x", "tlename": "S", "frequency": 1, '
     '"location": "lat=1,lon=2,alt=3"}]}',                      # no tlefile
+    '{"channels": [{"name": "x", "tlename": "S", "frequency": 1, '
+    '"tlefile": "sat.txt"}]}',                                  # no location
     '{"chanels": []}',                                        # no channels key
     'not json'])
 def test_cli_bad_config_is_rc_1(tmp_path, body):
@@ -519,6 +521,30 @@ def test_track_channels_config_equals_jax(tmp_path):
         assert np.array_equal(np.asarray(a.scheduler.shifts(counts), np.float64),
                               np.asarray(b.scheduler.shifts(counts), np.float64))
     assert len(set(specs[0].scheduler.shifts(counts))) >= 2
+
+
+def test_track_channels_take_every_key_from_their_own_entry(tmp_path):
+    """Top-level keys are defaults only: channels that carry their own
+    ``tlefile``, ``location`` and ``time``, with none at the top level,
+    build the schedulers that the same values at the top level build."""
+    (tmp_path / "sat.txt").write_text(f"TEST SAT\n{TLE_L1}\n{TLE_L2}\n")
+    shared = {"tlefile": str(tmp_path / "sat.txt"),
+              "location": "lat=58.26541,lon=26.46667,alt=76",
+              "time": "1980-10-01T12:41:24"}
+    chans = [{"name": f"t{k}", "tlename": "TEST SAT",
+              "frequency": 437505000 + 64000 * k, "center_offset": 64000 * k}
+             for k in range(2)]
+    (tmp_path / "own.json").write_text(json.dumps(
+        {"channels": [dict(ch, **shared) for ch in chans]}))
+    (tmp_path / "top.json").write_text(json.dumps(dict(shared,
+                                                       channels=chans)))
+    own, _ = load_channel_config(str(tmp_path / "own.json"), FS)
+    top, _ = load_channel_config(str(tmp_path / "top.json"), FS)
+    counts = [2048] * 600
+    for a, b in zip(own, top):
+        assert a.center_offset_hz == b.center_offset_hz
+        assert np.array_equal(np.asarray(a.scheduler.shifts(counts)),
+                              np.asarray(b.scheduler.shifts(counts)))
 
 
 def test_realtime_channels_pick_chunk_blocks_auto(tmp_path):
