@@ -722,89 +722,113 @@ def plan_fields_uniform(
     *,
     quantize_f32: bool = True,
     reset_quirk: bool = True,
-) -> np.ndarray | None:
+) -> tuple[np.ndarray, list[int]]:
     """Batched planner for C channels sharing one chunk's block structure.
 
     ``shifts_c[c]`` is channel c's (constant within the chunk) shift;
     returns the stacked ``(7, C, B)`` uint32 plan fields in
-    ``(d_hi, d_lo, c1_hi, c1_lo, c2_hi, c2_lo, t)`` order and advances every
-    state, or ``None`` (no state touched) when any channel falls outside the
-    closed-form regime — huge-q ratio on the post-reset trajectory
-    ``1 ≤ m0 ≤ r₁`` with no u32 wrap — in which case the caller runs
-    per-channel :func:`plan_blocks` (bit-identical either way; fuzzed in
-    tests/test_phase_plan_analytic.py).
+    ``(d_hi, d_lo, c1_hi, c1_lo, c2_hi, c2_lo, t)`` order and the indices
+    of the channels it refuses.  It advances every other state; a refused
+    channel's words are zero and its state is not touched, and the caller
+    runs :func:`plan_blocks` for it (bit-identical either way;
+    tests/test_torch_plan_lanes.py).  It refuses the genesis state
+    (``m0 = 0``), a u32 wrap inside the chunk, and a short exact period
+    q ≤ 2²⁰ that meets :func:`plan_blocks`' exact-periodic regime in any
+    block (there the fast path plans an exact reset with no switch).
 
     This is the config-5 host path (C=256 × B=2048 at 100 Msps): one
-    vectorized pass over ``(C, B)`` instead of 256 Python planning loops —
-    the counter value at any stream position is closed-form
-    ``m(c) = m0+c (c ≤ p0) | ((c−p0−1) mod r₁)+1`` and the per-block first
-    reset is ``j0 = r₁ − m`` uniformly in both regimes (VERDICT r2 #6).
+    vectorized pass over ``(C, B)`` instead of 256 Python planning loops.
+    After a channel's first firing at stream position p0 its counter
+    restarts at 1 and fires again at r₁, the smallest firing value, so the
+    counter at any position is closed-form ``m(c) = m0+c (c ≤ p0) |
+    ((c−p0−1) mod r₁)+1`` and the per-block first reset is ``j0 = p0 − c``
+    before it and ``r₁ − m`` after (VERDICT r2 #6).  On the post-reset
+    trajectory (``m0 ≤ r₁``) p0 is ``r₁ − m0``; a state above r₁ (a track
+    channel just after its shift stepped) hunts p0 as :func:`plan_blocks`
+    does, through the state's hunt cache.
     """
     C = len(shifts_c)
     B = len(counts)
     counts_a = np.asarray(counts, dtype=np.int64)
     starts = np.concatenate([[0], np.cumsum(counts_a)[:-1]])
     total = int(counts_a.sum())
+    consts = [rate_constants(s, samplerate, quantize_f32) for s in shifts_c]
+    d_c = np.array([k[0] for k in consts], np.uint64)
 
-    d_c = np.empty(C, np.uint64)
     if not reset_quirk:
-        offs = np.empty(C, np.uint64)
-        for c, s in enumerate(shifts_c):
-            d_c[c] = fxp.rate_to_q64(float(s), samplerate,
-                                     quantize_f32=quantize_f32)
-            offs[c] = states[c].abs_offset % (1 << 64)
+        offs = np.array([st.abs_offset % (1 << 64) for st in states],
+                        np.uint64)
         with np.errstate(over="ignore"):
             M = offs[:, None] + starts[None, :].astype(np.uint64)
             C1 = M * d_c[:, None]
         fields = np.empty((7, C, B), np.uint32)
         _split_into(fields, d_c[:, None], C1, C1)
         fields[6] = np.uint32(block_len)
-        for c in range(C):
-            states[c].abs_offset += total
-            states[c].samplenum = states[c].abs_offset
-        return fields
+        for st in states:
+            st.abs_offset += total
+            st.samplenum = st.abs_offset
+        return fields, []
 
-    r1_c = np.empty(C, np.int64)
-    m0_c = np.empty(C, np.int64)
-    for c, s in enumerate(shifts_c):
-        d = fxp.rate_to_q64(float(s), samplerate, quantize_f32=quantize_f32)
-        r32 = _ratio_f32(float(s), samplerate)
-        q = _exact_period(r32)
-        if q is not None and q <= max(1 << 20, block_len):
-            return None                  # small-q ratio: per-channel path
+    never = 1 << 62                      # a firing no chunk reaches
+    r1_c = np.full(C, never, np.int64)
+    m0_c = np.ones(C, np.int64)
+    p0_c = np.full(C, never, np.int64)
+    refused: set[int] = set()
+    hunts: dict[int, tuple | None] = {}  # hunt caches to restore on refusal
+    for c, ((_, r32, _, _), st) in enumerate(zip(consts, states)):
+        m0 = st.samplenum
+        if m0 == 0 or m0 + total >= _U32:
+            refused.add(c)               # genesis, or a u32 wrap inside
+            continue
         r1 = _steady_period(r32, block_len)
-        m0 = states[c].samplenum
-        if not (1 <= m0 <= (r1 if r1 is not None else _U32)):
-            return None                  # genesis / seeked state: fall back
-        if m0 + total >= _U32:
-            return None                  # u32 wrap inside the chunk
-        d_c[c] = d
-        r1_c[c] = r1 if r1 is not None else (1 << 62)
+        if r1 is not None and m0 > r1:
+            hunts[c] = st.hunt           # off the post-reset trajectory
+            j = _cached_first_reset(r32, m0, total, st, block_len)
+            p0_c[c] = never if j is None else j
+        elif r1 is not None:
+            p0_c[c] = r1 - m0
         m0_c[c] = m0
+        r1_c[c] = never if r1 is None else r1
 
-    # counter value at each block start, uniform over pre/post-reset regimes
-    p0 = (r1_c - m0_c)[:, None]          # position of the first reset
-    st = starts[None, :]
+    # counter value at each block start, and each block's first reset
+    p0 = p0_c[:, None]
+    s0 = starts[None, :]
+    pre = s0 <= p0
+    M = np.where(pre, m0_c[:, None] + s0,
+                 (s0 - p0 - 1) % r1_c[:, None] + 1)
+    j0 = np.where(pre, p0 - s0, r1_c[:, None] - M)
+    hit = j0 < counts_a[None, :]
+    short = [c for c, k in enumerate(consts)
+             if k[2] is not None and k[2] <= _PERIODIC_Q]
+    if short:
+        n_hi = M[short] + counts_a[None, :]
+        absr = np.array([abs(float(consts[c][1])) for c in short])[:, None]
+        bound = np.array([consts[c][3] for c in short])[:, None]
+        fast = ((n_hi <= (1 << 24)) & (absr * n_hi < bound)).any(axis=1)
+        refused.update(c for c, f in zip(short, fast) if f)
     with np.errstate(over="ignore"):
-        M = np.where(st <= p0, m0_c[:, None] + st,
-                     (st - p0 - 1) % r1_c[:, None] + 1)
-        j0 = r1_c[:, None] - M           # distance to the next firing value
-        hit = j0 < counts_a[None, :]
         Mu = M.astype(np.uint64)
         du = d_c[:, None]
         C1 = Mu * du
         C2 = np.where(hit, (np.uint64(0) - j0.astype(np.uint64)) * du, C1)
     fields = np.empty((7, C, B), np.uint32)
-    _split_into(fields, d_c[:, None], C1, C2)
+    _split_into(fields, du, C1, C2)
     fields[6] = np.uint32(block_len)
     fields[6][hit] = (j0[hit] + 1).astype(np.uint32)
+    refused = sorted(refused)
+    fields[:, refused] = 0
 
-    end = np.where(total <= p0[:, 0], m0_c + total,
-                   (total - p0[:, 0] - 1) % r1_c + 1)
-    for c in range(C):
-        states[c].samplenum = int(end[c])
-        states[c].abs_offset += total
-    return fields
+    end = np.where(total <= p0_c, m0_c + total,
+                   (total - p0_c - 1) % r1_c + 1)
+    take = np.ones(C, bool)
+    take[refused] = False
+    for c, st in enumerate(states):
+        if take[c]:
+            st.samplenum = int(end[c])
+            st.abs_offset += total
+        elif c in hunts:
+            st.hunt = hunts[c]
+    return fields, refused
 
 
 _PERIODIC_Q = 1 << 20      # plan_blocks' exact-periodic regime: q ≤ 2²⁰
@@ -833,17 +857,22 @@ def rate_constants(shift_hz: float, samplerate: int,
     return got
 
 
-def const_lane(shift_hz: float, samplerate: int, *,
+def const_lane(shift_hz: float, samplerate: int, *, block_len: int,
                quantize_f32: bool = True, reset_quirk: bool = True) -> str:
     """The batched planner for a channel whose shift is constant over a
     chunk, from its f32 ratio alone: ``'periodic'``
     (:func:`plan_fields_periodic`) for an exact period q ≤ 2²⁰ under the
-    reset quirk, else ``'uniform'`` (:func:`plan_fields_uniform`, which
-    without the quirk takes any ratio).  Each lane's planner tests its own
-    regime on the states (genesis, a seeked state, a wrap) and refuses the
-    whole lane to :func:`plan_blocks` when a channel leaves it."""
-    q = rate_constants(shift_hz, samplerate, quantize_f32)[2]
-    if reset_quirk and q is not None and q <= _PERIODIC_Q:
+    reset quirk whose exact-only bound a full block from counter 1 meets,
+    else ``'uniform'`` (:func:`plan_fields_uniform`, which without the
+    quirk takes any ratio).  A short period with ``|r|·(L+1) ≥ 2²²/q`` is
+    never in :func:`plan_blocks`' exact-periodic regime at a full block,
+    so :func:`plan_blocks` plans it by its firings, as the uniform lane
+    does.  Each lane's planner tests its own regime on the states
+    (genesis, a seeked state, a wrap) and refuses the channels that leave
+    it to :func:`plan_blocks`."""
+    _, r32, q, bound = rate_constants(shift_hz, samplerate, quantize_f32)
+    if (reset_quirk and q is not None and q <= _PERIODIC_Q
+            and abs(float(r32)) * (block_len + 1) < bound):
         return "periodic"
     return "uniform"
 
@@ -856,18 +885,19 @@ def plan_fields_periodic(
     block_len: int,
     *,
     quantize_f32: bool = True,
-) -> np.ndarray | None:
+) -> tuple[np.ndarray, list[int]]:
     """Batched planner for C channels whose f32 ratio has a short exact
     period q ≤ 2²⁰, under the reset quirk — :func:`plan_fields_uniform`'s
     twin for the other regime, with its contract (without the quirk
     :func:`plan_fields_uniform` takes every ratio).
 
     ``shifts_c[c]`` is channel c's (constant within the chunk) shift;
-    returns the ``(7, C, B)`` uint32 plan fields and advances every state,
-    or ``None`` (no state touched) when any channel's ratio has no such q or
-    leaves :func:`plan_blocks`' exact-periodic regime in any block (a
-    counter past 2²⁴, or |r|·n at the exact-only bound), in which case the
-    caller runs per-channel :func:`plan_blocks`.
+    returns the ``(7, C, B)`` uint32 plan fields and the indices of the
+    channels it refuses, and advances every other state.  It refuses a
+    channel whose ratio has no such q or that leaves :func:`plan_blocks`'
+    exact-periodic regime in any block (a counter past 2²⁴, or |r|·n at
+    the exact-only bound); a refused channel's words are zero and its state
+    is not touched, and the caller runs :func:`plan_blocks` for it.
 
     In the regime every reset is exact and keeps the phase, so a block's
     words are closed-form: ``m_k = m0 + s_k (s_k ≤ j0) | ((s_k − j0 − 1)
@@ -881,12 +911,15 @@ def plan_fields_periodic(
     starts = np.concatenate([[0], np.cumsum(counts_a)[:-1]])
     total = int(counts_a.sum())
     consts = [rate_constants(s, samplerate, quantize_f32) for s in shifts_c]
-    if any(k[2] is None or k[2] > _PERIODIC_Q for k in consts):
-        return None
+    # a ratio with no short period is refused: q = 1 and a zero bound
+    # stand in for its constants
+    short = np.array([k[2] is not None and k[2] <= _PERIODIC_Q
+                      for k in consts])
     d_c = np.array([k[0] for k in consts], np.uint64)[:, None]
-    q_c = np.array([k[2] for k in consts], np.int64)
+    q_c = np.array([k[2] if ok else 1 for k, ok in zip(consts, short)],
+                   np.int64)
     absr = np.array([abs(float(k[1])) for k in consts])
-    bound = np.array([k[3] for k in consts])
+    bound = np.array([k[3] if ok else 0.0 for k, ok in zip(consts, short)])
     m0_c = np.array([st.samplenum for st in states], np.int64)
     j0 = (-m0_c) % q_c
     # counters at the block starts, in place over one (C, B) array (a chunk
@@ -904,20 +937,21 @@ def plan_fields_periodic(
     M += counts_a
     n_top = M.max(axis=1)
     M -= counts_a
-    if not ((n_top <= (1 << 24)) & (absr * n_top < bound)).all():
-        return None
+    ok = short & (n_top <= (1 << 24)) & (absr * n_top < bound)
     C1 = M.view(np.uint64)
     with np.errstate(over="ignore"):
         C1 *= d_c
     fields = np.empty((7, C, B), np.uint32)
     fields[6] = np.uint32(block_len)
     _split_into(fields, d_c, C1, C1)
+    refused = np.flatnonzero(~ok).tolist()
+    fields[:, refused] = 0
 
     end = np.where(total <= j0, m0_c + total, (total - j0 - 1) % q_c + 1)
-    for c in range(C):
+    for c in np.flatnonzero(ok):
         states[c].samplenum = int(end[c])
         states[c].abs_offset += total
-    return fields
+    return fields, refused
 
 
 def _split_into(fields: np.ndarray, D, C1, C2) -> None:

@@ -86,6 +86,11 @@ __all__ = ["ChannelSpec", "MultiChannelPipeline", "load_channel_config"]
 
 log = get_logger("channels")
 
+# a chunk's shift steps cut it into at most this many segments for the
+# lanes; past it (a chunk over a few seconds, or a shift that varies block
+# to block) its varying channels go to ``plan_blocks`` whole
+_MAX_SEGMENTS = 4
+
 
 @dataclass
 class ChannelSpec:
@@ -112,8 +117,10 @@ class MultiChannelPipeline:
     channel-chunks each lane planned; ``plans_uniform`` and
     ``plans_per_channel``, the chunks in which no channel, and at least
     one, ran ``plan_blocks``; with track channels, ``track_evals``, the
-    instants their schedulers propagated, and ``track_steps``, the
-    channel-chunks whose shift changes inside the chunk.  ``host_s`` is the
+    instants their schedulers propagated, ``track_steps``, the
+    channel-chunks whose shift changes inside the chunk, and
+    ``chan_plans_split``, those of them that the lanes planned a segment
+    at a time.  ``host_s`` is the
     host's planning and staging seconds, the ``schedule``, ``plan`` and
     ``stage`` totals.
 
@@ -261,7 +268,7 @@ class MultiChannelPipeline:
             for ch in self.channels
         ]
         t1 = time.perf_counter()
-        lanes, steps, fields = self._plan_fields(counts, shifts_all)
+        lanes, steps, split, fields = self._plan_fields(counts, shifts_all)
         for lane, n in lanes.items():
             self.spans.bump(f"chan_plans_{lane}", n)
         self.spans.bump("plans_per_channel" if lanes["per_channel"]
@@ -270,72 +277,95 @@ class MultiChannelPipeline:
             self.spans.bump("track_evals",
                             sum(s.last_evals for s in self._tracked))
             self.spans.bump("track_steps", steps)
+            self.spans.bump("chan_plans_split", split)
         self.spans.add("schedule", k, t0, t1)
         self.spans.add("plan", k, t1, time.perf_counter())
         return fields
 
     def _plan_fields(self, counts, shifts_all) -> tuple:
         """``({lane: channels it planned}, channels whose shift varies,
-        plan words)`` of one chunk.
+        of them those the lanes planned segment by segment, plan words)``
+        of one chunk.
 
         Each channel whose shift is constant over the chunk goes to a lane
         by its f32 ratio (``phase_plan.const_lane``): a short exact period
-        → ``plan_fields_periodic``, else ``plan_fields_uniform``; each lane
-        one vectorised ``(C', B)`` pass.  A varying shift (a track channel)
-        and the channels of a lane that refuses them (genesis, a seeked
-        state: its planner tests the states) go to one ``plan_blocks`` a
-        channel.  Every lane gives ``plan_blocks``' words and states bit for
-        bit.
+        that full blocks keep in the exact-periodic regime →
+        ``plan_fields_periodic``, else ``plan_fields_uniform``; each lane
+        one vectorised ``(C', B)`` pass.  The chunk's shift steps (the
+        blocks where a track channel's shift changes, over all of them) cut
+        it into segments, at most ``_MAX_SEGMENTS``; the varying channels
+        go to the lanes a segment at a time, each state carried from one
+        segment into the next.  A lane refuses a channel whose state leaves
+        its regime (genesis, a seeked state, a wrap: its planner tests the
+        states); that channel, and every varying channel of a chunk cut
+        into more segments, goes to one ``plan_blocks`` from where it was
+        refused to the chunk's end.  Every lane gives ``plan_blocks``'
+        words and states bit for bit.  A channel counts under the lane of
+        its last segment, or under ``per_channel`` if ``plan_blocks``
+        planned any of it.
         """
         C, B, n = len(self.channels), self.chunk_blocks, len(counts)
-        planned = {"periodic": 0, "uniform": 0, "per_channel": 0}
-        fields = None
+        fs, L = self.samplerate, self.block_samples
         opts = dict(quantize_f32=self.quantize_ratio_f32,
                     reset_quirk=self.reset_quirk)
-        lanes: dict = {"periodic": [], "uniform": []}
-        rest = []
+        planners = (("periodic", plan_fields_periodic,
+                     {"quantize_f32": self.quantize_ratio_f32}),
+                    ("uniform", plan_fields_uniform, opts))
+        const, varying, cuts = [], [], set()
         for c, s in enumerate(shifts_all if n else ()):
-            if (s == s[0]).all():
-                lanes[const_lane(float(s[0]), self.samplerate,
-                                 **opts)].append(c)
-            else:
-                rest.append(c)
-        steps = len(rest)
-        for lane, planner, kw in (
-                ("periodic", plan_fields_periodic,
-                 {"quantize_f32": self.quantize_ratio_f32}),
-                ("uniform", plan_fields_uniform, opts)):
-            idx = lanes[lane]
-            if not idx:
-                continue
-            f = planner(
-                [float(shifts_all[c][0]) for c in idx], counts,
-                self.samplerate,
-                [self.channels[c].state for c in idx], self.block_samples,
-                **kw)
-            if f is None:
-                rest += idx              # refused: no state touched
-                continue
-            planned[lane] = len(idx)
-            if len(idx) == C and n == B:
-                return planned, steps, f   # one lane planned the whole chunk
-            if fields is None:
-                fields = np.zeros((7, C, B), dtype=np.uint32)
-            fields[:, idx, :n] = f
+            at = np.flatnonzero(s[1:] != s[:-1]) + 1
+            (varying if at.size else const).append(c)
+            cuts.update(at.tolist())
+        bounds = [0, *sorted(cuts), n]
+        segments = [(0, n, const)]
+        refused: dict = {}          # channel → block its plan_blocks starts
+        if len(bounds) - 1 <= _MAX_SEGMENTS:
+            segments += [(b0, b1, varying)
+                         for b0, b1 in zip(bounds[:-1], bounds[1:])]
+        else:
+            refused.update((c, 0) for c in varying)
+        fields = None
+        last: dict = {}             # channel → lane of its last segment
+        for b0, b1, idx in segments:
+            by_lane: dict = {"periodic": [], "uniform": []}
+            for c in idx:
+                if c not in refused:
+                    by_lane[const_lane(float(shifts_all[c][b0]), fs,
+                                       block_len=L, **opts)].append(c)
+            for lane, planner, kw in planners:
+                ids = by_lane[lane]
+                if not ids:
+                    continue
+                f, out = planner(
+                    [float(shifts_all[c][b0]) for c in ids], counts[b0:b1],
+                    fs, [self.channels[c].state for c in ids], L, **kw)
+                if not out and len(ids) == C and b1 - b0 == B:
+                    # one lane planned the whole chunk
+                    return {"periodic": 0, "uniform": 0, "per_channel": 0,
+                            lane: C}, 0, 0, f
+                if fields is None:
+                    fields = np.zeros((7, C, B), dtype=np.uint32)
+                fields[:, ids, b0:b1] = f
+                last.update((c, lane) for c in ids)
+                refused.update((ids[i], b0) for i in out)
 
         if fields is None:
             fields = np.zeros((7, C, B), dtype=np.uint32)
-        for c in rest:
+        for c, b0 in refused.items():
             plan = plan_blocks(
-                shifts_all[c], counts, self.samplerate,
-                self.channels[c].state, self.block_samples, **opts)
+                shifts_all[c][b0:], counts[b0:], fs,
+                self.channels[c].state, L, **opts)
             for fi, arr in enumerate(
                 (plan.d_hi, plan.d_lo, plan.c1_hi, plan.c1_lo,
                  plan.c2_hi, plan.c2_lo, plan.t)
             ):
-                fields[fi, c, : arr.size] = arr
-        planned["per_channel"] = len(rest)
-        return planned, steps, fields
+                fields[fi, c, b0:n] = arr
+            last[c] = "per_channel"
+        planned = {"periodic": 0, "uniform": 0, "per_channel": 0}
+        for lane in last.values():
+            planned[lane] += 1
+        split = sum(c not in refused for c in varying)
+        return planned, len(varying), split, fields
 
     # -- the gates ------------------------------------------------------------
 

@@ -129,9 +129,10 @@ class Spans:
     vectorised lanes and by one planner a channel, ``plans_uniform`` and
     ``plans_per_channel``, the chunks in which no channel, and at least
     one, was planned by its own planner, and with track channels
-    ``track_evals`` and ``track_steps``, the instants their schedulers
-    propagated and the channel-chunks whose shift changes inside the
-    chunk).
+    ``track_evals``, ``track_steps`` and ``chan_plans_split``, the
+    instants their schedulers propagated, the channel-chunks whose shift
+    changes inside the chunk, and those of them that the lanes planned a
+    segment at a time).
     """
 
     def __init__(self, capacity: int = RING) -> None:

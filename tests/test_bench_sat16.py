@@ -188,15 +188,18 @@ def test_a_run_is_correct_and_counts_the_staircase(tmp_path):
                                      cfg["samplerate"], 2048)
     assert rec.counters["track_evals"] == evals > 0
     assert rec.counters["track_steps"] == steps
-    # every stepping channel-chunk went to its own planner
-    assert rec.counters["chan_plans_per_channel"] >= steps
+    # every stepping channel-chunk went to the lanes a segment at a time;
+    # only the genesis chunk went to plan_blocks
+    assert rec.counters["chan_plans_split"] == steps
+    assert rec.counters["chan_plans_per_channel"] == len(KEEP)
 
 
 def test_the_planner_counts_and_plans_sixteen_staircases_bitwise(tmp_path):
     """All 16 channels over 4 chunks of 256 blocks (2.05 s of stream): the
-    chunks in which the staircase steps go to ``plan_blocks``, the others to
-    a lane, and every word and state is what one ``plan_blocks`` a channel
-    over the same shifts gives; the counters are the staircase's."""
+    chunks in which the staircase steps go to the lanes in two segments,
+    cut at the step, the others to a lane whole, and every word and state
+    is what one ``plan_blocks`` a channel over the same shifts gives; the
+    counters are the staircase's."""
     from doppler_tpu_torch.ops import phase_plan
     from doppler_tpu_torch.runtime.channels import (MultiChannelPipeline,
                                                     load_channel_config)
@@ -229,9 +232,10 @@ def test_the_planner_counts_and_plans_sixteen_staircases_bitwise(tmp_path):
     c = mp.spans.counters
     assert (c["track_evals"], c["track_steps"]) == (evals, steps)
     assert steps == 2 * 16                 # chunks 1 and 3 step
-    # the genesis chunk and the steps in plan_blocks; a constant chunk in a
-    # lane unless the lane refuses its state (then plan_blocks too)
-    assert c["chan_plans_per_channel"] >= 16 + steps
+    # plan_blocks for the genesis chunk alone (the uniform lane refuses
+    # m0 = 0); the stepping channel-chunks in the lanes, a segment at a time
+    assert c["chan_plans_per_channel"] == 16
+    assert c["chan_plans_split"] == steps
     assert sum(c[f"chan_plans_{lane}"] for lane in
                ("periodic", "uniform", "per_channel")) == 4 * 16
 

@@ -102,27 +102,34 @@ def test_plan_blocks_track_bitwise(L):
 ])
 def test_plan_fields_uniform_bitwise_at_256_channels(fs, base, step):
     """The batched (C, B) planner the channels pipeline plans with: the
-    copy's words and final states equal the original's over three chunks
-    (a None, the per-channel fallback, must be a None in both)."""
+    copy's words and final states equal the original's over three chunks.
+    Where the original refuses the lane (a None: its caller runs
+    ``plan_blocks`` a channel) the copy refuses channel by channel, and
+    every channel's words, from its lane or its ``plan_blocks``, are the
+    original ``plan_blocks``'."""
     C, L = 256, 2048
     shifts = [float(np.float32(base + step * c)) for c in range(C)]
     st_t = [phase_plan.NCOState() for _ in range(C)]
     st_j = [j_plan.NCOState() for _ in range(C)]
     took_lane = 0
     for counts in ([L] * 4, [L] * 4, [L] * 3 + [L // 2]):
-        a = phase_plan.plan_fields_uniform(shifts, counts, fs, st_t, L)
+        a, refused = phase_plan.plan_fields_uniform(shifts, counts, fs,
+                                                    st_t, L)
         b = j_plan.plan_fields_uniform(shifts, counts, fs, st_j, L)
-        assert (a is None) == (b is None)
-        if a is None:
+        assert a.shape == (7, C, len(counts)) and a.dtype == np.uint32
+        if b is None:
             for c in range(C):     # advance both as the pipeline would
-                phase_plan.plan_blocks([shifts[c]] * len(counts), counts, fs,
-                                       st_t[c], L)
-                j_plan.plan_blocks([shifts[c]] * len(counts), counts, fs,
-                                   st_j[c], L)
+                pj = j_plan.plan_blocks([shifts[c]] * len(counts), counts,
+                                        fs, st_j[c], L)
+                if c in refused:
+                    pt = phase_plan.plan_blocks([shifts[c]] * len(counts),
+                                                counts, fs, st_t[c], L)
+                    a[:, c] = np.stack([getattr(pt, f) for f in PLAN_FIELDS])
+                assert np.array_equal(
+                    a[:, c], np.stack([getattr(pj, f) for f in PLAN_FIELDS]))
             continue
         took_lane += 1
-        assert a.shape == (7, C, len(counts)) and a.dtype == np.uint32
-        assert np.array_equal(a, b)
+        assert refused == [] and np.array_equal(a, b)
     assert took_lane >= 1
     assert [(s.samplenum, s.abs_offset) for s in st_t] == \
         [(s.samplenum, s.abs_offset) for s in st_j]
