@@ -26,6 +26,7 @@ __all__ = [
     "pack_i16_words",
     "i16_words_to_iq",
     "iq_to_i16_words",
+    "encode",
     "f32_pairs_to_iq",
     "iq_to_f32_pairs",
     "saturating_trunc_i16",
@@ -82,6 +83,14 @@ def iq_to_i16_words(i: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
     """Planar (i, q) float32 → int32 words of LE i16 pairs (main.rs:76-84)."""
     return pack_i16_words(saturating_trunc_i16(i * _SCALE_OUT),
                           saturating_trunc_i16(q * _SCALE_OUT))
+
+
+def encode(i: torch.Tensor, q: torch.Tensor, outtype: str) -> torch.Tensor:
+    """Planar (i, q) float32 → the device output layout of ``outtype``: the
+    int32 words of i16 pairs, or the f32 planes stacked as ``(2, …)``."""
+    if outtype == "i16":
+        return iq_to_i16_words(i, q)
+    return torch.stack([i, q])
 
 
 def f32_pairs_to_iq(pairs: torch.Tensor):

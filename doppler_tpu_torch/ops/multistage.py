@@ -16,7 +16,8 @@ on the cascade's ``device``, so streaming state, Bresenham output alignment
 and checkpoint state compose.  The pipeline runs full chunks through the
 fused cascade kernel (``ops.cuda.cascade``) and mirrors each fused stage's
 history back into these stages; :meth:`MultiStageResampler.process` runs
-the rest (the EOF chunk, the drain, the tail of a split cascade).
+the rest (the EOF chunk, the drain, and from its first unfused stage the
+tail of a split cascade).
 """
 
 from __future__ import annotations
@@ -138,12 +139,13 @@ class MultiStageResampler:
         return cap
 
     def process(self, i: torch.Tensor, q: torch.Tensor, valid: int,
-                M: int | None = None):
-        """Chain the stages.  Each stage's capacity follows from its input's
-        length; ``M`` is accepted for the RationalResampler surface and
-        ignored.  Returns (yi, yq, n_valid_outputs)."""
+                M: int | None = None, start: int = 0):
+        """Chain the stages from stage ``start`` on (a split cascade's tail
+        takes the fused front's planes).  Each stage's capacity follows from
+        its input's length; ``M`` is accepted for the RationalResampler
+        surface and ignored.  Returns (yi, yq, n_valid_outputs)."""
         n = int(valid)
-        for st in self.stages:
+        for st in self.stages[start:]:
             i, q, n = st.process(i, q, n, st.max_out_for(int(i.shape[-1])))
         return i, q, n
 

@@ -196,12 +196,6 @@ def _banks(stages) -> _PerDevice:
         torch.from_numpy(st.bank).to(dev) for st in stages))
 
 
-def _encode(yi, yq, outtype: str) -> torch.Tensor:
-    if outtype == "i16":
-        return codec.iq_to_i16_words(yi, yq)
-    return torch.stack([yi, yq])
-
-
 def _check_channels(mesh, C: int) -> None:
     n_chan = mesh.shape["channel"]
     if C % n_chan:
@@ -296,7 +290,7 @@ def make_sharded_step(mesh, *, intype: str = "i16", outtype: str = "i16",
                 yi, yq = window_resample(xi, xq, bank_rev.get(dev),
                                          int(rem[t]), int(off[t]), P=rs.P,
                                          Q=rs.Q, T=rs.T, M=M_max)
-                out = _encode(yi, yq, outtype)
+                out = codec.encode(yi, yq, outtype)
             if outtype == "i16":
                 result[cs, t] = out.to(dev0)
             else:
@@ -416,7 +410,7 @@ def make_wideband_stream_step(mesh, *, intype: str, outtype: str, C: int,
                     yi, yq = window_resample(xi, xq, bank_rev.get(dev),
                                              int(rem[t]), int(off[t]), P=rs.P,
                                              Q=rs.Q, T=rs.T, M=M)
-                parts.append((cs, bs, _encode(yi, yq, outtype)))
+                parts.append((cs, bs, codec.encode(yi, yq, outtype)))
             if t == n_time - 1:
                 n = planes.shape[-1]
                 tails.append((planes[0][..., n - H:].to(dev0),

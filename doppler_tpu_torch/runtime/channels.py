@@ -41,7 +41,10 @@ axis and a cascade a shard cannot take run unsharded (the last two warn).
 One chunk is in flight: :meth:`MultiChannelPipeline.dispatch_chunk` plans,
 stages into pinned host memory, copies with ``non_blocking=True``, launches
 and starts the copy back; the finalizer it returns waits on the chunk's
-event.  ``run`` finalizes chunk k−1 after dispatching chunk k.
+event.  ``run`` finalizes chunk k−1 after dispatching chunk k.  The loop,
+the fused routes, the carries, the copy-out and the drain are
+``runtime.pipeline``'s (``ChunkPipeline``, ``run_chunks``), shared with the
+single-stream ``Pipeline``.
 
 Outputs go to per-channel files (stdout cannot interleave C streams).
 ``device`` is explicit and nothing falls back: ``'cuda'`` raises when no
@@ -71,12 +74,11 @@ from doppler_tpu_torch.parallel import sharded
 from doppler_tpu_torch.runtime import native
 from doppler_tpu_torch.runtime import stream as streaming
 from doppler_tpu_torch.runtime.pipeline import (
+    ChunkPipeline,
     ConstScheduler,
     Scheduler,
-    carry_rows,
-    copy_events,
     host_buffer,
-    resolve_device,
+    run_chunks,
     stage_chunk,
 )
 from doppler_tpu_torch.runtime import telemetry
@@ -108,7 +110,7 @@ class ChannelSpec:
     state: NCOState = field(default_factory=NCOState)
 
 
-class MultiChannelPipeline:
+class MultiChannelPipeline(ChunkPipeline):
     """Batched multi-satellite corrector over one input stream.
 
     ``spans``: the newest :meth:`run`'s ``telemetry.Spans``, as
@@ -158,28 +160,15 @@ class MultiChannelPipeline:
     ):
         if not channels:
             raise ValueError("need at least one channel")
-        if impl not in ("xla", "pallas"):
-            raise ValueError(f"impl must be 'xla' or 'pallas', got {impl!r}")
-        self.impl = impl
-        if precision not in ("exact", "fast"):
-            raise ValueError(
-                f"precision must be 'exact' or 'fast', got {precision!r}")
-        self._chain_dot = "split3" if precision == "fast" else "highest"
-        self.device = resolve_device(device)
-        self.drain_on_eof = drain_on_eof
-        self._drained = False   # did THIS run flush the FIR tails? (checkpoint)
+        super().__init__(
+            samplerate, intype, outtype, block_bytes=block_bytes,
+            chunk_blocks=chunk_blocks, quantize_ratio_f32=quantize_ratio_f32,
+            drain_on_eof=drain_on_eof, precision=precision, impl=impl,
+            device=device, mesh=mesh)
+        self._rows = list(range(len(channels)))    # every channel
         self.samples_in = 0     # absolute input samples consumed (checkpoint)
-        self.samplerate = int(samplerate)
-        self.intype = intype
-        self.outtype = outtype
         self.channels = channels
-        self.block_bytes = int(block_bytes)
-        self.chunk_blocks = int(chunk_blocks)
-        self.quantize_ratio_f32 = quantize_ratio_f32
         self.reset_quirk = reset_quirk
-        self._bps_in = streaming.bytes_per_sample(intype)
-        self._bps_out = streaming.bytes_per_sample(outtype)
-        self.block_samples = self.block_bytes // self._bps_in
 
         # group channels by effective output rate (per-channel out_rate
         # overrides the pipeline default); each group gets its own batched
@@ -199,51 +188,19 @@ class MultiChannelPipeline:
         # resampler over every channel
         self._uniform = len(self._groups) == 1
         self.resampler = self._groups[0][1] if self._uniform else None
-        self._chain_carries = None    # (C, 2, T−1) chain carries
-        self._chain_bank = None
-        self._cascade_k = None        # fused stages; 0 = never fused
-        self._cascade_stages = None   # their (P, Q, T)
-        self._cascade_banks = None
-        self._cascade_carries = None  # per fused stage (C, 2, T_s−1)
-        self.spans = telemetry.Spans()
         # the schedulers that propagate an orbit (track channels)
         self._tracked = [ch.scheduler for ch in channels
                          if hasattr(ch.scheduler, "last_evals")]
-
-        # --mesh: channels × time-blocks over a grid of devices, per rate
-        # group; the bytes are the unsharded run's
-        self.mesh = mesh
-        self._sharded_steps: dict = {}       # (kind, group) → sharded step
-        self._sharded_casc_cfg: dict = {}    # group → fused count or None
         self._warned: set = set()
         if mesh is not None:
-            n_chan, n_time = mesh.shape["channel"], mesh.shape["time"]
+            n_chan = mesh.shape["channel"]
             if len(channels) % n_chan:
                 raise ValueError(
                     f"{len(channels)} channels must divide over mesh "
                     f"channel={n_chan}")
-            if self.chunk_blocks % n_time:
-                raise ValueError(
-                    f"chunk_blocks={self.chunk_blocks} must be divisible by "
-                    f"mesh time={n_time}")
-            if mesh.device() != self.device:
-                raise ValueError(
-                    f"the mesh starts on {mesh.device()}, the pipeline "
-                    f"runs on {self.device}")
-            n_loc = self.chunk_blocks * self.block_samples // n_time
             for _, rs in self._groups:
-                if rs is None or getattr(rs, "bank", None) is None:
-                    continue
-                if rs.T - 1 > n_loc:
-                    raise ValueError(
-                        f"resampler history ({rs.T - 1}) exceeds one time "
-                        f"shard ({n_loc} samples); use fewer/larger chunks")
-                if n_loc * rs.P >= (1 << 30):
-                    raise ValueError("time shard too large for 32-bit phase math")
-
-    @property
-    def host_s(self) -> float:
-        return self.spans.seconds("schedule", "plan", "stage")
+                if rs is not None and getattr(rs, "bank", None) is not None:
+                    self._check_shard_history(rs)
 
     def _warn_once(self, msg: str) -> None:
         if msg not in self._warned:
@@ -367,48 +324,6 @@ class MultiChannelPipeline:
         split = sum(c not in refused for c in varying)
         return planned, len(varying), split, fields
 
-    # -- the gates ------------------------------------------------------------
-
-    def _chain_eligible(self, total: int) -> bool:
-        """May this chunk run the channel-batched chain kernel?
-
-        The rule of ``doppler_tpu``'s channels pipeline, term for term.  The
-        128-sample terms are the TPU's lane geometry; the carry term is the
-        channels form (rows of the whole chunk, not of one block).
-        """
-        rs = self.resampler
-        B, L = self.chunk_blocks, self.block_samples
-        return (
-            rs is not None
-            and self.impl == "pallas"
-            and getattr(rs, "bank", None) is not None   # single-stage only
-            and L % 128 == 0
-            and 128 % rs.Q == 0
-            and total == B * L          # padded tails would poison the carry
-            and carry_rows(rs.T) <= (B * L) // 128
-        )
-
-    def _cascade_eligible(self, total: int) -> bool:
-        """May this chunk run the channel-batched cascade kernel?
-
-        The JAX rule with the TPU's step geometry replaced by the kernel's
-        ``chunk_out_count``, as ``Pipeline._cascade_eligible``.  Decided
-        once: ``_cascade_k`` is the fused stage count, 0 when the cascade
-        never fuses.
-        """
-        rs = self.resampler
-        if (rs is None or self.impl != "pallas"
-                or getattr(rs, "stages", None) is None):
-            return False
-        B, L = self.chunk_blocks, self.block_samples
-        if self._cascade_k is None:
-            k = cascade.split_point(rs.stages) if L % 128 == 0 else 0
-            fused = tuple((st.P, st.Q, st.T) for st in rs.stages[:k])
-            ok = cascade.chunk_out_count(fused, B, L) is not None
-            self._cascade_k = k if ok else 0
-            self._cascade_stages = fused
-        return self._cascade_k > 0 and total == B * L
-
     # -- dispatch -------------------------------------------------------------
 
     def dispatch_chunk(self, chunk: streaming.Chunk, k=None):
@@ -436,76 +351,22 @@ class MultiChannelPipeline:
         plans.numpy()[...] = fields.view(np.int32)
         t1 = time.perf_counter()
         self.spans.add("stage", k, t0, t1)
-        pending = None
-        if self.mesh is not None:
-            parts = self._dispatch_sharded(data, plans, total)
-            if parts is not None:
-                pending = self._start_out(parts, k)
-        if pending is None:
-            if self.device.type == "cuda":
-                # one (7, C, B) transfer a chunk
-                plans = plans.to(self.device, non_blocking=True)
-                data = data.to(self.device, non_blocking=True)
-            pending = self._start_out(self._dispatch_local(data, plans, total),
-                                      k)
-        self.spans.add("launch", k, t1, time.perf_counter())
-        return pending
+        return self._launch(data, plans, total, k, t1)
 
     def _dispatch_local(self, data, plans, total: int):
-        """Launch one staged chunk down its route.  Returns the parts
+        """Launch one staged host chunk down its route.  Returns the parts
         ``(channel indices, device output, n_valid)``; an output is int32
         ``(C_g, …)`` or float32 ``(2, C_g, …)``."""
-        C = len(self.channels)
-        everyone = list(range(C))
-        rs = self.resampler
-        if self._chain_eligible(total):
-            if self._chain_bank is None:
-                self._chain_bank = torch.from_numpy(rs.bank).to(self.device)
-            if self._chain_carries is None:
-                # seed from the batched resampler's per-channel history, so
-                # chunks interleaved with the unfused route (or a restored
-                # checkpoint) resume bitwise
-                self._chain_carries = torch.stack(
-                    [rs._hist_i, rs._hist_q], dim=1).to(self.device,
-                                                       torch.float32)
-            out, self._chain_carries = chain.mix_resample_chain_channels(
-                data, plans, self._chain_bank, self._chain_carries,
-                P=rs.P, Q=rs.Q, T=rs.T, intype=self.intype,
-                outtype=self.outtype, dot_precision=self._chain_dot)
-            n_out = self._advance([rs], [self._chain_carries], total)
-            return [(everyone, out, n_out)]
-
-        if self._cascade_eligible(total):
-            k = self._cascade_k
-            fused = rs.stages[:k]
-            split = k < len(rs.stages)
-            if self._cascade_banks is None:
-                self._cascade_banks = tuple(
-                    torch.from_numpy(st.bank).to(self.device) for st in fused)
-            if self._cascade_carries is None:
-                self._cascade_carries = tuple(
-                    torch.stack([st._hist_i, st._hist_q], dim=1).to(
-                        self.device, torch.float32)
-                    for st in fused)
-            out, self._cascade_carries = cascade.mix_cascade_channels(
-                data, plans, self._cascade_banks, self._cascade_carries,
-                stages=self._cascade_stages, intype=self.intype,
-                outtype="f32" if split else self.outtype, final_dense=split)
-            n_mid = self._advance(fused, self._cascade_carries, total)
-            if not split:
-                return [(everyone, out, n_mid)]
-            # split: the front's planes (2, C, B, M_mid) run the remaining
-            # stages batched (plain torch on the device, as the JAX package
-            # runs them in XLA)
-            planes = out.reshape(2, C, -1)
-            yi, yq, n_out = planes[0], planes[1], n_mid
-            for st in rs.stages[k:]:
-                yi, yq, n_out = st.process(yi, yq, n_out,
-                                           M=st.max_out_for(int(yi.shape[-1])))
-            return [(everyone, self._encode(yi, yq), n_out)]
-
+        if self.device.type == "cuda":
+            # one (7, C, B) transfer a chunk, from the pinned staging buffer
+            plans = plans.to(self.device, non_blocking=True)
+            data = data.to(self.device, non_blocking=True)
+        fused = self._dispatch_fused(data, plans, total)
+        if fused is not None:
+            return fused
         # the unfused route: one mixer launch for all channels, then each
         # rate group's batched resampler
+        everyone = self._rows
         no_resampling = all(g_rs is None for _, g_rs in self._groups)
         out = mixer.mix_blocks_fmt_channels(
             data, plans, intype=self.intype,
@@ -513,9 +374,8 @@ class MultiChannelPipeline:
         if no_resampling:
             return [(everyone, out, total)]
         # any later fused chunk must reseed its carries from the histories
-        self._chain_carries = None
-        self._cascade_carries = None
-        planes = out.reshape(2, C, -1)
+        self.drop_carries()
+        planes = out.reshape(2, len(everyone), -1)
         parts = []
         for idxs, g_rs in self._groups:
             if idxs == everyone:
@@ -524,26 +384,14 @@ class MultiChannelPipeline:
                 sel = torch.tensor(idxs, device=self.device)
                 sub_i, sub_q = planes[0][sel], planes[1][sel]
             if g_rs is None:
-                parts.append((idxs, self._encode(sub_i, sub_q), total))
+                parts.append((idxs, codec.encode(sub_i, sub_q, self.outtype),
+                              total))
             else:
                 yi, yq, n_out = g_rs.process(
                     sub_i, sub_q, total,
                     M=g_rs.max_out_for(self.chunk_blocks * self.block_samples))
-                parts.append((idxs, self._encode(yi, yq), n_out))
+                parts.append((idxs, codec.encode(yi, yq, self.outtype), n_out))
         return parts
-
-    def _casc_group_cfg(self, g: int, rs):
-        """The fused stage count with which rate group ``g``'s cascade runs
-        the sharded step, or None when a shard cannot take it: the JAX
-        rule on the port's geometry (``sharded.cascade_shard_replay``).
-        Cached per group."""
-        if g not in self._sharded_casc_cfg:
-            B, L = self.chunk_blocks, self.block_samples
-            k = cascade.split_point(rs.stages) if L % 128 == 0 else 0
-            ok = k > 0 and sharded.cascade_shard_replay(
-                rs, k, L, B // self.mesh.shape["time"]) is not None
-            self._sharded_casc_cfg[g] = k if ok else None
-        return self._sharded_casc_cfg[g]
 
     def _dispatch_sharded(self, data, plans, total: int):
         """``--mesh`` dispatch of one staged host chunk, per rate group.
@@ -552,7 +400,7 @@ class MultiChannelPipeline:
         resampler; a group that does not divide over the channel axis, or
         a cascade a shard cannot take, with a warning)."""
         B, L = self.chunk_blocks, self.block_samples
-        n_chan, n_time = self.mesh.shape["channel"], self.mesh.shape["time"]
+        n_chan = self.mesh.shape["channel"]
         if any(rs is not None for _, rs in self._groups) and total != B * L:
             return None
         for g, (idxs, rs) in enumerate(self._groups):
@@ -571,42 +419,26 @@ class MultiChannelPipeline:
                     "step (geometry/impl) — running unsharded")
                 return None
 
-        def step(kind, g, make):
-            if (kind, g) not in self._sharded_steps:
-                self._sharded_steps[kind, g] = make()
-            return self._sharded_steps[kind, g]
-
         parts = []
         for g, (idxs, rs) in enumerate(self._groups):
             C_g = len(idxs)
             plans_g = plans if C_g == len(self.channels) else plans[:, idxs]
             if rs is None:
-                mix = step("mix", g, lambda: sharded.make_wideband_mix_step(
-                    self.mesh, intype=self.intype, outtype=self.outtype, C=C_g))
-                parts += [(idxs[cs], out,
-                           max(0, min(L * (bs.stop - bs.start), total - bs.start * L)))
-                          for cs, bs, out in mix(data, plans_g)]
+                shards = self._sharded_mix(("mix", g), C_g, data, plans_g,
+                                           total)
             elif getattr(rs, "bank", None) is not None:
-                run = step("window", g, lambda: sharded.make_wideband_stream_step(
-                    self.mesh, intype=self.intype, outtype=self.outtype,
-                    C=C_g, resampler=rs))
-                rem, off, counts = sharded.stream_step_alignment(
-                    rs, rs.in_consumed, B * L // n_time, n_time)
-                out_parts, rs._hist_i, rs._hist_q = run(
-                    data, plans_g, rs._hist_i, rs._hist_q, rem, off, counts)
-                rs.m_next += sum(counts)
-                rs.in_consumed += total
-                parts += [(idxs[cs], out, counts[bs.start * n_time // B])
-                          for cs, bs, out in out_parts]
+                shards = self._sharded_window(("window", g), C_g, rs, data,
+                                              plans_g, total)
             else:
                 parts += self._sharded_cascade_group(g, rs, idxs, data,
-                                                     plans_g, total, step)
+                                                     plans_g, total)
+                continue
+            parts += [(idxs[cs], out, n) for cs, out, n in shards]
         # a later unsharded fused chunk reseeds from the histories
-        self._chain_carries = None
-        self._cascade_carries = None
+        self.drop_carries()
         return parts
 
-    def _sharded_cascade_group(self, g, rs, idxs, data, plans, total, step):
+    def _sharded_cascade_group(self, g, rs, idxs, data, plans, total):
         """One rate group's sharded fused-cascade chunk (full or split).
         Its carries are seeded from each fused stage's batched history
         every chunk, as in the JAX package, so the mesh and the unsharded
@@ -614,13 +446,10 @@ class MultiChannelPipeline:
         k = self._sharded_casc_cfg[g]
         split = k < len(rs.stages)
         fused = rs.stages[:k]
-        C_g = len(idxs)
-        run = step("cascade", g, lambda: sharded.make_cascade_channels_step(
-            self.mesh, resampler=rs, fused=k, C=C_g, intype=self.intype,
+        run = self._step(("cascade", g), lambda: sharded.make_cascade_channels_step(
+            self.mesh, resampler=rs, fused=k, C=len(idxs), intype=self.intype,
             outtype="f32" if split else self.outtype, final_dense=split))
-        carries = tuple(torch.stack([st._hist_i, st._hist_q], dim=1)
-                        for st in fused)
-        out_parts, carries = run(data, plans, carries)
+        out_parts, carries = run(data, plans, self._seed(fused))
         n_mid = self._advance(fused, carries, total)
         n_time = self.mesh.shape["time"]
         if not split:
@@ -633,70 +462,25 @@ class MultiChannelPipeline:
                 out.reshape(2, cs.stop - cs.start, -1).to(self.device))
         planes = torch.cat([torch.cat(by_rows[c], dim=2)
                             for c in sorted(by_rows)], dim=1)
-        yi, yq, n_out = planes[0], planes[1], n_mid
-        for st in rs.stages[k:]:
-            yi, yq, n_out = st.process(yi, yq, n_out,
-                                       M=st.max_out_for(int(yi.shape[-1])))
-        return [(idxs, self._encode(yi, yq), n_out)]
-
-    def _advance(self, stages, carries, total: int) -> int:
-        """Advance the fused stages' stream counters and mirror each one's
-        per-channel history out of its ``(C, 2, T−1)`` device carry (no
-        sync).  Returns the count leaving the last of them."""
-        n_in = total
-        for st, carry in zip(stages, carries):
-            n_out = st.out_count_for(n_in)
-            st.m_next += n_out
-            st.in_consumed += n_in
-            st._hist_i = carry[:, 0]
-            st._hist_q = carry[:, 1]
-            n_in = n_out
-        return n_in
-
-    def _encode(self, yi, yq) -> torch.Tensor:
-        if self.outtype == "i16":
-            return codec.iq_to_i16_words(yi, yq)
-        return torch.stack([yi, yq])
+        yi, yq, n_out = rs.process(planes[0], planes[1], n_mid, start=k)
+        return [(idxs, codec.encode(yi, yq, self.outtype), n_out)]
 
     # -- output ---------------------------------------------------------------
 
-    def _start_out(self, parts, k=None):
-        """Start the device→host copies of every part's valid outputs;
-        returns the finalizer that waits for them and cuts the per-channel
-        byte strings, its ``wait`` and ``cut`` spans under chunk ``k`` (none
-        for the drain, ``k`` None).  ``parts``: ``(channel indices, output,
-        n_valid)``; a channel's parts are in stream order."""
-        hosts, devices = [], []
-        for idxs, out, n_valid in parts:
-            if self.outtype == "i16":
-                valid = out.reshape(len(idxs), -1)[:, :n_valid]
-            else:
-                valid = out.reshape(2, len(idxs), -1)[:, :, :n_valid]
-            valid = valid.contiguous()
-            if valid.device.type == "cuda":
-                host = host_buffer(tuple(valid.shape), valid.dtype, valid.device)
-                host.copy_(valid, non_blocking=True)
-                devices.append(valid.device)
-                valid = host
-            hosts.append((idxs, valid))
-        events = copy_events(devices)
+    _channel_dims = 1       # carries (C, 2, T−1); outputs (C, n) or (2, C, n)
 
-        def finalize() -> list[bytes]:
-            t0 = time.perf_counter()
-            for ev in events:
-                ev.synchronize()
-            t1 = time.perf_counter()
-            outs = self._cut(hosts)
-            hosts.clear()   # free the host buffers inside the cut span, not after it
-            if k is not None:
-                self.spans.add("wait", k, t0, t1)
-                self.spans.add("cut", k, t1, time.perf_counter())
-            return outs
-        return finalize
+    def _chain_carry_span(self) -> int:
+        return self.chunk_blocks * self.block_samples
 
-    def _cut(self, hosts) -> list[bytes]:
-        """Copied-out outputs ``(channel indices, host tensor)`` → each
-        channel's bytes, in stream order."""
+    def _fused_kernels(self):
+        return chain.mix_resample_chain_channels, cascade.mix_cascade_channels
+
+    def _lead(self, rows) -> tuple:
+        return (len(rows),)
+
+    def _stage_out(self, hosts) -> list[bytes]:
+        """The cut: copied-out outputs ``(channel indices, host tensor)`` →
+        each channel's bytes, in stream order."""
         outs: list[bytes] = [b""] * len(self.channels)
         for idxs, host in hosts:
             arr = host.numpy()
@@ -707,25 +491,6 @@ class MultiChannelPipeline:
                     outs[cidx] += codec.f32_pairs_to_bytes(
                         native.planar_to_f32_pairs(arr[0, row], arr[1, row]))
         return outs
-
-    def drain(self) -> list[bytes]:
-        """Flush every resampler group's FIR tail with T−1 zero samples —
-        the per-channel form of ``Pipeline._drain``."""
-        parts = []
-        for idxs, rs in self._groups:
-            if rs is None:
-                continue
-            pad = rs.T - 1
-            if pad <= 0:
-                continue
-            zeros = torch.zeros((len(idxs), pad), dtype=torch.float32,
-                                device=self.device)
-            yi, yq, n_out = rs.process(zeros, zeros, pad, M=rs.max_out_for(pad))
-            if n_out:
-                parts.append((idxs, self._encode(yi, yq), n_out))
-        self._chain_carries = None    # histories advanced past the stream end
-        self._cascade_carries = None
-        return self._start_out(parts)()
 
     # -- main loop ------------------------------------------------------------
 
@@ -747,6 +512,8 @@ class MultiChannelPipeline:
         clock = time.perf_counter
 
         def emit(finalize, bytes_in, blocks, k):
+            if finalize is None:
+                return
             outs = finalize()
             t0 = clock()
             for w, ob in zip(writers, outs):
@@ -760,31 +527,8 @@ class MultiChannelPipeline:
             )
             spans.add("write", k, t0, clock())
 
-        pending = None
-        pending_meta = (0, 0, None)
-        hit_eof = False
-        k = 0
-        while True:
-            if should_stop is not None and should_stop():
-                break
-            t0 = clock()
-            chunk = reader.read_chunk(self.chunk_blocks)
-            spans.add("read", k, t0, clock())
-            spans.bump("chunks")
-            new_pending = self.dispatch_chunk(chunk, k)
-            if pending is not None:
-                emit(pending, *pending_meta)
-            pending = new_pending
-            pending_meta = (len(chunk.data), chunk.n_blocks, k)
-            k += 1
-            if chunk.eof:
-                hit_eof = True
-                break
-        if pending is not None:
-            emit(pending, *pending_meta)
-        # drain only on a true EOF exit: a stop between chunks is a pause,
-        # and must neither flush the tails nor set the drained flag
-        if hit_eof and self.drain_on_eof:
+        if (run_chunks(reader, self.chunk_blocks, spans, self.dispatch_chunk,
+                       emit, should_stop) and self.drain_on_eof):
             for w, ob in zip(writers, self.drain()):
                 if ob:
                     w.write(ob)

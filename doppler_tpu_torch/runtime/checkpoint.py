@@ -178,8 +178,7 @@ def restore(src, pipe) -> dict:
         pipe.resampler.load_state(
             {name[len("rs_"):]: z[name] for name in z if name.startswith("rs_")})
         # the fused kernels reseed their carries from the loaded histories
-        pipe._chain_carry = None
-        pipe._cascade_carries = None
+        pipe.drop_carries()
     return meta
 
 
@@ -275,6 +274,5 @@ def restore_channels(src, mpipe) -> dict:
         if not rstate:
             raise ValueError(f"checkpoint group {g} missing resampler state")
         rs.load_state(rstate)
-    mpipe._chain_carries = None    # reseed from the restored histories
-    mpipe._cascade_carries = None
+    mpipe.drop_carries()    # reseed from the restored histories
     return meta

@@ -36,9 +36,16 @@ so the carry is bitwise the one the uninterrupted run holds there.
 
 Dispatch never synchronises: the chunk is staged into pinned host memory,
 copied to the card with ``non_blocking=True``, the kernel launches, the
-device→host copy starts and an event is recorded.  :meth:`Pipeline._finalize`
-waits on that event, so host planning of chunk k+1 overlaps the device work
-of chunk k.
+device→host copy starts and an event is recorded; the finalizer
+:meth:`ChunkPipeline._start_out` returns waits on that event, and
+:func:`run_chunks` calls it only after the next chunk's dispatch, so host
+planning of chunk k+1 overlaps the device work of chunk k.
+
+:class:`ChunkPipeline` holds what this pipeline shares with
+``channels.MultiChannelPipeline``: the fused kernels' gates, their device
+carries (seeded from and mirrored into the resampler's history, dropped by
+:meth:`ChunkPipeline.drop_carries`), the fused routes, the copy-out and the
+drain; :func:`run_chunks` is the loop of both.
 
 ``mesh`` (``parallel.mesh``, channel axis 1) shards each chunk's blocks
 over a time grid of devices: the mixer, the chain and the cascade run per
@@ -70,8 +77,9 @@ from doppler_tpu_torch.runtime import stream as streaming
 from doppler_tpu_torch.runtime import telemetry
 from doppler_tpu_torch.runtime.telemetry import Counters, get_logger
 
-__all__ = ["Scheduler", "ConstScheduler", "Pipeline", "resolve_device",
-           "carry_rows", "host_buffer", "stage_chunk", "copy_events"]
+__all__ = ["Scheduler", "ConstScheduler", "ChunkPipeline", "Pipeline",
+           "resolve_device", "carry_rows", "host_buffer", "stage_chunk",
+           "copy_events", "fused_prefix", "run_chunks"]
 
 log = get_logger("pipeline")
 
@@ -153,7 +161,385 @@ def stage_chunk(data: bytes, intype: str, B: int, L: int,
     return host
 
 
-class Pipeline:
+def fused_prefix(rs, B: int, L: int):
+    """``(k, fused (P, Q, T))``: the leading stages of the cascade ``rs``
+    that the fused cascade kernel runs over chunks of ``B`` blocks of ``L``
+    samples, or None when it fuses none.
+
+    The JAX rule, a non-empty prefix ``k = split_point(stages)`` when
+    ``L % 128 == 0``, with the TPU's step geometry replaced by the kernel's
+    ``chunk_out_count`` (each fused stage's chunk input count a multiple of
+    its Q, a whole output count per block).
+    """
+    k = cascade.split_point(rs.stages) if L % 128 == 0 else 0
+    fused = tuple((st.P, st.Q, st.T) for st in rs.stages[:k])
+    if cascade.chunk_out_count(fused, B, L) is None:
+        return None
+    return k, fused
+
+
+def run_chunks(reader, chunk_blocks: int, spans, dispatch, emit,
+               should_stop=None) -> bool:
+    """The run loop of both pipelines, one chunk deep.
+
+    Reads chunk k (its ``read`` span and one ``chunks`` count), hands it to
+    ``dispatch(chunk, k)``, and only then to ``emit(pending, bytes_in,
+    blocks, k − 1)`` the chunk before it, ``pending`` being what its
+    dispatch returned: the host plans chunk k while the device runs chunk
+    k − 1.  ``should_stop`` is polled before each read.  Returns True when
+    the loop ended at a true EOF: only then may the caller drain, since a
+    stop between chunks is a pause and flushing the FIR tail there would
+    corrupt the output.
+    """
+    clock = time.perf_counter
+    last = None         # (pending, bytes_in, blocks, k) of the chunk in flight
+    eof = False
+    k = 0
+    while not eof and (should_stop is None or not should_stop()):
+        t0 = clock()
+        chunk = reader.read_chunk(chunk_blocks)
+        spans.add("read", k, t0, clock())
+        spans.bump("chunks")
+        pending = dispatch(chunk, k)
+        if last is not None:
+            emit(*last)
+        last = (pending, len(chunk.data), chunk.n_blocks, k)
+        eof = chunk.eof
+        k += 1
+    if last is not None:
+        emit(*last)
+    return eof
+
+
+class ChunkPipeline:
+    """What :class:`Pipeline` and ``channels.MultiChannelPipeline`` share:
+    the options both take and their checks, the fused kernels' gates,
+    routes and device carries, the copy-out of a chunk's outputs and the
+    drain.  Each subclass plans and stages its chunks, launches the unfused
+    and the sharded routes, cuts its outputs (``_stage_out``) and writes
+    them in its ``run`` (:func:`run_chunks`).
+
+    Each subclass also says what its chunks are: ``_rows``, the channel
+    indices of a fused chunk's part (None for the stream);
+    ``_channel_dims``, the axes before a carry's I/Q (0 for the stream's
+    ``(2, T−1)``, 1 for channels' ``(C, 2, T−1)``); and three methods:
+    :meth:`_chain_carry_span`, the samples the chain's carry must fit in
+    (a block for the stream, the chunk for channels); :meth:`_fused_kernels`,
+    the chain and cascade entry points; :meth:`_lead`, the axes of a part's
+    output before its samples.  ``_groups`` are its ``(rows, resampler)``
+    rate groups, which :meth:`drain` flushes.
+    """
+
+    def __init__(self, samplerate: int, intype: str, outtype: str, *,
+                 block_bytes: int, chunk_blocks: int, quantize_ratio_f32: bool,
+                 drain_on_eof: bool, precision: str, impl: str, device, mesh):
+        if impl not in ("xla", "pallas"):
+            raise ValueError(f"impl must be 'xla' or 'pallas', got {impl!r}")
+        self.impl = impl
+        if precision not in ("exact", "fast"):
+            raise ValueError(
+                f"precision must be 'exact' or 'fast', got {precision!r}")
+        self._chain_dot = "split3" if precision == "fast" else "highest"
+        self.device = resolve_device(device)
+        self.samplerate = int(samplerate)
+        self.intype = intype
+        self.outtype = outtype
+        self.block_bytes = int(block_bytes)
+        self.chunk_blocks = int(chunk_blocks)
+        self.quantize_ratio_f32 = quantize_ratio_f32
+        self.drain_on_eof = drain_on_eof  # flush the FIR tail with zeros at EOF
+        self._drained = False  # did THIS run reach EOF and flush the tail?
+        self._bps_in = streaming.bytes_per_sample(intype)
+        self._bps_out = streaming.bytes_per_sample(outtype)
+        self.block_samples = self.block_bytes // self._bps_in
+        self.resampler = None
+        # --mesh: shard the chunk's blocks over the time axis (and channels
+        # over the channel axis); the bytes are the unsharded run's
+        self.mesh = mesh
+        if mesh is not None:
+            n_time = mesh.shape["time"]
+            if self.chunk_blocks % n_time:
+                raise ValueError(
+                    f"chunk_blocks={self.chunk_blocks} must be divisible by "
+                    f"mesh time={n_time}")
+            if mesh.device() != self.device:
+                raise ValueError(
+                    f"the mesh starts on {mesh.device()}, the pipeline "
+                    f"runs on {self.device}")
+        self._reset_fused_state()
+        self.spans = telemetry.Spans()
+
+    @property
+    def host_s(self) -> float:
+        return self.spans.seconds("schedule", "plan", "stage")
+
+    def _reset_fused_state(self) -> None:
+        self._chain_carry = None
+        self._chain_bank = None
+        self._cascade_k = None          # fused stages; 0 = never fused
+        self._cascade_stages = None     # their (P, Q, T)
+        self._cascade_banks = None
+        self._cascade_carries = None    # one per fused stage
+        self._sharded_casc_cfg = {}     # rate group → fused count or None
+        self._sharded_steps = {}        # key → parallel.sharded step
+
+    def drop_carries(self) -> None:
+        """Drop the fused kernels' device carries, so the next fused chunk
+        reseeds them from the resampler's history: after any route that
+        moves the history without them (the unfused route, the sharded
+        steps, the drain) and after a restored checkpoint."""
+        self._chain_carry = None
+        self._cascade_carries = None
+
+    def _check_shard_history(self, rs) -> None:
+        """A single-stage resampler's history must fit in one time shard."""
+        n_loc = self.chunk_blocks * self.block_samples // self.mesh.shape["time"]
+        if rs.T - 1 > n_loc:
+            raise ValueError(
+                f"resampler history ({rs.T - 1} samples) exceeds one time "
+                f"shard ({n_loc} samples); use fewer/larger chunks")
+        if n_loc * rs.P >= (1 << 30):
+            raise ValueError("time shard too large for 32-bit phase math")
+
+    # -- the gates ------------------------------------------------------------
+
+    def _chain_eligible(self, total: int) -> bool:
+        """May this chunk run the fused chain kernel?
+
+        The rule of ``doppler_tpu``'s pipelines, term for term, so both
+        packages send the same chunks down the same route.  The 128-sample
+        terms are the TPU's lane geometry; the kernel here needs only
+        ``L % Q == 0``, which they imply.  The carry's rows must fit in one
+        block for the stream, in the chunk for channels
+        (``_chain_carry_span``).
+        """
+        rs = self.resampler
+        if rs is None or self.impl != "pallas":
+            return False
+        B, L = self.chunk_blocks, self.block_samples
+        return (
+            getattr(rs, "bank", None) is not None   # single-stage only
+            and L % 128 == 0
+            and 128 % rs.Q == 0
+            and carry_rows(rs.T) <= self._chain_carry_span() // 128
+            # padded tail chunks would poison the carry with zeros;
+            # only the EOF chunk is partial, so this costs nothing
+            and total == B * L
+        )
+
+    def _cascade_eligible(self, total: int) -> bool:
+        """May this chunk run the fused cascade kernel?
+
+        The JAX rule: a ``MultiStageResampler``, a :func:`fused_prefix` and
+        a full chunk.  Decided once per resampler: ``_cascade_k`` is the
+        fused stage count, 0 when the cascade never fuses.
+        """
+        rs = self.resampler
+        if (rs is None or self.impl != "pallas"
+                or getattr(rs, "stages", None) is None):
+            return False
+        B, L = self.chunk_blocks, self.block_samples
+        if self._cascade_k is None:
+            self._cascade_k, self._cascade_stages = (
+                fused_prefix(rs, B, L) or (0, ()))
+        return self._cascade_k > 0 and total == B * L
+
+    def _casc_group_cfg(self, g: int, rs):
+        """The fused stage count with which rate group ``g``'s cascade (the
+        stream's is group 0) runs the sharded step, or None when a shard
+        cannot take it: the JAX rule on the port's geometry
+        (``sharded.cascade_shard_replay``).  Cached per group."""
+        if g not in self._sharded_casc_cfg:
+            B, L = self.chunk_blocks, self.block_samples
+            pre = fused_prefix(rs, B, L)
+            ok = pre is not None and sharded.cascade_shard_replay(
+                rs, pre[0], L, B // self.mesh.shape["time"]) is not None
+            self._sharded_casc_cfg[g] = pre[0] if ok else None
+        return self._sharded_casc_cfg[g]
+
+    # -- device carries -------------------------------------------------------
+
+    def _seed(self, stages) -> tuple:
+        """Device carries seeded from each stage's FIR history, so a fused
+        chunk after the unfused route or a restore resumes bitwise."""
+        return tuple(
+            torch.stack([st._hist_i, st._hist_q], dim=self._channel_dims).to(
+                self.device, torch.float32)
+            for st in stages)
+
+    def _advance(self, stages, carries, total: int) -> int:
+        """Advance the fused stages' stream counters by a chunk of ``total``
+        inputs and mirror each one's history out of its device carry (no
+        sync).  Returns the count leaving the last of them."""
+        n_in = total
+        for st, carry in zip(stages, carries):
+            n_out = st.out_count_for(n_in)
+            st.m_next += n_out
+            st.in_consumed += n_in
+            st._hist_i = carry.select(self._channel_dims, 0)
+            st._hist_q = carry.select(self._channel_dims, 1)
+            n_in = n_out
+        return n_in
+
+    def _ensure_chain_state(self) -> None:
+        """Seed the chain's carry and bank (idempotent; reseeds after
+        :meth:`drop_carries`)."""
+        if self._chain_carry is None:
+            self._chain_carry, = self._seed([self.resampler])
+        if self._chain_bank is None:
+            self._chain_bank = torch.from_numpy(self.resampler.bank).to(
+                self.device)
+
+    def _ensure_cascade_state(self) -> None:
+        """Seed the fused stages' banks and carries (idempotent; reseeds
+        after :meth:`drop_carries`)."""
+        fused = self.resampler.stages[:self._cascade_k]
+        if self._cascade_banks is None:
+            self._cascade_banks = tuple(
+                torch.from_numpy(st.bank).to(self.device) for st in fused)
+        if self._cascade_carries is None:
+            self._cascade_carries = self._seed(fused)
+
+    # -- dispatch -------------------------------------------------------------
+
+    def _launch(self, data, plans, total: int, k, t0: float):
+        """Launch one staged host chunk and start the copy-out of its
+        outputs: the sharded steps under a mesh where they take the chunk,
+        else the local route, which copies it to the device.  The
+        ``launch`` span runs from ``t0``; returns the finalizer."""
+        parts = None
+        if self.mesh is not None:
+            parts = self._dispatch_sharded(data, plans, total)
+        if parts is None:
+            parts = self._dispatch_local(data, plans, total)
+        finalize = self._start_out(parts, k)
+        self.spans.add("launch", k, t0, time.perf_counter())
+        return finalize
+
+    def _dispatch_fused(self, data, plans, total: int):
+        """Run a chunk the fused chain or cascade kernel takes: its one part
+        ``[(rows, device output, n_valid)]``, or None when neither gate
+        passes.  A split cascade's front planes then run the remaining
+        stages (plain torch on the device, as the JAX package runs them in
+        XLA)."""
+        rs = self.resampler
+        run_chain, run_cascade = self._fused_kernels()
+        if self._chain_eligible(total):
+            self._ensure_chain_state()
+            out, self._chain_carry = run_chain(
+                data, plans, self._chain_bank, self._chain_carry,
+                P=rs.P, Q=rs.Q, T=rs.T, intype=self.intype,
+                outtype=self.outtype, dot_precision=self._chain_dot)
+            n_out = self._advance([rs], [self._chain_carry], total)
+            return [(self._rows, out, n_out)]
+        if not self._cascade_eligible(total):
+            return None
+        self._ensure_cascade_state()
+        k = self._cascade_k
+        split = k < len(rs.stages)
+        out, self._cascade_carries = run_cascade(
+            data, plans, self._cascade_banks, self._cascade_carries,
+            stages=self._cascade_stages, intype=self.intype,
+            outtype="f32" if split else self.outtype, final_dense=split)
+        n_out = self._advance(rs.stages[:k], self._cascade_carries, total)
+        if split:
+            # the front's planes (2, [C,] B, M_mid), flattened per channel
+            planes = out.flatten(1 + self._channel_dims)
+            yi, yq, n_out = rs.process(planes[0], planes[1], n_out, start=k)
+            out = codec.encode(yi, yq, self.outtype)
+        return [(self._rows, out, n_out)]
+
+    def _step(self, key, make):
+        """The sharded step under ``key``, made on first use."""
+        if key not in self._sharded_steps:
+            self._sharded_steps[key] = make()
+        return self._sharded_steps[key]
+
+    def _sharded_mix(self, key, C: int, data, plans, total: int) -> list:
+        """The sharded mixer over ``C`` channels: ``(channel slice, output,
+        n_valid)`` a shard."""
+        L = self.block_samples
+        mix = self._step(key, lambda: sharded.make_wideband_mix_step(
+            self.mesh, intype=self.intype, outtype=self.outtype, C=C))
+        return [(cs, out, max(0, min(L * (bs.stop - bs.start),
+                                     total - bs.start * L)))
+                for cs, bs, out in mix(data, plans)]
+
+    def _sharded_window(self, key, C: int, rs, data, plans, total: int) -> list:
+        """The sharded mixer + window resampler step over ``C`` channels of
+        the single-stage ``rs``, which it advances: ``(channel slice,
+        output, n_valid)`` a shard."""
+        B, L = self.chunk_blocks, self.block_samples
+        n_time = self.mesh.shape["time"]
+        run = self._step(key, lambda: sharded.make_wideband_stream_step(
+            self.mesh, intype=self.intype, outtype=self.outtype, C=C,
+            resampler=rs))
+        rem, off, counts = sharded.stream_step_alignment(
+            rs, rs.in_consumed, B * L // n_time, n_time)
+        parts, rs._hist_i, rs._hist_q = run(data, plans, rs._hist_i,
+                                            rs._hist_q, rem, off, counts)
+        rs.m_next += sum(counts)
+        rs.in_consumed += total
+        return [(cs, out, counts[bs.start * n_time // B])
+                for cs, bs, out in parts]
+
+    # -- output ---------------------------------------------------------------
+
+    def _start_out(self, parts, k=None):
+        """Start the device→host copies of the valid outputs; returns the
+        finalizer that waits for them and returns :meth:`_stage_out` of the
+        host copies, its ``wait`` and ``cut`` spans under chunk ``k`` (none
+        for the drain, ``k`` None).  ``parts``: ``(rows, device output,
+        n_valid)``, in stream order for each row; the finalizer's
+        ``hosts``: ``(rows, host tensor)``."""
+        hosts, devices = [], []
+        for rows, out, n_valid in parts:
+            shape = (*self._lead(rows), -1)
+            if self.outtype != "i16":
+                shape = (2, *shape)
+            valid = out.reshape(shape)[..., :n_valid].contiguous()
+            if valid.device.type == "cuda":
+                host = host_buffer(tuple(valid.shape), valid.dtype, valid.device)
+                host.copy_(valid, non_blocking=True)
+                devices.append(valid.device)
+                valid = host
+            hosts.append((rows, valid))
+        events = copy_events(devices)
+
+        def finalize():
+            t0 = time.perf_counter()
+            for ev in events:
+                ev.synchronize()
+            t1 = time.perf_counter()
+            outs = self._stage_out(hosts)
+            hosts.clear()   # free the host buffers inside the cut span, not after it
+            if k is not None:
+                self.spans.add("wait", k, t0, t1)
+                self.spans.add("cut", k, t1, time.perf_counter())
+            return outs
+        return finalize
+
+    def drain(self):
+        """Flush each ``(rows, resampler)`` group's FIR tail by feeding T−1
+        zero samples — the outputs whose windows straddle the end of the
+        stream — and return their :meth:`_stage_out` cut (empty with no
+        tail).  The histories move past the stream's end, so the carries
+        drop."""
+        parts = []
+        for rows, rs in self._groups:
+            pad = 0 if rs is None else rs.T - 1
+            if pad <= 0:
+                continue
+            shape = (*self._lead(rows), pad)
+            zeros = torch.zeros(shape, dtype=torch.float32, device=self.device)
+            yi, yq, n_out = rs.process(zeros, zeros, pad, M=rs.max_out_for(pad))
+            if n_out:
+                parts.append((rows, codec.encode(yi, yq, self.outtype), n_out))
+        self.drop_carries()
+        return self._start_out(parts)()
+
+
+class Pipeline(ChunkPipeline):
     """Streaming Doppler corrector on one device.
 
     Parameters mirror the reference CLI surface: sample rate, input/output
@@ -184,6 +570,9 @@ class Pipeline:
     seconds, the ``schedule``, ``plan`` and ``stage`` totals.
     """
 
+    _rows = None            # the stream's parts have no channel rows
+    _channel_dims = 0       # carries (2, T−1); outputs (n,) or (2, n)
+
     def __init__(
         self,
         samplerate: int,
@@ -203,59 +592,24 @@ class Pipeline:
     ):
         if samplerate <= 0:
             raise ValueError("samplerate must be positive")
-        if impl not in ("xla", "pallas"):
-            raise ValueError(f"impl must be 'xla' or 'pallas', got {impl!r}")
-        self.impl = impl
-        if precision not in ("exact", "fast"):
-            raise ValueError(
-                f"precision must be 'exact' or 'fast', got {precision!r}")
-        self._chain_dot = "split3" if precision == "fast" else "highest"
-        self.device = resolve_device(device)
-        self.samplerate = int(samplerate)
-        self.intype = intype
-        self.outtype = outtype
+        super().__init__(
+            samplerate, intype, outtype, block_bytes=block_bytes,
+            chunk_blocks=chunk_blocks, quantize_ratio_f32=quantize_ratio_f32,
+            drain_on_eof=drain_on_eof, precision=precision, impl=impl,
+            device=device, mesh=mesh)
         self.scheduler = scheduler
-        self.block_bytes = int(block_bytes)
-        self.chunk_blocks = int(chunk_blocks)
-        self.quantize_ratio_f32 = quantize_ratio_f32
-        self.drain_on_eof = drain_on_eof  # flush the FIR tail with zeros at EOF
-        self._drained = False  # did THIS run reach EOF and flush the tail?
         self.prefetch_chunks = int(prefetch_chunks)  # staged-read queue depth
         self.nco_state = NCOState()   # the stream's entire resumable DSP state
-
-        self._bps_in = streaming.bytes_per_sample(intype)
-        self._bps_out = streaming.bytes_per_sample(outtype)
         if self.block_bytes % self._bps_in != 0:
             raise ValueError(
                 f"block_bytes={block_bytes} not a multiple of the "
                 f"{intype} sample size {self._bps_in}"
             )
-        self.block_samples = self.block_bytes // self._bps_in
         self._sample_offset = 0  # absolute index of next input sample
-        self.resampler = None
-        # --mesh: shard the chunk's blocks over a (channel=1, time) grid;
-        # the bytes are the unsharded run's
-        self.mesh = mesh
-        if mesh is not None:
-            if mesh.shape["channel"] != 1:
-                raise ValueError(
-                    "single-stream pipeline needs mesh channel=1 "
-                    "(use channels mode for channel parallelism)")
-            n_time = mesh.shape["time"]
-            if self.chunk_blocks % n_time:
-                raise ValueError(
-                    f"chunk_blocks={self.chunk_blocks} must be divisible by "
-                    f"mesh time={n_time}")
-            if mesh.device() != self.device:
-                raise ValueError(
-                    f"the mesh starts on {mesh.device()}, the pipeline "
-                    f"runs on {self.device}")
-        self._reset_fused_state()
-        self.spans = telemetry.Spans()
-
-    @property
-    def host_s(self) -> float:
-        return self.spans.seconds("schedule", "plan", "stage")
+        if mesh is not None and mesh.shape["channel"] != 1:
+            raise ValueError(
+                "single-stream pipeline needs mesh channel=1 "
+                "(use channels mode for channel parallelism)")
 
     def set_resampler(self, resampler) -> None:
         """Insert a post-mix resampler stage (``ops.resample``)."""
@@ -267,156 +621,21 @@ class Pipeline:
         self._reset_fused_state()
         if self.mesh is None:
             return
-        if getattr(resampler, "bank", None) is None:
-            if not self._cascade_mesh_ok():
-                log.warning(
-                    "mesh mode: this cascade cannot run the sharded fused "
-                    "step (geometry/impl) — resampling runs on the default "
-                    "device")
-            return
-        n_loc = self.chunk_blocks * self.block_samples // self.mesh.shape["time"]
-        if resampler.T - 1 > n_loc:
-            raise ValueError(
-                f"resampler history ({resampler.T - 1} samples) exceeds one "
-                f"time shard ({n_loc} samples); use fewer/larger chunks")
-        if n_loc * resampler.P >= (1 << 30):
-            raise ValueError("time shard too large for 32-bit phase math")
-
-    def _reset_fused_state(self) -> None:
-        self._chain_carry = None
-        self._chain_bank = None
-        self._cascade_k = None          # fused stages; 0 = never fused
-        self._cascade_stages = None     # their (P, Q, T)
-        self._cascade_banks = None
-        self._cascade_carries = None
-        self._cascade_mesh_ok_c = None  # may the mesh shard the cascade?
-        self._sharded_steps = {}        # kind → parallel.sharded step
-
-    # -- fused-chain plumbing ------------------------------------------------
-
-    def _chain_eligible(self, total: int) -> bool:
-        """May this chunk run the fused chain kernel?
-
-        The rule of ``doppler_tpu``'s pipeline, term for term, so both
-        packages send the same chunks down the same route.  The 128-sample
-        terms are the TPU's lane geometry; the kernel here needs only
-        ``L % Q == 0``, which they imply.
-        """
-        rs = self.resampler
-        if rs is None or self.impl != "pallas":
-            return False
-        L = self.block_samples
-        return (
-            getattr(rs, "bank", None) is not None   # single-stage only
-            and L % 128 == 0
-            and 128 % rs.Q == 0
-            and carry_rows(rs.T) <= L // 128
-            # padded tail chunks would poison the carry with zeros;
-            # only the EOF chunk is partial, so this costs nothing
-            and total == self.chunk_blocks * L
-        )
-
-    def _ensure_chain_state(self) -> None:
-        """Seed the chain carry/bank (idempotent; reseeds after a chunk that
-        took the mixer + resampler route).  The carry is the resampler's FIR
-        history, so a restored pipeline resumes bitwise."""
-        rs = self.resampler
-        if self._chain_carry is None:
-            self._chain_carry = torch.stack([rs._hist_i, rs._hist_q]).to(
-                self.device, torch.float32)
-        if self._chain_bank is None:
-            self._chain_bank = torch.from_numpy(rs.bank).to(self.device)
-
-    def _advance_chain_state(self, total: int, carry) -> int:
-        """Advance the resampler's stream counters and mirror its FIR
-        history out of the device carry (no sync).  Returns n_out."""
-        rs = self.resampler
-        n_out = rs.out_count_for(total)
-        rs.m_next += n_out
-        rs.in_consumed += total
-        rs._hist_i = carry[0]
-        rs._hist_q = carry[1]
-        self._sample_offset += total
-        return n_out
-
-    # -- fused-cascade plumbing ----------------------------------------------
-
-    def _cascade_eligible(self, total: int) -> bool:
-        """May this chunk run the fused cascade kernel?
-
-        The JAX rule: a ``MultiStageResampler``, ``L % 128 == 0``, a
-        non-empty fused prefix ``k = split_point(stages)`` and a full chunk.
-        In place of the TPU's step geometry the port asks the kernel's
-        ``chunk_out_count`` (each fused stage's chunk input count a multiple
-        of its Q, a whole output count per block).  Decided once per
-        resampler: ``_cascade_k`` is the fused stage count, 0 when the
-        cascade never fuses.
-        """
-        rs = self.resampler
-        if (rs is None or self.impl != "pallas"
-                or getattr(rs, "stages", None) is None):
-            return False
-        L = self.block_samples
-        if self._cascade_k is None:
-            k = cascade.split_point(rs.stages) if L % 128 == 0 else 0
-            fused = tuple((st.P, st.Q, st.T) for st in rs.stages[:k])
-            ok = cascade.chunk_out_count(fused, self.chunk_blocks, L) is not None
-            self._cascade_k = k if ok else 0
-            self._cascade_stages = fused
-        return self._cascade_k > 0 and total == self.chunk_blocks * L
+        if getattr(resampler, "bank", None) is not None:
+            self._check_shard_history(resampler)
+        elif not self._cascade_mesh_ok():
+            log.warning(
+                "mesh mode: this cascade cannot run the sharded fused "
+                "step (geometry/impl) — resampling runs on the default "
+                "device")
 
     def _cascade_mesh_ok(self) -> bool:
-        """May ``--mesh`` chunks run the sharded fused cascade step?
-
-        The JAX rule on the port's geometry: the fused stages take a shard
-        of ``chunk_blocks / time`` blocks (``chunk_out_count``) and the
-        replay span fits in one shard (``sharded.cascade_shard_replay``).
-        The split form (odd-Q final stage) shards its ÷2^k front.  Decided
-        once per resampler.
-        """
-        rs = self.resampler
-        if (self.mesh is None or rs is None
-                or getattr(rs, "stages", None) is None):
-            return False
-        if self._cascade_mesh_ok_c is None:
-            L = self.block_samples
-            ok = self._cascade_eligible(self.chunk_blocks * L)
-            if ok:
-                b_loc = self.chunk_blocks // self.mesh.shape["time"]
-                ok = sharded.cascade_shard_replay(
-                    rs, self._cascade_k, L, b_loc) is not None
-            self._cascade_mesh_ok_c = ok
-        return self._cascade_mesh_ok_c
-
-    def _ensure_cascade_state(self) -> None:
-        """Seed the fused stages' banks and carries (idempotent; reseeds
-        after a chunk that took the mixer + resampler route, from each
-        stage's history, so a restored pipeline resumes bitwise)."""
-        fused = self.resampler.stages[:self._cascade_k]
-        if self._cascade_banks is None:
-            self._cascade_banks = tuple(
-                torch.from_numpy(st.bank).to(self.device) for st in fused)
-        if self._cascade_carries is None:
-            self._cascade_carries = tuple(
-                torch.stack([st._hist_i, st._hist_q]).to(self.device,
-                                                         torch.float32)
-                for st in fused)
-
-    def _advance_cascade_state(self, total: int, carries) -> int:
-        """Advance the fused stages' stream counters and mirror each one's
-        history out of its device carry (no sync).  Returns the count
-        entering stage ``_cascade_k``: the final output count when fully
-        fused, the front's output count when split."""
-        n_in = total
-        for st, carry in zip(self.resampler.stages[:self._cascade_k], carries):
-            n_out = st.out_count_for(n_in)
-            st.m_next += n_out
-            st.in_consumed += n_in
-            st._hist_i = carry[0]
-            st._hist_q = carry[1]
-            n_in = n_out
-        self._sample_offset += total
-        return n_in
+        """May ``--mesh`` chunks run the sharded fused cascade step?  The
+        fused prefix of a full chunk, when a shard takes it
+        (:meth:`_casc_group_cfg`); the split form shards its ÷2^k front."""
+        return (self.mesh is not None
+                and self._cascade_eligible(self.chunk_blocks * self.block_samples)
+                and self._casc_group_cfg(0, self.resampler) is not None)
 
     # -- multi-host seek -----------------------------------------------------
 
@@ -622,10 +841,7 @@ class Pipeline:
                 # stream's FIR history; then pin the absolute counters
                 planes = out.reshape(2, B_r, -1)[:, B_r - k_h:]
                 yi, yq = planes[0].reshape(-1), planes[1].reshape(-1)
-                n_val = int(yi.shape[-1])
-                for st in rs.stages[k:]:
-                    yi, yq, n_val = st.process(
-                        yi, yq, n_val, M=st.max_out_for(int(yi.shape[-1])))
+                rs.process(yi, yq, int(yi.shape[-1]), start=k)
                 pin(rs.stages[k:], counters[k:])
             return
         # unfused: each stage only needs its T−1 input-referred history
@@ -642,59 +858,38 @@ class Pipeline:
         rs.process(mixed[0], mixed[1], k_h * L)
         pin(rs.stages, counters)
 
-    # -- staging ------------------------------------------------------------
+    # -- output ---------------------------------------------------------------
+
+    @property
+    def _groups(self) -> list:
+        return [(None, self.resampler)]     # the stream is one rate group
+
+    def _chain_carry_span(self) -> int:
+        return self.block_samples
+
+    def _fused_kernels(self):
+        return chain.mix_resample_chain_stream, cascade.mix_cascade_stream
+
+    def _lead(self, rows) -> tuple:
+        return ()
 
     def _stage_out(self, hosts) -> bytes:
-        """Valid outputs in stream order (int32 words, or float32 planes
-        ``(2, n)``) → bytes."""
-        arr = np.concatenate([h.numpy() for h in hosts], axis=-1)
+        """The cut: valid outputs in stream order (int32 words, or float32
+        planes ``(2, n)``) → bytes."""
+        if not hosts:
+            return b""      # a drain with no tail
+        arr = np.concatenate([h.numpy() for _, h in hosts], axis=-1)
         if self.outtype == "i16":
             return codec.i16_words_to_bytes(arr)
         return codec.f32_pairs_to_bytes(native.planar_to_f32_pairs(arr[0], arr[1]))
 
-    def _start_out(self, parts):
-        """Start the device→host copies of the valid outputs: ``parts`` are
-        ``(device output, n_valid)`` in stream order.  Returns the pending
-        handle ``(host tensors, copy events)`` that :meth:`_finalize`
-        completes."""
-        hosts, devices = [], []
-        for out, n_valid in parts:
-            if self.outtype == "i16":
-                valid = out.reshape(-1)[:n_valid]
-            else:
-                valid = out.reshape(2, -1)[:, :n_valid].contiguous()
-            if valid.device.type == "cuda":
-                host = host_buffer(tuple(valid.shape), valid.dtype, valid.device)
-                host.copy_(valid, non_blocking=True)
-                devices.append(valid.device)
-                valid = host
-            hosts.append(valid)
-        return hosts, copy_events(devices)
-
-    # -- main loop ----------------------------------------------------------
-
-    def _finalize(self, pending, k=None) -> bytes:
-        """Wait for a dispatched chunk and return its bytes; the wait and
-        the cut are the ``wait`` and ``cut`` spans of chunk ``k`` (none
-        for the drain, ``k`` None)."""
-        if pending is None:
-            return b""
-        hosts, events = pending
-        t0 = time.perf_counter()
-        for ev in events:
-            ev.synchronize()
-        t1 = time.perf_counter()
-        out = self._stage_out(hosts)
-        hosts.clear()   # free the host buffers inside the cut span, not after it
-        if k is not None:
-            self.spans.add("wait", k, t0, t1)
-            self.spans.add("cut", k, t1, time.perf_counter())
-        return out
+    # -- dispatch -------------------------------------------------------------
 
     def _dispatch(self, chunk: streaming.Chunk, k=None):
         """Plan + launch one chunk on the device WITHOUT waiting for it;
         its ``schedule``, ``plan``, ``stage`` and ``launch`` spans carry
-        the chunk id ``k``.
+        the chunk id ``k``.  Returns the finalizer of its bytes, None for
+        a chunk of no samples.
 
         All host state (scheduler, NCO counter, resampler bookkeeping)
         advances here, so the next chunk can be dispatched while this one
@@ -721,153 +916,88 @@ class Pipeline:
         t3 = clock()
         self.spans.add("plan", k, t1, t2)
         self.spans.add("stage", k, t2, t3)
-        pending = None
-        if self.mesh is not None:
-            parts = self._dispatch_sharded(data, plans, total)
-            if parts is not None:
-                pending = self._start_out(parts)
-        if pending is None:
-            if self.device.type == "cuda":
-                plans = plans.pin_memory().to(self.device, non_blocking=True)
-                data = data.to(self.device, non_blocking=True)
-            pending = self._start_out([self._dispatch_local(data, plans,
-                                                            total)])
-        self.spans.add("launch", k, t3, clock())
-        return pending
+        self._sample_offset += total
+        return self._launch(data, plans, total, k, t3)
 
     def _dispatch_sharded(self, data, plans, total: int):
         """``--mesh`` dispatch of one staged host chunk over the time shards.
-        Returns the ``(device output, n_valid)`` parts in stream order, or
-        None for the unsharded dispatch: the partial EOF chunk with a
-        resampler, and a cascade whose stages a shard cannot take (which
-        ``set_resampler`` warned of).
+        Returns the ``(None, device output, n_valid)`` parts in stream
+        order, or None for the unsharded dispatch: the partial EOF chunk
+        with a resampler, and a cascade whose stages a shard cannot take
+        (which ``set_resampler`` warned of).
 
         Mix-only streams shard every chunk.  A full chunk runs the chain
         step when the chain gate passes, the cascade step (full or split)
         when ``_cascade_mesh_ok``, else — a single-stage resampler the
         chain gate refuses — the mixer + window resampler step.
         """
-        B, L = self.chunk_blocks, self.block_samples
         rs = self.resampler
         n_time = self.mesh.shape["time"]
-        full = total == B * L
-
-        def step(kind, make):
-            if kind not in self._sharded_steps:
-                self._sharded_steps[kind] = make()
-            return self._sharded_steps[kind]
-
         if rs is None:
-            mix = step("mix", lambda: sharded.make_wideband_mix_step(
-                self.mesh, intype=self.intype, outtype=self.outtype, C=1))
-            self._sample_offset += total
-            return [(out, max(0, min(L * (bs.stop - bs.start),
-                                     total - bs.start * L)))
-                    for _, bs, out in mix(data, plans)]
-        if not full:
+            return [(None, out, n) for _, out, n
+                    in self._sharded_mix("mix", 1, data, plans, total)]
+        if total != self.chunk_blocks * self.block_samples:
             return None            # the EOF chunk: mixer + resampler
 
         if self._chain_eligible(total):
-            run = step("chain", lambda: sharded.make_chain_stream_step(
+            run = self._step("chain", lambda: sharded.make_chain_stream_step(
                 self.mesh, resampler=rs, intype=self.intype,
                 outtype=self.outtype))
             self._ensure_chain_state()
             outs, self._chain_carry = run(data, plans, self._chain_carry)
-            self._advance_chain_state(total, self._chain_carry)
-            return [(out, out.shape[-1] * (B // n_time)) for out in outs]
+            self._advance([rs], [self._chain_carry], total)
+            b_loc = self.chunk_blocks // n_time
+            return [(None, out, out.shape[-1] * b_loc) for out in outs]
 
         if self._cascade_mesh_ok():
             self._ensure_cascade_state()
             k = self._cascade_k
             split = k < len(rs.stages)
-            run = step("cascade", lambda: sharded.make_cascade_stream_step(
+            run = self._step("cascade", lambda: sharded.make_cascade_stream_step(
                 self.mesh, resampler=rs, fused=k, intype=self.intype,
                 outtype="f32" if split else self.outtype, final_dense=split))
             outs, self._cascade_carries = run(data, plans,
                                               self._cascade_carries)
-            n_mid = self._advance_cascade_state(total, self._cascade_carries)
+            n_mid = self._advance(rs.stages[:k], self._cascade_carries, total)
             if not split:
-                return [(out, n_mid // n_time) for out in outs]
+                return [(None, out, n_mid // n_time) for out in outs]
             # split: the tail stages run once, over the gathered front
             # planes, on the mesh's first device
             planes = torch.cat([out.reshape(2, -1).to(self.device)
                                 for out in outs], dim=1)
-            yi, yq, n_out = planes[0], planes[1], n_mid
-            for st in rs.stages[k:]:
-                yi, yq, n_out = st.process(yi, yq, n_out,
-                                           M=st.max_out_for(int(yi.shape[-1])))
-            return [(self._encode(yi, yq), n_out)]
+            yi, yq, n_out = rs.process(planes[0], planes[1], n_mid, start=k)
+            return [(None, codec.encode(yi, yq, self.outtype), n_out)]
 
         if getattr(rs, "bank", None) is None:
             return None            # a cascade the mesh cannot shard
-        run = step("window", lambda: sharded.make_wideband_stream_step(
-            self.mesh, intype=self.intype, outtype=self.outtype, C=1,
-            resampler=rs))
-        rem, off, counts = sharded.stream_step_alignment(
-            rs, rs.in_consumed, B * L // n_time, n_time)
-        parts, hist_i, hist_q = run(data, plans, rs._hist_i, rs._hist_q,
-                                    rem, off, counts)
-        rs.m_next += sum(counts)
-        rs.in_consumed += total
-        rs._hist_i, rs._hist_q = hist_i, hist_q
-        self._sample_offset += total
-        return [(out, n) for (_, _, out), n in zip(parts, counts)]
+        return [(None, out, n) for _, out, n
+                in self._sharded_window("window", 1, rs, data, plans, total)]
 
     def _dispatch_local(self, data, plans, total: int):
-        """Launch one staged chunk: the fused chain or cascade on a full
-        chunk, else the mixer (+ the resampler).  Returns (device output,
-        n_valid)."""
+        """Launch one staged host chunk: the fused chain or cascade on a
+        full chunk, else the mixer (+ the resampler).  Returns its one part
+        ``(None, device output, n_valid)``."""
+        if self.device.type == "cuda":
+            # plan_tensor's words are pageable: pin them for an async copy
+            plans = plans.pin_memory().to(self.device, non_blocking=True)
+            data = data.to(self.device, non_blocking=True)
+        fused = self._dispatch_fused(data, plans, total)
+        if fused is not None:
+            return fused
         rs = self.resampler
-        if self._chain_eligible(total):
-            self._ensure_chain_state()
-            out, self._chain_carry = chain.mix_resample_chain_stream(
-                data, plans, self._chain_bank, self._chain_carry,
-                P=rs.P, Q=rs.Q, T=rs.T, intype=self.intype,
-                outtype=self.outtype, dot_precision=self._chain_dot,
-            )
-            return out, self._advance_chain_state(total, self._chain_carry)
-
-        if self._cascade_eligible(total):
-            self._ensure_cascade_state()
-            k = self._cascade_k
-            split = k < len(rs.stages)
-            out, self._cascade_carries = cascade.mix_cascade_stream(
-                data, plans, self._cascade_banks, self._cascade_carries,
-                stages=self._cascade_stages, intype=self.intype,
-                outtype="f32" if split else self.outtype, final_dense=split,
-            )
-            n_mid = self._advance_cascade_state(total, self._cascade_carries)
-            if not split:
-                return out, n_mid
-            # split: the front's planes run the remaining stages (plain
-            # torch on the device, as the JAX package runs them in XLA)
-            planes = out.reshape(2, -1)
-            yi, yq, n_out = planes[0], planes[1], n_mid
-            for st in rs.stages[k:]:
-                yi, yq, n_out = st.process(yi, yq, n_out,
-                                           M=st.max_out_for(int(yi.shape[-1])))
-            return self._encode(yi, yq), n_out
-
-        mix_outtype = self.outtype if rs is None else "f32"
         out = mixer.mix_blocks_fmt(data, plans, intype=self.intype,
-                                   outtype=mix_outtype)
-        self._sample_offset += total
+                                   outtype=self.outtype if rs is None else "f32")
         if rs is None:
-            return out, total
+            return [(None, out, total)]
         planes = out.reshape(2, -1)
         yi, yq, n_out = rs.process(
             planes[0], planes[1], total,
             M=rs.max_out_for(self.chunk_blocks * self.block_samples),
         )
-        # a later chain or cascade chunk must reseed from the history
-        self._chain_carry = None
-        self._cascade_carries = None
-        return self._encode(yi, yq), n_out
+        self.drop_carries()   # a later fused chunk reseeds from the history
+        return [(None, codec.encode(yi, yq, self.outtype), n_out)]
 
-    def _encode(self, yi, yq) -> torch.Tensor:
-        if self.outtype == "i16":
-            return codec.iq_to_i16_words(yi, yq)
-        return torch.stack([yi, yq])
+    # -- main loop ----------------------------------------------------------
 
     def run(self, fin, fout, should_stop=None) -> Counters:
         """Pump ``fin`` → ``fout`` until EOF (short read), reference framing.
@@ -885,8 +1015,8 @@ class Pipeline:
         spans = self.spans = telemetry.start_spans()
         clock = time.perf_counter
 
-        def emit(pending, bytes_in, blocks, k):
-            out_bytes = self._finalize(pending, k)
+        def emit(finalize, bytes_in, blocks, k):
+            out_bytes = b"" if finalize is None else finalize()
             t0 = clock()
             if out_bytes:
                 fout.write(out_bytes)
@@ -897,35 +1027,13 @@ class Pipeline:
                 bytes_out=len(out_bytes),
                 blocks=blocks,
             )
-            if pending is not None:
+            if finalize is not None:
                 spans.add("write", k, t0, clock())
 
-        # one-chunk-deep pipelining: dispatch chunk k+1 while k materializes
-        pending = None
-        pending_meta = (0, 0, None)
-        hit_eof = False
-        k = 0
-        while True:
-            if should_stop is not None and should_stop():
-                break
-            t0 = clock()
-            chunk = reader.read_chunk(self.chunk_blocks)
-            spans.add("read", k, t0, clock())
-            spans.bump("chunks")
-            new_pending = self._dispatch(chunk, k)
-            if pending is not None or pending_meta[1]:
-                emit(pending, *pending_meta)
-            pending = new_pending
-            pending_meta = (len(chunk.data), chunk.n_blocks, k)
-            k += 1
-            if chunk.eof:
-                hit_eof = True
-                break
-        emit(pending, *pending_meta)
-        # drain ONLY on a true EOF exit: a should_stop break is a mid-stream
-        # pause, and flushing the FIR tail there would corrupt the output
-        if hit_eof and self.resampler is not None and self.drain_on_eof:
-            out_bytes = self._drain()
+        eof = run_chunks(reader, self.chunk_blocks, spans, self._dispatch,
+                         emit, should_stop)
+        if eof and self.resampler is not None and self.drain_on_eof:
+            out_bytes = self.drain()
             self._drained = True   # checkpointed: a resumed run must not
             if out_bytes:          # append the FIR tail a second time
                 fout.write(out_bytes)
@@ -935,18 +1043,3 @@ class Pipeline:
                 )
         fout.flush()
         return counters
-
-    def _drain(self) -> bytes:
-        """Flush the resampler's FIR tail by feeding T−1 zero samples —
-        emits the outputs whose windows straddle the end of the stream."""
-        rs = self.resampler
-        pad = rs.T - 1
-        if pad <= 0:
-            return b""
-        zeros = torch.zeros(pad, dtype=torch.float32, device=self.device)
-        yi, yq, n_out = rs.process(zeros, zeros, pad, M=rs.max_out_for(pad))
-        self._chain_carry = None
-        self._cascade_carries = None
-        if n_out == 0:
-            return b""
-        return self._finalize(self._start_out([(self._encode(yi, yq), n_out)]))

@@ -234,7 +234,7 @@ def test_drain_vs_jax_and_single_pipeline(stages):
     data = _tones(2048 * 16 * 2 + 777, FS, 7)
     mp = _port(FS, stages=stages, drain=True)
     got = _run(mp, data)
-    assert mp._drained and mp._chain_carries is None and mp._cascade_carries is None
+    assert mp._drained and mp._chain_carry is None and mp._cascade_carries is None
     plain = _run(_port(FS, stages=stages), data)
     want = _run(_jax(FS, "pallas", stages=stages, drain=True), data)
     for g, p, w, (s, c) in zip(got, plain, want, CHANNELS):

@@ -104,10 +104,67 @@ def test_channels_cut_and_resume_is_bitwise(tmp_path, fs, stages, out_rate, rate
     meta = checkpoint.restore_channels(str(path), mp2)
     assert meta["samples_in"] * 4 == cut and meta["kind"] == "channels"
     assert not meta["drained"]
-    assert mp2._chain_carries is None and mp2._cascade_carries is None
+    assert mp2._chain_carry is None and mp2._cascade_carries is None
     rest = _run(mp2, data[cut:])
     for a, b, w in zip(first, rest, whole):
         assert a + b == w
+
+
+def _stream_port():
+    pipe = Pipeline(FS, "i16", "i16", ConstScheduler(-15000.0),
+                    chunk_blocks=16, device="cpu")
+    attach_resampler(pipe, 48000, stages="multi")
+    return pipe
+
+
+def _stream_run(pipe, data):
+    out = io.BytesIO()
+    pipe.run(io.BytesIO(data), out)
+    return [out.getvalue()]
+
+
+@pytest.mark.parametrize("mode", ["stream", "channels"])
+def test_restore_drops_stale_carries_and_a_mixed_route_resumes_bitwise(
+        monkeypatch, mode):
+    """``restore`` and ``restore_channels`` drop the fused carries through
+    the pipeline's own ``drop_carries``: a pipeline whose carries are stale
+    (it ran another stream) resumes the uninterrupted bytes exactly, its
+    chunks after the restore alternating between the fused cascade and the
+    unfused route, the first of them fused."""
+    make, run, save, restore = (
+        (_stream_port, _stream_run, checkpoint.save, checkpoint.restore)
+        if mode == "stream" else
+        (lambda: _port(stages="multi"), _run, checkpoint.save_channels,
+         checkpoint.restore_channels))
+    data = _stream(2048 * 16 * 5 + 600, 3)
+    cut = 2 * CHUNK
+    whole = run(make(), data)
+    first_pipe = make()
+    first = run(first_pipe, data[:cut])
+    buf = io.BytesIO()
+    save(buf, first_pipe)
+
+    pipe = make()
+    run(pipe, _stream(2048 * 16 * 2, 9))
+    assert pipe._cascade_carries is not None
+    dropped = []
+    drop = type(pipe).drop_carries
+    monkeypatch.setattr(type(pipe), "drop_carries",
+                        lambda self: (dropped.append(self), drop(self))[1])
+    restore(buf, pipe)
+    assert dropped == [pipe]
+    assert pipe._chain_carry is None and pipe._cascade_carries is None
+
+    gate, calls = pipe._cascade_eligible, []
+
+    def alternate(total):
+        calls.append(total)
+        return len(calls) % 2 == 1 and gate(total)
+    pipe._cascade_eligible = alternate
+    rest = run(pipe, data[cut:])
+    assert len(calls) >= 4
+    for a, b, w in zip(first, rest, whole):
+        assert a + b == w and len(b) > 0
 
 
 def test_channels_checkpoint_keys_are_the_jax_keys(tmp_path):

@@ -46,17 +46,48 @@ def _by_chunk(spans):
     return out
 
 
-@pytest.mark.parametrize("prefetch", [0, 2])
-def test_every_chunk_has_the_eight_spans_in_the_loops_order(prefetch):
+def _stream_run(prefetch):
     pipe = Pipeline(FS, "i16", "i16", ConstScheduler(-15000.0),
                     chunk_blocks=B, prefetch_chunks=prefetch, device="cpu")
     attach_resampler(pipe, 48000, stages="auto")
     out = io.BytesIO()
     pipe.run(io.BytesIO(RAW), out)
-    assert len(out.getvalue()) > 0
+    return pipe, [out]
+
+
+def _channels_cascade_run():
+    specs = [ChannelSpec(f"c{k}", ConstScheduler(1234.567 * (k + 1)))
+             for k in range(3)]
+    mp = MultiChannelPipeline(FS, "i16", "i16", specs, out_rate=48000,
+                              resample_stages="multi", chunk_blocks=B,
+                              device="cpu")
+    writers = [io.BytesIO() for _ in specs]
+    mp.run(io.BytesIO(RAW), writers)
+    assert mp._cascade_k > 0          # the full chunks took the cascade
+    return mp, writers
+
+
+# the channels planner's lane counters for 3 channels over 4 chunks: the
+# three full chunks in the uniform lane, the partial one per channel
+CHANNELS_COUNTERS = {"chunks": N_CHUNKS, "plans_uniform": 3,
+                     "plans_per_channel": 1, "chan_plans_periodic": 0,
+                     "chan_plans_uniform": 9, "chan_plans_per_channel": 3}
+
+
+# both pipelines run the one loop (``pipeline.run_chunks``): the stream
+# with and without the reader thread, and channels through the cascade
+@pytest.mark.parametrize("make, counters", [
+    pytest.param(lambda: _stream_run(0), {"chunks": N_CHUNKS}, id="0"),
+    pytest.param(lambda: _stream_run(2), {"chunks": N_CHUNKS}, id="2"),
+    pytest.param(_channels_cascade_run, CHANNELS_COUNTERS,
+                 id="channels-cascade"),
+])
+def test_every_chunk_has_the_eight_spans_in_the_loops_order(make, counters):
+    pipe, outs = make()
+    assert all(len(out.getvalue()) > 0 for out in outs)
     spans = pipe.spans
     assert telemetry.last_spans() is spans
-    assert spans.counters == {"chunks": N_CHUNKS}
+    assert spans.counters == counters
     chunks = _by_chunk(spans)
     assert sorted(chunks) == list(range(N_CHUNKS))
     for k, recs in chunks.items():
@@ -64,9 +95,11 @@ def test_every_chunk_has_the_eight_spans_in_the_loops_order(prefetch):
         # each span starts where or after the one before it ends
         for (_, _, end), (_, start, _) in zip(recs, recs[1:]):
             assert start >= end
-        # launch → schedule, plan, stage, launch tile without a gap
-        for (_, _, end), (_, start, _) in zip(recs[1:4], recs[2:5]):
-            assert start == end
+        # schedule, plan, stage, launch tile without a gap (channels: the
+        # planner closes its plan span, the stage span opens after it)
+        for (_, _, end), (name, start, _) in zip(recs[1:4], recs[2:5]):
+            if isinstance(pipe, Pipeline) or name != "stage":
+                assert start == end
         if k + 1 < N_CHUNKS:
             # one chunk deep: chunk k waits, is cut and written after the
             # next chunk is read and launched
