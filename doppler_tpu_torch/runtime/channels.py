@@ -38,10 +38,11 @@ channel chain, whose dot sums in another order: ≤ 1 LSB).  The partial
 EOF chunk with a resampler, a group that does not divide over the channel
 axis and a cascade a shard cannot take run unsharded (the last two warn).
 
-One chunk is in flight: :meth:`MultiChannelPipeline.dispatch_chunk` plans,
-stages into pinned host memory, copies with ``non_blocking=True``, launches
-and starts the copy back; the finalizer it returns waits on the chunk's
-event.  ``run`` finalizes chunk k−1 after dispatching chunk k.  The loop,
+At most one chunk is in flight: :meth:`MultiChannelPipeline.dispatch_chunk`
+plans, stages into pinned host memory, copies with ``non_blocking=True``,
+launches and starts the copy back; the finalizer it returns waits on the
+chunk's event.  ``run`` finalizes chunk k−1 during chunk k's read once its
+copy is done, else after dispatching chunk k.  The loop,
 the fused routes, the carries, the copy-out and the drain are
 ``runtime.pipeline``'s (``ChunkPipeline``, ``run_chunks``), shared with the
 single-stream ``Pipeline``.
@@ -497,8 +498,10 @@ class MultiChannelPipeline(ChunkPipeline):
     def run(self, fin, writers, should_stop=None) -> Counters:
         """Pump the stream; ``writers`` is one binary file object per channel.
 
-        One chunk in flight, as ``Pipeline.run``: chunk k+1 is planned and
-        dispatched before chunk k's output is waited for.  ``should_stop``
+        At most one chunk in flight, as ``Pipeline.run``: chunk k's files
+        are written once its device→host copy is done, between the blocks
+        of chunk k+1's read, or else after chunk k+1 is planned and
+        dispatched (:func:`run_chunks`).  ``should_stop``
         is polled between chunks; a stop leaves the state consistent with
         the bytes written and does not drain.  Each run records its chunks'
         spans in a fresh ``self.spans``.

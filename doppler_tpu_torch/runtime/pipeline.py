@@ -37,9 +37,11 @@ so the carry is bitwise the one the uninterrupted run holds there.
 Dispatch never synchronises: the chunk is staged into pinned host memory,
 copied to the card with ``non_blocking=True``, the kernel launches, the
 device→host copy starts and an event is recorded; the finalizer
-:meth:`ChunkPipeline._start_out` returns waits on that event, and
-:func:`run_chunks` calls it only after the next chunk's dispatch, so host
-planning of chunk k+1 overlaps the device work of chunk k.
+:meth:`ChunkPipeline._start_out` returns waits on that event, and its
+``ready()`` asks the event without waiting.  :func:`run_chunks` calls the
+finalizer of chunk k between the blocks of chunk k+1's read once
+``ready()`` is true, else after chunk k+1's dispatch, so host planning of
+chunk k+1 overlaps the device work of chunk k.
 
 :class:`ChunkPipeline` holds what this pipeline shares with
 ``channels.MultiChannelPipeline``: the fused kernels' gates, their device
@@ -180,24 +182,39 @@ def fused_prefix(rs, B: int, L: int):
 
 def run_chunks(reader, chunk_blocks: int, spans, dispatch, emit,
                should_stop=None) -> bool:
-    """The run loop of both pipelines, one chunk deep.
+    """The run loop of both pipelines, at most one chunk deep.
 
-    Reads chunk k (its ``read`` span and one ``chunks`` count), hands it to
-    ``dispatch(chunk, k)``, and only then to ``emit(pending, bytes_in,
-    blocks, k − 1)`` the chunk before it, ``pending`` being what its
-    dispatch returned: the host plans chunk k while the device runs chunk
-    k − 1.  ``should_stop`` is polled before each read.  Returns True when
-    the loop ended at a true EOF: only then may the caller drain, since a
-    stop between chunks is a pause and flushing the FIR tail there would
-    corrupt the output.
+    Reads chunk k (its ``read`` span and one ``chunks`` count) and hands it
+    to ``dispatch(chunk, k)``, which returns the chunk's ``pending``
+    finalizer.  The chunk before it is handed to ``emit(pending, bytes_in,
+    blocks, k − 1)`` as soon as its copies are done: before each block of
+    chunk k's read, the loop asks ``pending.ready()`` (non-blocking) and
+    emits chunk k − 1 at the first true, bumping ``emits_early``.  If the
+    read ends first (or the reader has no block boundaries, or ``pending``
+    has no ``ready``), chunk k − 1 is emitted after chunk k's dispatch, so
+    the host plans chunk k while the device runs chunk k − 1.  Every emit
+    runs on this thread, in chunk order.  ``should_stop`` is polled before
+    each read.  Returns True when the loop ended at a true EOF: only then
+    may the caller drain, since a stop between chunks is a pause and
+    flushing the FIR tail there would corrupt the output.
     """
     clock = time.perf_counter
     last = None         # (pending, bytes_in, blocks, k) of the chunk in flight
     eof = False
     k = 0
+
+    def emit_if_ready():
+        nonlocal last
+        if last is not None and last[0].ready():
+            emit(*last)
+            last = None
+            spans.bump("emits_early")
+
     while not eof and (should_stop is None or not should_stop()):
         t0 = clock()
-        chunk = reader.read_chunk(chunk_blocks)
+        early = last is not None and hasattr(last[0], "ready")
+        chunk = reader.read_chunk(chunk_blocks,
+                                  emit_if_ready if early else None)
         spans.add("read", k, t0, clock())
         spans.bump("chunks")
         pending = dispatch(chunk, k)
@@ -489,9 +506,10 @@ class ChunkPipeline:
         """Start the device→host copies of the valid outputs; returns the
         finalizer that waits for them and returns :meth:`_stage_out` of the
         host copies, its ``wait`` and ``cut`` spans under chunk ``k`` (none
-        for the drain, ``k`` None).  ``parts``: ``(rows, device output,
-        n_valid)``, in stream order for each row; the finalizer's
-        ``hosts``: ``(rows, host tensor)``."""
+        for the drain, ``k`` None).  The finalizer's ``ready()`` says,
+        without waiting, whether every copy is done (always, on the CPU).
+        ``parts``: ``(rows, device output, n_valid)``, in stream order for
+        each row; the finalizer's ``hosts``: ``(rows, host tensor)``."""
         hosts, devices = [], []
         for rows, out, n_valid in parts:
             shape = (*self._lead(rows), -1)
@@ -517,6 +535,7 @@ class ChunkPipeline:
                 self.spans.add("wait", k, t0, t1)
                 self.spans.add("cut", k, t1, time.perf_counter())
             return outs
+        finalize.ready = lambda: all(ev.query() for ev in events)
         return finalize
 
     def drain(self):
@@ -1002,9 +1021,12 @@ class Pipeline(ChunkPipeline):
     def run(self, fin, fout, should_stop=None) -> Counters:
         """Pump ``fin`` → ``fout`` until EOF (short read), reference framing.
 
-        ``should_stop``: optional callable polled between chunks — a stop
-        leaves the pipeline state consistent with the bytes written, so a
-        later ``run`` on the rest of the stream continues it exactly.
+        A chunk is written once its device→host copy is done, between the
+        blocks of the next chunk's read, or else after the next chunk's
+        dispatch (:func:`run_chunks`; with ``prefetch_chunks`` always
+        after).  ``should_stop``: optional callable polled between chunks —
+        a stop leaves the pipeline state consistent with the bytes written,
+        so a later ``run`` on the rest of the stream continues it exactly.
         Each run records its chunks' spans in a fresh ``self.spans``.
         """
         reader = streaming.BlockReader(fin, self.block_bytes)

@@ -90,12 +90,15 @@ class BlockReader:
         data = b"".join(parts)
         return data, len(data) != want
 
-    def read_chunk(self, n_blocks: int) -> Chunk:
-        """Gather up to ``n_blocks`` blocks (stopping early at EOF)."""
+    def read_chunk(self, n_blocks: int, before_block=None) -> Chunk:
+        """Gather up to ``n_blocks`` blocks (stopping early at EOF).
+        ``before_block``, if given, is called before each block's read."""
         datas: list[bytes] = []
         sizes: list[int] = []
         eof = False
         for _ in range(n_blocks):
+            if before_block is not None:
+                before_block()
             data, eof = self.read_block()
             if data:
                 datas.append(data)
@@ -119,6 +122,10 @@ class ChunkPrefetcher:
     Reader exceptions are re-raised on the consumer thread at the matching
     ``read_chunk`` call; the thread always enqueues a final EOF chunk so the
     consumer terminates.
+
+    A take from the queue has no block boundaries, so ``read_chunk`` never
+    calls its ``before_block``: the run loop emits the chunk in flight
+    after the next chunk's dispatch, never during its read.
     """
 
     def __init__(self, reader: BlockReader, n_blocks: int, depth: int = 2):
@@ -141,7 +148,7 @@ class ChunkPrefetcher:
             if chunk.eof:
                 return
 
-    def read_chunk(self, n_blocks: int) -> Chunk:
+    def read_chunk(self, n_blocks: int, before_block=None) -> Chunk:
         if n_blocks != self.n_blocks:
             raise ValueError(
                 f"prefetcher staged {self.n_blocks}-block chunks, "

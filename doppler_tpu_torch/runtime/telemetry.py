@@ -116,14 +116,16 @@ class Spans:
     - ``launch``: the host→device copies, the kernels and the device→host
       copies enqueued;
     - ``wait``: the host blocked until the chunk's device→host copies are
-      done (with one chunk in flight, after the next chunk's launch);
+      done (inside the next chunk's ``read`` once they are, else after
+      the next chunk's launch);
     - ``cut``: the device's output into each channel's bytes;
     - ``write``: the bytes to the output stream or files.
 
     The newest ``capacity`` records are kept in a ring (the oldest are
     dropped first, so a long run holds constant memory); ``totals`` keeps
     each name's exact ``[count, seconds]`` over the whole run, and
-    ``counters`` the run's counts (``chunks``; in channels mode
+    ``counters`` the run's counts (``chunks``; ``emits_early``, the chunks
+    emitted during the next chunk's read, once one was; in channels mode
     ``chan_plans_periodic``, ``chan_plans_uniform`` and
     ``chan_plans_per_channel``, the channel-chunks planned by the two
     vectorised lanes and by one planner a channel, ``plans_uniform`` and

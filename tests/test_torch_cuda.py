@@ -35,6 +35,8 @@ pinned before their redesign, on both paths of each.
 """
 
 import io
+import math
+import time
 
 import numpy as np
 import pytest
@@ -1459,6 +1461,63 @@ def test_pipeline_bytes_do_not_depend_on_chunk_width_on_card(card, fs, stages):
 
     want = run(16)
     assert want and run(8) == want and run(32) == want
+
+
+class _LiveInput:
+    """Raw bytes handed out as a receiver at ``fs`` hands them: a read
+    returns once the 8 KiB block it ends in has fallen due (its last sample
+    taken), the clock starting at the first read."""
+
+    def __init__(self, data: bytes, fs: int, block_bytes: int = 8192):
+        self._f = io.BytesIO(data)
+        self._block = block_bytes
+        self._period = block_bytes / 4 / fs
+        self._pos = 0
+        self._t0 = None
+
+    def read(self, n):
+        now = time.perf_counter()
+        if self._t0 is None:
+            self._t0 = now
+        piece = self._f.read(n)
+        self._pos += len(piece)
+        due = self._t0 + math.ceil(self._pos / self._block) * self._period
+        if piece and due > now:
+            time.sleep(due - now)
+        return piece
+
+
+@pytest.mark.cuda
+def test_a_live_stream_writes_each_chunk_during_the_next_chunks_read(card):
+    """Fed at 1.024 Msps, a chunk's copy is done long before the next
+    chunk's blocks have arrived, so the run loop writes it between them
+    (``run_chunks``' early emit), not after the next chunk's dispatch; the
+    bytes are the replayed run's."""
+    cb = 32
+    rng = np.random.default_rng(23)
+    raw = rng.integers(-9000, 9000, size=2 * 2048 * (4 * cb + 5),
+                       dtype=np.int16).tobytes()
+
+    def run(fin):
+        p = Pipeline(FS, "i16", "i16", ConstScheduler(-15000.0),
+                     chunk_blocks=cb, device="cuda")
+        attach_resampler(p, 48000, stages="auto")
+        out = io.BytesIO()
+        p.run(fin, out)
+        return p, out.getvalue()
+
+    _, want = run(io.BytesIO(raw))          # builds and warms the kernels
+    p, got = run(_LiveInput(raw, FS))
+    assert got == want
+    counters = p.spans.counters
+    assert counters["chunks"] == 5
+    assert counters.get("emits_early", 0) >= counters["chunks"] - 2
+    reads, writes = {}, {}
+    for name, k, t0, t1 in p.spans.records:
+        if name in ("read", "write"):
+            (reads if name == "read" else writes)[k] = (t0, t1)
+    for k in range(counters["chunks"] - 1):
+        assert writes[k][1] <= reads[k + 1][1]
 
 
 # -- the resampler kernels' redesign: bytes pinned before it ------------------------

@@ -1,7 +1,8 @@
 """The run loops' chunk-keyed spans (``runtime/telemetry.py``): the eight
-spans of every chunk in the loop's order, ``host_s`` summed from them, the
-bounded ring with exact totals, the planner's lane counters, and the CLI's
-``spans:`` line after ``done:``."""
+spans of every chunk in the loop's order, the early emit of a chunk whose
+copy is done between the next chunk's block reads (``run_chunks``),
+``host_s`` summed from them, the bounded ring with exact totals, the
+planner's lane counters, and the CLI's ``spans:`` line after ``done:``."""
 
 from __future__ import annotations
 
@@ -68,21 +69,30 @@ def _channels_cascade_run():
 
 
 # the channels planner's lane counters for 3 channels over 4 chunks: the
-# three full chunks in the uniform lane, the partial one per channel
+# three full chunks in the uniform lane, the partial one per channel; on
+# the CPU every chunk but the last is emitted early
 CHANNELS_COUNTERS = {"chunks": N_CHUNKS, "plans_uniform": 3,
-                     "plans_per_channel": 1, "chan_plans_periodic": 0,
-                     "chan_plans_uniform": 9, "chan_plans_per_channel": 3}
+                     "plans_per_channel": 1, "emits_early": N_CHUNKS - 1,
+                     "chan_plans_periodic": 0, "chan_plans_uniform": 9,
+                     "chan_plans_per_channel": 3}
 
 
 # both pipelines run the one loop (``pipeline.run_chunks``): the stream
-# with and without the reader thread, and channels through the cascade
-@pytest.mark.parametrize("make, counters", [
-    pytest.param(lambda: _stream_run(0), {"chunks": N_CHUNKS}, id="0"),
-    pytest.param(lambda: _stream_run(2), {"chunks": N_CHUNKS}, id="2"),
-    pytest.param(_channels_cascade_run, CHANNELS_COUNTERS,
+# with and without the reader thread, and channels through the cascade.
+# On the CPU a chunk's copy is done at once, so the block reader's loop
+# emits chunk k before the first block of chunk k + 1; the reader thread's
+# chunks have no block boundaries, so chunk k is emitted after chunk k + 1
+# is read and launched
+@pytest.mark.parametrize("make, counters, early", [
+    pytest.param(lambda: _stream_run(0),
+                 {"chunks": N_CHUNKS, "emits_early": N_CHUNKS - 1}, True,
+                 id="0"),
+    pytest.param(lambda: _stream_run(2), {"chunks": N_CHUNKS}, False, id="2"),
+    pytest.param(_channels_cascade_run, CHANNELS_COUNTERS, True,
                  id="channels-cascade"),
 ])
-def test_every_chunk_has_the_eight_spans_in_the_loops_order(make, counters):
+def test_every_chunk_has_the_eight_spans_in_the_loops_order(make, counters,
+                                                            early):
     pipe, outs = make()
     assert all(len(out.getvalue()) > 0 for out in outs)
     spans = pipe.spans
@@ -101,20 +111,112 @@ def test_every_chunk_has_the_eight_spans_in_the_loops_order(make, counters):
             if isinstance(pipe, Pipeline) or name != "stage":
                 assert start == end
         if k + 1 < N_CHUNKS:
-            # one chunk deep: chunk k waits, is cut and written after the
-            # next chunk is read and launched
-            launch_next = chunks[k + 1][4]
-            assert launch_next[0] == "launch"
-            assert chunks[k + 1][0][2] <= launch_next[1]
-            assert recs[5][1] >= launch_next[2]
-    # the ring in the loop's order: chunk k's wait, cut and write follow
-    # chunk k + 1's read … launch
+            read_next, launch_next = chunks[k + 1][0], chunks[k + 1][4]
+            assert (read_next[0], launch_next[0]) == ("read", "launch")
+            assert read_next[2] <= launch_next[1]
+            if early:
+                # chunk k waits, is cut and written inside the next
+                # chunk's read
+                assert read_next[1] <= recs[5][1]
+                assert recs[7][2] <= read_next[2]
+            else:
+                # one chunk deep: chunk k waits, is cut and written after
+                # the next chunk is read and launched
+                assert recs[5][1] >= launch_next[2]
+    # the ring in the loop's order; a span is recorded when it ends
     head, tail = telemetry.SPAN_NAMES[:5], telemetry.SPAN_NAMES[5:]
-    want = [(n, 0) for n in head]
-    for k in range(1, N_CHUNKS):
-        want += [(n, k) for n in head] + [(n, k - 1) for n in tail]
-    want += [(n, N_CHUNKS - 1) for n in tail]
+    if early:
+        # chunk k's wait, cut and write end before chunk k + 1's read does
+        want = [(n, k) for k in range(N_CHUNKS)
+                for n in telemetry.SPAN_NAMES]
+    else:
+        # chunk k's wait, cut and write follow chunk k + 1's read … launch
+        want = [(n, 0) for n in head]
+        for k in range(1, N_CHUNKS):
+            want += [(n, k) for n in head] + [(n, k - 1) for n in tail]
+        want += [(n, N_CHUNKS - 1) for n in tail]
     assert [(n, k) for n, k, _, _ in spans.records] == want
+
+
+class _Blocks:
+    """An input of ``n`` zero bytes that logs each read that returns some."""
+
+    def __init__(self, n: int, log: list):
+        self._f = io.BytesIO(bytes(n))
+        self._log = log
+
+    def read(self, n=-1):
+        piece = self._f.read(n)
+        if piece:
+            self._log.append("b")
+        return piece
+
+
+def _loop_log(ready_after, *, blocks=7, stop_after=None):
+    """Run ``run_chunks`` over ``blocks`` blocks in chunks of three with
+    fake dispatch and emit: its log (``b`` a block read, ``D``/``E`` and
+    the chunk a dispatch and an emit), the emits' ``(k, bytes_in,
+    blocks)``, the counters and the return.  A chunk's finalizer is ready
+    once ``ready_after`` blocks were read after its dispatch (never: None;
+    no ``ready`` at all: "absent")."""
+    log, emitted = [], []
+
+    def dispatch(chunk, k):
+        log.append(f"D{k}")
+        if not chunk.data:
+            return None
+
+        def finalize():
+            return b""
+        if ready_after != "absent":
+            start = log.count("b")
+            finalize.ready = lambda: (ready_after is not None and
+                                      log.count("b") - start >= ready_after)
+        return finalize
+
+    def emit(pending, bytes_in, n_blocks, k):
+        log.append(f"E{k}")
+        emitted.append((k, bytes_in, n_blocks))
+
+    def should_stop():
+        return (stop_after is not None
+                and sum(e.startswith("D") for e in log) >= stop_after)
+
+    spans = telemetry.Spans()
+    eof = pipeline_mod.run_chunks(
+        pipeline_mod.streaming.BlockReader(_Blocks(blocks * 8, log), 8), 3,
+        spans, dispatch, emit, should_stop)
+    return " ".join(log), emitted, spans.counters, eof
+
+
+@pytest.mark.parametrize("ready_after, want, early", [
+    # ready at once: chunk k before chunk k + 1's first block
+    (0, "b b b D0 E0 b b b D1 E1 b D2 E2", 2),
+    # ready after two blocks: chunk 0 lands after chunk 1's second block;
+    # chunk 2 has one block, so chunk 1 falls back to after its dispatch
+    (2, "b b b D0 b b E0 b D1 b D2 E1 E2", 1),
+    # never ready, or no readiness test: each chunk after the next one's
+    # dispatch
+    (None, "b b b D0 b b b D1 E0 b D2 E1 E2", 0),
+    ("absent", "b b b D0 b b b D1 E0 b D2 E1 E2", 0),
+])
+def test_run_chunks_emits_a_chunk_once_its_copy_is_done(ready_after, want,
+                                                        early):
+    log, emitted, counters, eof = _loop_log(ready_after)
+    assert log == want
+    # each chunk once, in order, with its own bytes and blocks
+    assert emitted == [(0, 24, 3), (1, 24, 3), (2, 8, 1)]
+    assert counters == ({"chunks": 3, "emits_early": early} if early
+                        else {"chunks": 3})
+    assert eof
+
+
+def test_a_stop_between_chunks_emits_the_chunk_in_flight():
+    log, emitted, counters, eof = _loop_log(0, stop_after=2)
+    assert log == "b b b D0 E0 b b b D1 E1"
+    assert [k for k, _, _ in emitted] == [0, 1]
+    assert counters == {"chunks": 2, "emits_early": 1}
+    assert not eof       # a pause: the caller must not drain
 
 
 def test_host_s_is_the_schedule_plan_and_stage_spans():
@@ -155,7 +257,7 @@ def test_a_new_run_starts_a_new_recorder():
     pipe.run(io.BytesIO(RAW[:4 * L]), io.BytesIO())
     assert pipe.spans is not first and telemetry.last_spans() is pipe.spans
     assert pipe.spans.counters == {"chunks": 1}
-    assert first.counters == {"chunks": N_CHUNKS}
+    assert first.counters == {"chunks": N_CHUNKS, "emits_early": N_CHUNKS - 1}
 
 
 def _channels(shifts, n_chunks=4):
