@@ -3,10 +3,11 @@ its bound over a traced stretch, where it is the whole route (every stage
 fused, i16 pairs out): the least time of a launch (``benchmark/roofline.py``
 over the configuration's stages, at the chunk geometry the stretch counted)
 times the ``cascade_kernel`` launches recorded, over their device time.
-None outside ``channels`` mode and on the split route (a ``window_kernel``
-in the stretch), which ``split_roofline`` reads."""
+None outside ``channels`` mode, on the split route (a ``window_kernel``
+in the stretch), which ``split_roofline`` reads, and where the channels
+keep more than one output rate."""
 
-from benchmark.check import stages_of
+from benchmark.check import channel_rates, stages_of
 from benchmark.readings import chunk_geometry, kernel_events
 from benchmark.roofline import bound_s
 
@@ -14,6 +15,8 @@ from benchmark.roofline import bound_s
 def read(run):
     st = run.stretch
     if st is None or run.cell.config["mode"] != "channels":
+        return None
+    if len(set(channel_rates(run.cell.config))) > 1:
         return None
     if kernel_events(st, "window_kernel"):
         return None

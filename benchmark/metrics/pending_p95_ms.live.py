@@ -1,7 +1,8 @@
 """``pending_p95_ms.live`` (run loop): the 95th percentile, over every
 chunk of the timed call, of the time from the end of the chunk's ``launch``
-span to the start of its ``wait`` span: how long a launched chunk sits in
-the one-chunk-deep loop behind the next chunk's read."""
+span to the start of its ``wait`` span: how long a launched chunk waits
+for its emit, which comes once its copy is done, at a block of the next
+chunk's read (else after the next chunk's launch)."""
 
 from benchmark.readings import p95_ms
 from benchmark.spans import by_chunk, open_loop, recorder

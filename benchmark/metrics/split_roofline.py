@@ -2,9 +2,10 @@
 a traced stretch: the channel cascade's front (``cascade_kernel``) and the
 rational tail (``window_kernel``), summed, against the least time of the
 whole route a chunk (``benchmark/roofline.py`` over every stage, float32
-planes out) times the chunks recorded."""
+planes out) times the chunks recorded.  None where the channels keep more
+than one output rate: one set of stages does not bound their chunk."""
 
-from benchmark.check import stages_of
+from benchmark.check import channel_rates, stages_of
 from benchmark.readings import chunk_geometry, kernel_events
 from benchmark.roofline import bound_s
 
@@ -12,6 +13,8 @@ from benchmark.roofline import bound_s
 def read(run):
     st = run.stretch
     if st is None or run.cell.config["mode"] != "channels":
+        return None
+    if len(set(channel_rates(run.cell.config))) > 1:
         return None
     front = kernel_events(st, "cascade_kernel")
     tail = kernel_events(st, "window_kernel")
